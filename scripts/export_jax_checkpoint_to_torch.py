@@ -1,0 +1,47 @@
+"""Export a JAX-package ResNet18 artifact (Orbax) to the PyTorch port's ``.pt``.
+
+Reads the artifact with the JAX package's ``train/checkpoints.py::load_model``
+and writes the torchvision-layout state dict that
+``ss25_hierarchical_multiscale_image_classification_tpu_torch.models.convert
+.load_state_dict_file`` and the port's CLI load. Needs JAX, so it runs where
+the JAX package runs; the port's machine only reads the ``.pt``.
+
+    python scripts/export_jax_checkpoint_to_torch.py \\
+        models_out/resnet18_patch_classifier [models_out/resnet18_patch_classifier.pt]
+
+The output defaults to the artifact path plus ``.pt``: the name the port's
+CLI looks for under ``--models_dir`` with the same ``--model_name``.
+"""
+
+from __future__ import annotations
+
+import argparse
+import os
+import sys
+
+import torch
+
+from ss25_hierarchical_multiscale_image_classification_tpu.train.checkpoints import (
+    load_model,
+)
+from ss25_hierarchical_multiscale_image_classification_tpu_torch.models.convert import (
+    state_dict_from_flax,
+)
+
+
+def main(argv=None) -> int:
+    parser = argparse.ArgumentParser(description=__doc__.splitlines()[0])
+    parser.add_argument("artifact", help="Orbax model artifact directory")
+    parser.add_argument("output", nargs="?", default=None,
+                        help="destination .pt (default: <artifact>.pt)")
+    args = parser.parse_args(argv)
+    src = os.path.abspath(args.artifact.rstrip("/"))
+    dst = args.output or f"{src}.pt"
+    sd = state_dict_from_flax(load_model(src))
+    torch.save(sd, dst)
+    print(f"{src} → {dst} ({len(sd)} tensors)")
+    return 0
+
+
+if __name__ == "__main__":
+    sys.exit(main())

@@ -1,0 +1,91 @@
+"""Weights across the frameworks: flax variables → the port's state dict.
+
+:func:`state_dict_from_flax` is the inverse of the JAX package's
+``models/torch_import.py::from_torch_state_dict``:
+
+    stem_conv / stem_norm                  → conv1 / bn1
+    stage{L}_block{B}.Conv_{0,1}           → layer{L}.{B}.conv{1,2}
+    stage{L}_block{B}.BatchNorm_{0,1}      → layer{L}.{B}.bn{1,2}
+    stage{L}_block{B}.downsample_{conv,norm} → layer{L}.{B}.downsample.{0,1}
+    fc                                     → fc
+
+Conv kernels HWIO → OIHW, the Dense kernel (in, out) → (out, in), and
+BatchNorm ``scale/bias`` (params) and ``mean/var`` (batch_stats) →
+``weight/bias/running_mean/running_var``. Numpy in (anything ``np.asarray``
+takes), tensors out; nothing here imports jax.
+"""
+
+from __future__ import annotations
+
+import re
+from typing import Any, Mapping
+
+import numpy as np
+import torch
+
+from ss25_hierarchical_multiscale_image_classification_tpu_torch.models.resnet import (
+    ResNet,
+)
+
+_BLOCK_RE = re.compile(r"^stage(?P<stage>\d+)_block(?P<block>\d+)$")
+
+
+def _tensor(a) -> torch.Tensor:
+    return torch.from_numpy(np.array(a, copy=True))
+
+
+def state_dict_from_flax(variables: Mapping[str, Any]) -> dict[str, torch.Tensor]:
+    """flax ``{"params", "batch_stats"}`` of a ResNet18 → torchvision-layout
+    state dict (without ``num_batches_tracked``, which eval never reads)."""
+    params = variables["params"]
+    stats = variables.get("batch_stats", {})
+    sd: dict[str, torch.Tensor] = {}
+
+    def conv(dst: str, node) -> None:
+        sd[f"{dst}.weight"] = _tensor(np.asarray(node["kernel"]).transpose(3, 2, 0, 1))
+
+    def norm(dst: str, p, s) -> None:
+        sd[f"{dst}.weight"] = _tensor(p["scale"])
+        sd[f"{dst}.bias"] = _tensor(p["bias"])
+        sd[f"{dst}.running_mean"] = _tensor(s["mean"])
+        sd[f"{dst}.running_var"] = _tensor(s["var"])
+
+    conv("conv1", params["stem_conv"])
+    norm("bn1", params["stem_norm"], stats["stem_norm"])
+    for name in sorted(params):
+        m = _BLOCK_RE.match(name)
+        if not m:
+            continue
+        dst = f"layer{m.group('stage')}.{m.group('block')}"
+        p, s = params[name], stats[name]
+        conv(f"{dst}.conv1", p["Conv_0"])
+        norm(f"{dst}.bn1", p["BatchNorm_0"], s["BatchNorm_0"])
+        conv(f"{dst}.conv2", p["Conv_1"])
+        norm(f"{dst}.bn2", p["BatchNorm_1"], s["BatchNorm_1"])
+        if "downsample_conv" in p:
+            conv(f"{dst}.downsample.0", p["downsample_conv"])
+            norm(f"{dst}.downsample.1", p["downsample_norm"],
+                 s["downsample_norm"])
+    if "fc" in params:
+        sd["fc.weight"] = _tensor(np.asarray(params["fc"]["kernel"]).T)
+        sd["fc.bias"] = _tensor(params["fc"]["bias"])
+    return sd
+
+
+def load_state_dict_file(path: str) -> dict[str, torch.Tensor]:
+    """A ``.pt``/``.pth`` state dict from disk, with the DataParallel
+    ``module.`` prefix that reference checkpoints carry stripped."""
+    sd = torch.load(path, map_location="cpu", weights_only=True)
+    if hasattr(sd, "state_dict"):
+        sd = sd.state_dict()
+    return {k.removeprefix("module."): v for k, v in sd.items()}
+
+
+def resnet18_from_state_dict(sd: Mapping[str, torch.Tensor]) -> ResNet:
+    """A ResNet18 shaped by ``sd`` (stem width from ``conv1``, head from
+    ``fc`` when present) with its weights loaded, on the CPU in eval mode."""
+    num_filters = int(sd["conv1.weight"].shape[0])
+    num_classes = int(sd["fc.weight"].shape[0]) if "fc.weight" in sd else None
+    model = ResNet((2, 2, 2, 2), num_classes, num_filters)
+    model.load_state_dict(dict(sd), strict=True)
+    return model.eval()

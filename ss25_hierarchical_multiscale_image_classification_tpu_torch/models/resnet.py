@@ -1,0 +1,148 @@
+"""ResNet18 in PyTorch, in torchvision state-dict layout.
+
+Counterpart of the JAX package's ``models/resnet.py`` (``BasicBlock``,
+``ResNet``, ``ResNet18Classifier``, ``ResNet18FeatureExtractor``). Parameter
+names follow torchvision (``conv1``, ``bn1``, ``layer{1..4}.{0,1}.conv1/bn1/
+conv2/bn2/downsample.{0,1}``, ``fc``), so reference ``.pth`` checkpoints load
+with ``load_state_dict`` and JAX weights arrive through
+:func:`..models.convert.state_dict_from_flax`.
+
+Semantics kept from the JAX model:
+
+- 3×3 convs pad (1, 1) symmetrically, at stride 2 too (``nn.Conv2d``'s
+  ``padding=1``; the JAX model spells it out because SAME would pad (0, 1));
+- the stem maxpool pads with −inf (``nn.MaxPool2d`` does);
+- eval-mode BatchNorm at ``eps=1e-5`` with the stored running statistics;
+- the classifier returns float32 logits, the feature extractor float32
+  (B, 8·num_filters) pooled features.
+
+Public layout is NHWC, as in the JAX package: ``forward`` takes (B, H, W, 3)
+and runs NCHW through a ``permute`` view, which for a contiguous NHWC tensor
+is already ``channels_last`` in memory. The compute dtype is the parameters'
+dtype: float32 in the CPU tests, bfloat16 on the card (the JAX default
+``dtype=jnp.bfloat16``), set with ``model.to(dtype=...)``.
+"""
+
+from __future__ import annotations
+
+import math
+from typing import Sequence
+
+import torch
+from torch import nn
+
+
+class BasicBlock(nn.Module):
+    """3×3 + 3×3 residual block (torchvision ``BasicBlock``)."""
+
+    def __init__(self, inplanes: int, planes: int, stride: int = 1):
+        super().__init__()
+        self.conv1 = nn.Conv2d(inplanes, planes, 3, stride, 1, bias=False)
+        self.bn1 = nn.BatchNorm2d(planes, eps=1e-5)
+        self.relu = nn.ReLU(inplace=True)
+        self.conv2 = nn.Conv2d(planes, planes, 3, 1, 1, bias=False)
+        self.bn2 = nn.BatchNorm2d(planes, eps=1e-5)
+        self.downsample = None
+        if stride != 1 or inplanes != planes:
+            self.downsample = nn.Sequential(
+                nn.Conv2d(inplanes, planes, 1, stride, bias=False),
+                nn.BatchNorm2d(planes, eps=1e-5),
+            )
+
+    def forward(self, x: torch.Tensor) -> torch.Tensor:
+        identity = x if self.downsample is None else self.downsample(x)
+        out = self.relu(self.bn1(self.conv1(x)))
+        out = self.bn2(self.conv2(out))
+        return self.relu(out + identity)
+
+
+class ResNet(nn.Module):
+    """BasicBlock ResNet trunk with an optional ``fc`` head.
+
+    ``num_classes=None`` is the fc-stripped feature extractor. Parameters
+    are initialised from ``generator`` (seed 0 when none is given) and never
+    from PyTorch's global generator: the layers are built on the meta device
+    and then filled, as the JAX model's ``init`` fills from its key.
+    """
+
+    def __init__(
+        self,
+        stage_sizes: Sequence[int] = (2, 2, 2, 2),
+        num_classes: int | None = 2,
+        num_filters: int = 64,
+        generator: torch.Generator | None = None,
+    ):
+        super().__init__()
+        with torch.device("meta"):
+            self.conv1 = nn.Conv2d(3, num_filters, 7, 2, 3, bias=False)
+            self.bn1 = nn.BatchNorm2d(num_filters, eps=1e-5)
+            self.relu = nn.ReLU(inplace=True)
+            self.maxpool = nn.MaxPool2d(3, 2, 1)
+            inplanes = num_filters
+            for i, count in enumerate(stage_sizes):
+                planes = num_filters * 2**i
+                blocks = []
+                for j in range(count):
+                    stride = 2 if i > 0 and j == 0 else 1
+                    blocks.append(BasicBlock(inplanes, planes, stride))
+                    inplanes = planes
+                self.add_module(f"layer{i + 1}", nn.Sequential(*blocks))
+            self.num_stages = len(stage_sizes)
+            self.fc = (
+                nn.Linear(inplanes, num_classes) if num_classes is not None
+                else None
+            )
+        self.to_empty(device="cpu")
+        self.reset_parameters(
+            generator if generator is not None
+            else torch.Generator().manual_seed(0)
+        )
+        self.eval()
+
+    @torch.no_grad()
+    def reset_parameters(self, generator: torch.Generator) -> None:
+        """He-normal (fan_out) convs, unit BN with zeroed last-BN scale per
+        block, LeCun-normal head: the JAX model's initialisers."""
+        for m in self.modules():
+            if isinstance(m, nn.Conv2d):
+                fan_out = m.out_channels * m.kernel_size[0] * m.kernel_size[1]
+                m.weight.normal_(0.0, math.sqrt(2.0 / fan_out),
+                                 generator=generator)
+            elif isinstance(m, nn.BatchNorm2d):
+                m.weight.fill_(1.0)
+                m.bias.zero_()
+                m.running_mean.zero_()
+                m.running_var.fill_(1.0)
+                m.num_batches_tracked.zero_()
+            elif isinstance(m, nn.Linear):
+                m.weight.normal_(0.0, 1.0 / math.sqrt(m.in_features),
+                                 generator=generator)
+                m.bias.zero_()
+        for m in self.modules():
+            if isinstance(m, BasicBlock):
+                m.bn2.weight.zero_()
+
+    def forward(self, x: torch.Tensor) -> torch.Tensor:
+        """(B, H, W, 3) normalized images → float32 logits (B, classes), or
+        float32 features (B, 8·num_filters) when there is no head."""
+        x = x.permute(0, 3, 1, 2).to(self.conv1.weight.dtype)
+        x = self.maxpool(self.relu(self.bn1(self.conv1(x))))
+        for i in range(self.num_stages):
+            x = getattr(self, f"layer{i + 1}")(x)
+        x = x.mean(dim=(2, 3))  # global average pool → (B, C)
+        if self.fc is None:
+            return x.float()
+        return self.fc(x).float()
+
+
+def ResNet18Classifier(num_classes: int = 2, num_filters: int = 64,
+                       generator: torch.Generator | None = None) -> ResNet:
+    """ResNet18 with an ``fc`` head of ``num_classes`` logits."""
+    return ResNet((2, 2, 2, 2), num_classes, num_filters, generator)
+
+
+def ResNet18FeatureExtractor(num_filters: int = 64,
+                             generator: torch.Generator | None = None
+                             ) -> ResNet:
+    """fc-stripped ResNet18 → (B, 8·num_filters) features."""
+    return ResNet((2, 2, 2, 2), None, num_filters, generator)

@@ -1,0 +1,86 @@
+"""The port imports torch and loads nothing of jax, flax or the JAX package.
+
+The test process itself has jax loaded (``conftest.py`` imports it), so the
+import check runs in a fresh interpreter, once with ``JAX_PLATFORMS`` unset
+and once with it set (the JAX package's ``__init__`` imports jax when it is
+set, so loading that package would show there). A static check also reads
+every source file of the port, and ``chip_smoke.py``, for an import of jax,
+flax or the JAX package.
+"""
+
+import os
+import re
+import subprocess
+import sys
+
+import pytest
+
+JAX_PKG = "ss25_hierarchical_multiscale_image_classification_tpu"
+PKG = f"{JAX_PKG}_torch"
+REPO = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
+
+_IMPORT_ALL = f"""
+import importlib, pkgutil, sys
+import {PKG} as pkg
+names = [m.name for m in pkgutil.walk_packages(pkg.__path__, pkg.__name__ + ".")]
+for name in names:
+    importlib.import_module(name)
+bad = sorted(m for m in sys.modules if m.split(".")[0] in
+             ("jax", "jaxlib", "flax", "{JAX_PKG}"))
+print(len(names), bad)
+"""
+
+# ``\b`` keeps ``…_tpu_torch`` (the port) out of the match
+_JAX_IMPORT = re.compile(rf"^\s*(import|from)\s+(jax|jaxlib|flax|{JAX_PKG})\b",
+                         re.M)
+
+
+def _import_all(jax_platforms):
+    env = {k: v for k, v in os.environ.items() if k != "JAX_PLATFORMS"}
+    if jax_platforms is not None:
+        env["JAX_PLATFORMS"] = jax_platforms
+    env["PYTHONPATH"] = REPO
+    proc = subprocess.run([sys.executable, "-c", _IMPORT_ALL], env=env,
+                          capture_output=True, text=True, timeout=300)
+    assert proc.returncode == 0, proc.stderr
+    count, bad = proc.stdout.strip().split(" ", 1)
+    assert int(count) >= 18  # every module of the slice was imported
+    assert bad == "[]"
+
+
+def test_port_imports_load_no_jax():
+    _import_all(None)
+
+
+def test_port_imports_load_no_jax_with_jax_platforms_set():
+    _import_all("cpu")
+
+
+def test_port_sources_are_not_gitignored():
+    """A checkout holds only what git commits, and the kernels build there
+    from ``ops/csrc/``: no source of the port may match an ignore rule."""
+    if not os.path.exists(os.path.join(REPO, ".git")):
+        pytest.skip("not a git checkout")
+    files = []
+    for root, dirs, names in os.walk(os.path.join(REPO, PKG)):
+        dirs[:] = [d for d in dirs if d not in ("__pycache__", "_build")]
+        files += [os.path.relpath(os.path.join(root, n), REPO) for n in names
+                  if n.endswith((".py", ".cu", ".cuh"))]
+    assert any(f.endswith(".cu") for f in files)
+    proc = subprocess.run(["git", "check-ignore", "--no-index", *files],
+                          cwd=REPO, capture_output=True, text=True)
+    assert proc.stdout == "", f"ignored: {proc.stdout}"
+    ignored = subprocess.run(
+        ["git", "check-ignore", "--no-index", f"{PKG}/ops/_build/lib.so"],
+        cwd=REPO, capture_output=True, text=True)
+    assert ignored.returncode == 0  # the build output stays out of commits
+
+
+def test_port_sources_have_no_jax_import():
+    files = [os.path.join(REPO, "chip_smoke.py")]
+    for root, _, names in os.walk(os.path.join(REPO, PKG)):
+        files += [os.path.join(root, n) for n in names if n.endswith(".py")]
+    assert len(files) > 18
+    for path in files:
+        with open(path) as f:
+            assert not _JAX_IMPORT.search(f.read()), path
