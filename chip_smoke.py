@@ -1,18 +1,23 @@
 #!/usr/bin/env python3
 """Smoke run of the PyTorch/CUDA port on one NVIDIA card.
 
-Drives the port's main path, full-slide tumor detection
-(``predict_slide`` → detections → CSV, then the ``hipac-torch`` CLI), once at
-the full width of ResNet18 (224² patches, 64-wide stem, batch 512) with
-random weights from a seed, on a numpy-rendered synthetic slide, and checks
-every hand-written kernel of that path against its plain PyTorch version on
-the card. Phases:
+Drives the port's two paths once each at the full width of ResNet18 (224²
+patches, 64-wide stem, batch 512) with random weights from a seed, on a
+numpy-rendered synthetic slide: full-slide tumor detection
+(``predict_slide`` → detections → CSV, then the ``hipac-torch`` CLI), and
+SimCLR pretraining (``pretrain_simclr``) on the slide's tissue cells. It
+checks every hand-written kernel of those paths against its plain PyTorch
+version on the card. Phases:
 
 1. card and software: ``nvidia-smi`` name and power limit, torch, CUDA, nvcc;
 2. build: the kernels from ``ops/csrc/`` of this checkout;
 3. kernel against plain version: ``fused_normalize`` at B=512×224²×3, a
    ragged B=37 and an odd 7×13 patch, f32 and bf16, exactly equal; CUDA-event
    medians of kernel and plain at B=512;
+3b. NT-Xent kernels against the plain version (loss rows, m, l, dz) at
+   (2N, D) = (1024, 128) with the path's 592 dead rows, (1024, 128),
+   (74, 128), (8192, 128) and (130, 100); CUDA-event medians and quartiles
+   of forward, backward and both, at 2N = 1024 and 32768;
 4. the slice: a 3,072-cell slide (level 3 of 14336×10752, stride 28) in both
    tissue-filter modes, launch counts read around the run, partitions equal,
    the timed bfloat16 run's margins on sampled tissue cells against a float32
@@ -20,7 +25,14 @@ the card. Phases:
    the slide's tissue, so margins spread across cells by far more than the
    bound); detections written to a CSV;
 5. the CLI: ``--predict_slide … --tissue_filter device --device cuda`` as a
-   subprocess on the same slide and weights.
+   subprocess on the same slide and weights;
+6. SimCLR: the slide's tissue cells cut into a packed store, then
+   ``pretrain_simclr`` for two epochs at batch 512 with the NT-Xent kernels
+   (``loss_impl="pallas"``); launch counts read around it, losses finite,
+   artifacts reloaded; warm step time, views/s and peak device memory;
+6b. the SimCLR step's numbers: the kernels against the dense loss in one
+   step, and the bf16 card step against a float32 CPU step on 32 cells,
+   whose loss must sit far from the blind-model value ln(2N − 1).
 
 It imports nothing of JAX or of the JAX package. Run it from the root of a
 checkout:
@@ -65,6 +77,41 @@ MODES_ATOL = BF16_ATOL
 # - the card's float32 forward (TF32 off) against the CPU's: measured 3.6e-6.
 F32_ATOL = 1e-4
 KERNEL_SHAPES = [(BATCH, 224, 224, 3), (37, 224, 224, 3), (5, 7, 13, 3)]
+TAU = 0.5
+# NT-Xent cases as (pairs N, D, valid pairs): 2N = 1024 with the SimCLR
+# path's last batch (216 of 512 pairs real: 592 dead rows), full batches,
+# a ragged one and an odd width
+NTX_CASES = [(512, 128, 216), (512, 128, 512), (37, 128, 37), (4096, 128, 4096),
+             (65, 100, 60)]
+NTX_TIMING_ROWS = (1024, 32768)
+NTX_TIMING_RUNS = 50
+# NT-Xent bounds, kernel against the plain version (TF32 off) on the card.
+# Loss rows, m: relative to the largest |value|; l: relative per row.
+# Measured (H100 80GB HBM3, 700 W): loss rows ≤ 2.0e-7 relative (1.91e-6 at
+# max|loss| 9.7), m ≤ 4.0e-7, l ≤ 4.6e-7.
+NTX_RTOL = 1e-5
+# dz: relative to max|dz|, times sqrt(2N / 1024) above 2N = 1024: the
+# kernel sums the 2N column terms of each entry in one sequential FMA chain,
+# cuBLAS in another order, and the rounding of a sum grows with its length.
+# Measured: ≤ 5.7e-6 of max|dz| (1.14e-9 at 2N = 8192; 3.96e-9 of 3.41e-3
+# at the path's 2N = 1024 with 592 dead rows).
+NTX_DZ_RTOL = 1e-5
+SIMCLR_EPOCHS = 2
+SIMCLR_TIMED_STEPS = 8  # warm steps timed after the path's run
+REF_BATCH = 32  # cells of the bf16-card against float32-CPU step
+# SimCLR step bounds, measured on the card (H100 80GB HBM3, 700 W):
+# - kernels against the dense loss, same state and views, the path's last
+#   batch: loss |Δ| measured 0 (bound: the kernels' 1e-5 of phase 3b);
+#   projector gradients max|Δ| 2.3e-3 of max|g| (dz agrees to ~1e-6, but
+#   it enters the bf16 projector backward, where a rounding flip of one
+#   element costs 2^-8 of it);
+PALLAS_XLA_LOSS_ATOL = 1e-5
+PALLAS_XLA_GRAD_RTOL = 1e-2  # of max|grad|, per projector tensor
+# - bf16 card step against the float32 CPU step on 32 cells: loss |Δ|
+#   7.3e-5, last projector layer's gradients 1.5e-2 of max|g|; the CPU's
+#   loss sat 0.124 from ln(2·32 − 1), 12× the loss bound.
+BF16_LOSS_ATOL = 1e-3
+BF16_GRAD_RTOL = 5e-2  # of max|grad| of the last projector layer
 
 
 def log(msg: str) -> None:
@@ -117,9 +164,9 @@ def phase_build() -> None:
     )
 
     t0 = time.perf_counter()
-    path = build()
+    paths = build()
     load_library()
-    log(f"[build] {os.path.relpath(path, ROOT)} in "
+    log(f"[build] {', '.join(os.path.relpath(p, ROOT) for p in paths)} in "
         f"{time.perf_counter() - t0:.2f} s")
 
 
@@ -169,6 +216,140 @@ def phase_kernels(dev) -> dict:
             f"plain {times[dtype][1]:.4f} ms (medians of {2 * TIMING_RUNS})")
     return {"max_abs_err": max_err, "ms": times[torch.bfloat16][0],
             "plain_ms": times[torch.bfloat16][1]}
+
+
+def ntxent_launchers():
+    from ss25_hierarchical_multiscale_image_classification_tpu_torch.ops.nt_xent import (
+        nt_xent_bwd,
+        nt_xent_fwd,
+    )
+
+    return nt_xent_fwd, nt_xent_bwd
+
+
+def reset_counts() -> None:
+    """Every kernel's launch count to 0, just before a path runs."""
+    from ss25_hierarchical_multiscale_image_classification_tpu_torch.ops.preprocess import (
+        fused_normalize,
+    )
+
+    for fn in (fused_normalize, *ntxent_launchers()):
+        fn.launches = 0
+
+
+def quartiles(xs: list[float]) -> tuple[float, float, float]:
+    q1, med, q3 = statistics.quantiles(xs, n=4)
+    return q1, med, q3
+
+
+def ntxent_inputs(dev, g, pairs: int, d: int, valid_pairs: int):
+    """L2-normalised rows of 2·``pairs`` and their positive indices, built as
+    ``nt_xent_loss_kernel`` builds them: the first ``valid_pairs`` pairs are
+    live, the rest dead (both views)."""
+    import torch
+
+    z = torch.randn(2 * pairs, d, device=dev, generator=g)
+    z = z / z.norm(dim=1, keepdim=True)
+    ar = torch.arange(pairs, dtype=torch.int32, device=dev)
+    pos = torch.cat([ar + pairs, ar])
+    valid = torch.cat([ar < valid_pairs, ar < valid_pairs])
+    return z, torch.where(valid, pos, -1)
+
+
+def phase_ntxent(dev) -> dict:
+    """Both NT-Xent kernels against ``nt_xent_rows_reference`` (TF32 off),
+    then their times."""
+    import torch
+
+    from ss25_hierarchical_multiscale_image_classification_tpu_torch.ops.nt_xent import (
+        nt_xent_bwd,
+        nt_xent_fwd,
+        nt_xent_rows,
+        nt_xent_rows_reference,
+    )
+
+    torch.backends.cuda.matmul.allow_tf32 = False
+    g = torch.Generator(device=dev).manual_seed(SEED)
+    err_fwd = err_bwd = 0.0
+    for pairs, d, valid_pairs in NTX_CASES:
+        z, pos = ntxent_inputs(dev, g, pairs, d, valid_pairs)
+        n = 2 * pairs
+        denom = max(int((pos >= 0).sum()), 1)
+        zk = z.clone().requires_grad_()
+        rows, m, l = nt_xent_rows(zk, pos, TAU)
+        (rows.sum() / denom).backward()
+        zr = z.clone().requires_grad_()
+        rows_r, m_r, l_r = nt_xent_rows_reference(zr, pos, TAU)
+        (rows_r.sum() / denom).backward()
+        torch.cuda.synchronize()
+        d_rows = (rows - rows_r).abs().max().item()
+        d_m = (m - m_r).abs().max().item()
+        d_l = ((l - l_r).abs() / l_r).max().item()
+        d_dz = (zk.grad - zr.grad).abs().max().item()
+        max_rows = rows_r.abs().max().item()
+        max_m = m_r.abs().max().item()
+        max_dz = zr.grad.abs().max().item()
+        dz_bound = NTX_DZ_RTOL * max(1.0, (n / 1024) ** 0.5) * max_dz
+        err_fwd = max(err_fwd, d_rows, d_m)
+        err_bwd = max(err_bwd, d_dz)
+        log(f"[ntxent] 2N={n} D={d} dead rows {n - 2 * valid_pairs}: loss rows "
+            f"max|Δ| {d_rows:.3g} (max|loss| {max_rows:.4g}), m {d_m:.3g} "
+            f"(max|m| {max_m:.4g}), l rel {d_l:.3g}; dz max|Δ| {d_dz:.3g} "
+            f"(max|dz| {max_dz:.3g}, bound {dz_bound:.3g})")
+        if not (torch.isfinite(rows).all() and torch.isfinite(zk.grad).all()):
+            raise AssertionError(f"non-finite NT-Xent output at 2N={n}")
+        if (d_rows > NTX_RTOL * max_rows or d_m > NTX_RTOL * max_m
+                or d_l > NTX_RTOL or d_dz > dz_bound):
+            raise AssertionError(f"NT-Xent kernels differ from the plain "
+                                 f"version at 2N={n} D={d}")
+
+    times = {}
+    for n in NTX_TIMING_ROWS:
+        z, pos = ntxent_inputs(dev, g, n // 2, 128, n // 2)
+        zg = z.clone().requires_grad_()
+        ones = torch.ones(n, device=dev)
+        _, m, l = nt_xent_fwd(z, pos, 1.0 / TAU)
+        rows_r = nt_xent_rows_reference(zg, pos, TAU)[0]
+
+        def fwd_bwd(impl):
+            zz = z.clone().requires_grad_()
+            impl(zz, pos, TAU)[0].backward(ones)
+
+        fns = {
+            "fwd": (lambda: nt_xent_fwd(z, pos, 1.0 / TAU),
+                    lambda: nt_xent_rows_reference(z, pos, TAU)),
+            "bwd": (lambda: nt_xent_bwd(z, pos, m, l, ones, 1.0 / TAU),
+                    lambda: torch.autograd.grad(rows_r, zg, ones,
+                                                retain_graph=True)),
+            "fwd+bwd": (lambda: fwd_bwd(nt_xent_rows),
+                        lambda: fwd_bwd(nt_xent_rows_reference)),
+        }
+        for what, (kernel, plain) in fns.items():
+            for fn in (plain, kernel):
+                cuda_ms(fn, 3)  # warm-up
+            half = NTX_TIMING_RUNS // 2
+            # in turns: plain, kernel, kernel, plain
+            p = cuda_ms(plain, half)
+            k = cuda_ms(kernel, half) + cuda_ms(kernel, half)
+            p += cuda_ms(plain, half)
+            kq, pq = quartiles(k), quartiles(p)
+            times[(n, what)] = (kq[1], pq[1])
+            flop = 2 * n * n * 128 * {"fwd": 1, "bwd": 2, "fwd+bwd": 3}[what]
+            log(f"[ntxent] 2N={n} D=128 {what}: kernel {kq[1]:.4f} ms "
+                f"(quartiles {kq[0]:.4f}–{kq[2]:.4f}; {flop / kq[1] / 1e9:.1f}"
+                f" TFLOP/s), plain {pq[1]:.4f} ms ({pq[0]:.4f}–{pq[2]:.4f}); "
+                f"medians of {2 * half}")
+        del zg, rows_r
+        torch.cuda.empty_cache()
+    path_rows = NTX_TIMING_ROWS[0]
+    return {
+        "nt_xent_fwd": {"max_abs_err": err_fwd,
+                        "ms": times[(path_rows, "fwd")][0],
+                        "plain_ms": times[(path_rows, "fwd")][1]},
+        "nt_xent_bwd": {"max_abs_err": err_bwd,
+                        "ms": times[(path_rows, "bwd")][0],
+                        "plain_ms": times[(path_rows, "bwd")][1]},
+    }
 
 
 def tissue_cells(slide):
@@ -232,7 +413,7 @@ def make_model(dev, calib_u8):
             m.weight.uniform_(0.5, 1.5, generator=g)
             m.bias.normal_(0.0, 0.1, generator=g)
             m.reset_running_stats()
-            m.momentum = None  # running statistics = this batch's
+            m.momentum = 1.0  # running statistics = this batch's
     f32 = model.to(dev, memory_format=torch.channels_last)
     x = normalize(torch.from_numpy(calib_u8).to(dev))
     with torch.no_grad():
@@ -315,7 +496,7 @@ def phase_slice(dev, model, slide, ref_cells) -> dict:
     kw = dict(level=LEVEL, stride=STRIDE, batch_size=BATCH, output="margin",
               device=dev)
     runs = {}
-    fused_normalize.launches = 0  # counts from here on are the main path's
+    reset_counts()  # counts from here on are the slide path's
     for i, mode in enumerate(("device", "host", "device", "host")):
         torch.cuda.synchronize()
         t0 = time.perf_counter()
@@ -403,6 +584,237 @@ def phase_cli(sd, slide) -> None:
         f"{os.path.basename(csv_path)}")
 
 
+def simclr_dataset(slide, grid, cells, tmp):
+    """The tissue cells (224² at level 3) cut into a packed store under
+    ``tmp`` through the port's writer, as a ``PatchDataset``."""
+    import numpy as np
+
+    from ss25_hierarchical_multiscale_image_classification_tpu_torch.data.datasets import (
+        PatchDataset,
+    )
+    from ss25_hierarchical_multiscale_image_classification_tpu_torch.data.manifest import (
+        PatchManifest,
+    )
+    from ss25_hierarchical_multiscale_image_classification_tpu_torch.data.patch_store import (
+        PackedPatchWriter,
+    )
+
+    writer = PackedPatchWriter(tmp, LEVEL, "smoke_slide", grid.patch_size)
+    coords = np.stack([cells[:, 1], cells[:, 0]], axis=1) * grid.stride
+    recs = []
+    for i in range(0, len(cells), BATCH):
+        part = cells[i:i + BATCH]
+        patches = np.stack([read_cell(slide, grid, iy, ix) for iy, ix in part])
+        recs += writer.write_batch(patches, coords[i:i + BATCH],
+                                   np.zeros(len(part), np.int64))
+    writer.close()
+    return PatchDataset(PatchManifest(recs))
+
+
+def simclr_model(sd, dev):
+    """A SimCLR model with the state dict ``sd``, on ``dev`` in training
+    mode (float32 parameters, channels_last)."""
+    import torch
+
+    from ss25_hierarchical_multiscale_image_classification_tpu_torch.models.simclr import (
+        SimCLRModel,
+    )
+
+    model = SimCLRModel()
+    model.load_state_dict(sd)
+    return model.to(dev, memory_format=torch.channels_last).train()
+
+
+def phase_simclr(dev, ds, tmp) -> dict:
+    """``pretrain_simclr`` at batch 512 on the kernels, counts read around
+    it; then warm step times of the same step function."""
+    import numpy as np
+    import torch
+
+    from ss25_hierarchical_multiscale_image_classification_tpu_torch.config import (
+        Config,
+        SimCLRConfig,
+    )
+    from ss25_hierarchical_multiscale_image_classification_tpu_torch.data.augment import (
+        normalize,
+    )
+    from ss25_hierarchical_multiscale_image_classification_tpu_torch.data.datasets import (
+        BatchIterator,
+    )
+    from ss25_hierarchical_multiscale_image_classification_tpu_torch.models.convert import (
+        load_state_dict_file,
+    )
+    from ss25_hierarchical_multiscale_image_classification_tpu_torch.models.resnet import (
+        ResNet18FeatureExtractor,
+    )
+    from ss25_hierarchical_multiscale_image_classification_tpu_torch.train.simclr_trainer import (
+        make_simclr_train_step,
+        pretrain_simclr,
+        to_device,
+    )
+    from ss25_hierarchical_multiscale_image_classification_tpu_torch.train.state import (
+        create_train_state,
+    )
+
+    models_dir = os.path.join(tmp, "models")
+    cfg = Config(simclr=SimCLRConfig(batch_size=BATCH, loss_impl="pallas"),
+                 models_dir=models_dir)
+    steps = SIMCLR_EPOCHS * -(-len(ds) // BATCH)
+    real_last = len(ds) - (len(ds) // BATCH) * BATCH
+    fwd, bwd = ntxent_launchers()
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    reset_counts()  # counts from here on are the SimCLR path's
+    t0 = time.perf_counter()
+    sd = pretrain_simclr(cfg, level=LEVEL, epochs=SIMCLR_EPOCHS, dataset=ds,
+                         device="cuda")
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    launches = {"nt_xent_fwd": fwd.launches, "nt_xent_bwd": bwd.launches}
+    peak = torch.cuda.max_memory_allocated()
+    log(f"[simclr] {len(ds)} tissue cells, batch {BATCH}: {SIMCLR_EPOCHS} "
+        f"epochs of {steps // SIMCLR_EPOCHS} steps (last batch {real_last} "
+        f"real rows, {2 * (BATCH - real_last)} dead of {2 * BATCH}) in "
+        f"{wall:.2f} s (cold, build cache and artifact writes included); "
+        f"launches {launches}; peak device memory {peak / 2**30:.2f} GiB")
+    if launches != {"nt_xent_fwd": steps, "nt_xent_bwd": steps}:
+        raise AssertionError(f"expected {steps} launches of each NT-Xent "
+                             f"kernel on the SimCLR path, counted {launches}")
+    if not all(torch.isfinite(v).all() for v in sd.values()):
+        raise AssertionError("non-finite SimCLR state")
+
+    names = sorted(os.listdir(models_dir))
+    if not {"simclr_encoder.pt", "simclr_encoder_best.pt"} <= set(names):
+        raise AssertionError(f"SimCLR artifacts missing: {names}")
+    saved = load_state_dict_file(os.path.join(models_dir, "simclr_encoder.pt"))
+    enc = ResNet18FeatureExtractor()
+    enc.load_state_dict({k.removeprefix("encoder."): v for k, v in saved.items()
+                         if k.startswith("encoder.")}, strict=True)
+    imgs, _ = ds.read_batch(range(8))
+    x = normalize(torch.from_numpy(imgs).to(dev))
+    with torch.no_grad():
+        a = enc.to(dev).eval()(x)
+        b = simclr_model(sd, dev).eval().encode(x)
+    if not (torch.equal(a, b) and torch.isfinite(a).all()):
+        raise AssertionError("reloaded encoder differs from the returned state")
+    log(f"[simclr] artifacts {names}; simclr_encoder.pt reloads into "
+        f"ResNet18FeatureExtractor through 'encoder.', features equal the "
+        f"returned state's (std {a.std().item():.4g})")
+
+    # warm step times: the path's step function on the path's batches
+    state = create_train_state(simclr_model(sd, dev), cfg.simclr.learning_rate,
+                               dev)
+    train_step = make_simclr_train_step(cfg.simclr.temperature, 224, "pallas")
+    gen = torch.Generator(device=dev).manual_seed(SEED)
+    batches = [(torch.from_numpy(i).to(dev), torch.from_numpy(v).to(dev).bool())
+               for i, _, v in BatchIterator(ds, BATCH, seed=SEED)]
+    step_ms, losses = [], []
+    for k in range(SIMCLR_TIMED_STEPS + 1):
+        imgs_t, valid_t = batches[k % len(batches)]
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        state, loss = train_step(state, gen, imgs_t, valid_t)
+        torch.cuda.synchronize()
+        if k:  # the first is a warm-up
+            step_ms.append((time.perf_counter() - t0) * 1e3)
+        losses.append(loss.item())
+    q1, med, q3 = quartiles(step_ms)
+    log(f"[simclr] warm step (batch on the card, synchronized): median "
+        f"{med:.2f} ms (quartiles {q1:.2f}–{q3:.2f}, {len(step_ms)} steps) = "
+        f"{2 * BATCH / med * 1e3:.0f} views/s; losses "
+        f"{', '.join(f'{v:.4f}' for v in losses)}")
+    # the path's loop over an epoch: host reads, copies and steps overlap
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    n = 0
+    for imgs, _, valid in BatchIterator(ds, BATCH, seed=SEED + 1):
+        state, loss = train_step(state, gen, to_device(imgs, dev),
+                                 to_device(valid, dev).bool())
+        n += 1
+    torch.cuda.synchronize()
+    epoch_ms = (time.perf_counter() - t0) * 1e3
+    log(f"[simclr] one warm epoch as pretrain_simclr runs it ({n} steps, "
+        f"packed-store reads included): {epoch_ms:.1f} ms = "
+        f"{epoch_ms / n:.2f} ms/step = {2 * BATCH * n / epoch_ms * 1e3:.0f} "
+        f"views/s")
+    if not np.isfinite(losses).all():
+        raise AssertionError("non-finite SimCLR losses")
+    return {"launches": launches, "sd": sd}
+
+
+def phase_simclr_check(dev, ds, sd) -> None:
+    """The step's loss and gradients: kernels against the dense loss on the
+    card, and the bf16 card step against a float32 CPU step."""
+    import math
+
+    import torch
+
+    from ss25_hierarchical_multiscale_image_classification_tpu_torch.data.augment import (
+        simclr_two_views,
+    )
+    from ss25_hierarchical_multiscale_image_classification_tpu_torch.train.simclr_trainer import (
+        simclr_loss,
+    )
+
+    def loss_and_grads(model, v1, v2, valid, impl):
+        model.zero_grad(set_to_none=True)
+        loss = simclr_loss(model, v1, v2, TAU, valid, impl)
+        loss.backward()
+        grads = {k: p.grad.detach().float().cpu()
+                 for k, p in model.named_parameters() if k.startswith("projector")}
+        return loss.item(), grads
+
+    # kernels against the dense loss: one step, same state and views, the
+    # path's last batch (216 real rows)
+    order = torch.arange(len(ds))
+    last = len(ds) - (len(ds) // BATCH) * BATCH
+    idx = torch.cat([order[-last:], order[:BATCH - last]]).tolist()
+    imgs, _ = ds.read_batch(idx)
+    imgs_t = torch.from_numpy(imgs).to(dev)
+    valid = torch.arange(BATCH, device=dev) < last
+    v1, v2 = simclr_two_views(torch.Generator(device=dev).manual_seed(SEED),
+                              imgs_t, 224)
+    out = {impl: loss_and_grads(simclr_model(sd, dev), v1, v2, valid, impl)
+           for impl in ("pallas", "xla")}
+    d_loss = abs(out["pallas"][0] - out["xla"][0])
+    d_grad = max((out["pallas"][1][k] - g).abs().max().item()
+                 / g.abs().max().item() for k, g in out["xla"][1].items())
+    log(f"[simclr-check] one step, {last} real rows of {BATCH}: loss pallas "
+        f"{out['pallas'][0]:.6f} xla {out['xla'][0]:.6f} (|Δ| {d_loss:.3g}, "
+        f"bound {PALLAS_XLA_LOSS_ATOL}); projector grads max|Δ|/max|g| "
+        f"{d_grad:.3g} (bound {PALLAS_XLA_GRAD_RTOL})")
+    if d_loss > PALLAS_XLA_LOSS_ATOL or d_grad > PALLAS_XLA_GRAD_RTOL:
+        raise AssertionError("the NT-Xent kernels and the dense loss disagree "
+                             "in the SimCLR step")
+
+    # bf16 on the card against float32 on the CPU, same weights and views
+    sub = imgs_t[:REF_BATCH]
+    w1, w2 = simclr_two_views(torch.Generator(device=dev).manual_seed(SEED + 1),
+                              sub, 224)
+    card_loss, card_g = loss_and_grads(simclr_model(sd, dev), w1, w2, None,
+                                       "pallas")
+    cpu = simclr_model(sd, torch.device("cpu"))
+    ref_loss, ref_g = loss_and_grads(cpu, w1.float().cpu(), w2.float().cpu(),
+                                     None, "pallas")
+    last_layer = [k for k in ref_g if k.startswith("projector.2")]
+    d16 = max((card_g[k] - ref_g[k]).abs().max().item()
+              / ref_g[k].abs().max().item() for k in last_layer)
+    blind = math.log(2 * REF_BATCH - 1)
+    log(f"[simclr-check] {REF_BATCH} cells: bf16 card loss {card_loss:.6f}, "
+        f"float32 CPU loss {ref_loss:.6f} (|Δ| {abs(card_loss - ref_loss):.3g}, "
+        f"bound {BF16_LOSS_ATOL}); last layer grads max|Δ|/max|g| {d16:.3g} "
+        f"(bound {BF16_GRAD_RTOL}); ln(2N−1) = {blind:.6f}, reference "
+        f"{abs(ref_loss - blind):.4g} away (must be ≥ {10 * BF16_LOSS_ATOL})")
+    if not (math.isfinite(card_loss) and math.isfinite(ref_loss)):
+        raise AssertionError("non-finite SimCLR loss")
+    if abs(card_loss - ref_loss) > BF16_LOSS_ATOL or d16 > BF16_GRAD_RTOL:
+        raise AssertionError("bf16 card step outside its bound of the "
+                             "float32 CPU step")
+    if abs(ref_loss - blind) < 10 * BF16_LOSS_ATOL:
+        raise AssertionError("the reference loss is too close to ln(2N−1) to "
+                             "check the bf16 step")
+
+
 def main() -> int:
     if not os.path.isdir(os.path.join(ROOT, PKG)):
         print(f"{PKG}/ not found beside {__file__}: run from a checkout",
@@ -414,6 +826,7 @@ def main() -> int:
     smi, dev = phase_card()
     phase_build()
     kernel = phase_kernels(dev)
+    ntxent = phase_ntxent(dev)
 
     import numpy as np
 
@@ -437,18 +850,29 @@ def main() -> int:
     kernel.update(phase_slice(dev, model, slide, ref))
     check_reference(sd, f32_card, cells(ref), kernel.pop("ref_margins"), dev)
     phase_cli(sd, slide)
+    del f32_card, model
 
+    with tempfile.TemporaryDirectory() as tmp:
+        ds = simclr_dataset(slide, grid, tissue, tmp)
+        simclr = phase_simclr(dev, ds, tmp)
+        phase_simclr_check(dev, ds, simclr["sd"])
+
+    jax_ops = "ss25_hierarchical_multiscale_image_classification_tpu/ops/pallas"
+    rows = [("fused_normalize", "fused_normalize.cu", "preprocess.py:35",
+             kernel)]
+    for name, line in (("nt_xent_fwd", 63), ("nt_xent_bwd", 157)):
+        rows.append((name, "nt_xent.cu", f"nt_xent.py:{line}",
+                     {"launches": simclr["launches"][name], **ntxent[name]}))
     table = {"kernels": [{
-        "name": "fused_normalize",
+        "name": name,
         "route": "cuda",
-        "source": f"{PKG}/ops/csrc/fused_normalize.cu",
-        "replaces": "ss25_hierarchical_multiscale_image_classification_tpu/"
-                    "ops/pallas/preprocess.py:35",
-        "launches": kernel["launches"],
-        "max_abs_err": kernel["max_abs_err"],
-        "ms": kernel["ms"],
-        "plain_ms": kernel["plain_ms"],
-    }]}
+        "source": f"{PKG}/ops/csrc/{source}",
+        "replaces": f"{jax_ops}/{replaces}",
+        "launches": k["launches"],
+        "max_abs_err": k["max_abs_err"],
+        "ms": k["ms"],
+        "plain_ms": k["plain_ms"],
+    } for name, source, replaces, k in rows]}
     log(smi)  # the card's name and power limit, as nvidia-smi prints them
     log(json.dumps(table))
     log(json.dumps({"ok": True, "device": {

@@ -1,10 +1,11 @@
-"""Export a JAX-package ResNet18 artifact (Orbax) to the PyTorch port's ``.pt``.
+"""Export a JAX-package ResNet18 or SimCLR artifact (Orbax) to the PyTorch port's ``.pt``.
 
 Reads the artifact with the JAX package's ``train/checkpoints.py::load_model``
-and writes the torchvision-layout state dict that
-``ss25_hierarchical_multiscale_image_classification_tpu_torch.models.convert
-.load_state_dict_file`` and the port's CLI load. Needs JAX, so it runs where
-the JAX package runs; the port's machine only reads the ``.pt``.
+and writes the state dict that the port loads: torchvision layout for a
+ResNet18 (what ``models.convert.load_state_dict_file`` and the port's CLI
+read), the port's ``SimCLRModel`` layout (``encoder.*``, ``projector.*``)
+for a ``simclr_encoder`` artifact. Needs JAX, so it runs where the JAX
+package runs; the port's machine only reads the ``.pt``.
 
     python scripts/export_jax_checkpoint_to_torch.py \\
         models_out/resnet18_patch_classifier [models_out/resnet18_patch_classifier.pt]
@@ -25,6 +26,7 @@ from ss25_hierarchical_multiscale_image_classification_tpu.train.checkpoints imp
     load_model,
 )
 from ss25_hierarchical_multiscale_image_classification_tpu_torch.models.convert import (
+    simclr_state_dict_from_flax,
     state_dict_from_flax,
 )
 
@@ -37,7 +39,10 @@ def main(argv=None) -> int:
     args = parser.parse_args(argv)
     src = os.path.abspath(args.artifact.rstrip("/"))
     dst = args.output or f"{src}.pt"
-    sd = state_dict_from_flax(load_model(src))
+    variables = load_model(src)
+    simclr = "projector" in variables["params"]
+    sd = (simclr_state_dict_from_flax if simclr else state_dict_from_flax)(
+        variables)
     torch.save(sd, dst)
     print(f"{src} → {dst} ({len(sd)} tensors)")
     return 0

@@ -1,11 +1,15 @@
-"""Constants of the slide-inference slice.
+"""Constants and configuration of the ported slices.
 
-Copies of the JAX package's ``config.py`` constants that this slice reads,
-held to the originals by exact-equality tests. The port keeps its own copy
-so that it loads nothing of the JAX package.
+Copies of the JAX package's ``config.py`` constants and of the dataclass
+fields that the ported slices read, held to the originals by exact-equality
+tests. The port keeps its own copy so that it loads nothing of the JAX
+package.
 """
 
 from __future__ import annotations
+
+import dataclasses
+import os
 
 #: Per-pyramid-level patch edge length in pixels; all four levels cover the
 #: same physical field of view at four magnifications.
@@ -25,3 +29,52 @@ IMAGENET_STD: tuple[float, float, float] = (0.229, 0.224, 0.225)
 
 #: Default model artifact directory (the JAX CLI's ``Config.models_dir``).
 MODELS_DIR: str = "models_out"
+
+#: Model input resolution (the JAX package's ``INPUT_SIZE``).
+INPUT_SIZE: int = 224
+
+#: Global batch size (the JAX package's ``BATCH_SIZE``).
+BATCH_SIZE: int = 512
+
+
+@dataclasses.dataclass
+class DataConfig:
+    """The ``DataConfig`` fields that the ported slices read."""
+
+    data_dir: str = "data"
+    patches_subdir: str = "patches"
+
+    @property
+    def patches_dir(self) -> str:
+        return os.path.join(self.data_dir, self.patches_subdir)
+
+
+@dataclasses.dataclass
+class SimCLRConfig:
+    """SimCLR pretraining: every field and default of the JAX package's
+    ``SimCLRConfig``."""
+
+    epochs: int = 200
+    batch_size: int = BATCH_SIZE
+    learning_rate: float = 1e-3
+    temperature: float = 0.5
+    projection_dim: int = 128  # 512 -> 512 -> 128
+    projection_hidden_dim: int = 512
+    early_stop_patience: int = 20
+    early_stop_check_every: int = 20
+    checkpoint_every_epochs: int = 50
+    seed: int = 0
+    #: "xla": the dense loss (``models/simclr.py::nt_xent_loss``), the
+    #: default; "pallas": the streaming loss, which here runs the hand-written
+    #: CUDA kernels (``ops/nt_xent.py``). The JAX spellings stay, so a config
+    #: means the same to both packages.
+    loss_impl: str = "xla"
+
+
+@dataclasses.dataclass
+class Config:
+    """The ``Config`` fields that the ported slices read."""
+
+    data: DataConfig = dataclasses.field(default_factory=DataConfig)
+    simclr: SimCLRConfig = dataclasses.field(default_factory=SimCLRConfig)
+    models_dir: str = MODELS_DIR

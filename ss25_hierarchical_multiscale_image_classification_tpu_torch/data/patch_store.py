@@ -1,0 +1,134 @@
+"""Packed patch store: writer and random-access reader.
+
+Copy of the JAX package's ``data/patch_store.py`` (``PackedPatchWriter``,
+``PatchReader``), held to it by exact tests. A packed store appends raw
+(N, P, P, 3) uint8 patches to ``patches/level_{L}/{slide}.pack`` with the
+shape in a ``.shape`` sidecar, and is read back through a memmap with no
+decoding.
+
+Differences from the JAX module, none in the bytes read:
+
+- the packed gather is numpy fancy indexing (the JAX package calls its
+  native OpenMP ``gather_rows``, which copies the same rows);
+- PNG records (Pillow) and resizing (``cv2``) import their library when
+  they are read, and raise where it is missing;
+- the int8 path's space-to-depth layout (``s2d``) is not ported yet.
+"""
+
+from __future__ import annotations
+
+import os
+from typing import Sequence
+
+import numpy as np
+
+from ss25_hierarchical_multiscale_image_classification_tpu_torch.data.manifest import (
+    PatchManifest,
+    PatchRecord,
+)
+
+
+class PackedPatchWriter:
+    """Appends patches to ``patches/level_{L}/{slide}.pack`` as raw
+    (N, P, P, 3) uint8; shape goes in a sidecar ``.shape`` file."""
+
+    def __init__(self, patches_dir: str, level: int, slide: str, patch_size: int):
+        self.level = level
+        self.slide = slide
+        self.patch_size = patch_size
+        level_dir = os.path.join(patches_dir, f"level_{level}")
+        os.makedirs(level_dir, exist_ok=True)
+        self.path = os.path.join(level_dir, f"{slide}.pack")
+        self._f = open(self.path, "wb")
+        self._count = 0
+
+    def write_batch(
+        self, patches: np.ndarray, coords: np.ndarray, labels: np.ndarray
+    ) -> list[PatchRecord]:
+        """Vectorized append of (N, P, P, 3) patches with (N, 2) coords."""
+        patches = np.ascontiguousarray(patches, dtype=np.uint8)
+        self._f.write(patches.tobytes())
+        recs = [
+            PatchRecord(
+                slide=self.slide, level=self.level,
+                x=int(coords[i, 0]), y=int(coords[i, 1]),
+                label=int(labels[i]), store="packed",
+                path=self.path, row=self._count + i,
+            )
+            for i in range(len(patches))
+        ]
+        self._count += len(patches)
+        return recs
+
+    def close(self) -> None:
+        self._f.close()
+        with open(self.path + ".shape", "w") as f:
+            f.write(f"{self._count} {self.patch_size} {self.patch_size} 3\n")
+        if self._count == 0:
+            os.remove(self.path)
+            os.remove(self.path + ".shape")
+
+
+class PatchReader:
+    """Random-access reader over a manifest, transparent to store format.
+
+    Packed files are memmapped once and cached; PNG records decode via PIL.
+    ``read_batch`` optionally resizes to a target edge.
+    """
+
+    def __init__(self, manifest: PatchManifest):
+        self.manifest = manifest
+        self._mmaps: dict[str, np.ndarray] = {}
+
+    def _mmap(self, path: str) -> np.ndarray:
+        mm = self._mmaps.get(path)
+        if mm is None:
+            with open(path + ".shape") as f:
+                shape = tuple(int(v) for v in f.read().split())
+            mm = np.memmap(path, dtype=np.uint8, mode="r", shape=shape)
+            self._mmaps[path] = mm
+        return mm
+
+    def read(self, index: int) -> np.ndarray:
+        rec = self.manifest[index]
+        if rec.store == "packed":
+            return np.asarray(self._mmap(rec.path)[rec.row])
+        from PIL import Image
+
+        with Image.open(rec.path) as im:
+            return np.asarray(im.convert("RGB"), dtype=np.uint8)
+
+    def read_batch(
+        self, indices: Sequence[int], resize_to: int | None = None,
+        s2d: bool = False,
+    ) -> np.ndarray:
+        """(B, H, W, 3) uint8 batch of ``indices``; packed rows that come
+        from one pack file are gathered with one fancy-indexing copy."""
+        if s2d:
+            raise NotImplementedError(
+                "the space-to-depth (int8) layout is not ported yet")
+        indices = [int(i) for i in indices]
+        recs = [self.manifest[i] for i in indices]
+        if recs and all(r.store == "packed" for r in recs):
+            imgs = [None] * len(recs)
+            by_path: dict[str, list[int]] = {}
+            for pos, r in enumerate(recs):
+                by_path.setdefault(r.path, []).append(pos)
+            for path, positions in by_path.items():
+                rows = np.array([recs[p].row for p in positions], np.int64)
+                gathered = self._mmap(path)[rows]
+                for j, p in enumerate(positions):
+                    imgs[p] = gathered[j]
+        else:
+            imgs = [self.read(i) for i in indices]
+        if resize_to is not None:
+            imgs = [_resize(img, resize_to) for img in imgs]
+        return np.stack(imgs)
+
+
+def _resize(img: np.ndarray, edge: int) -> np.ndarray:
+    if img.shape[0] == edge and img.shape[1] == edge:
+        return img
+    import cv2
+
+    return cv2.resize(img, (edge, edge), interpolation=cv2.INTER_AREA)

@@ -36,7 +36,8 @@ def _tensor(a) -> torch.Tensor:
 
 def state_dict_from_flax(variables: Mapping[str, Any]) -> dict[str, torch.Tensor]:
     """flax ``{"params", "batch_stats"}`` of a ResNet18 → torchvision-layout
-    state dict (without ``num_batches_tracked``, which eval never reads)."""
+    state dict (without ``num_batches_tracked``, which neither eval nor the
+    flax-semantics training BN reads)."""
     params = variables["params"]
     stats = variables.get("batch_stats", {})
     sd: dict[str, torch.Tensor] = {}
@@ -69,6 +70,26 @@ def state_dict_from_flax(variables: Mapping[str, Any]) -> dict[str, torch.Tensor
     if "fc" in params:
         sd["fc.weight"] = _tensor(np.asarray(params["fc"]["kernel"]).T)
         sd["fc.bias"] = _tensor(params["fc"]["bias"])
+    return sd
+
+
+def simclr_state_dict_from_flax(variables: Mapping[str, Any]
+                                ) -> dict[str, torch.Tensor]:
+    """flax ``{"params", "batch_stats"}`` of the JAX ``SimCLRModel`` → the
+    port's ``SimCLRModel`` state dict: the encoder through
+    :func:`state_dict_from_flax` under ``encoder.``, and the projector's
+    ``layers_0``/``layers_2`` (``layers_1`` is the ReLU) as ``projector.0``
+    and ``projector.2``, each kernel transposed."""
+    params = variables["params"]
+    encoder = state_dict_from_flax({
+        "params": params["encoder"],
+        "batch_stats": variables.get("batch_stats", {}).get("encoder", {}),
+    })
+    sd = {f"encoder.{k}": v for k, v in encoder.items()}
+    for src, dst in (("layers_0", "projector.0"), ("layers_2", "projector.2")):
+        layer = params["projector"][src]
+        sd[f"{dst}.weight"] = _tensor(np.asarray(layer["kernel"]).T)
+        sd[f"{dst}.bias"] = _tensor(layer["bias"])
     return sd
 
 

@@ -13,6 +13,7 @@ Semantics kept from the JAX model:
   ``padding=1``; the JAX model spells it out because SAME would pad (0, 1));
 - the stem maxpool pads with −inf (``nn.MaxPool2d`` does);
 - eval-mode BatchNorm at ``eps=1e-5`` with the stored running statistics;
+- training-mode BatchNorm with flax's running statistics (:class:`BatchNorm2d`);
 - the classifier returns float32 logits, the feature extractor float32
   (B, 8·num_filters) pooled features.
 
@@ -20,7 +21,10 @@ Public layout is NHWC, as in the JAX package: ``forward`` takes (B, H, W, 3)
 and runs NCHW through a ``permute`` view, which for a contiguous NHWC tensor
 is already ``channels_last`` in memory. The compute dtype is the parameters'
 dtype: float32 in the CPU tests, bfloat16 on the card (the JAX default
-``dtype=jnp.bfloat16``), set with ``model.to(dtype=...)``.
+``dtype=jnp.bfloat16``), set with ``model.to(dtype=...)`` for inference.
+Training keeps float32 parameters and runs under
+``torch.autocast("cuda", torch.bfloat16)``, which then sets the compute
+dtype.
 """
 
 from __future__ import annotations
@@ -29,7 +33,38 @@ import math
 from typing import Sequence
 
 import torch
+import torch.nn.functional as F
 from torch import nn
+
+
+class BatchNorm2d(nn.BatchNorm2d):
+    """``nn.BatchNorm2d`` whose training mode keeps flax's running statistics.
+
+    Both normalize a training batch with its own mean and biased variance.
+    They differ in the running statistics: flax moves them by
+    ``momentum`` (0.1 here, flax's 0.9 from the other side) toward the
+    batch mean and the **biased** variance, PyTorch toward the unbiased one,
+    which at a 1×1 layer4 over a batch of 4 is a third larger. Here
+    ``F.batch_norm`` hands this batch's mean and unbiased variance to two
+    temporaries (momentum 1 from zero), and the update uses the variance
+    times (n−1)/n. Every row of the batch counts, wrap-padded ones too, as
+    in the JAX model. Eval mode is ``nn.BatchNorm2d``'s.
+    """
+
+    def forward(self, x: torch.Tensor) -> torch.Tensor:
+        if not self.training:
+            return super().forward(x)
+        mean = torch.zeros_like(self.running_mean)
+        var = torch.zeros_like(self.running_var)
+        y = F.batch_norm(x, mean, var, self.weight, self.bias, True, 1.0,
+                         self.eps)
+        n = x.numel() // x.shape[1]
+        with torch.no_grad():
+            self.running_mean.mul_(1.0 - self.momentum).add_(
+                mean, alpha=self.momentum)
+            self.running_var.mul_(1.0 - self.momentum).add_(
+                var, alpha=self.momentum * (n - 1) / n)
+        return y
 
 
 class BasicBlock(nn.Module):
@@ -38,15 +73,15 @@ class BasicBlock(nn.Module):
     def __init__(self, inplanes: int, planes: int, stride: int = 1):
         super().__init__()
         self.conv1 = nn.Conv2d(inplanes, planes, 3, stride, 1, bias=False)
-        self.bn1 = nn.BatchNorm2d(planes, eps=1e-5)
+        self.bn1 = BatchNorm2d(planes, eps=1e-5)
         self.relu = nn.ReLU(inplace=True)
         self.conv2 = nn.Conv2d(planes, planes, 3, 1, 1, bias=False)
-        self.bn2 = nn.BatchNorm2d(planes, eps=1e-5)
+        self.bn2 = BatchNorm2d(planes, eps=1e-5)
         self.downsample = None
         if stride != 1 or inplanes != planes:
             self.downsample = nn.Sequential(
                 nn.Conv2d(inplanes, planes, 1, stride, bias=False),
-                nn.BatchNorm2d(planes, eps=1e-5),
+                BatchNorm2d(planes, eps=1e-5),
             )
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:
@@ -75,7 +110,7 @@ class ResNet(nn.Module):
         super().__init__()
         with torch.device("meta"):
             self.conv1 = nn.Conv2d(3, num_filters, 7, 2, 3, bias=False)
-            self.bn1 = nn.BatchNorm2d(num_filters, eps=1e-5)
+            self.bn1 = BatchNorm2d(num_filters, eps=1e-5)
             self.relu = nn.ReLU(inplace=True)
             self.maxpool = nn.MaxPool2d(3, 2, 1)
             inplanes = num_filters
@@ -125,7 +160,9 @@ class ResNet(nn.Module):
     def forward(self, x: torch.Tensor) -> torch.Tensor:
         """(B, H, W, 3) normalized images → float32 logits (B, classes), or
         float32 features (B, 8·num_filters) when there is no head."""
-        x = x.permute(0, 3, 1, 2).to(self.conv1.weight.dtype)
+        x = x.permute(0, 3, 1, 2)
+        if not torch.is_autocast_enabled(x.device.type):
+            x = x.to(self.conv1.weight.dtype)
         x = self.maxpool(self.relu(self.bn1(self.conv1(x))))
         for i in range(self.num_stages):
             x = getattr(self, f"layer{i + 1}")(x)

@@ -1,14 +1,16 @@
-"""Build and bind the port's CUDA kernels: nvcc → shared library → ctypes.
+"""Build and bind the port's CUDA kernels: nvcc → shared libraries → ctypes.
 
 The sources under ``ops/csrc/`` expose plain C entry points (no PyTorch
-headers), so one ``nvcc`` call builds them in seconds. The build happens at
-first use, into ``ops/_build/`` (listed in ``.gitignore``), under a name
-keyed by the sources and flags: an edited source builds anew, an unchanged
-one loads the library already there. Nothing is built or imported when this
+headers), so ``nvcc`` builds each in seconds. Each source becomes a library
+of its own, all compiled at once (one ``nvcc`` process per source), at first
+use, into ``ops/_build/`` (listed in ``.gitignore``), under a name keyed by
+that source and the flags: an edited source builds anew, an unchanged one
+loads the library already there. Nothing is built or imported when this
 module is imported, so CPU-only installations import it freely.
 
 No ``--use_fast_math``: the normalize kernel's division must be the IEEE
-quotient so that it equals its plain PyTorch version bit for bit.
+quotient so that it equals its plain PyTorch version bit for bit, and the
+NT-Xent kernels' ``expf``/``logf`` stay the accurate ones.
 """
 
 from __future__ import annotations
@@ -19,11 +21,11 @@ import hashlib
 import os
 import shutil
 import subprocess
+import types
 from pathlib import Path
 
 CSRC_DIR = Path(__file__).resolve().parent / "csrc"
 BUILD_DIR = Path(__file__).resolve().parent / "_build"
-SOURCES = ("fused_normalize.cu",)
 NVCC_FLAGS = (
     "-gencode", "arch=compute_90a,code=sm_90a",
     "-std=c++17", "-O3", "-shared", "-Xcompiler", "-fPIC",
@@ -31,12 +33,23 @@ NVCC_FLAGS = (
 
 _P, _I64, _I32, _F32 = (ctypes.c_void_p, ctypes.c_longlong, ctypes.c_int,
                         ctypes.c_float)
-# C signature of every entry point: name → (argtypes, restype)
-_SIGNATURES = {
-    "hipac_fused_normalize": (
-        [_P, _P, _P, _I64, _I64, _I32, _F32, _F32, _F32, _F32, _F32, _F32, _P],
-        ctypes.c_int,
-    ),
+# source → C signature of each of its entry points: name → (argtypes, restype)
+SOURCES = {
+    "fused_normalize.cu": {
+        "hipac_fused_normalize": (
+            [_P, _P, _P, _I64, _I64, _I32, _F32, _F32, _F32, _F32, _F32, _F32,
+             _P],
+            ctypes.c_int,
+        ),
+    },
+    "nt_xent.cu": {
+        # z, pos_idx, n_rows, d, inv_tau, loss, m, l, stream
+        "hipac_nt_xent_fwd": ([_P, _P, _I64, _I64, _F32, _P, _P, _P, _P],
+                              ctypes.c_int),
+        # z, pos_idx, m, l, g, n_rows, d, inv_tau, dz, stream
+        "hipac_nt_xent_bwd": ([_P, _P, _P, _P, _P, _I64, _I64, _F32, _P, _P],
+                              ctypes.c_int),
+    },
 }
 
 
@@ -57,41 +70,52 @@ def find_nvcc() -> str:
     return path
 
 
-def library_path() -> Path:
-    """Where the library built from the current sources and flags lives."""
+def library_path(source: str) -> Path:
+    """Where the library built from ``source`` and the flags lives."""
     h = hashlib.sha256(" ".join(NVCC_FLAGS).encode())
-    for name in SOURCES:
-        h.update((CSRC_DIR / name).read_bytes())
-    return BUILD_DIR / f"libhipac_torch_kernels_{h.hexdigest()[:16]}.so"
+    h.update((CSRC_DIR / source).read_bytes())
+    return BUILD_DIR / f"libhipac_{Path(source).stem}_{h.hexdigest()[:16]}.so"
 
 
-def build() -> Path:
-    """Compile the sources unless the library for them exists; return it.
-    Concurrent processes each write a private file and rename it into
-    place."""
-    so = library_path()
-    if so.exists():
-        return so
+def build() -> list[Path]:
+    """Compile every source whose library does not exist yet, all at once;
+    return the libraries. Concurrent processes each write a private file
+    and rename it into place."""
     BUILD_DIR.mkdir(parents=True, exist_ok=True)
-    tmp = so.with_name(f"{so.name}.{os.getpid()}.tmp")
-    cmd = [find_nvcc(), *NVCC_FLAGS, "-o", str(tmp),
-           *(str(CSRC_DIR / s) for s in SOURCES)]
-    proc = subprocess.run(cmd, capture_output=True, text=True)
-    if proc.returncode != 0:
-        raise RuntimeError(
-            f"nvcc failed ({proc.returncode}): {' '.join(cmd)}\n"
-            f"{proc.stdout}{proc.stderr}"
-        )
-    os.replace(tmp, so)
-    return so
+    jobs = []
+    for source in SOURCES:
+        so = library_path(source)
+        if so.exists():
+            continue
+        tmp = so.with_name(f"{so.name}.{os.getpid()}.tmp")
+        cmd = [find_nvcc(), *NVCC_FLAGS, "-o", str(tmp), str(CSRC_DIR / source)]
+        proc = subprocess.Popen(cmd, stdout=subprocess.PIPE,
+                                stderr=subprocess.STDOUT, text=True)
+        jobs.append((so, tmp, cmd, proc))
+    failed = []
+    for so, tmp, cmd, proc in jobs:
+        out, _ = proc.communicate()
+        if proc.returncode == 0:
+            os.replace(tmp, so)
+        else:
+            failed.append(f"nvcc failed ({proc.returncode}): {' '.join(cmd)}\n"
+                          f"{out}")
+    if failed:
+        raise RuntimeError("\n".join(failed))
+    return [library_path(source) for source in SOURCES]
 
 
 @functools.cache
-def load_library() -> ctypes.CDLL:
-    """The built kernel library with every entry point's signature set."""
-    lib = ctypes.CDLL(str(build()))
-    for name, (argtypes, restype) in _SIGNATURES.items():
-        fn = getattr(lib, name)
-        fn.argtypes = argtypes
-        fn.restype = restype
-    return lib
+def load_library() -> types.SimpleNamespace:
+    """Every entry point of the built libraries, signatures set, as
+    attributes of one namespace (``load_library().hipac_nt_xent_fwd``)."""
+    build()
+    entry_points = {}
+    for source, signatures in SOURCES.items():
+        lib = ctypes.CDLL(str(library_path(source)))
+        for name, (argtypes, restype) in signatures.items():
+            fn = getattr(lib, name)
+            fn.argtypes = argtypes
+            fn.restype = restype
+            entry_points[name] = fn
+    return types.SimpleNamespace(**entry_points)

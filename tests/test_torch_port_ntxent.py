@@ -1,0 +1,263 @@
+"""Port NT-Xent losses against the JAX package, and the CUDA kernels against
+their plain version; on the card also the training-mode BatchNorm that the
+SimCLR step runs with them.
+
+On the CPU the port's kernel wrapper (``nt_xent_loss_kernel``) takes the
+plain PyTorch version, ``nt_xent_rows_reference``; it is held against the
+JAX Pallas kernel run in interpret mode at small blocks, as the JAX
+package's own tests run it (one test: the interpreter takes seconds). The
+port's dense ``nt_xent_loss`` is held against the JAX dense loss, and the
+two port losses against each other. The ``cuda`` tests hold the kernels
+against the plain version on the card at the shapes ``chip_smoke.py``
+checks (marker ``cuda``; they skip elsewhere). JAX is imported inside the
+tests that compare with it, so the ``cuda`` tests also run where jax is
+absent (``python -m pytest --noconftest -m cuda ...``).
+"""
+
+import numpy as np
+import pytest
+import torch
+
+from ss25_hierarchical_multiscale_image_classification_tpu_torch.models.resnet import (
+    BatchNorm2d,
+)
+from ss25_hierarchical_multiscale_image_classification_tpu_torch.models.simclr import (
+    nt_xent_loss,
+)
+from ss25_hierarchical_multiscale_image_classification_tpu_torch.ops.nt_xent import (
+    MAX_D,
+    nt_xent_bwd,
+    nt_xent_fwd,
+    nt_xent_loss_kernel,
+    nt_xent_rows,
+    nt_xent_rows_reference,
+)
+
+torch.set_num_threads(2)
+
+# float32 on the CPU on both sides, summed in other orders: values and
+# gradients agree to a few ulps of their magnitude
+RTOL, ATOL = 1e-5, 1e-6
+
+
+def _views(seed, n, d):
+    rng = np.random.default_rng(seed)
+    return (rng.normal(size=(n, d)).astype(np.float32),
+            rng.normal(size=(n, d)).astype(np.float32))
+
+
+def _port_value_and_grads(loss_fn, zi, zj, tau, valid):
+    ti = torch.from_numpy(zi).requires_grad_()
+    tj = torch.from_numpy(zj).requires_grad_()
+    v = None if valid is None else torch.from_numpy(valid)
+    loss = loss_fn(ti, tj, tau, valid=v)
+    loss.backward()
+    return loss.item(), ti.grad.numpy(), tj.grad.numpy()
+
+
+@pytest.fixture
+def cuda_device():
+    if not torch.cuda.is_available():
+        pytest.skip("needs an NVIDIA GPU: the CUDA kernels have no CPU mode")
+    torch.backends.cuda.matmul.allow_tf32 = False  # the plain version's matmul
+    return torch.device("cuda")
+
+
+def test_port_nt_xent_kernel_loss_matches_jax_pallas():
+    """n = 13, D = 16, τ = 0.5, 8×8 Pallas blocks (2N = 26 pads to 32), 3
+    invalid rows: value and d/dz_i, d/dz_j."""
+    jax = pytest.importorskip("jax")
+    jnp = jax.numpy
+    from ss25_hierarchical_multiscale_image_classification_tpu.ops.pallas.nt_xent import (
+        nt_xent_loss_pallas,
+    )
+
+    zi, zj = _views(0, 13, 16)
+    valid = np.ones(13, bool)
+    valid[[2, 7, 12]] = False
+
+    def f(a, b):
+        return nt_xent_loss_pallas(a, b, 0.5, block_r=8, block_c=8,
+                                   valid=jnp.asarray(valid))
+
+    ref, (gi, gj) = jax.value_and_grad(f, argnums=(0, 1))(jnp.asarray(zi),
+                                                          jnp.asarray(zj))
+    loss, pi, pj = _port_value_and_grads(nt_xent_loss_kernel, zi, zj, 0.5, valid)
+    np.testing.assert_allclose(loss, float(ref), rtol=RTOL, atol=ATOL)
+    np.testing.assert_allclose(pi, np.asarray(gi), rtol=RTOL, atol=ATOL)
+    np.testing.assert_allclose(pj, np.asarray(gj), rtol=RTOL, atol=ATOL)
+    assert not pi[~valid].any() and not pj[~valid].any()
+
+
+@pytest.mark.parametrize("n", [1, 7, 64])
+@pytest.mark.parametrize("masked", [False, True])
+@pytest.mark.parametrize("tau", [0.1, 0.5])
+def test_port_dense_nt_xent_matches_jax(n, masked, tau):
+    jax = pytest.importorskip("jax")
+    jnp = jax.numpy
+    from ss25_hierarchical_multiscale_image_classification_tpu.models.simclr import (
+        nt_xent_loss as jax_nt_xent_loss,
+    )
+
+    zi, zj = _views(n, n, 16)
+    valid = (np.arange(n) % 3 != 2) if masked else None
+
+    def f(a, b):
+        v = None if valid is None else jnp.asarray(valid)
+        return jax_nt_xent_loss(a, b, tau, valid=v)
+
+    ref, (gi, gj) = jax.value_and_grad(f, argnums=(0, 1))(jnp.asarray(zi),
+                                                          jnp.asarray(zj))
+    loss, pi, pj = _port_value_and_grads(nt_xent_loss, zi, zj, tau, valid)
+    np.testing.assert_allclose(loss, float(ref), rtol=RTOL, atol=ATOL)
+    np.testing.assert_allclose(pi, np.asarray(gi), rtol=RTOL, atol=ATOL)
+    np.testing.assert_allclose(pj, np.asarray(gj), rtol=RTOL, atol=ATOL)
+
+    # the per-row plain version's mean is the same loss
+    loss_k, ki, kj = _port_value_and_grads(nt_xent_loss_kernel, zi, zj, tau,
+                                           valid)
+    np.testing.assert_allclose(loss_k, loss, rtol=RTOL, atol=ATOL)
+    np.testing.assert_allclose(ki, pi, rtol=RTOL, atol=ATOL)
+    np.testing.assert_allclose(kj, pj, rtol=RTOL, atol=ATOL)
+
+
+def test_nt_xent_rows_reference_masks_self_and_dead_columns():
+    """m is the row maximum over live, non-self columns, l the sum of
+    exp(s − m) with masked scores at exp(−1e30 − m) = 0, dead rows lose 0."""
+    rng = np.random.default_rng(3)
+    z = torch.from_numpy(rng.normal(size=(6, 5)).astype(np.float32))
+    z = z / z.norm(dim=1, keepdim=True)
+    pos = torch.tensor([3, 4, -1, 0, 1, -1], dtype=torch.int32)
+    rows, m, l = nt_xent_rows_reference(z, pos, 0.5)
+    s = (z @ z.T).numpy() * 2.0
+    live = [0, 1, 3, 4]
+    for r in range(6):
+        cols = [c for c in live if c != r]
+        expect_m = s[r, cols].max()
+        expect_l = np.exp(s[r, cols] - expect_m).sum()
+        np.testing.assert_allclose(m[r].item(), expect_m, rtol=1e-6)
+        np.testing.assert_allclose(l[r].item(), expect_l, rtol=1e-6)
+        if pos[r] >= 0:
+            np.testing.assert_allclose(
+                rows[r].item(), -s[r, pos[r]] + expect_m + np.log(expect_l),
+                rtol=1e-5)
+        else:
+            assert rows[r].item() == 0.0
+
+
+def test_nt_xent_wrapper_rejects_bad_input_and_counts_no_cpu_launch():
+    z = torch.nn.functional.normalize(torch.randn(6, 4), dim=1)
+    pos = torch.tensor([3, 4, 5, 0, 1, 2], dtype=torch.int32)
+    before = (nt_xent_fwd.launches, nt_xent_bwd.launches)
+    zg = z.clone().requires_grad_()
+    rows, _, _ = nt_xent_rows(zg, pos, 0.5)  # the CPU takes the plain version
+    rows.sum().backward()
+    assert (nt_xent_fwd.launches, nt_xent_bwd.launches) == before
+    bad = [
+        (z.double(), pos),  # dtype
+        (z[:, None], pos),  # rank
+        (z, pos.long()),  # index dtype
+        (z, pos[:5]),  # index length
+        (z[:0], pos[:0]),  # empty
+        (torch.zeros(6, MAX_D + 1), pos),  # wider than the kernels take
+    ]
+    for args in bad:
+        with pytest.raises(ValueError):
+            nt_xent_rows(*args, 0.5)
+    # the launchers take only contiguous CUDA tensors; a CPU tensor raises
+    with pytest.raises(ValueError):
+        nt_xent_fwd(z, pos, 2.0)
+    with pytest.raises(ValueError):
+        nt_xent_bwd(z, pos, torch.ones(6), torch.ones(6), torch.ones(6), 2.0)
+
+
+def _pairs(device, g, pairs, d, valid_pairs):
+    """Rows and positive indices as ``nt_xent_loss_kernel`` builds them,
+    the last ``pairs − valid_pairs`` pairs dead in both views."""
+    z = torch.randn(2 * pairs, d, device=device, generator=g)
+    z = z / z.norm(dim=1, keepdim=True)
+    ar = torch.arange(pairs, dtype=torch.int32, device=device)
+    valid = torch.cat([ar < valid_pairs, ar < valid_pairs])
+    return z, torch.where(valid, torch.cat([ar + pairs, ar]), -1)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("pairs,d,valid_pairs", [
+    (512, 128, 216), (512, 128, 512), (37, 128, 37), (4096, 128, 4096),
+    (65, 100, 60), (150, 512, 140)])
+def test_nt_xent_cuda_kernels_match_plain_version(cuda_device, pairs, d,
+                                                  valid_pairs):
+    g = torch.Generator(device=cuda_device).manual_seed(pairs)
+    z, pos = _pairs(cuda_device, g, pairs, d, valid_pairs)
+    before = (nt_xent_fwd.launches, nt_xent_bwd.launches)
+    zk = z.clone().requires_grad_()
+    rows, m, l = nt_xent_rows(zk, pos, 0.5)
+    rows.sum().backward()
+    torch.cuda.synchronize()
+    assert (nt_xent_fwd.launches, nt_xent_bwd.launches) == (before[0] + 1,
+                                                           before[1] + 1)
+    zr = z.clone().requires_grad_()
+    rows_r, m_r, l_r = nt_xent_rows_reference(zr, pos, 0.5)
+    rows_r.sum().backward()
+    # as chip_smoke.py: 1e-5 relative on the forward; on dz 1e-5 of max|dz|,
+    # times sqrt(2N / 1024) above 2N = 1024 (sequential sums over 2N terms)
+    assert (rows - rows_r).abs().max() <= 1e-5 * rows_r.abs().max()
+    assert (m - m_r).abs().max() <= 1e-5 * m_r.abs().max()
+    assert ((l - l_r).abs() / l_r).max() <= 1e-5
+    dz_tol = 1e-5 * max(1.0, (2 * pairs / 1024) ** 0.5)
+    assert (zk.grad - zr.grad).abs().max() <= dz_tol * zr.grad.abs().max()
+    dead = pos < 0
+    assert not rows[dead].any() and not zk.grad[dead].any()
+
+
+@pytest.mark.cuda
+def test_nt_xent_cuda_loss_matches_dense_loss(cuda_device):
+    g = torch.Generator(device=cuda_device).manual_seed(1)
+    zi = torch.randn(300, 128, device=cuda_device, generator=g)
+    zj = torch.randn(300, 128, device=cuda_device, generator=g)
+    valid = torch.arange(300, device=cuda_device) < 250
+    out = []
+    for fn in (nt_xent_loss_kernel, nt_xent_loss):
+        a, b = zi.clone().requires_grad_(), zj.clone().requires_grad_()
+        loss = fn(a, b, 0.5, valid=valid)
+        loss.backward()
+        out.append((loss.item(), a.grad, b.grad))
+    assert abs(out[0][0] - out[1][0]) <= 1e-5 * abs(out[1][0])
+    for k in (1, 2):
+        assert (out[0][k] - out[1][k]).abs().max() <= 1e-5 * out[1][k].abs().max()
+
+
+@pytest.mark.cuda
+def test_nt_xent_cuda_launchers_check_their_input(cuda_device):
+    z = torch.nn.functional.normalize(torch.randn(8, 4, device=cuda_device), dim=1)
+    pos = torch.tensor([4, 5, 6, 7, 0, 1, 2, 3], dtype=torch.int32,
+                       device=cuda_device)
+    strided = torch.randn(8, 8, device=cuda_device)[:, ::2]
+    with pytest.raises(ValueError):
+        nt_xent_fwd(strided, pos, 2.0)  # not contiguous
+    with pytest.raises(ValueError):
+        nt_xent_fwd(z, pos.cpu(), 2.0)  # pos on another device
+    _, m, l = nt_xent_fwd(z, pos, 2.0)
+    with pytest.raises(ValueError):
+        nt_xent_bwd(z, pos, m, l, torch.ones(8, device=cuda_device).double(), 2.0)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_batchnorm_training_on_cuda_keeps_flax_statistics(cuda_device, dtype):
+    """cuDNN's training BN moves its running variance toward the unbiased
+    batch variance; the port's BatchNorm2d must end at flax's biased one. A
+    batch of 4 at 1×1, as layer4 sees at 32²."""
+    x = (torch.randn(4, 8, 1, 1, generator=torch.Generator().manual_seed(0))
+         * 2 + 1).to(dtype)
+    bn = BatchNorm2d(8).to(cuda_device).train()
+    with torch.autocast("cuda", torch.bfloat16, enabled=dtype == torch.bfloat16):
+        y = bn(x.to(cuda_device))
+    torch.cuda.synchronize()
+    xd = x.double()
+    mean, var = xd.mean(dim=(0, 2, 3)), xd.var(dim=(0, 2, 3), unbiased=False)
+    assert y.dtype == dtype
+    torch.testing.assert_close(bn.running_mean.cpu().double(), 0.1 * mean,
+                               rtol=1e-5, atol=1e-6)
+    torch.testing.assert_close(bn.running_var.cpu().double(), 0.9 + 0.1 * var,
+                               rtol=1e-5, atol=1e-6)
