@@ -1,13 +1,15 @@
 #!/usr/bin/env python3
 """Smoke run of the PyTorch/CUDA port on one NVIDIA card.
 
-Drives the port's two paths once each at the full width of ResNet18 (224²
-patches, 64-wide stem, batch 512) with random weights from a seed, on a
-numpy-rendered synthetic slide: full-slide tumor detection
-(``predict_slide`` → detections → CSV, then the ``hipac-torch`` CLI), and
-SimCLR pretraining (``pretrain_simclr``) on the slide's tissue cells. It
-checks every hand-written kernel of those paths against its plain PyTorch
-version on the card. Phases:
+Drives the port's three paths once each with random weights from a seed:
+full-slide tumor detection at the full width of ResNet18 (224² patches,
+64-wide stem, batch 512) on a numpy-rendered synthetic slide
+(``predict_slide`` → detections → CSV, then the ``hipac-torch`` CLI),
+SimCLR pretraining (``pretrain_simclr``) on the slide's tissue cells, and
+attention-MIL slide classification at the full width of ``MILConfig``
+(``--train_mil``, then ``mil_predict`` with MC dropout) on synthetic bag
+features. It checks every hand-written kernel of those paths against its
+plain PyTorch version on the card. Phases:
 
 1. card and software: ``nvidia-smi`` name and power limit, torch, CUDA, nvcc;
 2. build: the kernels from ``ops/csrc/`` of this checkout;
@@ -18,6 +20,11 @@ version on the card. Phases:
    (2N, D) = (1024, 128) with the path's 592 dead rows, (1024, 128),
    (74, 128), (8192, 128) and (130, 100); CUDA-event medians and quartiles
    of forward, backward and both, at 2N = 1024 and 32768;
+3c. the MIL attention-pool kernel against the plain version at (B, K, D, H)
+   = (1, 4096, 512, 128) (the path), (8, 4096, 512, 128), (3, 1000, 512,
+   128) with random masks, a fully masked bag and a bag whose first 512
+   slots are masked, (2, 37, 100, 24) and (1, 65536, 512, 128); CUDA-event
+   medians and quartiles at K = 4096 and 65536, per call and back to back;
 4. the slice: a 3,072-cell slide (level 3 of 14336×10752, stride 28) in both
    tissue-filter modes, launch counts read around the run, partitions equal,
    the timed bfloat16 run's margins on sampled tissue cells against a float32
@@ -32,7 +39,16 @@ version on the card. Phases:
    artifacts reloaded; warm step time, views/s and peak device memory;
 6b. the SimCLR step's numbers: the kernels against the dense loss in one
    step, and the bf16 card step against a float32 CPU step on 32 cells,
-   whose loss must sit far from the blind-model value ln(2N − 1).
+   whose loss must sit far from the blind-model value ln(2N − 1);
+7. MIL: a feature triplet of 24 synthetic slides (2,000–12,000 instances of
+   width 512 each, half tumor), ``--train_mil --epochs 5 --device cuda`` as
+   a subprocess of the CLI, then ``mil_predict`` with 100 MC-dropout samples
+   on every bag on the card, launch counts read around it (one per call),
+   and without MC dropout (bags of 4096+ instances launch once, shorter
+   ones not at all); the kernel route against the module route, the card
+   against the CPU (the trained and the seeded untrained classifier,
+   probabilities and attention); per-bag predict wall and a warm epoch's
+   wall.
 
 It imports nothing of JAX or of the JAX package. Run it from the root of a
 checkout:
@@ -112,6 +128,30 @@ PALLAS_XLA_GRAD_RTOL = 1e-2  # of max|grad|, per projector tensor
 #   loss sat 0.124 from ln(2·32 − 1), 12× the loss bound.
 BF16_LOSS_ATOL = 1e-3
 BF16_GRAD_RTOL = 5e-2  # of max|grad| of the last projector layer
+# MIL pool cases as (B, K, D, H, masks): the path's one bag, a trainer-sized
+# batch of bags of random lengths, the mask traps, odd sizes, a long bag
+MIL_CASES = [(1, 4096, 512, 128, "full"), (8, 4096, 512, 128, "lengths"),
+             (3, 1000, 512, 128, "traps"), (2, 37, 100, 24, "lengths"),
+             (1, 65536, 512, 128, "full")]
+MIL_TIMING_K = (4096, 65536)
+MIL_TIMING_RUNS = 50
+# MIL pool bound, kernel against the plain version (TF32 off) on the card,
+# relative to max|bag| of the case. Measured (H100 80GB HBM3, 700 W): ≤ 4.0e-7
+# over the five cases (3.98e-7 at K = 65536, where a first version that
+# summed the 2,048 partial blocks in one serial chain gave 1.75e-6); the
+# fully masked bag against the mean of its rows 2.4e-7.
+MIL_RTOL = 1e-5
+MIL_SLIDES = 24  # half tumor
+MIL_INSTANCES = (2000, 12000)
+MIL_EPOCHS = 5  # cut from MILConfig.epochs = 20
+# The tumor instances' shift: norm MIL_SHIFT on MIL_SHIFT_CHANNELS seeded
+# channels (rows have norm ~23). Spread over all 512 channels, a shift of
+# norm 32 lies mostly along the rows' common mean and 15 Adam steps at the
+# default learning rate do not find it (training accuracy 0.55 on the CPU).
+MIL_SHIFT = 32.0
+MIL_SHIFT_CHANNELS = 64
+MIL_PROBS_ATOL = 1e-5  # kernel route against module route, card against CPU
+MIL_ATTN_RTOL = 1e-4  # attention, card against CPU, of max attention
 
 
 def log(msg: str) -> None:
@@ -131,6 +171,25 @@ def cuda_ms(fn, runs: int) -> list[float]:
         end.record()
         end.synchronize()
         out.append(start.elapsed_time(end))
+    return out
+
+
+def back_to_back_ms(fn, groups: int = 10, per: int = 20) -> list[float]:
+    """Device milliseconds per call of ``fn``: CUDA events around ``per``
+    calls enqueued back to back, so that the host's launch overhead hides
+    behind the device's work; one value per group."""
+    import torch
+
+    out = []
+    for _ in range(groups):
+        start = torch.cuda.Event(enable_timing=True)
+        end = torch.cuda.Event(enable_timing=True)
+        start.record()
+        for _ in range(per):
+            fn()
+        end.record()
+        end.synchronize()
+        out.append(start.elapsed_time(end) / per)
     return out
 
 
@@ -229,11 +288,14 @@ def ntxent_launchers():
 
 def reset_counts() -> None:
     """Every kernel's launch count to 0, just before a path runs."""
+    from ss25_hierarchical_multiscale_image_classification_tpu_torch.ops.mil_pool import (
+        mil_attention_pool_kernel,
+    )
     from ss25_hierarchical_multiscale_image_classification_tpu_torch.ops.preprocess import (
         fused_normalize,
     )
 
-    for fn in (fused_normalize, *ntxent_launchers()):
+    for fn in (fused_normalize, *ntxent_launchers(), mil_attention_pool_kernel):
         fn.launches = 0
 
 
@@ -350,6 +412,93 @@ def phase_ntxent(dev) -> dict:
                         "ms": times[(path_rows, "bwd")][0],
                         "plain_ms": times[(path_rows, "bwd")][1]},
     }
+
+
+def mil_pool_inputs(dev, g, b, k, d, h, masks):
+    """Bags of non-negative features (as ResNet18's pooled ones) and pool
+    parameters at the scale of the classifier's initialisation. ``masks``:
+    "full" (every slot real), "lengths" (random bag lengths, the rest
+    padding), "traps" (random masks, bag 1 fully masked, bag 2's first 512
+    slots masked)."""
+    import torch
+
+    x = torch.relu(torch.randn(b, k, d, device=dev, generator=g) + 0.5)
+    if masks == "full":
+        m = torch.ones(b, k, dtype=torch.bool, device=dev)
+    elif masks == "lengths":
+        n = torch.randint(1, k + 1, (b, 1), device=dev, generator=g)
+        m = torch.arange(k, device=dev)[None] < n
+    else:
+        m = torch.rand(b, k, device=dev, generator=g) > 0.3
+        m[1] = False
+        m[2, :512] = False
+    v = torch.randn(d, h, device=dev, generator=g) / d ** 0.5
+    vb = 0.1 * torch.randn(h, device=dev, generator=g)
+    w = torch.randn(h, device=dev, generator=g) / h ** 0.5
+    return x, m, v, vb, w
+
+
+def phase_milpool(dev) -> dict:
+    """The MIL pool kernel against ``mil_attention_pool_reference`` (TF32
+    off), then its times beside the plain version's."""
+    import torch
+
+    from ss25_hierarchical_multiscale_image_classification_tpu_torch.ops.mil_pool import (
+        mil_attention_pool_kernel,
+        mil_attention_pool_reference,
+    )
+
+    torch.backends.cuda.matmul.allow_tf32 = False
+    g = torch.Generator(device=dev).manual_seed(SEED)
+    max_err = 0.0
+    for b, k, d, h, masks in MIL_CASES:
+        x, m, v, vb, w = mil_pool_inputs(dev, g, b, k, d, h, masks)
+        got = mil_attention_pool_kernel(x, m, v, w, vb)
+        torch.cuda.synchronize()
+        ref = mil_attention_pool_reference(x, m, v, w, vb)
+        err = (got - ref).abs().max().item()
+        scale = ref.abs().max().item()
+        max_err = max(max_err, err)
+        log(f"[milpool] B={b} K={k} D={d} H={h} masks={masks}: max|Δ| "
+            f"{err:.3g} (max|bag| {scale:.4g}, {err / scale:.3g} relative)")
+        if not torch.isfinite(got).all() or err > MIL_RTOL * scale:
+            raise AssertionError(f"MIL pool kernel differs from its plain "
+                                 f"version at B={b} K={k} D={d} H={h}")
+        if masks == "traps":
+            d_mean = (got[1] - x[1].mean(dim=0)).abs().max().item()
+            log(f"[milpool] fully masked bag against the mean of its rows: "
+                f"max|Δ| {d_mean:.3g}")
+            if d_mean > MIL_RTOL * scale:
+                raise AssertionError("a fully masked bag is not its mean")
+
+    times = {}
+    for k in MIL_TIMING_K:
+        x, m, v, vb, w = mil_pool_inputs(dev, g, 1, k, 512, 128, "full")
+        kernel = lambda: mil_attention_pool_kernel(x, m, v, w, vb)  # noqa: E731
+        plain = lambda: mil_attention_pool_reference(x, m, v, w, vb)  # noqa: E731
+        for fn in (plain, kernel):
+            cuda_ms(fn, 3)  # warm-up
+        half = MIL_TIMING_RUNS // 2
+        # in turns: plain, kernel, kernel, plain; one call per event pair
+        # (what a caller waits), then device time of back-to-back calls
+        p = cuda_ms(plain, half)
+        kt = cuda_ms(kernel, half) + cuda_ms(kernel, half)
+        p += cuda_ms(plain, half)
+        kb = back_to_back_ms(kernel) + back_to_back_ms(kernel)
+        pb = back_to_back_ms(plain) + back_to_back_ms(plain)
+        kq, pq = quartiles(kt), quartiles(p)
+        times[k] = (kq[1], pq[1])
+        flop = 2 * k * 512 * 128
+        log(f"[milpool] B=1 K={k} D=512 H=128: kernel {kq[1]:.4f} ms "
+            f"(quartiles {kq[0]:.4f}–{kq[2]:.4f}), plain {pq[1]:.4f} ms "
+            f"({pq[0]:.4f}–{pq[2]:.4f}); medians of {2 * half} calls")
+        kb, pb = statistics.median(kb), statistics.median(pb)
+        log(f"[milpool] B=1 K={k} back to back: kernel {kb:.4f} ms "
+            f"({flop / kb / 1e9:.2f} TFLOP/s = {flop / kb / 1e9 / 67 * 100:.1f} "
+            f"% of the 67 TFLOP/s FP32 peak), plain {pb:.4f} ms "
+            f"({flop / pb / 1e9:.2f} TFLOP/s)")
+    return {"max_abs_err": max_err, "ms": times[4096][0],
+            "plain_ms": times[4096][1]}
 
 
 def tissue_cells(slide):
@@ -815,6 +964,219 @@ def phase_simclr_check(dev, ds, sd) -> None:
                              "check the bf16 step")
 
 
+def mil_features(data_dir: str) -> list:
+    """The feature triplet at level 3 of :data:`MIL_SLIDES` synthetic slides
+    under ``data_dir/features``, through the port's writer; returns the
+    bags as the trainer builds them.
+
+    Instances are non-negative 512-wide rows, like ResNet18's pooled
+    features. A tumor slide's bag carries 5–20 % instances shifted along one
+    seeded non-negative direction on :data:`MIL_SHIFT_CHANNELS` channels,
+    labelled tumor in their patch names."""
+    import numpy as np
+
+    from ss25_hierarchical_multiscale_image_classification_tpu_torch.data.mil import (
+        bags_from_artifacts,
+    )
+    from ss25_hierarchical_multiscale_image_classification_tpu_torch.infer.features import (
+        _save_artifacts,
+    )
+
+    rng = np.random.default_rng(SEED)
+    direction = np.zeros(512, np.float32)
+    channels = rng.choice(512, MIL_SHIFT_CHANNELS, replace=False)
+    direction[channels] = np.abs(rng.normal(size=MIL_SHIFT_CHANNELS)) + 0.5
+    direction *= MIL_SHIFT / np.linalg.norm(direction)
+    feats, labels, names = [], [], []
+    for i in range(MIL_SLIDES):
+        tumor = i % 2 == 1
+        slide = f"{'tumor' if tumor else 'normal'}_{i // 2 + 1:03d}"
+        n = int(rng.integers(*MIL_INSTANCES, endpoint=True))
+        f = np.maximum(rng.normal(0.5, 1.0, (n, 512)), 0.0).astype(np.float32)
+        lab = np.zeros(n, np.int64)
+        if tumor:
+            hit = rng.random(n) < rng.uniform(0.05, 0.20)
+            f[hit] += direction
+            lab[hit] = 1
+        feats.append(f)
+        labels.append(lab)
+        names += [f"{slide}_x{224 * (j % 97)}_y{224 * (j // 97)}_"
+                  f"{'tumor' if t else 'normal'}.png" for j, t in enumerate(lab)]
+    features_dir = os.path.join(data_dir, "features")
+    _save_artifacts(features_dir, LEVEL, np.concatenate(feats),
+                    np.concatenate(labels), names)
+    return bags_from_artifacts(features_dir, LEVEL)
+
+
+def phase_mil(dev, tmp) -> dict:
+    """``--train_mil`` as a CLI subprocess on the card, then ``mil_predict``
+    with MC dropout on every bag, the kernel's launches counted around it."""
+    import re
+
+    import numpy as np
+    import torch
+
+    from ss25_hierarchical_multiscale_image_classification_tpu_torch.config import (
+        Config,
+    )
+    from ss25_hierarchical_multiscale_image_classification_tpu_torch.data.mil import (
+        MILBagIterator,
+    )
+    from ss25_hierarchical_multiscale_image_classification_tpu_torch.models.mil import (
+        MILClassifier,
+    )
+    from ss25_hierarchical_multiscale_image_classification_tpu_torch.ops.mil_pool import (
+        mil_attention_pool_kernel,
+    )
+    from ss25_hierarchical_multiscale_image_classification_tpu_torch.train.checkpoints import (
+        load_model,
+    )
+    from ss25_hierarchical_multiscale_image_classification_tpu_torch.train.mil_trainer import (
+        mil_predict,
+        train_step,
+    )
+    from ss25_hierarchical_multiscale_image_classification_tpu_torch.train.simclr_trainer import (
+        to_device,
+    )
+    from ss25_hierarchical_multiscale_image_classification_tpu_torch.train.state import (
+        create_train_state,
+    )
+
+    torch.backends.cuda.matmul.allow_tf32 = False
+    data_dir = os.path.join(tmp, "mil_data")
+    models_dir = os.path.join(tmp, "mil_models")
+    t0 = time.perf_counter()
+    bags = mil_features(data_dir)
+    sizes = [len(b.features) for b in bags]
+    log(f"[mil] {len(bags)} bags ({sum(b.label for b in bags)} tumor), "
+        f"{min(sizes)}–{max(sizes)} instances of width 512 "
+        f"({sum(sizes)} in all), triplet written in "
+        f"{time.perf_counter() - t0:.1f} s")
+
+    cfg = Config(models_dir=models_dir)
+    cmd = [sys.executable, "-m", f"{PKG}.cli.main", "--train_mil",
+           "--data_dir", data_dir, "--patch_level", str(LEVEL), "--epochs",
+           str(MIL_EPOCHS), "--models_dir", models_dir, "--device", "cuda"]
+    t0 = time.perf_counter()
+    proc = subprocess.run(cmd, cwd=ROOT, env=dict(os.environ),
+                          capture_output=True, text=True, timeout=600)
+    wall = time.perf_counter() - t0
+    if proc.returncode != 0:
+        raise AssertionError(f"--train_mil failed ({proc.returncode}):\n"
+                             f"{proc.stderr[-4000:]}")
+    epochs = re.findall(r"MIL epoch (\d+)/\d+: loss (\S+) acc (\S+)",
+                        proc.stderr)
+    val = re.search(r"MIL validation accuracy: (\S+)", proc.stderr)
+    log(f"[mil] {' '.join(cmd[3:])} … exit 0 in {wall:.1f} s (process start "
+        f"and the triplet's load included); epochs (loss, acc): "
+        f"{[(float(l), float(a)) for _, l, a in epochs]}; validation "
+        f"accuracy {val.group(1) if val else '?'}")
+    if len(epochs) != MIL_EPOCHS:
+        raise AssertionError(f"expected {MIL_EPOCHS} epoch lines, got "
+                             f"{len(epochs)}")
+    losses = [float(l) for _, l, _ in epochs]
+    acc = float(epochs[-1][2])
+    if not np.isfinite(losses).all() or acc <= 0.7:
+        raise AssertionError(f"MIL training: losses {losses}, last training "
+                             f"accuracy {acc} (must be > 0.7)")
+
+    sd = load_model(os.path.join(models_dir, "mil_classifier"))
+    sd_card = {k: v.to(dev) for k, v in sd.items()}
+    gen = torch.Generator(device=dev).manual_seed(SEED)
+    walls, preds = [], []
+    torch.cuda.synchronize()
+    reset_counts()  # counts from here on are the MIL path's
+    for bag in bags:
+        t0 = time.perf_counter()
+        preds.append(mil_predict(sd_card, bag.features, cfg, mc_dropout=True,
+                                 generator=gen, device=dev))
+        walls.append((time.perf_counter() - t0) * 1e3)
+    launches = mil_attention_pool_kernel.launches
+    q1, med, q3 = quartiles(walls[1:])
+    log(f"[mil] mil_predict with {cfg.uncertainty.monte_carlo_samples} "
+        f"MC-dropout samples on {len(bags)} bags: first {walls[0]:.2f} ms, then "
+        f"median {med:.2f} ms (quartiles {q1:.2f}–{q3:.2f}) = "
+        f"{1e3 / med:.1f} bags/s; mil_attention_pool launches {launches}")
+    if launches != len(bags):
+        raise AssertionError(f"expected {len(bags)} MIL pool launches (one per "
+                             f"MC-dropout call), counted {launches}")
+    right = sum(p["prediction"] == b.label for p, b in zip(preds, bags))
+    for p, b in zip(preds, bags):
+        k = min(len(b.features), cfg.mil.max_bag_size)
+        if not (np.isfinite(p["probs"]).all() and np.isfinite(p["mc_mean"]).all()
+                and abs(p["attention"].sum() - 1.0) < 1e-4
+                and len(p["attention"]) == k and (p["mc_variance"] > 0).all()):
+            raise AssertionError(f"bad mil_predict output for {b.slide}")
+    log(f"[mil] {right}/{len(bags)} slides right; attention sums to 1, "
+        f"mc_variance > 0 on every bag (e.g. {preds[1]['mc_variance']})")
+
+    # without MC dropout: bags of 4096+ instances pool on the kernel
+    for bag in bags:
+        before = mil_attention_pool_kernel.launches
+        mil_predict(sd_card, bag.features, cfg, device=dev)
+        expect = int(min(len(bag.features), cfg.mil.max_bag_size)
+                     >= cfg.mil.streaming_bag_threshold)
+        if mil_attention_pool_kernel.launches - before != expect:
+            raise AssertionError(f"{len(bag.features)}-instance bag launched "
+                                 f"the kernel {mil_attention_pool_kernel.launches - before}"
+                                 f" times without MC dropout, expected {expect}")
+    log(f"[mil] without MC dropout: {sum(s >= 4096 for s in sizes)} bags of "
+        f"4096+ instances launched once each, the others not at all")
+
+    # kernel route against module route; card against the CPU
+    short = next(b for b in bags if len(b.features) < 4096)
+    long = next(b for b in bags if len(b.features) >= 4096)
+    d_route = 0.0
+    for bag in (short, long):
+        on = mil_predict(sd_card, bag.features, cfg, streaming=True, device=dev)
+        off = mil_predict(sd_card, bag.features, cfg, streaming=False, device=dev)
+        d_route = max(d_route, np.abs(on["probs"] - off["probs"]).max())
+        if on["prediction"] != off["prediction"]:
+            raise AssertionError("the kernel and module routes predict apart")
+    # the trained classifier's probabilities may sit at 0 and 1, so the
+    # seeded untrained one is held too, and the attention maps
+    d_cpu = d_attn = 0.0
+    seeded = MILClassifier(input_dim=512).state_dict()
+    for params in (sd, seeded):
+        for bag in (short, long):
+            card = mil_predict(params, bag.features, cfg, device=dev)
+            cpu = mil_predict(params, bag.features, cfg, device="cpu")
+            d_cpu = max(d_cpu, np.abs(card["probs"] - cpu["probs"]).max())
+            d_attn = max(d_attn, np.abs(card["attention"] - cpu["attention"]).max()
+                         / cpu["attention"].max())
+            log(f"[mil] {'trained' if params is sd else 'seeded'} "
+                f"{len(bag.features)}-bag probs card {card['probs']} CPU "
+                f"{cpu['probs']}")
+    log(f"[mil] probs max|Δ|: kernel route against module route {d_route:.3g}, "
+        f"card against CPU {d_cpu:.3g} (bound {MIL_PROBS_ATOL}); attention "
+        f"card against CPU {d_attn:.3g} of its max (bound {MIL_ATTN_RTOL})")
+    if (d_route > MIL_PROBS_ATOL or d_cpu > MIL_PROBS_ATOL
+            or d_attn > MIL_ATTN_RTOL):
+        raise AssertionError("MIL probabilities or attention disagree across "
+                             "routes or devices")
+
+    # a warm epoch as train_mil_classifier runs it (20 train bags, batch 8)
+    order = np.random.default_rng(cfg.train.seed).permutation(len(bags))
+    train_bags = [bags[i] for i in order[max(1, int(len(bags) * 0.2)):]]
+    model = MILClassifier(input_dim=512)
+    model.load_state_dict(sd)
+    state = create_train_state(model, cfg.mil.learning_rate, dev)
+    batches = MILBagIterator(train_bags, 8, cfg.mil.max_bag_size, seed=SEED)
+    epoch_ms = []
+    for _ in range(2):  # the first is a warm-up
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        for feats, mask, labels, valid in batches:
+            train_step(state, gen, to_device(feats, dev), to_device(mask, dev),
+                       to_device(labels, dev), to_device(valid, dev))
+        torch.cuda.synchronize()
+        epoch_ms.append((time.perf_counter() - t0) * 1e3)
+    log(f"[mil] one warm epoch ({len(batches)} steps at batch 8, bags padded "
+        f"to {cfg.mil.max_bag_size}, host batching included): "
+        f"{epoch_ms[1]:.1f} ms (first {epoch_ms[0]:.1f} ms)")
+    return {"launches": launches}
+
+
 def main() -> int:
     if not os.path.isdir(os.path.join(ROOT, PKG)):
         print(f"{PKG}/ not found beside {__file__}: run from a checkout",
@@ -827,6 +1189,7 @@ def main() -> int:
     phase_build()
     kernel = phase_kernels(dev)
     ntxent = phase_ntxent(dev)
+    milpool = phase_milpool(dev)
 
     import numpy as np
 
@@ -856,13 +1219,19 @@ def main() -> int:
         ds = simclr_dataset(slide, grid, tissue, tmp)
         simclr = phase_simclr(dev, ds, tmp)
         phase_simclr_check(dev, ds, simclr["sd"])
+        simclr_launches = simclr["launches"]
+    del ds, simclr
+    torch.cuda.empty_cache()
+    with tempfile.TemporaryDirectory() as tmp:
+        milpool.update(phase_mil(dev, tmp))
 
     jax_ops = "ss25_hierarchical_multiscale_image_classification_tpu/ops/pallas"
     rows = [("fused_normalize", "fused_normalize.cu", "preprocess.py:35",
              kernel)]
     for name, line in (("nt_xent_fwd", 63), ("nt_xent_bwd", 157)):
         rows.append((name, "nt_xent.cu", f"nt_xent.py:{line}",
-                     {"launches": simclr["launches"][name], **ntxent[name]}))
+                     {"launches": simclr_launches[name], **ntxent[name]}))
+    rows.append(("mil_attention_pool", "mil_pool.cu", "mil_pool.py:33", milpool))
     table = {"kernels": [{
         "name": name,
         "route": "cuda",

@@ -1,10 +1,12 @@
-"""Export a JAX-package ResNet18 or SimCLR artifact (Orbax) to the PyTorch port's ``.pt``.
+"""Export a JAX-package ResNet18, SimCLR or MIL artifact (Orbax) to the PyTorch port's ``.pt``.
 
 Reads the artifact with the JAX package's ``train/checkpoints.py::load_model``
 and writes the state dict that the port loads: torchvision layout for a
 ResNet18 (what ``models.convert.load_state_dict_file`` and the port's CLI
 read), the port's ``SimCLRModel`` layout (``encoder.*``, ``projector.*``)
-for a ``simclr_encoder`` artifact. Needs JAX, so it runs where the JAX
+for a ``simclr_encoder`` artifact, the port's ``MILClassifier`` layout
+(``attention.*``, ``dense_0.*``, ``dense_1.*``) for a ``mil_classifier``
+artifact. Needs JAX, so it runs where the JAX
 package runs; the port's machine only reads the ``.pt``.
 
     python scripts/export_jax_checkpoint_to_torch.py \\
@@ -26,6 +28,7 @@ from ss25_hierarchical_multiscale_image_classification_tpu.train.checkpoints imp
     load_model,
 )
 from ss25_hierarchical_multiscale_image_classification_tpu_torch.models.convert import (
+    mil_state_dict_from_flax,
     simclr_state_dict_from_flax,
     state_dict_from_flax,
 )
@@ -40,9 +43,14 @@ def main(argv=None) -> int:
     src = os.path.abspath(args.artifact.rstrip("/"))
     dst = args.output or f"{src}.pt"
     variables = load_model(src)
-    simclr = "projector" in variables["params"]
-    sd = (simclr_state_dict_from_flax if simclr else state_dict_from_flax)(
-        variables)
+    params = variables["params"]
+    if "projector" in params:
+        convert = simclr_state_dict_from_flax
+    elif "Dense_1" in params:  # the MIL classifier's head
+        convert = mil_state_dict_from_flax
+    else:
+        convert = state_dict_from_flax
+    sd = convert(variables)
     torch.save(sd, dst)
     print(f"{src} → {dst} ({len(sd)} tensors)")
     return 0

@@ -1,15 +1,24 @@
-"""Command line of the port: single-slide ``--predict_slide``.
+"""Command line of the port: single-slide ``--predict_slide`` and
+``--train_mil``.
 
-Counterpart of the single-slide branch of the JAX CLI's ``--predict_slide``
-(``cli/main.py`` of the JAX package), with its flags for this path under the
-same names and defaults, plus ``--device``. It loads
-``<models_dir>/<model_name>.pt`` (a torchvision-layout ResNet18 state dict,
-e.g. written by ``scripts/export_jax_checkpoint_to_torch.py``) and writes the
-detection CSV to ``<models_dir>/model_predictions_csv/<slide>.csv``, where
-the JAX CLI writes it.
+Counterpart of the JAX CLI (``cli/main.py`` of the JAX package) for these
+two actions, with their flags under the same names and defaults, plus
+``--device``. Exactly one action is given.
+
+``--predict_slide`` loads ``<models_dir>/<model_name>.pt`` (a
+torchvision-layout ResNet18 state dict, e.g. written by
+``scripts/export_jax_checkpoint_to_torch.py``) and writes the detection CSV
+to ``<models_dir>/model_predictions_csv/<slide>.csv``, where the JAX CLI
+writes it.
+
+``--train_mil`` trains the attention-MIL slide classifier on the feature
+triplet under ``<data_dir>/features`` at ``--patch_level`` and writes
+``<models_dir>/mil_classifier.pt``.
 
     python -m ss25_hierarchical_multiscale_image_classification_tpu_torch.cli.main \\
         --predict_slide slide.wsi.npz --tissue_filter device --device cuda
+    python -m ss25_hierarchical_multiscale_image_classification_tpu_torch.cli.main \\
+        --train_mil --data_dir data/camelyon16 --epochs 20 --device cuda
 
 Tiled TIFF slides, directory (fleet) inputs, ``--overlay``, ``--run_evaluation`` and ``--int8``
 come with later slices. On the card the model runs in bfloat16, on the CPU
@@ -27,6 +36,8 @@ import torch
 from ss25_hierarchical_multiscale_image_classification_tpu_torch.config import (
     DETECTION_PROB_THRESHOLD,
     MODELS_DIR,
+    Config,
+    DataConfig,
 )
 from ss25_hierarchical_multiscale_image_classification_tpu_torch.device import (
     resolve_device,
@@ -39,6 +50,9 @@ from ss25_hierarchical_multiscale_image_classification_tpu_torch.models.convert 
     load_state_dict_file,
     resnet18_from_state_dict,
 )
+from ss25_hierarchical_multiscale_image_classification_tpu_torch.train.mil_trainer import (
+    train_mil_classifier,
+)
 
 log = get_logger("torch.cli")
 
@@ -46,13 +60,22 @@ log = get_logger("torch.cli")
 def build_parser() -> argparse.ArgumentParser:
     parser = argparse.ArgumentParser(
         prog="hipac-torch",
-        description="Sliding-window tumor detection on one slide (PyTorch/CUDA)",
+        description="Sliding-window tumor detection on one slide and "
+                    "attention-MIL slide classification (PyTorch/CUDA)",
     )
-    parser.add_argument("--predict_slide", type=str, required=True,
+    parser.add_argument("--predict_slide", type=str, default=None,
                         help="Sliding-window inference on one slide: writes "
                              "the detection CSV (FROC producer)")
+    parser.add_argument("--train_mil", action="store_true",
+                        help="Train the attention-MIL slide classifier on "
+                             "extracted features")
     parser.add_argument("--patch_level", type=str, default="3",
-                        help="WSI level to grid (0-3; 'all' means 3)")
+                        help="WSI level to grid, or of the features "
+                             "(0-3; 'all' means 3)")
+    parser.add_argument("--epochs", type=int, default=None,
+                        help="Override epoch count")
+    parser.add_argument("--data_dir", type=str, default=None,
+                        help="Data root (default: ./data/camelyon16)")
     parser.add_argument("--stride", type=int, default=None,
                         help="Patch-grid stride in level pixels (default: "
                              "patch size, i.e. non-overlapping)")
@@ -79,19 +102,30 @@ def build_parser() -> argparse.ArgumentParser:
 
 
 def main(argv=None) -> int:
-    args = build_parser().parse_args(argv)
+    parser = build_parser()
+    args = parser.parse_args(argv)
+    if (args.predict_slide is None) == (not args.train_mil):
+        parser.error("give exactly one of --predict_slide and --train_mil")
+    level = 3 if args.patch_level == "all" else int(args.patch_level)
+    models_dir = args.models_dir or MODELS_DIR
+    if args.train_mil:
+        device = resolve_device(args.device)
+        data_dir = args.data_dir or os.path.join(os.getcwd(), "data",
+                                                 "camelyon16")
+        cfg = Config(data=DataConfig(data_dir=data_dir), models_dir=models_dir)
+        train_mil_classifier(cfg, level=level, epochs=args.epochs,
+                             device=device)
+        return 0
     if os.path.isdir(args.predict_slide):
         log.error("--predict_slide takes one slide file here; directory "
                   "(fleet) inputs are not ported yet")
         return 1
     device = resolve_device(args.device)
-    models_dir = args.models_dir or MODELS_DIR
     weights = os.path.join(models_dir, f"{args.model_name}.pt")
     model = resnet18_from_state_dict(load_state_dict_file(weights))
     dtype = torch.bfloat16 if device.type == "cuda" else torch.float32
     model = model.to(device=device, dtype=dtype,
                      memory_format=torch.channels_last)
-    level = 3 if args.patch_level == "all" else int(args.patch_level)
     threshold = (args.detect_threshold if args.detect_threshold is not None
                  else DETECTION_PROB_THRESHOLD)
     predict_kw = {}

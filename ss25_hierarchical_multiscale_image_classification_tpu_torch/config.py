@@ -43,10 +43,22 @@ class DataConfig:
 
     data_dir: str = "data"
     patches_subdir: str = "patches"
+    features_subdir: str = "features"
 
     @property
     def patches_dir(self) -> str:
         return os.path.join(self.data_dir, self.patches_subdir)
+
+    @property
+    def features_dir(self) -> str:
+        return os.path.join(self.data_dir, self.features_subdir)
+
+
+@dataclasses.dataclass
+class TrainConfig:
+    """The ``TrainConfig`` field that the MIL trainer reads."""
+
+    seed: int = 0
 
 
 @dataclasses.dataclass
@@ -72,9 +84,43 @@ class SimCLRConfig:
 
 
 @dataclasses.dataclass
+class MILConfig:
+    """Attention-MIL bag classifier: every field and default of the JAX
+    package's ``MILConfig``."""
+
+    input_dim: int = 512
+    attention_hidden_dim: int = 128
+    head_hidden_dim: int = 128
+    num_classes: int = 2
+    pooling: str = "attention"  # attention | mean | max
+    #: head dropout; also the MC-dropout noise rate
+    dropout_rate: float = 0.25
+    #: bags are padded with a mask to this size (longer ones are cut)
+    max_bag_size: int = 4096
+    #: bags with >= this many instances pool through the streaming kernel
+    #: at inference (``ops/mil_pool.py``); smaller ones through the module
+    streaming_bag_threshold: int = 4096
+    learning_rate: float = 1e-3
+    epochs: int = 20
+
+
+@dataclasses.dataclass
+class UncertaintyConfig:
+    """Uncertainty estimation: every field and default of the JAX package's
+    ``UncertaintyConfig``."""
+
+    softmax_threshold: float = 0.7
+    monte_carlo_samples: int = 100
+
+
+@dataclasses.dataclass
 class Config:
     """The ``Config`` fields that the ported slices read."""
 
     data: DataConfig = dataclasses.field(default_factory=DataConfig)
+    train: TrainConfig = dataclasses.field(default_factory=TrainConfig)
     simclr: SimCLRConfig = dataclasses.field(default_factory=SimCLRConfig)
+    mil: MILConfig = dataclasses.field(default_factory=MILConfig)
+    uncertainty: UncertaintyConfig = dataclasses.field(
+        default_factory=UncertaintyConfig)
     models_dir: str = MODELS_DIR

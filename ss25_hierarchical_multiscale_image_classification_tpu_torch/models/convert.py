@@ -93,6 +93,26 @@ def simclr_state_dict_from_flax(variables: Mapping[str, Any]
     return sd
 
 
+def mil_state_dict_from_flax(variables: Mapping[str, Any]
+                             ) -> dict[str, torch.Tensor]:
+    """flax ``{"params"}`` of the JAX ``MILClassifier`` → the port's
+    ``MILClassifier`` state dict: ``MILAttentionPooling_0/V`` (kernel, bias)
+    and ``/w`` (kernel, no bias) as ``attention.V`` and ``attention.w``
+    (attention pooling only), ``Dense_0`` and ``Dense_1`` as ``dense_0`` and
+    ``dense_1``; every kernel (in, out) transposed to (out, in)."""
+    params = variables["params"]
+    sd: dict[str, torch.Tensor] = {}
+    if "MILAttentionPooling_0" in params:
+        pool = params["MILAttentionPooling_0"]
+        sd["attention.V.weight"] = _tensor(np.asarray(pool["V"]["kernel"]).T)
+        sd["attention.V.bias"] = _tensor(pool["V"]["bias"])
+        sd["attention.w.weight"] = _tensor(np.asarray(pool["w"]["kernel"]).T)
+    for src, dst in (("Dense_0", "dense_0"), ("Dense_1", "dense_1")):
+        sd[f"{dst}.weight"] = _tensor(np.asarray(params[src]["kernel"]).T)
+        sd[f"{dst}.bias"] = _tensor(params[src]["bias"])
+    return sd
+
+
 def load_state_dict_file(path: str) -> dict[str, torch.Tensor]:
     """A ``.pt``/``.pth`` state dict from disk, with the DataParallel
     ``module.`` prefix that reference checkpoints carry stripped."""

@@ -10,7 +10,8 @@ module is imported, so CPU-only installations import it freely.
 
 No ``--use_fast_math``: the normalize kernel's division must be the IEEE
 quotient so that it equals its plain PyTorch version bit for bit, and the
-NT-Xent kernels' ``expf``/``logf`` stay the accurate ones.
+NT-Xent and MIL-pool kernels' ``expf``/``logf``/``tanhf`` stay the
+accurate ones.
 """
 
 from __future__ import annotations
@@ -49,6 +50,13 @@ SOURCES = {
         # z, pos_idx, m, l, g, n_rows, d, inv_tau, dz, stream
         "hipac_nt_xent_bwd": ([_P, _P, _P, _P, _P, _I64, _I64, _F32, _P, _P],
                               ctypes.c_int),
+    },
+    "mil_pool.cu": {
+        # h, mask, v, vb, w, b, k, d, hd, ws_m, ws_l, ws_acc, out, stream
+        "hipac_mil_attention_pool": (
+            [_P, _P, _P, _P, _P, _I64, _I64, _I64, _I64, _P, _P, _P, _P, _P],
+            ctypes.c_int,
+        ),
     },
 }
 

@@ -1,0 +1,50 @@
+"""Classification losses.
+
+Counterpart of the JAX package's ``train/losses.py``
+(``weighted_cross_entropy``, ``accuracy``). The class-weight schemes come
+with the patch-classifier trainer.
+"""
+
+from __future__ import annotations
+
+import torch
+
+
+def weighted_cross_entropy(logits: torch.Tensor, labels: torch.Tensor,
+                           class_weights=None,
+                           valid: torch.Tensor | None = None) -> torch.Tensor:
+    """Per-class-weighted softmax cross entropy with torch
+    ``CrossEntropyLoss(weight=...)`` normalisation: ``Σ w_{y_i} ℓ_i /
+    Σ w_{y_i}`` (a weighted mean), with padded batch rows (``valid`` 0)
+    weighted 0.
+
+    Args:
+        logits: (B, C) float.
+        labels: (B,) int.
+        class_weights: (C,) float or None (plain mean).
+        valid: (B,) {0,1} mask for padded batch rows.
+    Returns:
+        scalar loss.
+    """
+    logits = logits.float()
+    shifted = logits - logits.amax(dim=-1, keepdim=True)
+    log_probs = (shifted.gather(1, labels.long()[:, None])[:, 0]
+                 - torch.log(torch.exp(shifted).sum(dim=-1)))
+    nll = -log_probs  # (B,)
+    if class_weights is not None:
+        w = torch.as_tensor(class_weights, dtype=torch.float32,
+                            device=logits.device)[labels.long()]
+    else:
+        w = torch.ones_like(nll)
+    if valid is not None:
+        w = w * valid.float()
+    return (w * nll).sum() / torch.clamp_min(w.sum(), 1e-8)
+
+
+def accuracy(logits: torch.Tensor, labels: torch.Tensor,
+             valid: torch.Tensor | None = None) -> torch.Tensor:
+    correct = (logits.argmax(dim=-1) == labels).float()
+    if valid is None:
+        return correct.mean()
+    v = valid.float()
+    return (correct * v).sum() / torch.clamp_min(v.sum(), 1.0)

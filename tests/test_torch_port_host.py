@@ -41,6 +41,27 @@ def test_config_constants_equal_jax():
     assert pconfig.MODELS_DIR == jconfig.Config().models_dir
 
 
+def test_mil_config_copies_equal_jax():
+    """Every field and default of ``MILConfig`` and ``UncertaintyConfig``;
+    the ``TrainConfig``, ``DataConfig`` and ``Config`` fields MIL reads."""
+    fields = lambda cls: [(f.name, f.default) for f in dataclasses.fields(cls)]  # noqa: E731
+    assert fields(pconfig.MILConfig) == fields(jconfig.MILConfig)
+    assert fields(pconfig.UncertaintyConfig) == fields(jconfig.UncertaintyConfig)
+    jtrain = dict(fields(jconfig.TrainConfig))
+    assert all(jtrain[name] == value
+               for name, value in fields(pconfig.TrainConfig))
+    jdata = dict(fields(jconfig.DataConfig))
+    assert all(jdata[name] == value for name, value in fields(pconfig.DataConfig))
+    for data_dir in ("data", "/x/y"):
+        assert (pconfig.DataConfig(data_dir=data_dir).features_dir
+                == jconfig.DataConfig(data_dir=data_dir).features_dir)
+    cfg, jcfg = pconfig.Config(), jconfig.Config()
+    for name in ("mil", "uncertainty"):
+        assert (dataclasses.asdict(getattr(cfg, name))
+                == dataclasses.asdict(getattr(jcfg, name)))
+    assert cfg.train.seed == jcfg.train.seed
+
+
 @pytest.mark.parametrize("level,dims,downsample,stride", [
     (3, (1792, 1344), 8.0, 28),
     (3, (250, 130), 8.0, None),   # ragged right and bottom edges
