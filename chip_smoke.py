@@ -1,14 +1,15 @@
 #!/usr/bin/env python3
 """Smoke run of the PyTorch/CUDA port on one NVIDIA card.
 
-Drives the port's three paths once each with random weights from a seed:
+Drives the port's four paths once each with random weights from a seed:
 full-slide tumor detection at the full width of ResNet18 (224² patches,
 64-wide stem, batch 512) on a numpy-rendered synthetic slide
 (``predict_slide`` → detections → CSV, then the ``hipac-torch`` CLI),
-SimCLR pretraining (``pretrain_simclr``) on the slide's tissue cells, and
+SimCLR pretraining (``pretrain_simclr``) on the slide's tissue cells,
 attention-MIL slide classification at the full width of ``MILConfig``
 (``--train_mil``, then ``mil_predict`` with MC dropout) on synthetic bag
-features. It checks every hand-written kernel of those paths against its
+features, and folded bf16 feature extraction (``extract_features``) over the
+slide's tissue cells at batch 512. It checks every hand-written kernel of those paths against its
 plain PyTorch version on the card. Phases:
 
 1. card and software: ``nvidia-smi`` name and power limit, torch, CUDA, nvcc;
@@ -25,6 +26,15 @@ plain PyTorch version on the card. Phases:
    128) with random masks, a fully masked bag and a bag whose first 512
    slots are masked, (2, 37, 100, 24) and (1, 65536, 512, 128); CUDA-event
    medians and quartiles at K = 4096 and 65536, per call and back to back;
+3d. the ``bias_relu_pool`` kernel against its plain version, exactly equal,
+   at (512, 112, 112, 64) bf16 with a (64,) bias and with a (112, 112, 64)
+   bias map, (3, 112, 112, 64) f32 and an odd plane (2, 30, 26, 16);
+   CUDA-event medians and quartiles at B=512 bf16, GB/s against 3.35 TB/s;
+3e. the ``fused_stem`` kernel against its plain version (a float32 conv of
+   the same rounded inputs, TF32 off) at B = 512, 37 and 1, with a (64,)
+   bias and with the folded route's bias map, float32 and bfloat16 products;
+   medians at B=512 beside the library conv + ``bias_relu_pool`` for the
+   same stem;
 4. the slice: a 3,072-cell slide (level 3 of 14336×10752, stride 28) in both
    tissue-filter modes, launch counts read around the run, partitions equal,
    the timed bfloat16 run's margins on sampled tissue cells against a float32
@@ -48,7 +58,16 @@ plain PyTorch version on the card. Phases:
    ones not at all); the kernel route against the module route, the card
    against the CPU (the trained and the seeded untrained classifier,
    probabilities and attention); per-bag predict wall and a warm epoch's
-   wall.
+   wall;
+8. feature extraction: the packed store of the slide's 1,752 tissue cells,
+   the slice's ResNet18 saved as ``resnet18_patch_classifier.pt``,
+   ``extract_features(cfg, level=3, dataset=ds, device="cuda")`` at batch 512
+   in bf16 (4 batches, the last wrap-padded), launch counts read around it
+   (``bias_relu_pool`` 4), then ``run_feature_extraction(stem_s2d=True)``
+   (``fused_stem`` 4); the triplet on disk, the two routes against each
+   other, sampled cells against the float32 CPU ``folded_forward`` and the
+   unfolded model; warm patches/s of both routes, the loop's device idle
+   share and peak device memory.
 
 It imports nothing of JAX or of the JAX package. Run it from the root of a
 checkout:
@@ -57,7 +76,8 @@ checkout:
 
 It exits non-zero, printing no result, without a CUDA card or outside a
 checkout. On success the line before the last is the kernel table as JSON
-and the last line is ``{"ok": true, "device": {...}}``.
+(each kernel's launches on its path, error, time, plain version's time and
+its bound on this card) and the last line is ``{"ok": true, "device": {...}}``.
 """
 
 from __future__ import annotations
@@ -152,6 +172,66 @@ MIL_SHIFT = 32.0
 MIL_SHIFT_CHANNELS = 64
 MIL_PROBS_ATOL = 1e-5  # kernel route against module route, card against CPU
 MIL_ATTN_RTOL = 1e-4  # attention, card against CPU, of max attention
+
+
+# Stem kernels. bias_relu_pool cases as (shape, dtype, bias map); it must
+# equal its plain version exactly.
+POOL_CASES = [((BATCH, 112, 112, 64), "bfloat16", False),
+              ((BATCH, 112, 112, 64), "bfloat16", True),
+              ((3, 112, 112, 64), "float32", True),
+              ((2, 30, 26, 16), "float32", False)]
+STEM_BATCHES = (BATCH, 37, 1)
+# fused_stem against a float32 conv of the same rounded inputs (TF32 off).
+# Measured (H100 80GB HBM3, 700 W): float32 products ≤ 1.05e-5 at max|ref| 15
+# (7e-7 relative; FMA chains of 192 terms in another order than cuDNN's);
+# bfloat16 products with a bfloat16 output differ by one step of the output
+# (0.0625 at |ref| 8..16) where the float32 sums round across a step.
+STEM_F32_RTOL = 1e-4  # of max|ref|
+STEM_BF16_STEP = 2.0 ** -7  # of max(|ref|, 1), per element
+STEM_TIMING_RUNS = 20
+# Feature extraction bound, absolute, on features whose largest spread over
+# the sampled cells must be ≥ 10× the bound (see phase_features): bf16 card
+# features against the float32 CPU folded_forward, and the two stem routes
+# against each other. Measured (H100 80GB HBM3, 700 W): 0.171 (default
+# route), 0.149 (stem_s2d) and 0.143 (route against route) at features up to
+# 4.79 with a spread of 4.65: the trunk's bf16 rounding, ~3.6 % of the largest
+# feature. Against the unfolded bf16 model two bf16 forwards differ, so the
+# bound there is twice this (measured 0.271).
+FEAT_BF16_ATOL = 0.3
+FEAT_REF_CELLS = 32
+FEAT_TIMED_STEPS = 10
+# The card's published peaks (H100 SXM): device memory and dense rates.
+HBM_BYTES_S = 3.35e12
+FP32_FLOP_S = 67e12
+BF16_FLOP_S = 989e12
+
+
+def bound_ms(nbytes: float, flop: float, flop_s: float = FP32_FLOP_S) -> dict:
+    """The least time the card could take: the larger of the bytes moved
+    over the memory rate and the operations over the peak rate."""
+    by_bytes = nbytes / HBM_BYTES_S * 1e3
+    by_ops = flop / flop_s * 1e3
+    return {"bound_ms": max(by_bytes, by_ops),
+            "bound_by": "bytes" if by_bytes >= by_ops else "operations"}
+
+
+def busy_us(prof) -> float:
+    """Union of the device's kernel and copy intervals of a profile, in µs."""
+    import torch
+
+    spans = sorted((e.time_range.start, e.time_range.end) for e in prof.events()
+                   if e.device_type == torch.autograd.DeviceType.CUDA)
+    total, cur_s, cur_e = 0.0, None, None
+    for s, e in spans:
+        if cur_e is None or s > cur_e:
+            if cur_e is not None:
+                total += cur_e - cur_s
+            cur_s, cur_e = s, e
+        else:
+            cur_e = max(cur_e, e)
+    if cur_e is not None:
+        total += cur_e - cur_s
+    return total
 
 
 def log(msg: str) -> None:
@@ -273,8 +353,10 @@ def phase_kernels(dev) -> dict:
         log(f"[kernel] fused_normalize B={BATCH} 224² → {dtype}: kernel "
             f"{times[dtype][0]:.4f} ms ({mb / times[dtype][0]:.1f} GB/s), "
             f"plain {times[dtype][1]:.4f} ms (medians of {2 * TIMING_RUNS})")
+    # bf16 at B=512: each byte read once, two written; a subtract and a divide
     return {"max_abs_err": max_err, "ms": times[torch.bfloat16][0],
-            "plain_ms": times[torch.bfloat16][1]}
+            "plain_ms": times[torch.bfloat16][1], "library_ms": None,
+            **bound_ms(x.numel() * 3 + 4 * BATCH, 2 * x.numel())}
 
 
 def ntxent_launchers():
@@ -288,6 +370,10 @@ def ntxent_launchers():
 
 def reset_counts() -> None:
     """Every kernel's launch count to 0, just before a path runs."""
+    from ss25_hierarchical_multiscale_image_classification_tpu_torch.ops.fused_stem import (
+        bias_relu_pool_kernel,
+        fused_stem_kernel,
+    )
     from ss25_hierarchical_multiscale_image_classification_tpu_torch.ops.mil_pool import (
         mil_attention_pool_kernel,
     )
@@ -295,7 +381,8 @@ def reset_counts() -> None:
         fused_normalize,
     )
 
-    for fn in (fused_normalize, *ntxent_launchers(), mil_attention_pool_kernel):
+    for fn in (fused_normalize, *ntxent_launchers(), mil_attention_pool_kernel,
+               bias_relu_pool_kernel, fused_stem_kernel):
         fn.launches = 0
 
 
@@ -404,13 +491,20 @@ def phase_ntxent(dev) -> dict:
         del zg, rows_r
         torch.cuda.empty_cache()
     path_rows = NTX_TIMING_ROWS[0]
+    # forward: the (2N)² scores over D; backward: scores again and (A+Aᵀ)Z;
+    # z read, rows (and m, l) or dz written, in float32
+    flop = 2 * path_rows * path_rows * 128
     return {
         "nt_xent_fwd": {"max_abs_err": err_fwd,
                         "ms": times[(path_rows, "fwd")][0],
-                        "plain_ms": times[(path_rows, "fwd")][1]},
+                        "plain_ms": times[(path_rows, "fwd")][1],
+                        "library_ms": None,
+                        **bound_ms(4 * path_rows * (128 + 4), flop)},
         "nt_xent_bwd": {"max_abs_err": err_bwd,
                         "ms": times[(path_rows, "bwd")][0],
-                        "plain_ms": times[(path_rows, "bwd")][1]},
+                        "plain_ms": times[(path_rows, "bwd")][1],
+                        "library_ms": None,
+                        **bound_ms(4 * path_rows * (2 * 128 + 4), 2 * flop)},
     }
 
 
@@ -497,8 +591,196 @@ def phase_milpool(dev) -> dict:
             f"({flop / kb / 1e9:.2f} TFLOP/s = {flop / kb / 1e9 / 67 * 100:.1f} "
             f"% of the 67 TFLOP/s FP32 peak), plain {pb:.4f} ms "
             f"({flop / pb / 1e9:.2f} TFLOP/s)")
+    # K = 4096: h, mask, V, w, b read, the bag written; h V and the pooled sum
+    k, d, h = 4096, 512, 128
     return {"max_abs_err": max_err, "ms": times[4096][0],
-            "plain_ms": times[4096][1]}
+            "plain_ms": times[4096][1], "library_ms": None,
+            **bound_ms(4 * (k * d + d * h + 2 * h + d) + k,
+                       2 * k * d * h + 2 * k * h + 2 * k * d)}
+
+
+def timed_in_turns(kernel, plain, runs: int):
+    """Quartiles of per-call CUDA-event times of ``kernel`` and ``plain``,
+    run in turns (plain, kernel, kernel, plain) after a warm-up."""
+    for fn in (plain, kernel):
+        cuda_ms(fn, 3)
+    half = max(runs // 2, 2)
+    p = cuda_ms(plain, half)
+    k = cuda_ms(kernel, half) + cuda_ms(kernel, half)
+    p += cuda_ms(plain, half)
+    return quartiles(k), quartiles(p)
+
+
+def phase_stem_pool(dev) -> dict:
+    """The ``bias_relu_pool`` kernel against its plain version, exactly
+    equal, then its time at the path's shape."""
+    import torch
+    import torch.nn.functional as F
+
+    from ss25_hierarchical_multiscale_image_classification_tpu_torch.ops.fused_stem import (
+        bias_relu_pool_kernel,
+        bias_relu_pool_reference,
+    )
+
+    g = torch.Generator(device=dev).manual_seed(SEED)
+    max_err = 0.0
+    for shape, dtype_name, bias_map in POOL_CASES:
+        dtype = getattr(torch, dtype_name)
+        x = torch.randn(shape, device=dev, generator=g).to(dtype)
+        bias = 0.5 * torch.randn(shape[1:] if bias_map else shape[-1:],
+                                 device=dev, generator=g)
+        for out_dtype in (torch.bfloat16, torch.float32):
+            out = bias_relu_pool_kernel(x, bias, out_dtype)
+            torch.cuda.synchronize()
+            ref = bias_relu_pool_reference(x, bias, out_dtype)
+            err = (out.float() - ref.float()).abs().max().item()
+            max_err = max(max_err, err)
+            same = out.shape == ref.shape and torch.equal(out, ref)
+            log(f"[stem-pool] bias_relu_pool {shape} {dtype_name} bias "
+                f"{'map' if bias_map else 'vector'} → {out_dtype}: exact={same} "
+                f"max_abs_err={err}")
+            if not same:
+                raise AssertionError(f"bias_relu_pool differs from its plain "
+                                     f"version at {shape} {dtype_name}")
+        del x, out, ref
+
+    shape = POOL_CASES[1][0]  # the path: bf16 plane, bias map, bf16 out
+    x = torch.randn(shape, device=dev, generator=g).to(torch.bfloat16)
+    bias = 0.5 * torch.randn(shape[1:], device=dev, generator=g)
+    moved = x.numel() * 2 + bias.numel() * 4 + x.numel() // 4 * 2
+    kq, pq = timed_in_turns(
+        lambda: bias_relu_pool_kernel(x, bias, torch.bfloat16),
+        lambda: bias_relu_pool_reference(x, bias, torch.bfloat16),
+        STEM_TIMING_RUNS)
+    # the nearest library composition in the plane's dtype (three calls)
+    b16 = bias.to(torch.bfloat16)
+    xn = x.permute(0, 3, 1, 2)
+    bn = b16.permute(2, 0, 1)
+    lib = quartiles(cuda_ms(
+        lambda: F.max_pool2d(torch.relu_(xn + bn), 3, 2, 1), STEM_TIMING_RUNS))
+    bound = bound_ms(moved, 3 * x.numel())
+    log(f"[stem-pool] {shape} bf16 + map → bf16, {moved / 1e6:.0f} MB moved: "
+        f"kernel {kq[1]:.4f} ms (quartiles {kq[0]:.4f}–{kq[2]:.4f}; "
+        f"{moved / kq[1] / 1e6:.0f} GB/s = "
+        f"{moved / kq[1] / 1e6 / (HBM_BYTES_S / 1e9) * 100:.1f} % of 3.35 TB/s; "
+        f"bound {bound['bound_ms']:.4f} ms), plain {pq[1]:.4f} ms "
+        f"({pq[0]:.4f}–{pq[2]:.4f}); add + relu_ + max_pool2d in bf16 (three "
+        f"library calls, rounding after each) {lib[1]:.4f} ms")
+    return {"max_abs_err": max_err, "ms": kq[1], "plain_ms": pq[1],
+            "library_ms": None, **bound}
+
+
+def phase_fused_stem(dev, sd) -> dict:
+    """The ``fused_stem`` kernel against its plain version with both kinds of
+    input (``stem_space_to_depth`` + ``fold_stem_params`` with a (64,) bias;
+    the folded route's cells, weights and bias map), then its times."""
+    import torch
+    import torch.nn.functional as F
+
+    from ss25_hierarchical_multiscale_image_classification_tpu_torch.models.quantized import (
+        fold_resnet18_inference,
+        folded_to,
+    )
+    from ss25_hierarchical_multiscale_image_classification_tpu_torch.ops.fused_stem import (
+        bias_relu_pool_kernel,
+        fold_stem_params,
+        fused_stem,
+        fused_stem_reference,
+        stem_space_to_depth,
+    )
+
+    torch.backends.cudnn.allow_tf32 = False
+    g = torch.Generator(device=dev).manual_seed(SEED)
+    w2_vec, bias_vec = fold_stem_params(
+        sd["conv1.weight"].permute(2, 3, 1, 0), sd["bn1.weight"],
+        sd["bn1.bias"], sd["bn1.running_mean"], sd["bn1.running_var"])
+    w2_vec, bias_vec = w2_vec.to(dev), bias_vec.to(dev)
+    fp = folded_to(fold_resnet18_inference(sd, (224, 224), stem_s2d=True,
+                                           dtype=torch.bfloat16), dev)
+    w2_map, bias_map = fp["stem_w2"].float(), fp["stem_bias_map"].float()
+
+    def folded_cells(imgs):
+        n = imgs.shape[0]
+        t = imgs.to(torch.bfloat16) - 128
+        s = t.reshape(n, 112, 2, 112, 2, 3).permute(0, 1, 3, 2, 4, 5)
+        return t, F.pad(s.reshape(n, 112, 112, 12), (0, 0, 2, 1, 2, 1))
+
+    max_err = 0.0
+    for batch in STEM_BATCHES:
+        imgs = torch.randint(0, 256, (batch, 224, 224, 3), dtype=torch.uint8,
+                             device=dev, generator=g)
+        inputs = {"vector": (stem_space_to_depth(imgs), w2_vec, bias_vec),
+                  "map": (folded_cells(imgs)[1], w2_map, bias_map)}
+        for kind, (in2, w2, bias) in inputs.items():
+            out = fused_stem(in2, w2, bias, torch.float32, torch.float32)
+            torch.cuda.synchronize()
+            ref = fused_stem_reference(in2, w2, bias, torch.float32,
+                                       torch.float32)
+            scale = ref.abs().max().item()
+            e32 = (out - ref).abs().max().item()
+            out16 = fused_stem(in2, w2, bias, torch.bfloat16, torch.bfloat16)
+            torch.cuda.synchronize()
+            ref16 = fused_stem_reference(in2, w2, bias, torch.bfloat16,
+                                         torch.bfloat16).float()
+            d16 = (out16.float() - ref16).abs()
+            steps = (d16 / (STEM_BF16_STEP * ref16.abs().clamp_min(1.0))).max().item()
+            max_err = max(max_err, d16.max().item())
+            log(f"[stem] fused_stem B={batch} {in2.dtype} cells, bias {kind}: "
+                f"f32 products max|Δ| {e32:.3g} (max|ref| {scale:.4g}, "
+                f"{e32 / scale:.3g} relative, bound {STEM_F32_RTOL}); bf16 "
+                f"products and output max|Δ| {d16.max().item():.3g} = "
+                f"{steps:.3g} bf16 steps of the output (bound 1), "
+                f"{(d16 > 0).float().mean().item():.3g} of the elements differ")
+            if not (torch.isfinite(out).all() and torch.isfinite(out16).all()):
+                raise AssertionError(f"non-finite fused_stem output at B={batch}")
+            if out.shape != ref.shape or e32 > STEM_F32_RTOL * scale or steps > 1.0:
+                raise AssertionError(f"fused_stem differs from its plain "
+                                     f"version at B={batch}, bias {kind}")
+        del inputs, out, ref, out16, ref16, d16
+
+    # times at B=512 on the path's inputs: bf16 cells, bias map, bf16 out
+    imgs = torch.randint(0, 256, (BATCH, 224, 224, 3), dtype=torch.uint8,
+                         device=dev, generator=g)
+    t, in2 = folded_cells(imgs)
+    in2_f32 = in2.float()
+    kq, pq = timed_in_turns(
+        lambda: fused_stem(in2, w2_map, bias_map, torch.bfloat16, torch.bfloat16),
+        lambda: fused_stem_reference(in2, w2_map, bias_map, torch.bfloat16,
+                                     torch.bfloat16),
+        STEM_TIMING_RUNS)
+    k32 = quartiles(cuda_ms(
+        lambda: fused_stem(in2_f32, w2_map, bias_map, torch.bfloat16,
+                           torch.float32), STEM_TIMING_RUNS))
+    # the default route's stem: library 7×7/2 conv, then kernel 2b
+    fp7 = folded_to(fold_resnet18_inference(sd, (224, 224), dtype=torch.bfloat16),
+                    dev)
+    w7, tn = fp7["kernels"]["stem"], t.permute(0, 3, 1, 2)
+
+    def conv_then_pool():
+        y = F.conv2d(tn, w7, None, 2, 3)
+        return bias_relu_pool_kernel(y.permute(0, 2, 3, 1), bias_map,
+                                     torch.bfloat16)
+
+    conv = quartiles(cuda_ms(lambda: F.conv2d(tn, w7, None, 2, 3),
+                             STEM_TIMING_RUNS))
+    both = quartiles(cuda_ms(conv_then_pool, STEM_TIMING_RUNS))
+    flop = 2 * BATCH * 112 * 112 * 192 * 64
+    moved = in2.numel() * 2 + (w2_map.numel() + bias_map.numel()) * 4 \
+        + BATCH * 56 * 56 * 64 * 2
+    bound = bound_ms(moved, flop, BF16_FLOP_S)
+    log(f"[stem] fused_stem B={BATCH}, bf16 cells + map → bf16 "
+        f"({flop / 1e9:.1f} GFLOP, {moved / 1e6:.0f} MB): kernel {kq[1]:.4f} ms "
+        f"(quartiles {kq[0]:.4f}–{kq[2]:.4f}; {flop / kq[1] / 1e9:.1f} TFLOP/s = "
+        f"{flop / kq[1] / BF16_FLOP_S * 1e5:.1f} % of the 989 TFLOP/s dense bf16 "
+        f"tensor peak; bound {bound['bound_ms']:.4f} ms), f32 cells and "
+        f"products on FP32 FMAs {k32[1]:.4f} ms ({flop / k32[1] / 1e9:.1f} "
+        f"TFLOP/s; at least {flop / FP32_FLOP_S * 1e3:.4f} ms at the 67 TFLOP/s "
+        f"FP32 peak), plain {pq[1]:.4f} ms "
+        f"({pq[0]:.4f}–{pq[2]:.4f}); library conv 7×7/2 {conv[1]:.4f} ms, "
+        f"conv + bias_relu_pool kernel {both[1]:.4f} ms "
+        f"({both[0]:.4f}–{both[2]:.4f})")
+    return {"max_abs_err": max_err, "ms": kq[1], "plain_ms": pq[1],
+            "library_ms": None, **bound}
 
 
 def tissue_cells(slide):
@@ -1177,6 +1459,163 @@ def phase_mil(dev, tmp) -> dict:
     return {"launches": launches}
 
 
+def phase_features(dev, ds, sd, tmp) -> dict:
+    """``extract_features`` on the card over the packed store of the slide's
+    tissue cells, the stem kernels' launches counted around each route."""
+    import numpy as np
+    import torch
+    from torch.profiler import ProfilerActivity, profile
+
+    from ss25_hierarchical_multiscale_image_classification_tpu_torch.config import (
+        Config,
+        DataConfig,
+    )
+    from ss25_hierarchical_multiscale_image_classification_tpu_torch.infer.features import (
+        extract_features,
+        load_feature_artifacts,
+        make_feature_step,
+        run_feature_extraction,
+    )
+    from ss25_hierarchical_multiscale_image_classification_tpu_torch.models.convert import (
+        resnet18_from_state_dict,
+        strip_head,
+    )
+    from ss25_hierarchical_multiscale_image_classification_tpu_torch.models.quantized import (
+        fold_batchnorm,
+        fold_resnet18_inference,
+        folded_forward,
+        folded_forward_inference,
+        folded_to,
+    )
+    from ss25_hierarchical_multiscale_image_classification_tpu_torch.ops.fused_stem import (
+        bias_relu_pool_kernel,
+        fused_stem_kernel,
+    )
+    from ss25_hierarchical_multiscale_image_classification_tpu_torch.train.checkpoints import (
+        save_model,
+    )
+
+    models_dir = os.path.join(tmp, "feature_models")
+    save_model(os.path.join(models_dir, "resnet18_patch_classifier"), sd)
+    cfg = Config(data=DataConfig(data_dir=os.path.join(tmp, "feature_data")),
+                 models_dir=models_dir)
+    trunk = strip_head(sd)
+    n, steps = len(ds), -(-len(ds) // BATCH)
+
+    def counts():
+        return {"bias_relu_pool": bias_relu_pool_kernel.launches,
+                "fused_stem": fused_stem_kernel.launches}
+
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    reset_counts()  # counts from here on are the default route's
+    t0 = time.perf_counter()
+    feats = extract_features(cfg, level=LEVEL, batch_size=BATCH, dataset=ds,
+                             device="cuda")
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    launches = counts()
+    peak = torch.cuda.max_memory_allocated()
+    log(f"[features] extract_features: {n} cells, batch {BATCH}, {steps} "
+        f"batches (the last {n - (steps - 1) * BATCH} real rows) in {wall:.2f} s"
+        f" (cold: folds, first cuDNN calls, artifact writes); launches "
+        f"{launches}; peak device memory {peak / 2**30:.2f} GiB")
+    if launches != {"bias_relu_pool": steps, "fused_stem": 0}:
+        raise AssertionError(f"expected {steps} bias_relu_pool launches on the "
+                             f"default route, counted {launches}")
+    disk, labels, names = load_feature_artifacts(cfg.data.features_dir, LEVEL)
+    if (disk.shape != (n, 512) or disk.dtype != np.float32
+            or not np.array_equal(disk, np.asarray(feats))
+            or not np.isfinite(disk).all()):
+        raise AssertionError("feature artifact is not the (N, 512) float32 "
+                             "matrix the call returned")
+    if (not np.array_equal(labels, ds.labels)
+            or names != [rec.patch_name for rec in ds.manifest]):
+        raise AssertionError("labels or names are not in manifest order")
+
+    reset_counts()  # counts from here on are the space-to-depth route's
+    feats_s2d, _, _ = run_feature_extraction(ds, trunk, BATCH, device=dev,
+                                             stem_s2d=True)
+    torch.cuda.synchronize()
+    launches_s2d = counts()
+    if launches_s2d != {"bias_relu_pool": 0, "fused_stem": steps}:
+        raise AssertionError(f"expected {steps} fused_stem launches on the "
+                             f"stem_s2d route, counted {launches_s2d}")
+    d_routes = np.abs(disk - feats_s2d).max()
+
+    # sampled cells: float32 CPU folded_forward, and the unfolded bf16 model
+    idx = np.sort(np.random.default_rng(SEED).choice(n, FEAT_REF_CELLS,
+                                                     replace=False))
+    imgs, _ = ds.read_batch(idx)
+    with torch.inference_mode():
+        ref = folded_forward(fold_batchnorm(trunk), torch.from_numpy(imgs),
+                             with_fc=False).numpy()
+        unfolded = resnet18_from_state_dict(trunk).to(
+            device=dev, dtype=torch.bfloat16, memory_format=torch.channels_last)
+        plain = make_feature_step(unfolded)(torch.from_numpy(imgs).to(dev))
+        plain = plain.cpu().numpy()
+    spread = (ref.max(axis=0) - ref.min(axis=0)).max()
+    d_ref = np.abs(disk[idx] - ref).max()
+    d_ref_s2d = np.abs(feats_s2d[idx] - ref).max()
+    d_plain = np.abs(disk[idx] - plain).max()
+    log(f"[features] {FEAT_REF_CELLS} sampled cells: float32 CPU features up to "
+        f"{ref.max():.4f}, largest spread of a feature over the cells "
+        f"{spread:.4f} (must be ≥ {10 * FEAT_BF16_ATOL}); bf16 card max|Δ| "
+        f"{d_ref:.4g} (default route; mean|Δ| "
+        f"{np.abs(disk[idx] - ref).mean():.4g}), {d_ref_s2d:.4g} (stem_s2d), the "
+        f"two routes over all {n} cells {d_routes:.4g} (bound {FEAT_BF16_ATOL}); "
+        f"against the unfolded bf16 model {d_plain:.4g} (bound "
+        f"{2 * FEAT_BF16_ATOL}); unfolded bf16 model against float32 CPU "
+        f"{np.abs(plain - ref).max():.4g}")
+    if spread < 10 * FEAT_BF16_ATOL:
+        raise AssertionError("reference features spread too little to check "
+                             "the bf16 forward")
+    if (max(d_ref, d_ref_s2d, d_routes) > FEAT_BF16_ATOL
+            or d_plain > 2 * FEAT_BF16_ATOL):
+        raise AssertionError("bf16 features outside their bound")
+
+    # warm device-only steps of both routes on one batch on the card
+    x = torch.from_numpy(ds.read_batch(range(BATCH))[0]).to(dev)
+    step_ms = {}
+    with torch.inference_mode():
+        fps = {s2d: folded_to(fold_resnet18_inference(
+            trunk, (224, 224), stem_s2d=s2d, dtype=torch.bfloat16), dev)
+            for s2d in (False, True)}
+        model_step = make_feature_step(unfolded)
+        fns = {"folded": lambda: folded_forward_inference(fps[False], x, False),
+               "folded stem_s2d": lambda: folded_forward_inference(fps[True], x,
+                                                                   False),
+               "unfolded": lambda: model_step(x)}
+        for fn in fns.values():
+            cuda_ms(fn, 3)  # warm-up
+        for _ in range(2):  # in turns
+            for name, fn in fns.items():
+                step_ms.setdefault(name, []).extend(
+                    cuda_ms(fn, FEAT_TIMED_STEPS // 2))
+    for name, ms in step_ms.items():
+        q1, med, q3 = quartiles(ms)
+        log(f"[features] warm {name} forward at B={BATCH} bf16 (batch on the "
+            f"card): median {med:.3f} ms (quartiles {q1:.3f}–{q3:.3f}, "
+            f"{len(ms)} steps) = {BATCH / med * 1e3:.0f} patches/s")
+
+    # the loop as run_feature_extraction runs it, warm, under the profiler
+    for s2d in (False, True):
+        torch.cuda.synchronize()
+        with profile(activities=[ProfilerActivity.CPU,
+                                 ProfilerActivity.CUDA]) as prof:
+            t0 = time.perf_counter()
+            run_feature_extraction(ds, trunk, BATCH, device=dev, stem_s2d=s2d)
+            torch.cuda.synchronize()
+            wall_ms = (time.perf_counter() - t0) * 1e3
+        busy = busy_us(prof) / 1e3
+        log(f"[features] warm run_feature_extraction(stem_s2d={s2d}), folds and "
+            f"packed-store reads included: {wall_ms:.1f} ms = "
+            f"{n / wall_ms * 1e3:.0f} patches/s; device busy {busy:.1f} ms, "
+            f"idle share {1 - busy / wall_ms:.3f}")
+    return {"bias_relu_pool": launches["bias_relu_pool"],
+            "fused_stem": launches_s2d["fused_stem"]}
+
+
 def main() -> int:
     if not os.path.isdir(os.path.join(ROOT, PKG)):
         print(f"{PKG}/ not found beside {__file__}: run from a checkout",
@@ -1214,16 +1653,25 @@ def main() -> int:
     check_reference(sd, f32_card, cells(ref), kernel.pop("ref_margins"), dev)
     phase_cli(sd, slide)
     del f32_card, model
+    torch.cuda.empty_cache()
+    stem_pool = phase_stem_pool(dev)
+    stem = phase_fused_stem(dev, sd)
+    torch.cuda.empty_cache()
 
     with tempfile.TemporaryDirectory() as tmp:
         ds = simclr_dataset(slide, grid, tissue, tmp)
         simclr = phase_simclr(dev, ds, tmp)
         phase_simclr_check(dev, ds, simclr["sd"])
         simclr_launches = simclr["launches"]
-    del ds, simclr
-    torch.cuda.empty_cache()
-    with tempfile.TemporaryDirectory() as tmp:
-        milpool.update(phase_mil(dev, tmp))
+        del simclr
+        torch.cuda.empty_cache()
+        with tempfile.TemporaryDirectory() as mil_tmp:
+            milpool.update(phase_mil(dev, mil_tmp))
+        torch.cuda.empty_cache()
+        # last: it ends under torch.profiler, and host-clock walls taken in
+        # this process after a profiler session come out longer
+        feature_launches = phase_features(dev, ds, sd, tmp)
+    del ds
 
     jax_ops = "ss25_hierarchical_multiscale_image_classification_tpu/ops/pallas"
     rows = [("fused_normalize", "fused_normalize.cu", "preprocess.py:35",
@@ -1232,6 +1680,10 @@ def main() -> int:
         rows.append((name, "nt_xent.cu", f"nt_xent.py:{line}",
                      {"launches": simclr_launches[name], **ntxent[name]}))
     rows.append(("mil_attention_pool", "mil_pool.cu", "mil_pool.py:33", milpool))
+    rows.append(("bias_relu_pool", "bias_relu_pool.cu", "fused_stem.py:220",
+                 {"launches": feature_launches["bias_relu_pool"], **stem_pool}))
+    rows.append(("fused_stem", "fused_stem.cu", "fused_stem.py:115",
+                 {"launches": feature_launches["fused_stem"], **stem}))
     table = {"kernels": [{
         "name": name,
         "route": "cuda",
@@ -1241,6 +1693,9 @@ def main() -> int:
         "max_abs_err": k["max_abs_err"],
         "ms": k["ms"],
         "plain_ms": k["plain_ms"],
+        "bound_ms": k["bound_ms"],
+        "bound_by": k["bound_by"],
+        "library_ms": k["library_ms"],
     } for name, source, replaces, k in rows]}
     log(smi)  # the card's name and power limit, as nvidia-smi prints them
     log(json.dumps(table))

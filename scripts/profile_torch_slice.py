@@ -40,23 +40,7 @@ def quartiles(xs: list[float]) -> dict:
             "runs": len(xs)}
 
 
-def busy_us(prof) -> float:
-    """Union of the device's kernel and copy intervals, in µs."""
-    import torch
-
-    spans = sorted((e.time_range.start, e.time_range.end) for e in prof.events()
-                   if e.device_type == torch.autograd.DeviceType.CUDA)
-    total, cur_s, cur_e = 0.0, None, None
-    for s, e in spans:
-        if cur_e is None or s > cur_e:
-            if cur_e is not None:
-                total += cur_e - cur_s
-            cur_s, cur_e = s, e
-        else:
-            cur_e = max(cur_e, e)
-    if cur_e is not None:
-        total += cur_e - cur_s
-    return total
+busy_us = cs.busy_us  # union of the device's kernel and copy intervals, µs
 
 
 def top_ops(prof, k: int = 12) -> list[dict]:

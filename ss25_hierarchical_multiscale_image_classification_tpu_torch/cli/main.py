@@ -1,8 +1,8 @@
-"""Command line of the port: single-slide ``--predict_slide`` and
-``--train_mil``.
+"""Command line of the port: single-slide ``--predict_slide``,
+``--train_mil`` and ``--extract_features``.
 
 Counterpart of the JAX CLI (``cli/main.py`` of the JAX package) for these
-two actions, with their flags under the same names and defaults, plus
+three actions, with their flags under the same names and defaults, plus
 ``--device``. Exactly one action is given.
 
 ``--predict_slide`` loads ``<models_dir>/<model_name>.pt`` (a
@@ -19,6 +19,14 @@ triplet under ``<data_dir>/features`` at ``--patch_level`` and writes
         --predict_slide slide.wsi.npz --tissue_filter device --device cuda
     python -m ss25_hierarchical_multiscale_image_classification_tpu_torch.cli.main \\
         --train_mil --data_dir data/camelyon16 --epochs 20 --device cuda
+    python -m ss25_hierarchical_multiscale_image_classification_tpu_torch.cli.main \\
+        --extract_features --data_dir data/camelyon16 --patch_level 3
+
+``--extract_features`` runs the inference-folded ResNet18 trunk of
+``<models_dir>/resnet18_patch_classifier.pt`` (with ``--simclr_features``:
+of ``simclr_encoder.pt``) over the level's patches under
+``<data_dir>/patches`` and writes the feature triplet under
+``<data_dir>/features``.
 
 Tiled TIFF slides, directory (fleet) inputs, ``--overlay``, ``--run_evaluation`` and ``--int8``
 come with later slices. On the card the model runs in bfloat16, on the CPU
@@ -42,6 +50,10 @@ from ss25_hierarchical_multiscale_image_classification_tpu_torch.config import (
 from ss25_hierarchical_multiscale_image_classification_tpu_torch.device import (
     resolve_device,
 )
+from ss25_hierarchical_multiscale_image_classification_tpu_torch.infer.features import (
+    extract_features,
+    extract_features_with_simclr,
+)
 from ss25_hierarchical_multiscale_image_classification_tpu_torch.infer.sliding_window import (
     predict_and_export,
 )
@@ -60,8 +72,9 @@ log = get_logger("torch.cli")
 def build_parser() -> argparse.ArgumentParser:
     parser = argparse.ArgumentParser(
         prog="hipac-torch",
-        description="Sliding-window tumor detection on one slide and "
-                    "attention-MIL slide classification (PyTorch/CUDA)",
+        description="Sliding-window tumor detection on one slide, "
+                    "attention-MIL slide classification and patch feature "
+                    "extraction (PyTorch/CUDA)",
     )
     parser.add_argument("--predict_slide", type=str, default=None,
                         help="Sliding-window inference on one slide: writes "
@@ -69,6 +82,10 @@ def build_parser() -> argparse.ArgumentParser:
     parser.add_argument("--train_mil", action="store_true",
                         help="Train the attention-MIL slide classifier on "
                              "extracted features")
+    parser.add_argument("--extract_features", action="store_true",
+                        help="Extract features from patches")
+    parser.add_argument("--simclr_features", action="store_true",
+                        help="With --extract_features: use the SimCLR encoder")
     parser.add_argument("--patch_level", type=str, default="3",
                         help="WSI level to grid, or of the features "
                              "(0-3; 'all' means 3)")
@@ -80,7 +97,8 @@ def build_parser() -> argparse.ArgumentParser:
                         help="Patch-grid stride in level pixels (default: "
                              "patch size, i.e. non-overlapping)")
     parser.add_argument("--batch_size", type=int, default=None,
-                        help="Cells per device batch (default 512)")
+                        help="Cells or patches per device batch (default "
+                             "512)")
     parser.add_argument("--tissue_filter", choices=["host", "device"],
                         default="host",
                         help="Where the white-patch short-circuit runs: "
@@ -104,17 +122,32 @@ def build_parser() -> argparse.ArgumentParser:
 def main(argv=None) -> int:
     parser = build_parser()
     args = parser.parse_args(argv)
-    if (args.predict_slide is None) == (not args.train_mil):
-        parser.error("give exactly one of --predict_slide and --train_mil")
+    actions = [args.predict_slide is not None, args.train_mil,
+               args.extract_features]
+    if sum(actions) != 1:
+        parser.error("give exactly one of --predict_slide, --train_mil and "
+                     "--extract_features")
+    if args.simclr_features and not args.extract_features:
+        parser.error("--simclr_features goes with --extract_features")
     level = 3 if args.patch_level == "all" else int(args.patch_level)
     models_dir = args.models_dir or MODELS_DIR
-    if args.train_mil:
+    if args.train_mil or args.extract_features:
         device = resolve_device(args.device)
         data_dir = args.data_dir or os.path.join(os.getcwd(), "data",
                                                  "camelyon16")
         cfg = Config(data=DataConfig(data_dir=data_dir), models_dir=models_dir)
-        train_mil_classifier(cfg, level=level, epochs=args.epochs,
-                             device=device)
+        if args.train_mil:
+            train_mil_classifier(cfg, level=level, epochs=args.epochs,
+                                 device=device)
+            return 0
+        if not os.path.isdir(os.path.join(cfg.data.patches_dir,
+                                          f"level_{level}")):
+            log.error("Patches must be extracted at level %d before "
+                      "features.", level)
+            return 1
+        extract = (extract_features_with_simclr if args.simclr_features
+                   else extract_features)
+        extract(cfg, level=level, batch_size=args.batch_size, device=device)
         return 0
     if os.path.isdir(args.predict_slide):
         log.error("--predict_slide takes one slide file here; directory "

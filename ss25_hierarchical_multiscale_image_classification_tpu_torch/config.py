@@ -56,8 +56,10 @@ class DataConfig:
 
 @dataclasses.dataclass
 class TrainConfig:
-    """The ``TrainConfig`` field that the MIL trainer reads."""
+    """The ``TrainConfig`` fields that the MIL trainer (``seed``) and
+    feature extraction (``batch_size``) read."""
 
+    batch_size: int = BATCH_SIZE
     seed: int = 0
 
 

@@ -5,8 +5,8 @@ Copy of the JAX package's ``data/datasets.py`` (``PatchDataset``,
 shuffle (``default_rng(seed + epoch)``), the same wrap-padding of the final
 short batch, and the same ``valid`` mask of its real rows. Batches are raw
 uint8 images and int labels; augmentation and normalisation run on the
-device (``data/augment.py``). The samplers, unshuffled or
-remainder-dropping iteration, the slide-level split and class balancing
+device (``data/augment.py``). The samplers, remainder-dropping
+iteration, the slide-level split and class balancing
 (``from_manifest``) come with the classifier trainer.
 """
 
@@ -68,12 +68,15 @@ class BatchIterator:
     """Epoch iterator yielding (images u8 (B,H,W,3), labels i32 (B,), valid
     f32 (B,)) with a **static batch size**: each epoch shuffles anew, the
     final short batch is padded by wrapping, and ``valid`` marks its real
-    rows. (The JAX class's ``shuffle=True, drop_remainder=False``, the
-    settings SimCLR uses.)"""
+    rows. ``shuffle=False`` walks the manifest in order, as feature
+    extraction does. (The JAX class with ``drop_remainder=False`` and no
+    sampler.)"""
 
-    def __init__(self, dataset: PatchDataset, batch_size: int, seed: int = 0):
+    def __init__(self, dataset: PatchDataset, batch_size: int,
+                 shuffle: bool = True, seed: int = 0):
         self.dataset = dataset
         self.batch_size = batch_size
+        self.shuffle = shuffle
         self.seed = seed
         self._epoch = 0
 
@@ -82,7 +85,8 @@ class BatchIterator:
 
     def __iter__(self) -> Iterator[tuple[np.ndarray, np.ndarray, np.ndarray]]:
         order = np.arange(len(self.dataset))
-        np.random.default_rng(self.seed + self._epoch).shuffle(order)
+        if self.shuffle:
+            np.random.default_rng(self.seed + self._epoch).shuffle(order)
         self._epoch += 1
         bs = self.batch_size
         for start in range(0, len(order), bs):

@@ -110,20 +110,29 @@ class PatchReader:
         indices = [int(i) for i in indices]
         recs = [self.manifest[i] for i in indices]
         if recs and all(r.store == "packed" for r in recs):
-            imgs = [None] * len(recs)
             by_path: dict[str, list[int]] = {}
             for pos, r in enumerate(recs):
                 by_path.setdefault(r.path, []).append(pos)
-            for path, positions in by_path.items():
-                rows = np.array([recs[p].row for p in positions], np.int64)
-                gathered = self._mmap(path)[rows]
-                for j, p in enumerate(positions):
-                    imgs[p] = gathered[j]
+            parts = [(positions, np.asarray(self._mmap(path)[
+                np.array([recs[p].row for p in positions], np.int64)]))
+                for path, positions in by_path.items()]
+            if len(parts) == 1:
+                imgs = parts[0][1]  # already the batch, in order: one copy
+            elif len({g.shape[1:] for _, g in parts}) == 1:
+                imgs = np.empty((len(recs),) + parts[0][1].shape[1:], np.uint8)
+                for positions, gathered in parts:
+                    imgs[positions] = gathered
+            else:  # packs of different patch sizes: resized below
+                imgs = [None] * len(recs)
+                for positions, gathered in parts:
+                    for j, p in enumerate(positions):
+                        imgs[p] = gathered[j]
         else:
             imgs = [self.read(i) for i in indices]
-        if resize_to is not None:
+        if resize_to is not None and any(
+                img.shape[:2] != (resize_to, resize_to) for img in imgs):
             imgs = [_resize(img, resize_to) for img in imgs]
-        return np.stack(imgs)
+        return imgs if isinstance(imgs, np.ndarray) else np.stack(imgs)
 
 
 def _resize(img: np.ndarray, edge: int) -> np.ndarray:

@@ -1,13 +1,27 @@
-"""The patch-feature artifact triplet on disk.
+"""Batched feature extraction over a patch level, and its artifact triplet.
 
-Copies of the JAX package's ``infer/features.py::_save_artifacts`` and
-``load_feature_artifacts``, held to the originals by exact tests: per level
-``L``, ``patch_features_{L}.npy`` (N, D) float32, ``patch_labels_{L}.npy``
-(N,) and ``patch_paths_{L}.txt`` (one patch name a line, the reference's
-``{slide}_x{x}_y{y}_{label}.png``). The MIL trainer builds its bags from
-them. Feature extraction itself (``--extract_features``, which spools the
-features into a memmap of the artifact that the JAX ``_save_artifacts``
-then only flushes) comes with a later slice.
+Counterpart of the JAX package's ``infer/features.py``
+(``make_feature_step``, ``run_feature_extraction``, ``_features_memmap``,
+``_save_artifacts``, ``extract_features``, ``extract_features_with_simclr``,
+``load_feature_artifacts``): the fc-stripped ResNet18 runs over every patch
+of a level and writes, per level ``L``,
+
+    features/patch_features_{L}.npy   (N, 512) float32
+    features/patch_labels_{L}.npy     (N,) int
+    features/patch_paths_{L}.txt      N patch names, one a line
+
+in manifest order (names are the reference's ``{slide}_x{x}_y{y}_{label}.png``).
+The MIL trainer builds its bags from them.
+
+:func:`run_feature_extraction` runs the inference-folded forward
+(``models/quantized.py``): it consumes raw uint8 batches, its stem runs on
+the hand-written ``bias_relu_pool`` kernel (or, with ``stem_s2d=True``, the
+``fused_stem`` kernel). Host batch gathering runs on a
+:class:`~..data.prefetch.Prefetcher` thread; on the card each batch goes up
+through one of two pinned buffers, and each step's features come down on a
+copy stream into pinned memory, read with a one-batch lag: batch k−1's
+features reach the host while batch k computes. ``int8=`` comes with the
+int8 path.
 """
 
 from __future__ import annotations
@@ -15,12 +29,161 @@ from __future__ import annotations
 import os
 
 import numpy as np
+import torch
 
+from ss25_hierarchical_multiscale_image_classification_tpu_torch.config import (
+    Config,
+)
+from ss25_hierarchical_multiscale_image_classification_tpu_torch.data.augment import (
+    normalize,
+)
+from ss25_hierarchical_multiscale_image_classification_tpu_torch.data.datasets import (
+    BatchIterator,
+    PatchDataset,
+)
+from ss25_hierarchical_multiscale_image_classification_tpu_torch.data.manifest import (
+    load_or_scan_manifest,
+)
+from ss25_hierarchical_multiscale_image_classification_tpu_torch.data.prefetch import (
+    Prefetcher,
+)
+from ss25_hierarchical_multiscale_image_classification_tpu_torch.device import (
+    resolve_device,
+)
 from ss25_hierarchical_multiscale_image_classification_tpu_torch.logging_utils import (
+    Timer,
     get_logger,
+)
+from ss25_hierarchical_multiscale_image_classification_tpu_torch.models.convert import (
+    strip_head,
+)
+from ss25_hierarchical_multiscale_image_classification_tpu_torch.models.quantized import (
+    fold_resnet18_inference,
+    folded_forward_inference,
+    folded_to,
+)
+from ss25_hierarchical_multiscale_image_classification_tpu_torch.train.checkpoints import (
+    load_model,
+    model_artifact_path,
 )
 
 log = get_logger("infer.features")
+
+
+def make_feature_step(model):
+    """The unfolded route: ``feature_step(imgs_u8)`` normalizes a uint8 NHWC
+    batch and runs ``model`` (a ``ResNet18FeatureExtractor`` in eval mode) in
+    its parameters' dtype. :func:`run_feature_extraction` runs the folded
+    forward instead; this is the plain forward it is held against."""
+    dtype = next(model.parameters()).dtype
+
+    @torch.inference_mode()
+    def feature_step(imgs_u8: torch.Tensor) -> torch.Tensor:
+        return model(normalize(imgs_u8, dtype))
+
+    return feature_step
+
+
+def run_feature_extraction(
+    dataset: PatchDataset,
+    state: dict[str, torch.Tensor],
+    batch_size: int = 512,
+    dtype: torch.dtype | None = None,
+    out: np.ndarray | None = None,
+    feature_dim: int = 512,
+    device: str | torch.device = "cuda",
+    stem_s2d: bool = False,
+) -> tuple[np.ndarray, np.ndarray, list[str]]:
+    """Forward every patch through the extractor; returns
+    (features (N, ``feature_dim``) float32, labels (N,), patch names).
+
+    ``state`` is a ResNet18 state dict (a head, if any, is ignored).
+    ``dtype`` defaults to bfloat16 on the card and float32 on the CPU. With
+    ``out`` (e.g. a ``.npy`` memmap) features spool incrementally. Only the
+    ``n_valid`` real rows of a wrap-padded last batch are kept.
+    ``stem_s2d`` selects the space-to-depth stem of
+    ``fold_resnet18_inference``.
+    """
+    dev = resolve_device(device)
+    on_card = dev.type == "cuda"
+    if dtype is None:
+        dtype = torch.bfloat16 if on_card else torch.float32
+    hw = int(getattr(dataset, "resize_to", 224) or 224)
+    fp = folded_to(
+        fold_resnet18_inference(state, input_hw=(hw, hw), stem_s2d=stem_s2d,
+                                dtype=dtype),
+        dev,
+    )
+    batches = Prefetcher(BatchIterator(dataset, batch_size, shuffle=False))
+    n_total = len(dataset)
+    if out is None:
+        out = np.empty((n_total, feature_dim), np.float32)
+
+    if on_card:
+        copy_stream = torch.cuda.Stream(dev)
+        staged = [None, None]  # pinned upload buffers, shaped by the batches
+        uploaded = [None, None]  # event: the slot's last upload has finished
+        fetched = [torch.empty((batch_size, feature_dim), dtype=torch.float32,
+                               pin_memory=True) for _ in range(2)]
+
+    def step(k: int, imgs: np.ndarray):
+        """Enqueue batch k; returns what :func:`spool` needs to read it."""
+        if not on_card:
+            return folded_forward_inference(fp, torch.from_numpy(imgs),
+                                            with_fc=False), None
+        slot = k % 2
+        if staged[slot] is None:
+            staged[slot] = torch.empty(imgs.shape, dtype=torch.uint8,
+                                       pin_memory=True)
+        else:
+            uploaded[slot].synchronize()
+        staged[slot].copy_(torch.from_numpy(imgs))
+        x = staged[slot].to(dev, non_blocking=True)
+        uploaded[slot] = torch.cuda.Event()
+        uploaded[slot].record()
+        feats = folded_forward_inference(fp, x, with_fc=False)
+        copy_stream.wait_stream(torch.cuda.current_stream(dev))
+        with torch.cuda.stream(copy_stream):
+            fetched[slot].copy_(feats, non_blocking=True)
+            done = torch.cuda.Event()
+            done.record()
+        feats.record_stream(copy_stream)
+        return fetched[slot], done
+
+    def spool(pending) -> None:
+        (feats, done), n_valid, at = pending
+        if done is not None:
+            done.synchronize()
+        out[at : at + n_valid] = feats[:n_valid].numpy()
+
+    pos = 0
+    pending = None
+    with Timer(f"feature_extraction[{n_total} patches]", log), \
+            torch.inference_mode():
+        for k, (imgs, _labels, valid) in enumerate(batches):
+            result = step(k, imgs)
+            if pending is not None:
+                spool(pending)
+            n_valid = int(valid.sum())
+            pending = (result, n_valid, pos)
+            pos += n_valid
+        if pending is not None:
+            spool(pending)
+
+    labels = dataset.labels
+    names = [rec.patch_name for rec in dataset.manifest]
+    return out[:pos], labels, names
+
+
+def _features_memmap(features_dir: str, level: int, n: int,
+                     feature_dim: int = 512) -> np.ndarray:
+    """Preallocate ``patch_features_{L}.npy`` as a writable memmap so the
+    extraction loop spools features straight into the artifact."""
+    os.makedirs(features_dir, exist_ok=True)
+    path = os.path.join(features_dir, f"patch_features_{level}.npy")
+    return np.lib.format.open_memmap(
+        path, mode="w+", dtype=np.float32, shape=(n, feature_dim)
+    )
 
 
 def _save_artifacts(
@@ -28,13 +191,79 @@ def _save_artifacts(
     names: list[str],
 ) -> None:
     os.makedirs(features_dir, exist_ok=True)
-    np.save(os.path.join(features_dir, f"patch_features_{level}.npy"), feats)
+    if isinstance(feats, np.memmap):
+        feats.flush()  # spooled incrementally during extraction
+    else:
+        np.save(
+            os.path.join(features_dir, f"patch_features_{level}.npy"), feats
+        )
     np.save(os.path.join(features_dir, f"patch_labels_{level}.npy"), labels)
     with open(os.path.join(features_dir, f"patch_paths_{level}.txt"), "w") as f:
         f.write("\n".join(names))
     log.info(
         "Saved features %s (shape %s) to %s", level, feats.shape, features_dir
     )
+
+
+def _level_dataset(cfg: Config, level: int,
+                   dataset: PatchDataset | None) -> PatchDataset:
+    if dataset is None:
+        manifest = load_or_scan_manifest(cfg.data.patches_dir, level)
+        if len(manifest) == 0:
+            raise FileNotFoundError(f"no patches at level {level}")
+        dataset = PatchDataset(manifest)
+    return dataset
+
+
+def _extract(cfg: Config, level: int, trunk: dict[str, torch.Tensor],
+             dataset: PatchDataset, batch_size: int | None,
+             device: str | torch.device | None) -> np.ndarray:
+    dev = resolve_device("cuda" if device is None else device)
+    feature_dim = int(trunk["layer4.1.conv2.weight"].shape[0])
+    out = _features_memmap(cfg.data.features_dir, level, len(dataset),
+                           feature_dim)
+    feats, labels, names = run_feature_extraction(
+        dataset, trunk, batch_size or cfg.train.batch_size, out=out,
+        feature_dim=feature_dim, device=dev,
+    )
+    _save_artifacts(cfg.data.features_dir, level, feats, labels, names)
+    return feats
+
+
+def extract_features(
+    cfg: Config, level: int = 3, model_path: str | None = None,
+    batch_size: int | None = None, dataset: PatchDataset | None = None,
+    device: str | torch.device | None = None,
+) -> np.ndarray:
+    """Classifier-trunk feature extraction: loads the trained classifier
+    (``<models_dir>/resnet18_patch_classifier.pt``), strips the fc head and
+    writes the level's triplet under ``cfg.data.features_dir``. Runs on the
+    card unless ``device`` says otherwise. ``dataset=None`` loads the
+    level's manifest; a given dataset serves installations without
+    pyarrow."""
+    dataset = _level_dataset(cfg, level, dataset)
+    model_path = model_path or model_artifact_path(
+        cfg.models_dir, "resnet18_patch_classifier")
+    trunk = strip_head(load_model(model_path))
+    return _extract(cfg, level, trunk, dataset, batch_size, device)
+
+
+def extract_features_with_simclr(
+    cfg: Config, level: int = 3, encoder_path: str | None = None,
+    batch_size: int | None = None, dataset: PatchDataset | None = None,
+    device: str | torch.device | None = None,
+) -> np.ndarray:
+    """SimCLR-encoder feature extraction: reads the ``simclr_encoder.pt``
+    that ``pretrain_simclr`` writes and takes its ``encoder.`` entries (a
+    bare encoder state dict is taken as it is)."""
+    dataset = _level_dataset(cfg, level, dataset)
+    encoder_path = encoder_path or model_artifact_path(cfg.models_dir,
+                                                       "simclr_encoder")
+    sd = load_model(encoder_path)
+    if any(k.startswith("encoder.") for k in sd):
+        sd = {k.removeprefix("encoder."): v for k, v in sd.items()
+              if k.startswith("encoder.")}
+    return _extract(cfg, level, strip_head(sd), dataset, batch_size, device)
 
 
 def load_feature_artifacts(

@@ -113,6 +113,39 @@ def mil_state_dict_from_flax(variables: Mapping[str, Any]
     return sd
 
 
+def folded_from_jax(fp: Mapping[str, Any],
+                    dtype: torch.dtype = torch.float32) -> dict[str, Any]:
+    """A pytree of the JAX package's ``fold_resnet18_inference`` (arrays
+    that ``np.asarray`` takes; conv kernels HWIO) → the pytree of the
+    port's ``models/quantized.py::folded_forward_inference``: conv kernels
+    OIHW in ``dtype``, biases and the stem bias map in ``dtype``, the head
+    as ((in, out) ``dtype``, float32 bias). A space-to-depth stem (4, 4, 12,
+    O) also gives ``stem_w2`` (4, 48, O), the layout of the fused stem
+    kernel."""
+    f32 = lambda a: torch.from_numpy(np.array(a, dtype=np.float32))  # noqa: E731
+    kernels = {name: f32(k).permute(3, 2, 0, 1).to(dtype).contiguous(
+                   memory_format=torch.channels_last)
+               for name, k in fp["kernels"].items()}
+    out = {
+        "kernels": kernels,
+        "biases": {name: f32(b).to(dtype) for name, b in fp["biases"].items()},
+        "fc": None if fp["fc"] is None else (f32(fp["fc"][0]).to(dtype),
+                                             f32(fp["fc"][1])),
+        "stem_bias_map": f32(fp["stem_bias_map"]).to(dtype),
+    }
+    stem = f32(fp["kernels"]["stem"])
+    if stem.shape[0] == 4:  # (KY, KX, 12, O) → (KX, KY·12, O)
+        out["stem_w2"] = stem.permute(1, 0, 2, 3).reshape(
+            4, 48, stem.shape[3]).to(dtype).contiguous()
+    return out
+
+
+def strip_head(sd: Mapping[str, torch.Tensor]) -> dict[str, torch.Tensor]:
+    """A classifier's state dict without its ``fc`` head, so that the trunk
+    loads into a feature extractor (the JAX ``models/resnet.py::strip_head``)."""
+    return {k: v for k, v in sd.items() if not k.startswith("fc.")}
+
+
 def load_state_dict_file(path: str) -> dict[str, torch.Tensor]:
     """A ``.pt``/``.pth`` state dict from disk, with the DataParallel
     ``module.`` prefix that reference checkpoints carry stripped."""

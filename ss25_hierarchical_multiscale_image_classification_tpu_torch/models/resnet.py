@@ -157,13 +157,20 @@ class ResNet(nn.Module):
             if isinstance(m, BasicBlock):
                 m.bn2.weight.zero_()
 
-    def forward(self, x: torch.Tensor) -> torch.Tensor:
+    def forward(self, x: torch.Tensor, from_stem: bool = False
+                ) -> torch.Tensor:
         """(B, H, W, 3) normalized images → float32 logits (B, classes), or
-        float32 features (B, 8·num_filters) when there is no head."""
+        float32 features (B, 8·num_filters) when there is no head.
+
+        With ``from_stem=True``, ``x`` is the already-pooled stem output
+        (B, H/4, W/4, num_filters), e.g. of the fused stem kernels
+        (``ops/fused_stem.py``), and ``conv1``, ``bn1``, ReLU and the
+        maxpool are skipped; their parameters stay in the state dict."""
         x = x.permute(0, 3, 1, 2)
         if not torch.is_autocast_enabled(x.device.type):
             x = x.to(self.conv1.weight.dtype)
-        x = self.maxpool(self.relu(self.bn1(self.conv1(x))))
+        if not from_stem:
+            x = self.maxpool(self.relu(self.bn1(self.conv1(x))))
         for i in range(self.num_stages):
             x = getattr(self, f"layer{i + 1}")(x)
         x = x.mean(dim=(2, 3))  # global average pool → (B, C)

@@ -9,9 +9,9 @@ loads the library already there. Nothing is built or imported when this
 module is imported, so CPU-only installations import it freely.
 
 No ``--use_fast_math``: the normalize kernel's division must be the IEEE
-quotient so that it equals its plain PyTorch version bit for bit, and the
+quotient so that it equals its plain PyTorch version bit for bit, the
 NT-Xent and MIL-pool kernels' ``expf``/``logf``/``tanhf`` stay the
-accurate ones.
+accurate ones, and the stem kernels' float32 adds stay IEEE adds.
 """
 
 from __future__ import annotations
@@ -55,6 +55,27 @@ SOURCES = {
         # h, mask, v, vb, w, b, k, d, hd, ws_m, ws_l, ws_acc, out, stream
         "hipac_mil_attention_pool": (
             [_P, _P, _P, _P, _P, _I64, _I64, _I64, _I64, _P, _P, _P, _P, _P],
+            ctypes.c_int,
+        ),
+    },
+    "bias_relu_pool.cu": {
+        # x, bias, out, b, h, w, c, bias_map, in_bf16, out_bf16, stream
+        "hipac_bias_relu_pool": (
+            [_P, _P, _P, _I64, _I32, _I32, _I32, _I32, _I32, _I32, _P],
+            ctypes.c_int,
+        ),
+    },
+    "fused_stem.cu": {
+        # in2, w2, bias, out, b, hin, win, pool_rows, bias_map, out_bf16,
+        # stream
+        "hipac_fused_stem": (
+            [_P, _P, _P, _P, _I64, _I32, _I32, _I32, _I32, _I32, _P],
+            ctypes.c_int,
+        ),
+        # in2, wt, bias, out, b, hin, win, pool_rows, bias_map, out_bf16,
+        # stream
+        "hipac_fused_stem_mma": (
+            [_P, _P, _P, _P, _I64, _I32, _I32, _I32, _I32, _I32, _P],
             ctypes.c_int,
         ),
     },

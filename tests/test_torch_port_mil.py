@@ -666,7 +666,7 @@ def test_cli_needs_exactly_one_action(argv, capsys):
     with pytest.raises(SystemExit) as exc:
         cli.main(argv + ["--device", "cpu"])
     assert exc.value.code == 2
-    assert "exactly one of --predict_slide and --train_mil" in capsys.readouterr().err
+    assert "exactly one of --predict_slide, --train_mil" in capsys.readouterr().err
 
 
 def test_export_script_writes_a_mil_artifact(tmp_path):
