@@ -1,16 +1,18 @@
 #!/usr/bin/env python3
 """Smoke run of the PyTorch/CUDA port on one NVIDIA card.
 
-Drives the port's four paths once each with random weights from a seed:
+Drives the port's five paths once each with random weights from a seed:
 full-slide tumor detection at the full width of ResNet18 (224² patches,
 64-wide stem, batch 512) on a numpy-rendered synthetic slide
 (``predict_slide`` → detections → CSV, then the ``hipac-torch`` CLI),
 SimCLR pretraining (``pretrain_simclr``) on the slide's tissue cells,
 attention-MIL slide classification at the full width of ``MILConfig``
 (``--train_mil``, then ``mil_predict`` with MC dropout) on synthetic bag
-features, and folded bf16 feature extraction (``extract_features``) over the
-slide's tissue cells at batch 512. It checks every hand-written kernel of those paths against its
-plain PyTorch version on the card. Phases:
+features, folded bf16 feature extraction (``extract_features``) over the
+slide's tissue cells at batch 512, and the int8 (w8a8) path (``--quantize``,
+``--predict_slide --int8``, ``run_feature_extraction(int8=True)``) on the
+same slide and cells. It checks every hand-written kernel of those paths
+against its plain PyTorch version on the card. Phases:
 
 1. card and software: ``nvidia-smi`` name and power limit, torch, CUDA, nvcc;
 2. build: the kernels from ``ops/csrc/`` of this checkout;
@@ -35,6 +37,18 @@ plain PyTorch version on the card. Phases:
    bias and with the folded route's bias map, float32 and bfloat16 products;
    medians at B=512 beside the library conv + ``bias_relu_pool`` for the
    same stem;
+3f. ``int8_conv_requant`` against its plain version (an exact integer
+   convolution in float64, eager float32 epilogue), exactly equal, at the
+   16 convolutions of one int8 forward (space-to-depth stem with its bias map; per stage 2–4 the stride-2
+   conv, the 1×1 downsample with a float32 output, the convs with a float32
+   and an int8 residual), the direct 7×7 stem with 3 input channels and a
+   stage-1 conv, at B = 37 and 512; CUDA-event medians at B = 512;
+3g. ``fused_stage1_int8`` against its plain version, exactly equal, at
+   (512, 56, 56, 64), a batch of 3 and an odd plane; at B = 512 in turns
+   with four ``int8_conv_requant`` calls and the plain version, beside the
+   four convolutions as bfloat16 library calls;
+3h. ``int8_maxpool`` against its plain version (the pool in bfloat16),
+   exactly equal, at (512, 112, 112, 64), a batch of 3 and an odd plane;
 4. the slice: a 3,072-cell slide (level 3 of 14336×10752, stride 28) in both
    tissue-filter modes, launch counts read around the run, partitions equal,
    the timed bfloat16 run's margins on sampled tissue cells against a float32
@@ -59,6 +73,18 @@ plain PyTorch version on the card. Phases:
    against the CPU (the trained and the seeded untrained classifier,
    probabilities and attention); per-bag predict wall and a warm epoch's
    wall;
+9. the int8 path (run before phase 8): ``quantize_classifier_to_artifact``
+   (the function behind ``--quantize``) calibrates on 4 × 128 cells of the
+   packed store and writes ``quantized_resnet18.npz``; ``predict_slide(int8=
+   True, qtree=artifact)`` with the launches counted around each run (per
+   batch one ``fused_stage1_int8``, 16 ``int8_conv_requant``, one
+   ``int8_maxpool``), the tissue partition equal to the float path's, margins
+   and features against the float32 ``folded_forward`` on the reference
+   cells, margins independent of batch size and run; ``--predict_slide
+   --int8`` through the CLI picking the artifact up;
+   ``run_feature_extraction(int8=True, qtree=artifact)`` with its launches,
+   features identical at two batch sizes; the forward's time at B = 512; the
+   card's ``quant_forward`` against the CPU's plain one on 64 cells;
 8. feature extraction: the packed store of the slide's 1,752 tissue cells,
    the slice's ResNet18 saved as ``resnet18_patch_classifier.pt``,
    ``extract_features(cfg, level=3, dataset=ds, device="cuda")`` at batch 512
@@ -200,10 +226,58 @@ STEM_TIMING_RUNS = 20
 FEAT_BF16_ATOL = 0.3
 FEAT_REF_CELLS = 32
 FEAT_TIMED_STEPS = 10
+# int8 kernels: each must equal its plain version exactly (integer sums, and
+# an epilogue that rounds where the eager float32 ops round).
+# int8_conv_requant cases as (name, (H, W, C_in), C_out, k, stride, pad,
+# epilogue, on the int8 forward's path): the 16 convolutions of one forward
+# (the space-to-depth stem with its bias map; per stage 2-4 the stride-2
+# conv, the 1x1 downsample with a float32 output, the conv with a float32
+# residual, a plain conv and the conv with an int8 residual), then the
+# direct 7x7 stem with 3 input channels and a stage-1 conv, which the
+# forward runs on other routes.
+INT8_CONV_CASES = [("stem s2d 4x4 +map", (112, 112, 12), 64, 4, 1,
+                    ((2, 1), (2, 1)), "map", True)]
+for _i, _c in ((2, 64), (3, 128), (4, 256)):
+    _h = 56 * 64 // _c
+    INT8_CONV_CASES += [
+        (f"s{_i}b0c1 3x3/2", (_h, _h, _c), 2 * _c, 3, 2, 1, "relu", True),
+        (f"s{_i}b0down 1x1/2", (_h, _h, _c), 2 * _c, 1, 2, 0, "f32", True),
+        (f"s{_i}b0c2 3x3 +f32 res", (_h // 2, _h // 2, 2 * _c), 2 * _c, 3, 1, 1,
+         "res_f32", True),
+        (f"s{_i}b1c1 3x3", (_h // 2, _h // 2, 2 * _c), 2 * _c, 3, 1, 1, "relu",
+         True),
+        (f"s{_i}b1c2 3x3 +int8 res", (_h // 2, _h // 2, 2 * _c), 2 * _c, 3, 1, 1,
+         "res_i8", True),
+    ]
+INT8_CONV_CASES += [
+    ("stem 7x7/2 C_in=3 +map", (224, 224, 3), 64, 7, 2, 3, "map", False),
+    ("stage-1 3x3", (56, 56, 64), 64, 3, 1, 1, "relu", False),
+]
+INT8_ODD_BATCH = 37  # not a multiple of any tile
+INT8_TIMING_RUNS = 10
+INT8_PLAIN_RUNS = 4  # the plain version is a float64 im2col convolution
+STAGE1_SHAPES = [(BATCH, 56, 56, 64), (3, 56, 56, 64), (2, 30, 26, 64)]
+INT8_POOL_SHAPES = [(BATCH, 112, 112, 64), (3, 112, 112, 64), (2, 31, 27, 16)]
+# int8 path checks (phase 9), bounds from the H100 run recorded in PERF.md
+# (NVIDIA H100 80GB HBM3, 700 W):
+# - int8 against the float32 folded forward on the same cells: measured a
+#   logit cosine of 0.9956, a worst cell's feature cosine of 0.9821 (the JAX
+#   package's own gate on features is 0.98 for a trained model; this one has
+#   random weights) and margins max|Δ| 0.2635 (mean 0.19) on a spread of 6.05;
+#   the reference margins must spread by at least 10x the bound;
+INT8_COSINE_MIN = 0.97
+INT8_MARGIN_ATOL = 0.5
+# - the card's quant_forward against the CPU's plain quant_forward on 64
+#   cells, in int8 steps of the last stage's output scale (features are means
+#   of 49 such values): the convolutions are exact, only the float32 order of
+#   the stem's bias map sum or of the mean could differ.
+INT8_CPU_CELLS = 64
+INT8_CPU_STEPS = 1.0
 # The card's published peaks (H100 SXM): device memory and dense rates.
 HBM_BYTES_S = 3.35e12
 FP32_FLOP_S = 67e12
 BF16_FLOP_S = 989e12
+INT8_OP_S = 1979e12
 
 
 def bound_ms(nbytes: float, flop: float, flop_s: float = FP32_FLOP_S) -> dict:
@@ -368,6 +442,21 @@ def ntxent_launchers():
     return nt_xent_fwd, nt_xent_bwd
 
 
+def int8_launchers():
+    from ss25_hierarchical_multiscale_image_classification_tpu_torch.ops.int8_block import (
+        fused_stage1_int8_kernel,
+    )
+    from ss25_hierarchical_multiscale_image_classification_tpu_torch.ops.int8_conv import (
+        int8_conv_requant_kernel,
+    )
+
+    from ss25_hierarchical_multiscale_image_classification_tpu_torch.ops.int8_pool import (
+        int8_maxpool_kernel,
+    )
+
+    return fused_stage1_int8_kernel, int8_conv_requant_kernel, int8_maxpool_kernel
+
+
 def reset_counts() -> None:
     """Every kernel's launch count to 0, just before a path runs."""
     from ss25_hierarchical_multiscale_image_classification_tpu_torch.ops.fused_stem import (
@@ -382,7 +471,7 @@ def reset_counts() -> None:
     )
 
     for fn in (fused_normalize, *ntxent_launchers(), mil_attention_pool_kernel,
-               bias_relu_pool_kernel, fused_stem_kernel):
+               bias_relu_pool_kernel, fused_stem_kernel, *int8_launchers()):
         fn.launches = 0
 
 
@@ -783,6 +872,271 @@ def phase_fused_stem(dev, sd) -> dict:
             "library_ms": None, **bound}
 
 
+def int8_conv_inputs(dev, g, batch, case):
+    """One convolution's operands at the scale of a calibrated forward: int8
+    activations and weights over the whole range, a dequantization scale
+    that brings the sums to unit variance, and an output scale that spreads
+    them over the int8 range with some clipping."""
+    import torch
+
+    _, (h, w, cin), cout, k, stride, pad, kind, _ = case
+    ri = lambda shape: torch.randint(-127, 128, shape, device=dev,  # noqa: E731
+                                     generator=g).to(torch.int8)
+    xq = ri((batch, h, w, cin))
+    qk = ri((cout, cin, k, k)).contiguous(memory_format=torch.channels_last)
+    unit = 1.0 / ((k * k * cin) ** 0.5 * 73.3 * 73.3)
+    mscale = unit * (0.5 + torch.rand(cout, device=dev, generator=g))
+    p = (pad, pad, pad, pad) if isinstance(pad, int) else (*pad[0], *pad[1])
+    ho = (h + p[0] + p[1] - k) // stride + 1
+    wo = (w + p[2] + p[3] - k) // stride + 1
+    bias = 0.3 * torch.randn((ho, wo, cout) if kind == "map" else (cout,),
+                             device=dev, generator=g)
+    kw = {"relu": kind != "f32", "out_f32": kind == "f32"}
+    s_out = None if kind == "f32" else torch.tensor(3.0 / 127, device=dev)
+    if kind == "res_f32":
+        kw["residual"] = torch.randn(batch, ho, wo, cout, device=dev,
+                                     generator=g)
+    elif kind == "res_i8":
+        kw["residual"] = ri((batch, ho, wo, cout))
+        kw["residual_scale"] = torch.tensor(1.0 / 64, device=dev)
+    ops = 2 * batch * ho * wo * k * k * cin * cout
+    out_bytes = batch * ho * wo * cout * (4 if kind == "f32" else 1)
+    moved = (xq.numel() + qk.numel() + out_bytes + 4 * (cout + bias.numel())
+             + sum(t.numel() * t.element_size() for t in kw.values()
+                   if hasattr(t, "numel")))
+    return (xq, qk, mscale, bias, s_out, stride, pad), kw, ops, moved
+
+
+def phase_int8_conv(dev) -> dict:
+    """``int8_conv_requant`` against its plain version, exactly equal, at
+    every case and two batch sizes; then the times at B=512."""
+    import torch
+
+    from ss25_hierarchical_multiscale_image_classification_tpu_torch.ops.int8_conv import (
+        int8_conv_requant_kernel,
+        int8_conv_requant_reference,
+        pack_int8_kernel,
+    )
+
+    g = torch.Generator(device=dev).manual_seed(SEED)
+    total = {"ms": 0.0, "plain_ms": 0.0, "bound_ms": 0.0, "ops": 0,
+             "by": {"bytes": 0, "operations": 0}}
+    max_err = 0.0
+    for case in INT8_CONV_CASES:
+        name = case[0]
+        for batch in (INT8_ODD_BATCH, BATCH):
+            args, kw, ops, moved = int8_conv_inputs(dev, g, batch, case)
+            ref = int8_conv_requant_reference(*args, **kw)
+            got = int8_conv_requant_kernel(*args, **kw)
+            torch.cuda.synchronize()
+            same = got.shape == ref.shape and torch.equal(got, ref)
+            err = (got.float() - ref.float()).abs().max().item()
+            max_err = max(max_err, err)
+            if not same:
+                raise AssertionError(
+                    f"int8_conv_requant differs from its plain version at "
+                    f"{name} B={batch}: max|Δ| {err}, "
+                    f"{(got != ref).float().mean().item():.3g} of the "
+                    f"elements")
+            spread = ref.float().std().item()
+            log(f"[int8-conv] {name} B={batch} {tuple(args[0].shape[1:])} → "
+                f"{tuple(ref.shape[1:])} {ref.dtype}: exactly equal to the "
+                f"plain version (output std {spread:.4g})")
+            del got, ref
+        # times at B=512, the weights packed once as the forward packs them
+        packed = pack_int8_kernel(args[1])
+        kernel = lambda: int8_conv_requant_kernel(*args, **kw, packed=packed)  # noqa: E731
+        cuda_ms(kernel, 3)  # warm-up
+        kq = quartiles(cuda_ms(kernel, INT8_TIMING_RUNS))
+        pq = quartiles(cuda_ms(
+            lambda: int8_conv_requant_reference(*args, **kw), INT8_PLAIN_RUNS))
+        bound = bound_ms(moved, ops, INT8_OP_S)
+        log(f"[int8-conv] {name} B={BATCH}: {ops / 1e9:.1f} G op, "
+            f"{moved / 1e6:.1f} MB: kernel {kq[1]:.4f} ms (quartiles "
+            f"{kq[0]:.4f}–{kq[2]:.4f}; {ops / kq[1] / 1e9:.1f} TOP/s = "
+            f"{ops / kq[1] / INT8_OP_S * 1e5:.1f} % of 1,979 TOP/s), plain "
+            f"{pq[1]:.3f} ms; bound {bound['bound_ms']:.4f} ms by "
+            f"{bound['bound_by']}")
+        if case[-1]:  # one of the 16 convolutions of a forward
+            total["ms"] += kq[1]
+            total["plain_ms"] += pq[1]
+            total["bound_ms"] += bound["bound_ms"]
+            total["ops"] += ops
+            total["by"][bound["bound_by"]] += 1
+        del args, kw, packed
+        torch.cuda.empty_cache()
+    log(f"[int8-conv] the 16 convolutions of one B={BATCH} forward "
+        f"({total['ops'] / 1e12:.3f} T op): kernel {total['ms']:.3f} ms "
+        f"({total['ops'] / total['ms'] / 1e9:.1f} TOP/s), plain "
+        f"{total['plain_ms']:.1f} ms, bound "
+        f"{total['bound_ms']:.4f} ms ({total['by']})")
+    by = max(total["by"], key=total["by"].get)
+    return {"max_abs_err": max_err, "ms": total["ms"],
+            "plain_ms": total["plain_ms"], "library_ms": None,
+            "bound_ms": total["bound_ms"], "bound_by": by}
+
+
+def phase_int8_pool(dev) -> dict:
+    """The int8 maxpool kernel against its plain version (the pool in
+    bfloat16), exactly equal, then its time at the path's shape."""
+    import torch
+
+    from ss25_hierarchical_multiscale_image_classification_tpu_torch.ops.int8_pool import (
+        int8_maxpool_kernel,
+        int8_maxpool_reference,
+    )
+
+    g = torch.Generator(device=dev).manual_seed(SEED)
+    max_err = 0.0
+    for shape in INT8_POOL_SHAPES[::-1]:  # the path's shape last: it is timed
+        x = torch.randint(-128, 128, shape, device=dev, generator=g).to(torch.int8)
+        x[0, 0, 0] = -128  # a window of lowest values keeps them
+        got = int8_maxpool_kernel(x)
+        torch.cuda.synchronize()
+        ref = int8_maxpool_reference(x)
+        same = got.shape == ref.shape and torch.equal(got, ref)
+        if same:
+            max_err = max(max_err,
+                          (got.float() - ref.float()).abs().max().item())
+        log(f"[int8-pool] int8_maxpool {shape} → {tuple(got.shape)}: exact={same}")
+        if not same:
+            raise AssertionError(f"int8_maxpool differs from its plain version "
+                                 f"at {shape}")
+    kq, pq = timed_in_turns(lambda: int8_maxpool_kernel(x),
+                            lambda: int8_maxpool_reference(x), STEM_TIMING_RUNS)
+    moved = x.numel() + got.numel()
+    bound = bound_ms(moved, x.numel() * 9 // 4)
+    log(f"[int8-pool] {INT8_POOL_SHAPES[0]}, {moved / 1e6:.0f} MB moved: kernel "
+        f"{kq[1]:.4f} ms (quartiles {kq[0]:.4f}–{kq[2]:.4f}; "
+        f"{moved / kq[1] / 1e6:.0f} GB/s = "
+        f"{moved / kq[1] / 1e6 / (HBM_BYTES_S / 1e9) * 100:.1f} % of 3.35 TB/s; "
+        f"bound {bound['bound_ms']:.4f} ms), plain (to bfloat16, max_pool2d, to "
+        f"int8) {pq[1]:.4f} ms ({pq[0]:.4f}–{pq[2]:.4f})")
+    return {"max_abs_err": max_err, "ms": kq[1], "plain_ms": pq[1],
+            "library_ms": None, **bound}
+
+
+def stage1_inputs(dev, g, shape):
+    """Stage-1 operands at the scale of a calibrated forward: a non-negative
+    int8 plane (it follows a ReLU and a maxpool), int8 weights, and scales
+    that keep every intermediate spread over the int8 range."""
+    import torch
+
+    c = shape[3]
+    xq = torch.randint(0, 128, shape, device=dev, generator=g).to(torch.int8)
+    kernels = torch.randint(-127, 128, (4, 3, 3, c, c), device=dev,
+                            generator=g).to(torch.int8)
+    scalars = torch.tensor([0.02, 0.03, 0.025, 0.03, 0.028], device=dev)
+    # the sums times mscales have about unit variance
+    unit = 1.0 / ((9 * c) ** 0.5 * 73.3 * 60.0)
+    mscales = unit * (0.5 + torch.rand(4, c, device=dev, generator=g))
+    biases = 0.3 * torch.randn(4, c, device=dev, generator=g)
+    return xq, kernels, mscales, biases, scalars
+
+
+def phase_fused_stage1(dev) -> dict:
+    """``fused_stage1_int8`` against its plain version, exactly equal; then at
+    B=512 its time in turns with four calls of ``int8_conv_requant`` and with
+    the plain version, and beside the same four convolutions as bfloat16
+    library calls with eager epilogues."""
+    import torch
+    import torch.nn.functional as F
+
+    from ss25_hierarchical_multiscale_image_classification_tpu_torch.ops.int8_block import (
+        fused_stage1_int8_kernel,
+        fused_stage1_int8_reference,
+        pack_stage1_kernels,
+    )
+    from ss25_hierarchical_multiscale_image_classification_tpu_torch.ops.int8_conv import (
+        int8_conv_requant_kernel,
+        pack_int8_kernel,
+    )
+
+    g = torch.Generator(device=dev).manual_seed(SEED)
+    max_err = 0.0
+    for shape in STAGE1_SHAPES[::-1]:  # the path's shape last: it is timed
+        xq, kernels, mscales, biases, scalars = stage1_inputs(dev, g, shape)
+        ref = fused_stage1_int8_reference(xq, kernels, mscales, biases, scalars)
+        got = fused_stage1_int8_kernel(xq, kernels, mscales, biases, scalars)
+        torch.cuda.synchronize()
+        err = (got.float() - ref.float()).abs().max().item()
+        max_err = max(max_err, err)
+        log(f"[int8-stage1] fused_stage1_int8 {shape}: "
+            f"exact={torch.equal(got, ref)} max_abs_err={err} (output std "
+            f"{ref.float().std().item():.4g}, "
+            f"{(ref == 0).float().mean().item():.3f} zeros)")
+        if not torch.equal(got, ref):
+            raise AssertionError(
+                f"fused_stage1_int8 differs from its plain version at "
+                f"{shape}: {(got != ref).float().mean().item():.3g} of the "
+                f"elements")
+
+    # (a) the same stage as four calls of the generic kernel
+    names = range(4)
+    oihw = [kernels[i].permute(3, 2, 0, 1).contiguous(
+        memory_format=torch.channels_last) for i in names]
+    packs = [pack_int8_kernel(k) for k in oihw]
+    packed = pack_stage1_kernels(kernels)
+
+    def four_calls():
+        x = xq
+        for blk in range(2):
+            c1, c2 = 2 * blk, 2 * blk + 1
+            y1 = int8_conv_requant_kernel(x, oihw[c1], mscales[c1], biases[c1],
+                                          scalars[1 + 2 * blk], 1, 1,
+                                          packed=packs[c1])
+            x = int8_conv_requant_kernel(y1, oihw[c2], mscales[c2], biases[c2],
+                                         scalars[2 + 2 * blk], 1, 1, residual=x,
+                                         residual_scale=scalars[2 * blk],
+                                         packed=packs[c2])
+        return x
+
+    if not torch.equal(four_calls(), ref):
+        raise AssertionError("four int8_conv_requant calls differ from the "
+                             "plain stage 1")
+
+    # side time: the four convolutions as bfloat16 library calls, eager
+    # epilogues (what a float stand-in would cost; it is not the same function)
+    xb = xq.to(torch.bfloat16).permute(0, 3, 1, 2)
+    wb = [k.to(torch.bfloat16) for k in oihw]
+
+    def library_bf16():
+        x = xb
+        for blk in range(2):
+            y = torch.relu_(F.conv2d(x, wb[2 * blk], None, 1, 1))
+            x = torch.relu_(F.conv2d(y, wb[2 * blk + 1], None, 1, 1) + x)
+        return x
+
+    fused = lambda: fused_stage1_int8_kernel(xq, kernels, mscales, biases,  # noqa: E731
+                                             scalars, packed=packed)
+    kq, pq = timed_in_turns(
+        fused, lambda: fused_stage1_int8_reference(xq, kernels, mscales,
+                                                   biases, scalars),
+        INT8_PLAIN_RUNS)
+    for fn in (four_calls, library_bf16):
+        cuda_ms(fn, 3)
+    half = INT8_TIMING_RUNS // 2
+    f4 = cuda_ms(four_calls, half)
+    kt = cuda_ms(fused, half) + cuda_ms(fused, half)
+    f4 += cuda_ms(four_calls, half)
+    kq, f4q = quartiles(kt), quartiles(f4)
+    lib = quartiles(cuda_ms(library_bf16, INT8_TIMING_RUNS))
+    b, h, w, c = STAGE1_SHAPES[0]
+    ops = 4 * 2 * b * h * w * 9 * c * c
+    moved = 2 * xq.numel() + kernels.numel() + 4 * (8 * c + 5)
+    bound = bound_ms(moved, ops, INT8_OP_S)
+    log(f"[int8-stage1] fused_stage1_int8 {STAGE1_SHAPES[0]} ({ops / 1e9:.1f} "
+        f"G op, {moved / 1e6:.1f} MB): kernel {kq[1]:.4f} ms (quartiles "
+        f"{kq[0]:.4f}–{kq[2]:.4f}; {ops / kq[1] / 1e9:.1f} TOP/s = "
+        f"{ops / kq[1] / INT8_OP_S * 1e5:.1f} % of 1,979 TOP/s; bound "
+        f"{bound['bound_ms']:.4f} ms by {bound['bound_by']}), four "
+        f"int8_conv_requant calls {f4q[1]:.4f} ms ({f4q[0]:.4f}–{f4q[2]:.4f}), "
+        f"plain {pq[1]:.2f} ms; the four convolutions as bfloat16 library "
+        f"calls with eager ReLU and residual {lib[1]:.4f} ms")
+    return {"max_abs_err": max_err, "ms": kq[1], "plain_ms": pq[1],
+            "library_ms": None, **bound}
+
+
 def tissue_cells(slide):
     """The slice's grid at ``LEVEL``/``STRIDE`` and its tissue cells as
     (iy, ix) pairs, by the host filter's rule on the cells as the slice reads
@@ -976,7 +1330,8 @@ def phase_slice(dev, model, slide, ref_cells) -> dict:
     iy, ix = ref_cells[:, 0], ref_cells[:, 1]
     if white[iy, ix].any():
         raise AssertionError("a reference cell was filtered as white")
-    return {"launches": launches, "ref_margins": dev_m[iy, ix]}
+    return {"launches": launches, "ref_margins": dev_m[iy, ix],
+            "host_margins": host_m}
 
 
 def phase_cli(sd, slide) -> None:
@@ -1616,6 +1971,247 @@ def phase_features(dev, ds, sd, tmp) -> dict:
             "fused_stem": launches_s2d["fused_stem"]}
 
 
+def phase_int8(dev, ds, sd, slide, host_margins, ref_cells, ref_u8, tmp) -> dict:
+    """The int8 path: ``--quantize`` (calibrate once on the packed store's
+    tissue, write the artifact), ``--predict_slide --int8`` from the artifact
+    (in this process with the launches counted, then through the CLI), and
+    ``run_feature_extraction(int8=True, qtree=…)``."""
+    import numpy as np
+    import torch
+    import torch.nn.functional as F
+
+    from ss25_hierarchical_multiscale_image_classification_tpu_torch.config import (
+        Config,
+        DataConfig,
+    )
+    from ss25_hierarchical_multiscale_image_classification_tpu_torch.infer.features import (
+        run_feature_extraction,
+    )
+    from ss25_hierarchical_multiscale_image_classification_tpu_torch.infer.sliding_window import (
+        NON_TISSUE_MARGIN,
+        predict_slide,
+    )
+    from ss25_hierarchical_multiscale_image_classification_tpu_torch.io.slide import (
+        save_npz_slide,
+    )
+    from ss25_hierarchical_multiscale_image_classification_tpu_torch.models.convert import (
+        resnet18_from_state_dict,
+        strip_head,
+    )
+    from ss25_hierarchical_multiscale_image_classification_tpu_torch.models.quant_artifact import (
+        CLASSIFIER_ARTIFACT,
+        artifact_input_hw,
+        load_quantized,
+        quantize_classifier_to_artifact,
+    )
+    from ss25_hierarchical_multiscale_image_classification_tpu_torch.models.quantized import (
+        fold_batchnorm,
+        folded_forward,
+        quant_forward,
+        quantized_to,
+    )
+    from ss25_hierarchical_multiscale_image_classification_tpu_torch.train.checkpoints import (
+        save_model,
+    )
+
+    torch.backends.cudnn.allow_tf32 = False
+    torch.backends.cuda.matmul.allow_tf32 = False
+    stage1, conv, pool = int8_launchers()
+    counts = lambda: (stage1.launches, conv.launches, pool.launches)  # noqa: E731
+    models_dir = os.path.join(tmp, "int8_models")
+    save_model(os.path.join(models_dir, "resnet18_patch_classifier"), sd)
+    cfg = Config(data=DataConfig(data_dir=os.path.join(tmp, "int8_data")),
+                 models_dir=models_dir)
+
+    # --quantize: the function behind the flag, on the in-memory manifest of
+    # the packed store (a parquet manifest needs pyarrow)
+    reset_counts()
+    t0 = time.perf_counter()
+    path = quantize_classifier_to_artifact(cfg, level=LEVEL, dataset=ds,
+                                           device="cuda")
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    tree = load_quantized(path)
+    stem = tuple(tree["qkernels"]["stem"].shape)
+    log(f"[int8] --quantize: 4 batches of 128 of the {len(ds)} tissue cells → "
+        f"{os.path.basename(path)} ({os.path.getsize(path) / 1e6:.1f} MB, "
+        f"{len(tree['ascales'])} activation scales, stem {stem}, input "
+        f"{artifact_input_hw(tree)}) in {wall:.2f} s")
+    if (os.path.basename(path) != CLASSIFIER_ARTIFACT or stem != (64, 12, 4, 4)
+            or artifact_input_hw(tree) != (224, 224) or counts() != (0, 0, 0)):
+        raise AssertionError("--quantize did not write the s2d artifact of a "
+                             "224² input through the float forward")
+
+    # --predict_slide --int8 from the artifact, launches counted
+    model = resnet18_from_state_dict(sd).to(dev)
+    kw = dict(level=LEVEL, stride=STRIDE, output="margin", int8=True, qtree=tree,
+              device=dev)
+    white = host_margins == NON_TISSUE_MARGIN
+    batches = -(-int((~white).sum()) // BATCH)
+    runs = []
+    for i in range(3):
+        reset_counts()  # counts from here on are the int8 slide path's
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        margins, grid = predict_slide(slide, model, batch_size=BATCH, **kw)
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+        slide_counts = counts()
+        runs.append(margins)
+        log(f"[int8] predict_slide(int8=True, qtree=artifact) run {i + 1}: "
+            f"{grid.num_patches} cells in {wall:.3f} s = "
+            f"{grid.num_patches / wall:.1f} cells/s ({'cold' if i == 0 else 'warm'}"
+            f"); launches fused_stage1_int8 {slide_counts[0]}, "
+            f"int8_conv_requant {slide_counts[1]}, int8_maxpool "
+            f"{slide_counts[2]}")
+        if slide_counts != (batches, 16 * batches, batches):
+            raise AssertionError(f"expected {batches}, {16 * batches} and "
+                                 f"{batches} launches on the int8 slide path, "
+                                 f"counted {slide_counts}")
+    margins = runs[-1]
+    if not np.isfinite(margins).all():
+        raise AssertionError("non-finite int8 margins")
+    if not np.array_equal(margins == NON_TISSUE_MARGIN, white):
+        raise AssertionError("the int8 and float tissue partitions differ")
+    other, _ = predict_slide(slide, model, batch_size=384, **kw)
+    d_batch = np.abs(other - margins).max()
+    d_run = np.abs(runs[1] - margins).max()
+
+    # against the port's float32 folded forward on the reference cells
+    iy, ix = ref_cells[:, 0], ref_cells[:, 1]
+    x = torch.from_numpy(ref_u8).to(dev)
+    qt = quantized_to(tree, dev)
+    with torch.inference_mode():
+        l32 = folded_forward(fold_batchnorm(sd), x)
+        l8 = quant_forward(qt, x)
+        f32 = folded_forward(fold_batchnorm(sd), x, with_fc=False)
+        f8 = quant_forward(qt, x, with_fc=False)
+    m32, m8 = (l32[:, 1] - l32[:, 0]).cpu().numpy(), (l8[:, 1] - l8[:, 0]).cpu().numpy()
+    cos_logits = F.cosine_similarity(l8.flatten(), l32.flatten(), dim=0).item()
+    cos_feats = F.cosine_similarity(f8, f32, dim=1).min().item()
+    d_margin = np.abs(m8 - m32).max()
+    spread = m32.max() - m32.min()
+    d_slide = np.abs(margins[iy, ix] - m8).max()
+    log(f"[int8] {len(m32)} reference cells: int8 against the float32 "
+        f"folded_forward: logit cosine {cos_logits:.5f}, feature cosine (worst "
+        f"cell) {cos_feats:.5f} (bound {INT8_COSINE_MIN}), margins max|Δ| "
+        f"{d_margin:.4g}, mean|Δ| {np.abs(m8 - m32).mean():.4g} (bound "
+        f"{INT8_MARGIN_ATOL} on a spread of {spread:.4f}, must be ≥ "
+        f"{10 * INT8_MARGIN_ATOL}); the slide run's margins of these cells "
+        f"against a direct quant_forward max|Δ| {d_slide:.3g}; batch 384 against "
+        f"{BATCH} max|Δ| {d_batch:.3g}, run against run {d_run:.3g}")
+    if spread < 10 * INT8_MARGIN_ATOL:
+        raise AssertionError("reference margins spread too little to check "
+                             "the int8 forward")
+    if (min(cos_logits, cos_feats) < INT8_COSINE_MIN
+            or d_margin > INT8_MARGIN_ATOL):
+        raise AssertionError("int8 margins outside their bound of the float32 "
+                             "forward")
+    if max(d_slide, d_batch, d_run) > 1e-5 * np.abs(m8).max():
+        raise AssertionError("int8 margins from the artifact depend on the "
+                             "batch or the run")
+
+    # the CLI: --predict_slide --int8 picks the artifact up
+    slide_path = os.path.join(tmp, "smoke_slide.wsi.npz")
+    save_npz_slide(slide_path, [slide.level_array(i)
+                                for i in range(slide.level_count)])
+    cmd = [sys.executable, "-m", f"{PKG}.cli.main", "--predict_slide",
+           slide_path, "--int8", "--device", "cuda", "--stride", str(STRIDE),
+           "--models_dir", models_dir]
+    t0 = time.perf_counter()
+    proc = subprocess.run(cmd, cwd=ROOT, env=dict(os.environ),
+                          capture_output=True, text=True, timeout=600)
+    wall = time.perf_counter() - t0
+    if proc.returncode != 0:
+        raise AssertionError(f"CLI --int8 failed ({proc.returncode}):\n"
+                             f"{proc.stderr[-4000:]}")
+    rows = np.loadtxt(os.path.join(models_dir, "model_predictions_csv",
+                                   "smoke_slide.csv"), delimiter=",", ndmin=2)
+    if ("using persisted quantization artifact" not in proc.stderr
+            or rows.size == 0
+            or not ((rows[:, 0] > 0) & (rows[:, 0] < 1)).all()):
+        raise AssertionError("CLI --int8 did not use the artifact or wrote no "
+                             "valid detections")
+    log(f"[int8] {' '.join(cmd[3:6])} … exit 0 in {wall:.1f} s (process start "
+        f"and the kernels' build cache included); {len(rows)} detections")
+
+    # run_feature_extraction(int8=True, qtree=artifact)
+    trunk = strip_head(sd)
+    n, steps = len(ds), -(-len(ds) // BATCH)
+    reset_counts()  # counts from here on are the int8 extraction's
+    feats, _, _ = run_feature_extraction(ds, trunk, BATCH, device=dev,
+                                         int8=True, qtree=tree)
+    torch.cuda.synchronize()
+    feat_counts = counts()
+    if feat_counts != (steps, 16 * steps, steps):
+        raise AssertionError(f"expected {steps}, {16 * steps} and {steps} "
+                             f"launches on the int8 extraction, counted "
+                             f"{feat_counts}")
+    walls = []
+    for bs in (384, BATCH, BATCH):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        again, _, _ = run_feature_extraction(ds, trunk, bs, device=dev,
+                                             int8=True, qtree=tree)
+        torch.cuda.synchronize()
+        walls.append((time.perf_counter() - t0) * 1e3)
+        if not np.array_equal(again, feats):
+            raise AssertionError(
+                f"int8 features from the artifact differ at batch {bs}: max|Δ| "
+                f"{np.abs(again - feats).max():.3g}")
+    idx = np.sort(np.random.default_rng(SEED).choice(n, FEAT_REF_CELLS,
+                                                     replace=False))
+    imgs, _ = ds.read_batch(idx)
+    with torch.inference_mode():
+        ref = folded_forward(fold_batchnorm(trunk), torch.from_numpy(imgs).to(dev),
+                             with_fc=False).cpu()
+    cos = F.cosine_similarity(torch.from_numpy(feats[idx]), ref, dim=1).min().item()
+    log(f"[int8] run_feature_extraction(int8=True, qtree=artifact): {n} cells, "
+        f"{steps} batches; launches fused_stage1_int8 {feat_counts[0]}, "
+        f"int8_conv_requant {feat_counts[1]}, int8_maxpool {feat_counts[2]}; "
+        f"features identical at batch 384 "
+        f"and {BATCH}; against the float32 folded_forward on {len(idx)} cells: "
+        f"cosine (worst cell) {cos:.5f} (bound {INT8_COSINE_MIN}), max|Δ| "
+        f"{np.abs(feats[idx] - ref.numpy()).max():.4g} at features up to "
+        f"{ref.max().item():.4f}; warm loop {walls[-1]:.1f} ms = "
+        f"{n / walls[-1] * 1e3:.0f} patches/s")
+    if not np.isfinite(feats).all() or cos < INT8_COSINE_MIN:
+        raise AssertionError("int8 features outside their bound of the float32 "
+                             "forward")
+
+    # the forward alone on one batch on the card, both input layouts
+    x = torch.from_numpy(ds.read_batch(range(BATCH))[0]).to(dev)
+    xs = x.reshape(BATCH, 112, 2, 112, 2, 3).permute(0, 1, 3, 2, 4, 5).reshape(
+        BATCH, 112, 112, 12).contiguous()
+    with torch.inference_mode():
+        for name, inp in (("(512,224,224,3)", x), ("pre-s2d (512,112,112,12)", xs)):
+            fn = lambda: quant_forward(qt, inp, with_fc=False)  # noqa: E731
+            cuda_ms(fn, 3)
+            q1, med, q3 = quartiles(cuda_ms(fn, FEAT_TIMED_STEPS))
+            log(f"[int8] warm quant_forward at B={BATCH}, input {name}: median "
+                f"{med:.3f} ms (quartiles {q1:.3f}–{q3:.3f}) = "
+                f"{BATCH / med * 1e3:.0f} patches/s")
+
+    # the card against the CPU's plain quant_forward
+    imgs, _ = ds.read_batch(range(INT8_CPU_CELLS))
+    with torch.inference_mode():
+        card = quant_forward(qt, torch.from_numpy(imgs).to(dev), with_fc=False).cpu()
+        t0 = time.perf_counter()
+        cpu = quant_forward(tree, torch.from_numpy(imgs), with_fc=False)
+        wall = time.perf_counter() - t0
+    step = tree["ascales"]["s4b1o"].item() / 49  # one int8 step of one value
+    d = (card - cpu).abs().max().item()
+    log(f"[int8] card against the CPU's plain quant_forward on "
+        f"{INT8_CPU_CELLS} cells ({wall:.1f} s on the CPU): features max|Δ| "
+        f"{d:.3g} = {d / step:.3g} int8 steps of one of a feature's 49 values "
+        f"(bound {INT8_CPU_STEPS}); features up to {cpu.max().item():.4f}")
+    if d > INT8_CPU_STEPS * step:
+        raise AssertionError("the card's int8 forward differs from the CPU's")
+    return {"fused_stage1_int8": slide_counts[0],
+            "int8_conv_requant": slide_counts[1],
+            "int8_maxpool": slide_counts[2]}
+
+
 def main() -> int:
     if not os.path.isdir(os.path.join(ROOT, PKG)):
         print(f"{PKG}/ not found beside {__file__}: run from a checkout",
@@ -1650,12 +2246,18 @@ def main() -> int:
                                   for iy, ix in idx])
     sd, f32_card, model = make_model(dev, cells(calib))
     kernel.update(phase_slice(dev, model, slide, ref))
-    check_reference(sd, f32_card, cells(ref), kernel.pop("ref_margins"), dev)
+    ref_u8 = cells(ref)
+    host_margins = kernel.pop("host_margins")
+    check_reference(sd, f32_card, ref_u8, kernel.pop("ref_margins"), dev)
     phase_cli(sd, slide)
     del f32_card, model
     torch.cuda.empty_cache()
     stem_pool = phase_stem_pool(dev)
     stem = phase_fused_stem(dev, sd)
+    torch.cuda.empty_cache()
+    int8_conv = phase_int8_conv(dev)
+    stage1 = phase_fused_stage1(dev)
+    int8_pool = phase_int8_pool(dev)
     torch.cuda.empty_cache()
 
     with tempfile.TemporaryDirectory() as tmp:
@@ -1668,27 +2270,44 @@ def main() -> int:
         with tempfile.TemporaryDirectory() as mil_tmp:
             milpool.update(phase_mil(dev, mil_tmp))
         torch.cuda.empty_cache()
+        int8_launches = phase_int8(dev, ds, sd, slide, host_margins, ref,
+                                   ref_u8, tmp)
+        torch.cuda.empty_cache()
         # last: it ends under torch.profiler, and host-clock walls taken in
         # this process after a profiler session come out longer
         feature_launches = phase_features(dev, ds, sd, tmp)
     del ds
 
-    jax_ops = "ss25_hierarchical_multiscale_image_classification_tpu/ops/pallas"
-    rows = [("fused_normalize", "fused_normalize.cu", "preprocess.py:35",
+    jax_pkg = "ss25_hierarchical_multiscale_image_classification_tpu"
+    ops = f"{jax_pkg}/ops/pallas"
+    rows = [("fused_normalize", "fused_normalize.cu", f"{ops}/preprocess.py:35",
              kernel)]
     for name, line in (("nt_xent_fwd", 63), ("nt_xent_bwd", 157)):
-        rows.append((name, "nt_xent.cu", f"nt_xent.py:{line}",
+        rows.append((name, "nt_xent.cu", f"{ops}/nt_xent.py:{line}",
                      {"launches": simclr_launches[name], **ntxent[name]}))
-    rows.append(("mil_attention_pool", "mil_pool.cu", "mil_pool.py:33", milpool))
-    rows.append(("bias_relu_pool", "bias_relu_pool.cu", "fused_stem.py:220",
+    rows.append(("mil_attention_pool", "mil_pool.cu", f"{ops}/mil_pool.py:33",
+                 milpool))
+    rows.append(("bias_relu_pool", "bias_relu_pool.cu",
+                 f"{ops}/fused_stem.py:220",
                  {"launches": feature_launches["bias_relu_pool"], **stem_pool}))
-    rows.append(("fused_stem", "fused_stem.cu", "fused_stem.py:115",
+    rows.append(("fused_stem", "fused_stem.cu", f"{ops}/fused_stem.py:115",
                  {"launches": feature_launches["fused_stem"], **stem}))
+    rows.append(("fused_stage1_int8", "int8_block.cu", f"{ops}/int8_block.py:65",
+                 {"launches": int8_launches["fused_stage1_int8"], **stage1}))
+    # the port's own kernels: they stand for _convq + _requant and for the
+    # int8 reduce_window, which XLA compiles in the JAX package (no Pallas
+    # kernel there)
+    rows.append(("int8_conv_requant", "int8_conv.cu",
+                 f"{jax_pkg}/models/quantized.py:460",
+                 {"launches": int8_launches["int8_conv_requant"], **int8_conv}))
+    rows.append(("int8_maxpool", "int8_pool.cu",
+                 f"{jax_pkg}/models/quantized.py:524",
+                 {"launches": int8_launches["int8_maxpool"], **int8_pool}))
     table = {"kernels": [{
         "name": name,
         "route": "cuda",
         "source": f"{PKG}/ops/csrc/{source}",
-        "replaces": f"{jax_ops}/{replaces}",
+        "replaces": replaces,
         "launches": k["launches"],
         "max_abs_err": k["max_abs_err"],
         "ms": k["ms"],

@@ -14,6 +14,11 @@ package runs; the port's machine only reads the ``.pt``.
 
 The output defaults to the artifact path plus ``.pt``: the name the port's
 CLI looks for under ``--models_dir`` with the same ``--model_name``.
+
+An int8 artifact (``quantized_resnet18.npz``, written by ``--quantize`` of
+either package) needs no export: it is a plain ``.npz`` with the same keys
+and HWIO kernels on both sides, and the port's
+``models/quant_artifact.py::load_quantized`` reads it as it is.
 """
 
 from __future__ import annotations

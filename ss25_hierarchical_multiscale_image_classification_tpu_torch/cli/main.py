@@ -1,8 +1,8 @@
 """Command line of the port: single-slide ``--predict_slide``,
-``--train_mil`` and ``--extract_features``.
+``--train_mil``, ``--extract_features`` and ``--quantize``.
 
 Counterpart of the JAX CLI (``cli/main.py`` of the JAX package) for these
-three actions, with their flags under the same names and defaults, plus
+four actions, with their flags under the same names and defaults, plus
 ``--device``. Exactly one action is given.
 
 ``--predict_slide`` loads ``<models_dir>/<model_name>.pt`` (a
@@ -28,9 +28,22 @@ of ``simclr_encoder.pt``) over the level's patches under
 ``<data_dir>/patches`` and writes the feature triplet under
 ``<data_dir>/features``.
 
-Tiled TIFF slides, directory (fleet) inputs, ``--overlay``, ``--run_evaluation`` and ``--int8``
-come with later slices. On the card the model runs in bfloat16, on the CPU
-in float32.
+``--quantize`` calibrates the int8 (w8a8) activation scales of
+``<models_dir>/resnet18_patch_classifier.pt`` once, on random training
+patches of ``--patch_level`` under ``<data_dir>/patches``, and writes
+``<models_dir>/quantized_resnet18.npz`` (the JAX package's artifact format).
+``--int8`` with ``--predict_slide`` or ``--extract_features`` runs the int8
+forward on the port's int8 kernels: from that artifact when it is there,
+else with scales calibrated lazily on the run's first batches.
+
+    python -m ss25_hierarchical_multiscale_image_classification_tpu_torch.cli.main \\
+        --quantize --data_dir data/camelyon16 --patch_level 3
+    python -m ss25_hierarchical_multiscale_image_classification_tpu_torch.cli.main \\
+        --predict_slide slide.wsi.npz --int8
+
+Tiled TIFF slides, directory (fleet) inputs, ``--overlay``,
+``--run_evaluation``, ``--qat`` and ``--multiscale`` come with later slices.
+On the card the float model runs in bfloat16, on the CPU in float32.
 """
 
 from __future__ import annotations
@@ -62,6 +75,11 @@ from ss25_hierarchical_multiscale_image_classification_tpu_torch.models.convert 
     load_state_dict_file,
     resnet18_from_state_dict,
 )
+from ss25_hierarchical_multiscale_image_classification_tpu_torch.models.quant_artifact import (
+    CLASSIFIER_ARTIFACT,
+    maybe_load_artifact,
+    quantize_classifier_to_artifact,
+)
 from ss25_hierarchical_multiscale_image_classification_tpu_torch.train.mil_trainer import (
     train_mil_classifier,
 )
@@ -73,8 +91,8 @@ def build_parser() -> argparse.ArgumentParser:
     parser = argparse.ArgumentParser(
         prog="hipac-torch",
         description="Sliding-window tumor detection on one slide, "
-                    "attention-MIL slide classification and patch feature "
-                    "extraction (PyTorch/CUDA)",
+                    "attention-MIL slide classification, patch feature "
+                    "extraction and int8 quantization (PyTorch/CUDA)",
     )
     parser.add_argument("--predict_slide", type=str, default=None,
                         help="Sliding-window inference on one slide: writes "
@@ -86,6 +104,18 @@ def build_parser() -> argparse.ArgumentParser:
                         help="Extract features from patches")
     parser.add_argument("--simclr_features", action="store_true",
                         help="With --extract_features: use the SimCLR encoder")
+    parser.add_argument("--quantize", action="store_true",
+                        help="Calibrate int8 scales ONCE on training tissue "
+                             "and persist the quantized model artifact "
+                             "(quantized_resnet18.npz) for deterministic "
+                             "--int8 inference")
+    parser.add_argument("--int8", action="store_true",
+                        help="Post-training int8 (w8a8) inference for "
+                             "--extract_features / --predict_slide: BN-fold "
+                             "+ per-channel weight quant + calibrated "
+                             "activation scales (models/quantized.py). Uses "
+                             "the persisted --quantize artifact when "
+                             "present; falls back to lazy calibration")
     parser.add_argument("--patch_level", type=str, default="3",
                         help="WSI level to grid, or of the features "
                              "(0-3; 'all' means 3)")
@@ -123,15 +153,17 @@ def main(argv=None) -> int:
     parser = build_parser()
     args = parser.parse_args(argv)
     actions = [args.predict_slide is not None, args.train_mil,
-               args.extract_features]
+               args.extract_features, args.quantize]
     if sum(actions) != 1:
-        parser.error("give exactly one of --predict_slide, --train_mil and "
-                     "--extract_features")
+        parser.error("give exactly one of --predict_slide, --train_mil, "
+                     "--extract_features and --quantize")
     if args.simclr_features and not args.extract_features:
         parser.error("--simclr_features goes with --extract_features")
+    if args.int8 and (args.train_mil or args.quantize):
+        parser.error("--int8 goes with --predict_slide or --extract_features")
     level = 3 if args.patch_level == "all" else int(args.patch_level)
     models_dir = args.models_dir or MODELS_DIR
-    if args.train_mil or args.extract_features:
+    if args.train_mil or args.extract_features or args.quantize:
         device = resolve_device(args.device)
         data_dir = args.data_dir or os.path.join(os.getcwd(), "data",
                                                  "camelyon16")
@@ -142,12 +174,18 @@ def main(argv=None) -> int:
             return 0
         if not os.path.isdir(os.path.join(cfg.data.patches_dir,
                                           f"level_{level}")):
-            log.error("Patches must be extracted at level %d before "
-                      "features.", level)
+            log.error("Patches must be extracted at level %d before %s.",
+                      level, "quantization" if args.quantize else "features")
             return 1
+        if args.quantize:
+            path = quantize_classifier_to_artifact(cfg, level=level,
+                                                   device=device)
+            log.info("Quantized artifact written: %s", path)
+            return 0
         extract = (extract_features_with_simclr if args.simclr_features
                    else extract_features)
-        extract(cfg, level=level, batch_size=args.batch_size, device=device)
+        extract(cfg, level=level, batch_size=args.batch_size, device=device,
+                int8=args.int8)
         return 0
     if os.path.isdir(args.predict_slide):
         log.error("--predict_slide takes one slide file here; directory "
@@ -156,7 +194,9 @@ def main(argv=None) -> int:
     device = resolve_device(args.device)
     weights = os.path.join(models_dir, f"{args.model_name}.pt")
     model = resnet18_from_state_dict(load_state_dict_file(weights))
-    dtype = torch.bfloat16 if device.type == "cuda" else torch.float32
+    # the int8 path reads the model only to calibrate lazily: float32 then
+    dtype = (torch.bfloat16 if device.type == "cuda" and not args.int8
+             else torch.float32)
     model = model.to(device=device, dtype=dtype,
                      memory_format=torch.channels_last)
     threshold = (args.detect_threshold if args.detect_threshold is not None
@@ -166,10 +206,19 @@ def main(argv=None) -> int:
         predict_kw["batch_size"] = args.batch_size
     if args.stride:
         predict_kw["stride"] = args.stride
+    tissue_filter = args.tissue_filter
+    if args.int8:
+        if tissue_filter == "device":
+            log.warning("--tissue_filter device is the float path (int8 folds "
+                        "normalize into the stem): using host filtering")
+            tissue_filter = "host"
+        predict_kw["int8"] = True
+        predict_kw["qtree"] = maybe_load_artifact(models_dir,
+                                                  CLASSIFIER_ARTIFACT)
     _, csv_path = predict_and_export(
         args.predict_slide, model,
         os.path.join(models_dir, "model_predictions_csv"),
-        level=level, threshold=threshold, tissue_filter=args.tissue_filter,
+        level=level, threshold=threshold, tissue_filter=tissue_filter,
         device=device, **predict_kw,
     )
     log.info("Detections written: %s", csv_path)

@@ -39,6 +39,9 @@ class PatchDataset:
 
     manifest: PatchManifest
     resize_to: int = INPUT_SIZE
+    #: emit batches in the stem's space-to-depth layout (B, H/2, W/2, 12),
+    #: the int8 inference feed
+    s2d: bool = False
 
     def __post_init__(self):
         self.reader = PatchReader(self.manifest)
@@ -59,7 +62,8 @@ class PatchDataset:
         return self.manifest.class_counts()
 
     def read_batch(self, indices: Sequence[int]) -> tuple[np.ndarray, np.ndarray]:
-        imgs = self.reader.read_batch(indices, resize_to=self.resize_to)
+        imgs = self.reader.read_batch(indices, resize_to=self.resize_to,
+                                      s2d=self.s2d)
         labels = self.labels[np.asarray(indices, dtype=np.int64)]
         return imgs, labels
 

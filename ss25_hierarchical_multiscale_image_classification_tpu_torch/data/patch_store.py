@@ -12,7 +12,9 @@ Differences from the JAX module, none in the bytes read:
   native OpenMP ``gather_rows``, which copies the same rows);
 - PNG records (Pillow) and resizing (``cv2``) import their library when
   they are read, and raise where it is missing;
-- the int8 path's space-to-depth layout (``s2d``) is not ported yet.
+- the int8 path's space-to-depth layout (``s2d=True``) is a numpy
+  reshape/transpose of the gathered batch (the JAX package's native
+  ``gather_rows_s2d`` writes the same bytes during the gather).
 """
 
 from __future__ import annotations
@@ -103,10 +105,10 @@ class PatchReader:
         s2d: bool = False,
     ) -> np.ndarray:
         """(B, H, W, 3) uint8 batch of ``indices``; packed rows that come
-        from one pack file are gathered with one fancy-indexing copy."""
-        if s2d:
-            raise NotImplementedError(
-                "the space-to-depth (int8) layout is not ported yet")
+        from one pack file are gathered with one fancy-indexing copy.
+        ``s2d=True`` gives the stem's space-to-depth layout (B, H/2, W/2, 12)
+        instead, which feeds the int8 forward with no transpose on the
+        device."""
         indices = [int(i) for i in indices]
         recs = [self.manifest[i] for i in indices]
         if recs and all(r.store == "packed" for r in recs):
@@ -132,7 +134,18 @@ class PatchReader:
         if resize_to is not None and any(
                 img.shape[:2] != (resize_to, resize_to) for img in imgs):
             imgs = [_resize(img, resize_to) for img in imgs]
-        return imgs if isinstance(imgs, np.ndarray) else np.stack(imgs)
+        batch = imgs if isinstance(imgs, np.ndarray) else np.stack(imgs)
+        return space_to_depth_u8(batch) if s2d else batch
+
+
+def space_to_depth_u8(batch: np.ndarray) -> np.ndarray:
+    """(B, H, W, 3) → (B, H/2, W/2, 12) with slot ``(r·2 + rx)·3 + c`` holding
+    pixel (2Y + r, 2X + rx, c): the stem's space-to-depth layout."""
+    b, h, w, c = batch.shape
+    if h % 2 or w % 2:
+        raise ValueError(f"space-to-depth needs even H and W, got {h}×{w}")
+    cells = batch.reshape(b, h // 2, 2, w // 2, 2, c).transpose(0, 1, 3, 2, 4, 5)
+    return np.ascontiguousarray(cells).reshape(b, h // 2, w // 2, 4 * c)
 
 
 def _resize(img: np.ndarray, edge: int) -> np.ndarray:

@@ -20,12 +20,15 @@ the hand-written ``bias_relu_pool`` kernel (or, with ``stem_s2d=True``, the
 :class:`~..data.prefetch.Prefetcher` thread; on the card each batch goes up
 through one of two pinned buffers, and each step's features come down on a
 copy stream into pinned memory, read with a one-batch lag: batch k−1's
-features reach the host while batch k computes. ``int8=`` comes with the
-int8 path.
+features reach the host while batch k computes. With ``int8=True`` the
+loop runs the int8 (w8a8) forward instead (``quant_forward``: every
+convolution on the port's int8 kernels), from a persisted artifact or from
+scales calibrated on the first dataset batches; features stay float32.
 """
 
 from __future__ import annotations
 
+import dataclasses
 import os
 
 import numpy as np
@@ -57,10 +60,17 @@ from ss25_hierarchical_multiscale_image_classification_tpu_torch.logging_utils i
 from ss25_hierarchical_multiscale_image_classification_tpu_torch.models.convert import (
     strip_head,
 )
+from ss25_hierarchical_multiscale_image_classification_tpu_torch.models.quant_artifact import (
+    CLASSIFIER_ARTIFACT,
+    maybe_load_artifact,
+)
 from ss25_hierarchical_multiscale_image_classification_tpu_torch.models.quantized import (
     fold_resnet18_inference,
     folded_forward_inference,
     folded_to,
+    quant_forward,
+    quantize_resnet18,
+    quantized_to,
 )
 from ss25_hierarchical_multiscale_image_classification_tpu_torch.train.checkpoints import (
     load_model,
@@ -84,6 +94,19 @@ def make_feature_step(model):
     return feature_step
 
 
+def _calibration_batches(dataset: PatchDataset, batch_size: int,
+                         n_batches: int = 2) -> list[np.ndarray]:
+    """First few dataset batches, for int8 activation-scale calibration."""
+    out = []
+    for imgs, _labels, _valid in BatchIterator(
+        dataset, min(batch_size, 256), shuffle=False
+    ):
+        out.append(np.asarray(imgs))
+        if len(out) >= n_batches:
+            break
+    return out
+
+
 def run_feature_extraction(
     dataset: PatchDataset,
     state: dict[str, torch.Tensor],
@@ -93,6 +116,8 @@ def run_feature_extraction(
     feature_dim: int = 512,
     device: str | torch.device = "cuda",
     stem_s2d: bool = False,
+    int8: bool = False,
+    qtree: dict | None = None,
 ) -> tuple[np.ndarray, np.ndarray, list[str]]:
     """Forward every patch through the extractor; returns
     (features (N, ``feature_dim``) float32, labels (N,), patch names).
@@ -103,17 +128,40 @@ def run_feature_extraction(
     ``n_valid`` real rows of a wrap-padded last batch are kept.
     ``stem_s2d`` selects the space-to-depth stem of
     ``fold_resnet18_inference``.
+
+    ``int8=True`` post-training-quantizes the trunk (w8a8) and runs
+    ``quant_forward``: from ``qtree`` (a persisted artifact) if given, else
+    with scales calibrated on the first dataset batches. With a
+    space-to-depth stem the dataset's host gather emits the (B, H/2, W/2, 12)
+    layout directly, the same bytes, and the device transposes nothing.
     """
     dev = resolve_device(device)
     on_card = dev.type == "cuda"
-    if dtype is None:
-        dtype = torch.bfloat16 if on_card else torch.float32
-    hw = int(getattr(dataset, "resize_to", 224) or 224)
-    fp = folded_to(
-        fold_resnet18_inference(state, input_hw=(hw, hw), stem_s2d=stem_s2d,
-                                dtype=dtype),
-        dev,
-    )
+    if int8:
+        if qtree is None:
+            # no persisted artifact: calibrate on the first dataset batches
+            qtree = quantize_resnet18(
+                state, _calibration_batches(dataset, batch_size), device=dev
+            ).tree()
+        qtree = quantized_to(qtree, dev)
+        if int(qtree["qkernels"]["stem"].shape[-1]) == 4:
+            dataset = dataclasses.replace(dataset, s2d=True)
+
+        def forward(x: torch.Tensor) -> torch.Tensor:
+            return quant_forward(qtree, x, with_fc=False)
+    else:
+        if dtype is None:
+            dtype = torch.bfloat16 if on_card else torch.float32
+        hw = int(getattr(dataset, "resize_to", 224) or 224)
+        fp = folded_to(
+            fold_resnet18_inference(state, input_hw=(hw, hw),
+                                    stem_s2d=stem_s2d, dtype=dtype),
+            dev,
+        )
+
+        def forward(x: torch.Tensor) -> torch.Tensor:
+            return folded_forward_inference(fp, x, with_fc=False)
+
     batches = Prefetcher(BatchIterator(dataset, batch_size, shuffle=False))
     n_total = len(dataset)
     if out is None:
@@ -129,8 +177,7 @@ def run_feature_extraction(
     def step(k: int, imgs: np.ndarray):
         """Enqueue batch k; returns what :func:`spool` needs to read it."""
         if not on_card:
-            return folded_forward_inference(fp, torch.from_numpy(imgs),
-                                            with_fc=False), None
+            return forward(torch.from_numpy(imgs)), None
         slot = k % 2
         if staged[slot] is None:
             staged[slot] = torch.empty(imgs.shape, dtype=torch.uint8,
@@ -141,7 +188,7 @@ def run_feature_extraction(
         x = staged[slot].to(dev, non_blocking=True)
         uploaded[slot] = torch.cuda.Event()
         uploaded[slot].record()
-        feats = folded_forward_inference(fp, x, with_fc=False)
+        feats = forward(x)
         copy_stream.wait_stream(torch.cuda.current_stream(dev))
         with torch.cuda.stream(copy_stream):
             fetched[slot].copy_(feats, non_blocking=True)
@@ -217,14 +264,15 @@ def _level_dataset(cfg: Config, level: int,
 
 def _extract(cfg: Config, level: int, trunk: dict[str, torch.Tensor],
              dataset: PatchDataset, batch_size: int | None,
-             device: str | torch.device | None) -> np.ndarray:
+             device: str | torch.device | None, int8: bool = False,
+             qtree: dict | None = None) -> np.ndarray:
     dev = resolve_device("cuda" if device is None else device)
     feature_dim = int(trunk["layer4.1.conv2.weight"].shape[0])
     out = _features_memmap(cfg.data.features_dir, level, len(dataset),
                            feature_dim)
     feats, labels, names = run_feature_extraction(
         dataset, trunk, batch_size or cfg.train.batch_size, out=out,
-        feature_dim=feature_dim, device=dev,
+        feature_dim=feature_dim, device=dev, int8=int8, qtree=qtree,
     )
     _save_artifacts(cfg.data.features_dir, level, feats, labels, names)
     return feats
@@ -233,29 +281,35 @@ def _extract(cfg: Config, level: int, trunk: dict[str, torch.Tensor],
 def extract_features(
     cfg: Config, level: int = 3, model_path: str | None = None,
     batch_size: int | None = None, dataset: PatchDataset | None = None,
-    device: str | torch.device | None = None,
+    device: str | torch.device | None = None, int8: bool = False,
 ) -> np.ndarray:
     """Classifier-trunk feature extraction: loads the trained classifier
     (``<models_dir>/resnet18_patch_classifier.pt``), strips the fc head and
     writes the level's triplet under ``cfg.data.features_dir``. Runs on the
     card unless ``device`` says otherwise. ``dataset=None`` loads the
     level's manifest; a given dataset serves installations without
-    pyarrow."""
+    pyarrow. ``int8=True`` runs the int8 forward, from
+    ``<models_dir>/quantized_resnet18.npz`` when ``--quantize`` wrote one."""
     dataset = _level_dataset(cfg, level, dataset)
     model_path = model_path or model_artifact_path(
         cfg.models_dir, "resnet18_patch_classifier")
     trunk = strip_head(load_model(model_path))
-    return _extract(cfg, level, trunk, dataset, batch_size, device)
+    qtree = None
+    if int8:
+        qtree = maybe_load_artifact(cfg.models_dir, CLASSIFIER_ARTIFACT)
+    return _extract(cfg, level, trunk, dataset, batch_size, device, int8,
+                    qtree)
 
 
 def extract_features_with_simclr(
     cfg: Config, level: int = 3, encoder_path: str | None = None,
     batch_size: int | None = None, dataset: PatchDataset | None = None,
-    device: str | torch.device | None = None,
+    device: str | torch.device | None = None, int8: bool = False,
 ) -> np.ndarray:
     """SimCLR-encoder feature extraction: reads the ``simclr_encoder.pt``
     that ``pretrain_simclr`` writes and takes its ``encoder.`` entries (a
-    bare encoder state dict is taken as it is)."""
+    bare encoder state dict is taken as it is). ``int8=True`` quantizes the
+    encoder with scales calibrated on the first dataset batches."""
     dataset = _level_dataset(cfg, level, dataset)
     encoder_path = encoder_path or model_artifact_path(cfg.models_dir,
                                                        "simclr_encoder")
@@ -263,7 +317,8 @@ def extract_features_with_simclr(
     if any(k.startswith("encoder.") for k in sd):
         sd = {k.removeprefix("encoder."): v for k, v in sd.items()
               if k.startswith("encoder.")}
-    return _extract(cfg, level, strip_head(sd), dataset, batch_size, device)
+    return _extract(cfg, level, strip_head(sd), dataset, batch_size, device,
+                    int8)
 
 
 def load_feature_artifacts(

@@ -12,8 +12,11 @@ flax at module level; this module carries copies of its host helpers (:class:`Ba
 :func:`write_detection_csv`, and ``slide_name`` from ``data/extract.py``),
 held to the originals by exact-equality tests.
 
-Single device, float path. The int8 and mesh arguments of the JAX function
-come with later slices and are not accepted.
+Single device. ``int8=True`` runs the int8 (w8a8) forward of
+``models/quantized.py`` (every convolution on the port's int8 kernels) from
+a persisted artifact (``qtree``) or, without one, from scales calibrated on
+the slide's first tissue batch. The mesh argument of the JAX function comes
+with the multi-GPU slice and is not accepted.
 """
 
 from __future__ import annotations
@@ -201,6 +204,34 @@ def make_prob_step(model: torch.nn.Module, input_size: int = 224,
     return prob_step
 
 
+def _resize_u8(imgs_u8: torch.Tensor, input_size: int) -> torch.Tensor:
+    """A uint8 batch at ``input_size``: bilinear resize in float32, rounded
+    and clipped back to uint8, as the JAX int8 step resizes."""
+    if imgs_u8.shape[1] == input_size:
+        return imgs_u8
+    f = resize(imgs_u8.to(torch.float32), input_size)
+    return torch.round(f).clamp(0, 255).to(torch.uint8)
+
+
+def make_prob_step_int8(input_size: int = 224):
+    """int8 (w8a8) margin step over a quantized tree
+    (``models/quantized.py``): ``prob_step(qtree, imgs_u8)`` maps a uint8
+    (B, S, S, 3) batch on the tree's device to the float32 margins (B,);
+    patches of another size resize on the device. Not cached (see
+    :func:`make_prob_step`)."""
+    from ss25_hierarchical_multiscale_image_classification_tpu_torch.models.quantized import (
+        quant_forward,
+    )
+
+    @torch.inference_mode()
+    def prob_step(qtree, imgs_u8: torch.Tensor) -> torch.Tensor:
+        logits = quant_forward(qtree, _resize_u8(imgs_u8, input_size),
+                               with_fc=True)
+        return logits[:, 1] - logits[:, 0]
+
+    return prob_step
+
+
 class _BatchPipeline:
     """A depth-4 window of in-flight batches, as in the JAX module.
 
@@ -269,6 +300,8 @@ def predict_slide(
     input_size: int = 224,
     output: str = "prob",
     tissue_filter: str = "host",
+    int8: bool = False,
+    qtree: dict | None = None,
     *,
     device: str | torch.device,
 ) -> tuple[np.ndarray, PatchGrid]:
@@ -287,12 +320,25 @@ def predict_slide(
       white cells are never uploaded.
     - ``"device"``: every cell uploads, and the fused normalize kernel gives
       the per-patch means from the same pass, clamping white cells on the
-      device; the host never computes per-patch means.
+      device; the host never computes per-patch means. Float path only.
+
+    ``int8=True`` runs the int8 forward: with a ``qtree`` (a persisted
+    ``models/quant_artifact.py`` tree, calibrated once on training tissue)
+    outputs do not depend on batch size or slide; without one, the model's
+    weights are quantized with scales calibrated on this slide's first
+    tissue batch (with one white cell beside it when that batch is short:
+    the JAX function calibrates on its white-padded batch buffer).
     """
     if output not in ("prob", "margin"):
         raise ValueError(f"unknown output mode {output!r}")
     if tissue_filter not in ("host", "device"):
         raise ValueError(f"unknown tissue_filter {tissue_filter!r}")
+    if tissue_filter == "device" and int8:
+        raise ValueError(
+            "tissue_filter='device' is the float single-chip path: the int8 "
+            "stem folds normalization into its weights, and the meshed step "
+            "would replicate the pallas_call per device"
+        )
     if batch_size < 1:
         raise ValueError(f"batch_size must be >= 1, got {batch_size}")
     dev = resolve_device(device)
@@ -312,12 +358,15 @@ def predict_slide(
             stride=stride,
         )
         coords = grid.coords_array()
-        step = make_prob_step(
-            model,
-            input_size,
-            float(tissue_threshold) if tissue_filter == "device" else None,
-        )
         ps = grid.patch_size
+        if int8:
+            step = _int8_step(model, qtree, input_size, batch_size, dev)
+        else:
+            step = make_prob_step(
+                model,
+                input_size,
+                float(tissue_threshold) if tissue_filter == "device" else None,
+            )
         stride_px = grid.stride
         n = len(coords)
         # margins throughout; converted to probability at return if asked
@@ -382,6 +431,36 @@ def predict_slide(
     finally:
         if own:
             slide.close()
+
+
+def _int8_step(model: torch.nn.Module, qtree: dict | None, input_size: int,
+               batch_size: int, dev: torch.device):
+    """``step(imgs_u8)`` of the int8 path: the persisted tree moved to
+    ``dev`` once, or a tree quantized at the first batch."""
+    from ss25_hierarchical_multiscale_image_classification_tpu_torch.models.quantized import (
+        quantize_resnet18,
+        quantized_to,
+    )
+
+    qstep = make_prob_step_int8(input_size)
+    # a persisted artifact: deterministic scales, no calibration per slide
+    state = {} if qtree is None else {"tree": quantized_to(qtree, dev)}
+
+    def step(imgs_u8: torch.Tensor) -> torch.Tensor:
+        if "tree" not in state:
+            # calibrate on this slide's first tissue batch, resized as the
+            # step resizes (the folded stem's bias map is bound to the
+            # calibration input size)
+            cal = imgs_u8
+            if cal.shape[0] < batch_size:
+                cal = torch.cat([cal, torch.full_like(cal[:1], 255)])
+            weights = {k: v.float() for k, v in model.state_dict().items()}
+            q = quantize_resnet18(weights, [_resize_u8(cal, input_size)],
+                                  device=dev)
+            state["tree"] = quantized_to(q.tree(), dev)
+        return qstep(state["tree"], imgs_u8)
+
+    return step
 
 
 def _component_mask(

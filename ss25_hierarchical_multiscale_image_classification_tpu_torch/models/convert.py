@@ -11,8 +11,10 @@
 
 Conv kernels HWIO → OIHW, the Dense kernel (in, out) → (out, in), and
 BatchNorm ``scale/bias`` (params) and ``mean/var`` (batch_stats) →
-``weight/bias/running_mean/running_var``. Numpy in (anything ``np.asarray``
-takes), tensors out; nothing here imports jax.
+``weight/bias/running_mean/running_var``. :func:`folded_from_jax` and
+:func:`quantized_from_jax` carry the inference-folded and the int8 trees
+across. Numpy in (anything ``np.asarray`` takes), tensors out; nothing here
+imports jax.
 """
 
 from __future__ import annotations
@@ -138,6 +140,31 @@ def folded_from_jax(fp: Mapping[str, Any],
         out["stem_w2"] = stem.permute(1, 0, 2, 3).reshape(
             4, 48, stem.shape[3]).to(dtype).contiguous()
     return out
+
+
+def quantized_from_jax(qtree: Mapping[str, Any],
+                       device: str | torch.device = "cpu") -> dict[str, Any]:
+    """A tree of the JAX package's ``QuantizedResNet18.tree()`` (arrays that
+    ``np.asarray`` takes; int8 kernels HWIO) → the quantized tree of the
+    port's ``models/quantized.py::quant_forward`` on ``device``: kernels
+    ``(C_out, C_in, KH, KW)`` int8 in channels_last memory (the layout the
+    int8 kernels read, chosen here once), float32 scales, biases, head and
+    stem bias map, and the forward's plan."""
+    from ss25_hierarchical_multiscale_image_classification_tpu_torch.models.quant_artifact import (
+        tree_from_arrays,
+    )
+    from ss25_hierarchical_multiscale_image_classification_tpu_torch.models.quantized import (
+        quantized_to,
+    )
+
+    flat = {f"{field}/{name}": a
+            for field in ("qkernels", "wscales", "biases", "ascales")
+            for name, a in qtree[field].items()}
+    if qtree.get("fc") is not None:
+        flat["fc/0"], flat["fc/1"] = qtree["fc"]
+    if qtree.get("stem_bias_map") is not None:
+        flat["stem_bias_map"] = qtree["stem_bias_map"]
+    return quantized_to(tree_from_arrays(flat), device)
 
 
 def strip_head(sd: Mapping[str, torch.Tensor]) -> dict[str, torch.Tensor]:

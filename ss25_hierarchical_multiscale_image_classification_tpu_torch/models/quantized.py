@@ -1,12 +1,15 @@
-"""Inference folds of ResNet18: BatchNorm folded into the convs, the ImageNet
-normalize folded into the stem, an optional space-to-depth stem.
+"""Inference folds of ResNet18 and its post-training int8 (w8a8) forward:
+BatchNorm folded into the convs, the ImageNet normalize folded into the stem,
+an optional space-to-depth stem; then symmetric int8 weights (per output
+channel) and activations (per tensor), with every convolution on a
+hand-written int8 kernel.
 
-Counterpart of the float half of the JAX package's ``models/quantized.py``
+Counterpart of the JAX package's ``models/quantized.py``: the float half
 (``_fold``, ``fold_batchnorm``, ``folded_forward``,
 ``_fold_normalize_into_stem``, ``_stem_kernel_s2d``,
-``fold_resnet18_inference``, ``folded_forward_inference``); its int8 half
-(``quantize_*``, ``calibrate``, ``quant_forward``) comes with the int8 path
-and will calibrate through :func:`folded_forward` here.
+``fold_resnet18_inference``, ``folded_forward_inference``) and the int8 half
+(``QuantizedResNet18``, ``_quantize_weights``, ``calibrate``,
+``quantize_resnet18``, ``quantize_folded``, ``_requant``, ``quant_forward``).
 
 The folds read the port's torchvision-layout state dict and keep conv
 kernels OIHW; they run in numpy float64 in the JAX module's order of
@@ -28,11 +31,25 @@ after the HWIO → OIHW transpose.
   residual add as plain ops, a float32 mean and a float32 head.
 
 On CPU tensors both stems run the kernels' plain versions.
+
+:func:`quant_forward` is the int8 forward of ``--int8``. A quantized tree
+(:meth:`QuantizedResNet18.tree`, or ``models/quant_artifact.py::load_quantized``)
+holds int8 kernels ``(C_out, C_in, KH, KW)`` in channels_last memory, float32
+weight scales and biases, one float32 activation scale per quantization
+point (calibrated through :func:`folded_forward` with ``collect=True``), the
+float32 head and the stem's bias map. Every inter-layer tensor is NHWC int8.
+The stem, the stage 2–4 convolutions and the downsamples run on
+``ops/int8_conv.py::int8_conv_requant`` (PyTorch has no int8 convolution on
+CUDA), the maxpool after the stem on ``ops/int8_pool.py::int8_maxpool``
+(nor an int8 maxpool), stage 1 on ``ops/int8_block.py::fused_stage1_int8``;
+the mean and the head are plain ops. On CPU tensors the kernels' plain
+versions run, with the same arithmetic.
 """
 
 from __future__ import annotations
 
-from typing import Any, Mapping
+import dataclasses
+from typing import Any, Iterable, Mapping
 
 import numpy as np
 import torch
@@ -45,9 +62,25 @@ from ss25_hierarchical_multiscale_image_classification_tpu_torch.config import (
 from ss25_hierarchical_multiscale_image_classification_tpu_torch.data.augment import (
     normalize,
 )
+from ss25_hierarchical_multiscale_image_classification_tpu_torch.device import (
+    resolve_device,
+)
 from ss25_hierarchical_multiscale_image_classification_tpu_torch.ops.fused_stem import (
     bias_relu_pool,
     fused_stem,
+)
+from ss25_hierarchical_multiscale_image_classification_tpu_torch.ops.int8_block import (
+    fused_stage1_int8,
+    pack_stage1_kernels,
+    stage1_params_from_qtree,
+)
+from ss25_hierarchical_multiscale_image_classification_tpu_torch.ops.int8_pool import (
+    int8_maxpool,
+)
+from ss25_hierarchical_multiscale_image_classification_tpu_torch.ops.int8_conv import (
+    int8_conv_requant,
+    pack_int8_kernel,
+    requant_reference,
 )
 
 _STAGES = ((1, 2), (2, 2), (3, 2), (4, 2))  # (stage index, blocks) for ResNet18
@@ -312,4 +345,284 @@ def folded_forward_inference(fp: dict[str, Any], imgs_u8: torch.Tensor,
     feats = x.mean(dim=(2, 3), dtype=torch.float32)
     if with_fc and fp["fc"] is not None:
         return feats @ fp["fc"][0].float() + fp["fc"][1]
+    return feats
+
+
+# ---------------------------------------------------------------------------
+# Quantization
+# ---------------------------------------------------------------------------
+
+
+@dataclasses.dataclass
+class QuantizedResNet18:
+    """int8 weights and scales, on the CPU until :func:`quantized_to` moves
+    the tree."""
+
+    qkernels: dict[str, torch.Tensor]   # int8 (O, I, KH, KW), channels_last
+    wscales: dict[str, torch.Tensor]    # float32 per output channel
+    biases: dict[str, torch.Tensor]     # float32 per output channel
+    ascales: dict[str, torch.Tensor]    # float32 scalars per quant point
+    fc: tuple[torch.Tensor, torch.Tensor] | None
+    stem_bias_map: torch.Tensor | None = None  # float32 (H/2, W/2, C)
+
+    def tree(self) -> dict[str, Any]:
+        return {
+            "qkernels": self.qkernels, "wscales": self.wscales,
+            "biases": self.biases, "ascales": self.ascales, "fc": self.fc,
+            "stem_bias_map": self.stem_bias_map,
+        }
+
+    def forward(self, imgs_u8: torch.Tensor) -> torch.Tensor:
+        return quant_forward(self.tree(), imgs_u8, with_fc=True)
+
+    def features(self, imgs_u8: torch.Tensor) -> torch.Tensor:
+        return quant_forward(self.tree(), imgs_u8, with_fc=False)
+
+
+def _quantize_weights(folded: dict) -> tuple[dict, dict, dict]:
+    """Symmetric per-output-channel int8 weights of a BN-folded tree (OIHW
+    kernels): ``(qkernels, wscales, biases)`` as tensors."""
+    qk, ws, bs = {}, {}, {}
+    for name, (kernel, bias) in folded.items():
+        if name == "fc":
+            continue
+        k = np.asarray(kernel, np.float32)
+        s = np.max(np.abs(k), axis=(1, 2, 3)) / 127.0
+        s = np.maximum(s, 1e-12).astype(np.float32)
+        q = np.clip(np.rint(k / s[:, None, None, None]), -127, 127)
+        qk[name] = torch.from_numpy(q.astype(np.int8)).contiguous(
+            memory_format=torch.channels_last)
+        ws[name] = torch.from_numpy(s)
+        bs[name] = torch.from_numpy(np.array(bias, np.float32))
+    return qk, ws, bs
+
+
+def calibrate(folded: dict, calib_batches: Iterable,
+              device: str | torch.device = "cuda") -> dict[str, torch.Tensor]:
+    """Max-abs activation scales from float32 passes of
+    :func:`folded_forward` (``collect=True``, TF32 off) over
+    ``calib_batches``, an iterable of uint8 (B, H, W, 3) arrays or tensors,
+    on ``device``."""
+    dev = resolve_device(device)
+    maxes: dict[str, float] | None = None
+    with torch.inference_mode(), torch.backends.cudnn.flags(allow_tf32=False):
+        for batch in calib_batches:
+            if not isinstance(batch, torch.Tensor):
+                batch = torch.as_tensor(np.asarray(batch))
+            imgs = batch.to(dev)
+            obs = folded_forward(folded, imgs, with_fc=False, collect=True)[1]
+            o = {k: float(v) for k, v in obs.items()}
+            maxes = o if maxes is None else {k: max(maxes[k], v)
+                                             for k, v in o.items()}
+    if maxes is None:
+        raise ValueError("calibrate() needs at least one batch")
+    return {k: torch.tensor(max(v / 127.0, 1e-12), dtype=torch.float32)
+            for k, v in maxes.items()}
+
+
+def quantize_resnet18(
+    state: Mapping[str, torch.Tensor], calib_batches: Iterable,
+    fold_stem_normalize: bool = True, stem_s2d: bool | None = None,
+    device: str | torch.device = "cuda",
+) -> QuantizedResNet18:
+    """Fold BN, quantize the weights per channel, calibrate the activation
+    scales on ``device``.
+
+    ``stem_s2d`` additionally reformulates the stem as a space-to-depth 4×4
+    conv (needs even input H/W and ``fold_stem_normalize``), the same sums as
+    the direct 7×7/2 conv; ``None`` enables it whenever it applies.
+    """
+    return quantize_folded(
+        fold_batchnorm(state), calib_batches,
+        fold_stem_normalize=fold_stem_normalize, stem_s2d=stem_s2d,
+        device=device,
+    )
+
+
+def quantize_folded(
+    folded: dict, calib_batches: Iterable, fold_stem_normalize: bool = True,
+    stem_s2d: bool | None = None, device: str | torch.device = "cuda",
+) -> QuantizedResNet18:
+    """Quantize an already BN-folded ``{name: (kernel OIHW, bias)}`` tree."""
+    # materialize once: calibrate() consumes the iterable, and the size probe
+    # below must see the same batches
+    calib_batches = list(calib_batches)
+    folded = {k: (np.asarray(v[0]), np.asarray(v[1])) for k, v in folded.items()}
+    ascales = calibrate(folded, calib_batches, device)
+    bias_map = None
+    if fold_stem_normalize:
+        hw = (224, 224)
+        if calib_batches:
+            hw = (int(calib_batches[0].shape[1]), int(calib_batches[0].shape[2]))
+        bias_map = torch.from_numpy(_fold_normalize_into_stem(folded, hw))
+        if stem_s2d is None:
+            stem_s2d = hw[0] % 2 == 0 and hw[1] % 2 == 0
+        if stem_s2d:
+            k = _stem_kernel_s2d(folded["stem"][0].transpose(2, 3, 1, 0))
+            folded["stem"] = (np.ascontiguousarray(k.transpose(3, 2, 0, 1)),
+                              folded["stem"][1])
+    elif stem_s2d:
+        raise ValueError("stem_s2d requires fold_stem_normalize")
+    qk, ws, bs = _quantize_weights(folded)
+    fc = None
+    if "fc" in folded:
+        fc = (torch.from_numpy(np.array(folded["fc"][0], np.float32)),
+              torch.from_numpy(np.array(folded["fc"][1], np.float32)))
+    return QuantizedResNet18(qk, ws, bs, ascales, fc, stem_bias_map=bias_map)
+
+
+# ---------------------------------------------------------------------------
+# int8 forward
+# ---------------------------------------------------------------------------
+
+
+def _requant(y32, mscale, bias, s_out, residual_f32=None, relu=True):
+    """Conv epilogue in plain ops: int32 → float32 dequantize (+ bias,
+    + residual), ReLU, requantize to int8 at scale ``s_out`` (a tensor)."""
+    return requant_reference(y32, mscale, bias, s_out, residual_f32, relu)
+
+
+def _conv_names(qk: Mapping[str, Any]) -> list[str]:
+    """The convolutions of stages 2–4 in the forward's order."""
+    names = []
+    for i, blocks in _STAGES[1:]:
+        for j in range(blocks):
+            names.append(f"s{i}b{j}c1")
+            if f"s{i}b{j}down" in qk:
+                names.append(f"s{i}b{j}down")
+            names.append(f"s{i}b{j}c2")
+    return names
+
+
+def quant_plan(qp: Mapping[str, Any]) -> dict[str, Any]:
+    """What :func:`quant_forward` needs besides the tree, made once: per
+    convolution the kernel-layout weights, the dequantization scale (input
+    activation scale × weight scale) and the bias (the stem's with its bias
+    map added), and the packed stage-1 parameters."""
+    qk, ws, bs, sc = qp["qkernels"], qp["wscales"], qp["biases"], qp["ascales"]
+    plan: dict[str, Any] = {}
+    if qp.get("stem_bias_map") is not None:
+        stem_mscale, stem_bias = ws["stem"], bs["stem"] + qp["stem_bias_map"]
+    else:
+        stem_mscale, stem_bias = sc["in"] * ws["stem"], bs["stem"]
+    on_card = qk["stem"].device.type == "cuda"
+    pack = pack_int8_kernel if on_card else (lambda k: None)
+    plan["stem"] = (pack(qk["stem"]), stem_mscale, stem_bias)
+    s_x = sc["s1b1o"]
+    for name in _conv_names(qk):
+        block = name[:4]
+        s_in = sc[f"{block}y1"] if name.endswith("c2") else s_x
+        plan[name] = (pack(qk[name]), s_in * ws[name], bs[name])
+        if name.endswith("c2"):
+            s_x = sc[f"{block}o"]
+    stage1 = stage1_params_from_qtree(qp)
+    plan["stage1"] = stage1 + (pack_stage1_kernels(stage1[0])
+                               if on_card else None,)
+    return plan
+
+
+def quantized_to(qp: Mapping[str, Any],
+                 device: str | torch.device) -> dict[str, Any]:
+    """A quantized tree on ``device``, with its :func:`quant_plan` under
+    ``"plan"`` so that a forward derives nothing per call."""
+    dev = resolve_device(device)
+
+    def move(node):
+        if isinstance(node, torch.Tensor):
+            t = node.to(dev)
+            if t.dim() == 4:  # .to() keeps strides only where it copies
+                t = t.contiguous(memory_format=torch.channels_last)
+            return t
+        if isinstance(node, dict):
+            return {k: move(v) for k, v in node.items()}
+        if isinstance(node, tuple):
+            return tuple(move(v) for v in node)
+        return node
+
+    out = move({k: v for k, v in qp.items() if k != "plan"})
+    out["plan"] = quant_plan(out)
+    return out
+
+
+def quant_forward(qp: Mapping[str, Any], imgs_u8: torch.Tensor,
+                  with_fc: bool = True) -> torch.Tensor:
+    """int8 forward of a quantized tree (:meth:`QuantizedResNet18.tree`,
+    best through :func:`quantized_to`) on the tree's device: float32 logits,
+    or the float32 pooled features with ``with_fc=False`` or no head.
+
+    ``imgs_u8`` is a raw NHWC uint8 batch, (B, H, W, 3) or, for a
+    space-to-depth stem, the host-made (B, H/2, W/2, 12) layout. With a
+    folded stem the convs consume ``u8 − 128`` (exact in int8, no
+    quantization error on the input); else the batch is normalized and
+    quantized at the calibrated input scale. Every inter-layer tensor is
+    int8; the epilogues run in float32 inside the kernels.
+    """
+    if imgs_u8.dtype != torch.uint8 or imgs_u8.dim() != 4:
+        raise ValueError(f"expected a (B, H, W, C) uint8 batch, got "
+                         f"{tuple(imgs_u8.shape)} {imgs_u8.dtype}")
+    qk, sc = qp["qkernels"], qp["ascales"]
+    plan = qp.get("plan") or quant_plan(qp)
+    s_p0 = sc["p0"]
+    packed, mscale, bias = plan["stem"]
+
+    if qp.get("stem_bias_map") is not None:
+        # normalize folded into the stem weights: the conv consumes raw
+        # u8 − 128 pixels; the bias map restores the (128 − mean)/std offset
+        # with exact zero-pad border semantics
+        t = (imgs_u8.to(torch.int16) - 128).to(torch.int8)
+        s2d_stem = qk["stem"].shape[-1] == 4
+        if imgs_u8.shape[-1] == 12:
+            # batch already in space-to-depth layout (host-side gather)
+            if not s2d_stem:
+                raise ValueError("pre-s2d input needs an s2d stem kernel")
+        elif s2d_stem:
+            n, h, w, _ = t.shape
+            t = t.reshape(n, h // 2, 2, w // 2, 2, 3).permute(0, 1, 3, 2, 4, 5)
+            t = t.reshape(n, h // 2, w // 2, 12)
+        if s2d_stem:
+            x = int8_conv_requant(t, qk["stem"], mscale, bias, s_p0, 1,
+                                  ((2, 1), (2, 1)), packed=packed)
+        else:
+            x = int8_conv_requant(t, qk["stem"], mscale, bias, s_p0, 2, 3,
+                                  packed=packed)
+    else:
+        # explicit path: normalize (u8 affine) and quantize at the input scale
+        dev = imgs_u8.device
+        mean = torch.tensor(IMAGENET_MEAN, dtype=torch.float32, device=dev) * 255.0
+        std = torch.tensor(IMAGENET_STD, dtype=torch.float32, device=dev) * 255.0
+        xf = (imgs_u8.to(torch.float32) - mean) / (std * sc["in"])
+        xq = torch.round(xf).clamp(-127.0, 127.0).to(torch.int8)
+        x = int8_conv_requant(xq, qk["stem"], mscale, bias, s_p0, 2, 3,
+                              packed=packed)
+
+    # maxpool on int8 (order swaps with the monotone requant + ReLU exactly)
+    x = int8_maxpool(x)
+
+    kernels, mscales, biases, scalars, packed1 = plan["stage1"]
+    x = fused_stage1_int8(x, kernels, mscales, biases, scalars, packed=packed1)
+    s_x = sc["s1b1o"]
+
+    for i, blocks in _STAGES[1:]:
+        for j in range(blocks):
+            stride = 2 if j == 0 else 1
+            s_y1, s_o = sc[f"s{i}b{j}y1"], sc[f"s{i}b{j}o"]
+            packed, mscale, bias = plan[f"s{i}b{j}c1"]
+            yq = int8_conv_requant(x, qk[f"s{i}b{j}c1"], mscale, bias, s_y1,
+                                   stride, 1, packed=packed)
+            res, res_scale = x, s_x
+            if f"s{i}b{j}down" in qk:
+                packed, mscale, bias = plan[f"s{i}b{j}down"]
+                res = int8_conv_requant(x, qk[f"s{i}b{j}down"], mscale, bias,
+                                        None, stride, 0, relu=False,
+                                        out_f32=True, packed=packed)
+                res_scale = None
+            packed, mscale, bias = plan[f"s{i}b{j}c2"]
+            x = int8_conv_requant(yq, qk[f"s{i}b{j}c2"], mscale, bias, s_o, 1,
+                                  1, residual=res, residual_scale=res_scale,
+                                  packed=packed)
+            s_x = s_o
+
+    feats = (x.to(torch.float32) * s_x).mean(dim=(1, 2))
+    if with_fc and qp["fc"] is not None:
+        return feats @ qp["fc"][0] + qp["fc"][1]
     return feats

@@ -4,14 +4,17 @@ The sources under ``ops/csrc/`` expose plain C entry points (no PyTorch
 headers), so ``nvcc`` builds each in seconds. Each source becomes a library
 of its own, all compiled at once (one ``nvcc`` process per source), at first
 use, into ``ops/_build/`` (listed in ``.gitignore``), under a name keyed by
-that source and the flags: an edited source builds anew, an unchanged one
+that source, the shared headers and the flags: an edited source builds anew, an unchanged one
 loads the library already there. Nothing is built or imported when this
 module is imported, so CPU-only installations import it freely.
 
 No ``--use_fast_math``: the normalize kernel's division must be the IEEE
 quotient so that it equals its plain PyTorch version bit for bit, the
 NT-Xent and MIL-pool kernels' ``expf``/``logf``/``tanhf`` stay the
-accurate ones, and the stem kernels' float32 adds stay IEEE adds.
+accurate ones, and the stem kernels' float32 adds stay IEEE adds. The int8
+kernels write their float32 epilogue with the explicitly rounded intrinsics
+(``__fmul_rn``, ``__fadd_rn``, ``__fdiv_rn``), which nvcc never contracts
+into an FMA.
 """
 
 from __future__ import annotations
@@ -79,6 +82,29 @@ SOURCES = {
             ctypes.c_int,
         ),
     },
+    "int8_conv.cu": {
+        # x, wt, mscale, bias, bias_map, s_out, residual, res_kind, res_scale,
+        # out, out_f32, relu, b, h, w, cin, cout, kh, kw, stride, pad_top,
+        # pad_left, ho, wo, stream
+        "hipac_int8_conv_requant": (
+            [_P, _P, _P, _P, _I32, _P, _P, _I32, _P, _P, _I32, _I32, _I64,
+             _I32, _I32, _I32, _I32, _I32, _I32, _I32, _I32, _I32, _I32, _I32,
+             _P],
+            ctypes.c_int,
+        ),
+    },
+    "int8_pool.cu": {
+        # x, out, b, h, w, c, stream
+        "hipac_int8_maxpool": ([_P, _P, _I64, _I32, _I32, _I32, _P],
+                               ctypes.c_int),
+    },
+    "int8_block.cu": {
+        # x, wt, mscales, biases, scalars, out, b, h, w, band_rows, stream
+        "hipac_fused_stage1_int8": (
+            [_P, _P, _P, _P, _P, _P, _I64, _I32, _I32, _I32, _P],
+            ctypes.c_int,
+        ),
+    },
 }
 
 
@@ -103,6 +129,8 @@ def library_path(source: str) -> Path:
     """Where the library built from ``source`` and the flags lives."""
     h = hashlib.sha256(" ".join(NVCC_FLAGS).encode())
     h.update((CSRC_DIR / source).read_bytes())
+    for header in sorted(CSRC_DIR.glob("*.cuh")):  # shared by the sources
+        h.update(header.read_bytes())
     return BUILD_DIR / f"libhipac_{Path(source).stem}_{h.hexdigest()[:16]}.so"
 
 

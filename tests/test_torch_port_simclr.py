@@ -143,8 +143,8 @@ def test_packed_store_and_reads_match_jax(tmp_path):
     np.testing.assert_array_equal(reader.read_batch(idx),
                                   jreader.read_batch(idx))
     np.testing.assert_array_equal(reader.read(8), jreader.read(8))
-    with pytest.raises(NotImplementedError):
-        reader.read_batch(idx, s2d=True)
+    np.testing.assert_array_equal(reader.read_batch(idx, s2d=True),
+                                  jreader.read_batch(idx, s2d=True))
     ds = datasets.PatchDataset(m, resize_to=16)
     jds = jax_datasets.PatchDataset(jm, resize_to=16)
     for a, b in zip(ds.read_batch(idx), jds.read_batch(idx)):

@@ -129,7 +129,10 @@ def test_predict_slide_rejects_what_the_slice_does_not_take(slide_path, models):
     with pytest.raises(ValueError):
         psw.predict_slide(slide_path, port, output="logits", device="cpu")
     with pytest.raises(TypeError):
-        psw.predict_slide(slide_path, port, int8=True, device="cpu")
+        psw.predict_slide(slide_path, port, mesh=None, device="cpu")
+    with pytest.raises(ValueError):  # the int8 stem folds the normalize
+        psw.predict_slide(slide_path, port, int8=True, tissue_filter="device",
+                          device="cpu")
     with pytest.raises(TypeError):
         psw.predict_slide(slide_path, port)  # no implicit device
 
