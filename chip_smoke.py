@@ -254,9 +254,32 @@ INT8_CONV_CASES += [
     ("stage-1 3x3", (56, 56, 64), 64, 3, 1, 1, "relu", False),
 ]
 INT8_ODD_BATCH = 37  # not a multiple of any tile
+# what the tiling of the wgmma path can get wrong, as (batch, case), checked
+# and not timed: one image at C_out = 128 (a batch smaller than a tile),
+# planes whose pixels fill no tile of 64, a strided 1x1 over an odd plane,
+# two blocks of 128 channels over a strided 3x3, blocks of 64 channels at
+# C_out = 192, a kernel size whose taps the products' loop is not unrolled for
+INT8_TILING_CASES = [
+    (1, ("C_out=128 B=1", (7, 7, 64), 128, 3, 1, 1, "relu", False)),
+    (3, ("ragged tiles", (10, 11, 128), 128, 3, 1, 1, "res_i8", False)),
+    (2, ("1x1/2 odd plane", (7, 9, 128), 256, 1, 2, 0, "f32", False)),
+    (5, ("3x3/2 two blocks", (14, 14, 128), 256, 3, 2, 1, "relu", False)),
+    (2, ("C_out=192", (12, 12, 64), 192, 3, 1, 1, "res_f32", False)),
+    (3, ("5x5", (9, 10, 64), 128, 5, 1, 2, "relu", False)),
+]
+# exact requantization ties through the staged 16-byte stores: an identity
+# 1x1 convolution whose (mscale, s_out) put quotients on half-integers, next
+# to them, and far outside the int8 range
+INT8_TIE_SCALES = [(0.5, 1.0), (0.125, 0.25), (1.5, 3.0), (0.1, 0.2),
+                   (1.0, 1e-3), (3.0, 2.0 + 2.0 ** -22)]
 INT8_TIMING_RUNS = 10
 INT8_PLAIN_RUNS = 4  # the plain version is a float64 im2col convolution
-STAGE1_SHAPES = [(BATCH, 56, 56, 64), (3, 56, 56, 64), (2, 30, 26, 64)]
+# the path's shape first; then a batch far below one wave of clusters, a
+# cluster of four with rows outside the image (30 = 4 * 8 - 2), one image, a
+# slab whose pixels (5 * 9) fill no tile of 64 in a cluster of two, and a
+# cluster of one
+STAGE1_SHAPES = [(BATCH, 56, 56, 64), (3, 56, 56, 64), (2, 30, 26, 64),
+                 (1, 56, 56, 64), (2, 9, 9, 64), (3, 6, 7, 64)]
 INT8_POOL_SHAPES = [(BATCH, 112, 112, 64), (3, 112, 112, 64), (2, 31, 27, 16)]
 # int8 path checks (phase 9), bounds from the H100 run recorded in PERF.md
 # (NVIDIA H100 80GB HBM3, 700 W):
@@ -922,6 +945,37 @@ def phase_int8_conv(dev) -> dict:
     total = {"ms": 0.0, "plain_ms": 0.0, "bound_ms": 0.0, "ops": 0,
              "by": {"bytes": 0, "operations": 0}}
     max_err = 0.0
+    for batch, case in INT8_TILING_CASES:
+        args, kw, _, _ = int8_conv_inputs(dev, g, batch, case)
+        ref = int8_conv_requant_reference(*args, **kw)
+        got = int8_conv_requant_kernel(*args, **kw)
+        torch.cuda.synchronize()
+        max_err = max(max_err, (got.float() - ref.float()).abs().max().item())
+        if got.shape != ref.shape or not torch.equal(got, ref):
+            raise AssertionError(f"int8_conv_requant differs from its plain "
+                                 f"version at {case[0]} B={batch}")
+        log(f"[int8-conv] {case[0]} B={batch} {tuple(args[0].shape[1:])} → "
+            f"{tuple(ref.shape[1:])}: exactly equal to the plain version")
+    xq = torch.randint(-127, 128, (2, 9, 9, 64), device=dev,
+                       generator=g).to(torch.int8)
+    for cout in (64, 128):  # blocks of 64 and of 128 output channels
+        eye = torch.eye(64, device=dev, dtype=torch.int8).repeat(cout // 64, 1)
+        qk = eye.reshape(cout, 64, 1, 1).contiguous(
+            memory_format=torch.channels_last)
+        for mscale, s_out in INT8_TIE_SCALES:
+            args = (xq, qk, torch.full((cout,), mscale, device=dev),
+                    torch.zeros(cout, device=dev),
+                    torch.tensor(s_out, device=dev), 1, 0)
+            got = int8_conv_requant_kernel(*args, relu=False)
+            torch.cuda.synchronize()
+            if not torch.equal(got, int8_conv_requant_reference(
+                    *args, relu=False)):
+                raise AssertionError(
+                    f"int8_conv_requant differs from its plain version at the "
+                    f"rounding ties of mscale {mscale}, s_out {s_out}, "
+                    f"C_out {cout}")
+    log(f"[int8-conv] rounding ties and clipping at {len(INT8_TIE_SCALES)} "
+        f"scale pairs, C_out 64 and 128: exactly equal to the plain version")
     for case in INT8_CONV_CASES:
         name = case[0]
         for batch in (INT8_ODD_BATCH, BATCH):
@@ -1043,6 +1097,8 @@ def phase_fused_stage1(dev) -> dict:
     import torch.nn.functional as F
 
     from ss25_hierarchical_multiscale_image_classification_tpu_torch.ops.int8_block import (
+        active_clusters,
+        cluster_plan,
         fused_stage1_int8_kernel,
         fused_stage1_int8_reference,
         pack_stage1_kernels,
@@ -1061,7 +1117,10 @@ def phase_fused_stage1(dev) -> dict:
         torch.cuda.synchronize()
         err = (got.float() - ref.float()).abs().max().item()
         max_err = max(max_err, err)
-        log(f"[int8-stage1] fused_stage1_int8 {shape}: "
+        blocks, rows = cluster_plan(shape[1], shape[2])
+        log(f"[int8-stage1] fused_stage1_int8 {shape} (clusters of {blocks} "
+            f"blocks, {rows} rows a block, {active_clusters(*shape[1:3])} "
+            f"clusters at once on this card): "
             f"exact={torch.equal(got, ref)} max_abs_err={err} (output std "
             f"{ref.float().std().item():.4g}, "
             f"{(ref == 0).float().mean().item():.3f} zeros)")

@@ -12,7 +12,10 @@ ResNet18, batch 512), calibrates the int8 artifact once on the store
 2. the forward alone on one batch on the card, by CUDA events, in turns:
    ``quant_forward`` from the raw (512, 224, 224, 3) batch and from the
    host-made space-to-depth batch, beside the bf16 folded forward of both
-   stems; and one profiled ``quant_forward`` with its device ops by time;
+   stems; and one profiled ``quant_forward`` with its device ops by time and
+   their sums by part (stem conv, pool, fused stage 1, the 12 stage convs,
+   the 3 downsamples, everything else: casts, space-to-depth, mean), which
+   must add up to the forward;
 3. walls of warm ``predict_slide`` runs in turns: int8 from the artifact
    (host tissue filter, the only one the int8 path takes), the float host
    filter and the float device filter; one profiled int8 run with the
@@ -42,6 +45,27 @@ import profile_torch_slice as pts
 
 ROOT = pts.ROOT
 cs = pts.cs
+
+# parts of an int8 forward by the names of its device kernels
+FORWARD_PARTS = (
+    ("stem conv", "int8_conv_stem_kernel"),
+    ("int8_maxpool", "int8_maxpool_kernel"),
+    ("fused_stage1_int8", "fused_stage1_kernel"),
+    ("12 stage convs 3x3 (wgmma)", "int8_conv_wgmma_kernel<128, 9>"),
+    ("3 downsamples 1x1 (wgmma)", "int8_conv_wgmma_kernel<128, 1>"),
+)
+
+
+def forward_parts(ops: list[dict]) -> dict:
+    """Device time of a profiled forward by part, from its ops by name."""
+    parts = {part: 0.0 for part, _ in FORWARD_PARTS}
+    parts["other (casts, s2d, mean)"] = 0.0
+    for op in ops:
+        part = next((part for part, key in FORWARD_PARTS if key in op["name"]),
+                    "other (casts, s2d, mean)")
+        parts[part] += op["ms"]
+    parts["sum"] = sum(parts.values())
+    return parts
 
 
 def main() -> int:
@@ -159,7 +183,8 @@ def main() -> int:
                 q = pts.quartiles(ms[name])
                 report["forward_ms"][name] = {
                     **q, "patches_per_s_median": cs.BATCH / q["median"] * 1e3,
-                    "top": pts.top_ops(prof, 14)}
+                    "top": pts.top_ops(prof, 14),
+                    "parts": forward_parts(pts.top_ops(prof, 1000))}
 
         # 3. the slide loop
         slide_kw = dict(level=cs.LEVEL, stride=cs.STRIDE, batch_size=cs.BATCH,
@@ -239,6 +264,9 @@ def main() -> int:
         if name.startswith("int8"):
             for t in m["top"][:14]:
                 print(f"    {t['ms']:8.3f} ms  x{t['count']:<4d} {t['name']}")
+            print("    by part: " + ", ".join(
+                f"{part} {t:.3f}" for part, t in m["parts"].items())
+                + f" ms (forward median {m['median']:.3f})")
     for name, m in report["slide_walls_s"].items():
         print(f"predict_slide, {name}: wall median {m['median']:.4f} s (q1 "
               f"{m['q1']:.4f}, q3 {m['q3']:.4f}, {m['runs']} runs) = "

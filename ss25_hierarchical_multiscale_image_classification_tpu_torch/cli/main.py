@@ -3,7 +3,12 @@
 
 Counterpart of the JAX CLI (``cli/main.py`` of the JAX package) for these
 four actions, with their flags under the same names and defaults, plus
-``--device``. Exactly one action is given.
+``--device``. As there, one call runs every action given, in a fixed order
+(``--extract_features``, ``--train_mil``, ``--quantize``,
+``--predict_slide``), and stops with exit code 1 at a stage whose inputs are
+missing; ``--config`` reads a JSON config (nested sections as in
+``config.py``), ``--base_dir`` stands for ``--data_dir``, ``--store`` sets
+the patch store format; an argument it does not know is logged and exits 1.
 
 ``--predict_slide`` loads ``<models_dir>/<model_name>.pt`` (a
 torchvision-layout ResNet18 state dict, e.g. written by
@@ -49,6 +54,7 @@ On the card the float model runs in bfloat16, on the CPU in float32.
 from __future__ import annotations
 
 import argparse
+import json
 import os
 import sys
 
@@ -56,9 +62,11 @@ import torch
 
 from ss25_hierarchical_multiscale_image_classification_tpu_torch.config import (
     DETECTION_PROB_THRESHOLD,
-    MODELS_DIR,
     Config,
     DataConfig,
+)
+from ss25_hierarchical_multiscale_image_classification_tpu_torch.data.manifest import (
+    patches_extracted,
 )
 from ss25_hierarchical_multiscale_image_classification_tpu_torch.device import (
     resolve_device,
@@ -117,12 +125,19 @@ def build_parser() -> argparse.ArgumentParser:
                              "the persisted --quantize artifact when "
                              "present; falls back to lazy calibration")
     parser.add_argument("--patch_level", type=str, default="3",
-                        help="WSI level to grid, or of the features "
-                             "(0-3; 'all' means 3)")
+                        help="WSI level to grid, or of the features (0-3; "
+                             "'all': --extract_features needs the patches "
+                             "of every level, and every action runs at 3)")
     parser.add_argument("--epochs", type=int, default=None,
                         help="Override epoch count")
     parser.add_argument("--data_dir", type=str, default=None,
                         help="Data root (default: ./data/camelyon16)")
+    parser.add_argument("--base_dir", type=str, default=None,
+                        help="Alias of --data_dir")
+    parser.add_argument("--config", type=str, default=None,
+                        help="JSON config file (overrides defaults)")
+    parser.add_argument("--store", type=str, default=None,
+                        choices=["png", "packed"], help="Patch store format")
     parser.add_argument("--stride", type=int, default=None,
                         help="Patch-grid stride in level pixels (default: "
                              "patch size, i.e. non-overlapping)")
@@ -149,50 +164,58 @@ def build_parser() -> argparse.ArgumentParser:
     return parser
 
 
-def main(argv=None) -> int:
-    parser = build_parser()
-    args = parser.parse_args(argv)
-    actions = [args.predict_slide is not None, args.train_mil,
-               args.extract_features, args.quantize]
-    if sum(actions) != 1:
-        parser.error("give exactly one of --predict_slide, --train_mil, "
-                     "--extract_features and --quantize")
-    if args.simclr_features and not args.extract_features:
-        parser.error("--simclr_features goes with --extract_features")
-    if args.int8 and (args.train_mil or args.quantize):
-        parser.error("--int8 goes with --predict_slide or --extract_features")
-    level = 3 if args.patch_level == "all" else int(args.patch_level)
-    models_dir = args.models_dir or MODELS_DIR
-    if args.train_mil or args.extract_features or args.quantize:
-        device = resolve_device(args.device)
-        data_dir = args.data_dir or os.path.join(os.getcwd(), "data",
-                                                 "camelyon16")
-        cfg = Config(data=DataConfig(data_dir=data_dir), models_dir=models_dir)
-        if args.train_mil:
-            train_mil_classifier(cfg, level=level, epochs=args.epochs,
-                                 device=device)
-            return 0
-        if not os.path.isdir(os.path.join(cfg.data.patches_dir,
-                                          f"level_{level}")):
-            log.error("Patches must be extracted at level %d before %s.",
-                      level, "quantization" if args.quantize else "features")
-            return 1
-        if args.quantize:
-            path = quantize_classifier_to_artifact(cfg, level=level,
-                                                   device=device)
-            log.info("Quantized artifact written: %s", path)
-            return 0
-        extract = (extract_features_with_simclr if args.simclr_features
-                   else extract_features)
-        extract(cfg, level=level, batch_size=args.batch_size, device=device,
-                int8=args.int8)
-        return 0
+def _reject_unknown_args(parser: argparse.ArgumentParser, argv) -> None:
+    """Log and exit 1 on an argument the parser does not know (argparse
+    itself would exit 2), as the JAX CLI does."""
+    known = {a.dest for a in parser._actions}
+    for a in parser._actions:
+        known.update(s.lstrip("-").replace("-", "_") for s in a.option_strings)
+    given = {
+        arg.split("=")[0].lstrip("-").replace("-", "_")
+        for arg in argv
+        if arg.startswith("-")
+    }
+    unknown = given - known
+    if unknown:
+        log.error("Unknown command line arguments: %s", ", ".join(sorted(unknown)))
+        sys.exit(1)
+
+
+def _config_from_args(args) -> Config:
+    """The run's config by the JAX CLI's rules: ``--config`` JSON first; the
+    data root from ``--data_dir``, else ``--base_dir``, else the JSON's, else
+    ``./data/camelyon16`` (the data section is then rebuilt around it);
+    ``--store``, ``--models_dir`` and ``--batch_size`` (trainer and SimCLR)
+    over it."""
+    if args.config:
+        with open(args.config) as f:
+            cfg = Config.from_dict(json.load(f))
+    else:
+        cfg = Config()
+    data_dir = args.data_dir or args.base_dir or (
+        cfg.data.data_dir if args.config
+        else os.path.join(os.getcwd(), "data", "camelyon16"))
+    cfg = cfg.replace(data=DataConfig(data_dir=data_dir))
+    if args.store:
+        cfg.data.patch_store_format = args.store
+    if args.models_dir:
+        cfg = cfg.replace(models_dir=args.models_dir)
+    if args.batch_size:
+        cfg.train.batch_size = args.batch_size
+        cfg.simclr.batch_size = args.batch_size
+    return cfg
+
+
+def _levels(patch_level: str) -> list[int]:
+    return [0, 1, 2, 3] if patch_level == "all" else [int(patch_level)]
+
+
+def _predict_slide(args, cfg: Config, level: int, device) -> int:
     if os.path.isdir(args.predict_slide):
         log.error("--predict_slide takes one slide file here; directory "
                   "(fleet) inputs are not ported yet")
         return 1
-    device = resolve_device(args.device)
-    weights = os.path.join(models_dir, f"{args.model_name}.pt")
+    weights = os.path.join(cfg.models_dir, f"{args.model_name}.pt")
     model = resnet18_from_state_dict(load_state_dict_file(weights))
     # the int8 path reads the model only to calibrate lazily: float32 then
     dtype = (torch.bfloat16 if device.type == "cuda" and not args.int8
@@ -213,15 +236,54 @@ def main(argv=None) -> int:
                         "normalize into the stem): using host filtering")
             tissue_filter = "host"
         predict_kw["int8"] = True
-        predict_kw["qtree"] = maybe_load_artifact(models_dir,
+        predict_kw["qtree"] = maybe_load_artifact(cfg.models_dir,
                                                   CLASSIFIER_ARTIFACT)
     _, csv_path = predict_and_export(
         args.predict_slide, model,
-        os.path.join(models_dir, "model_predictions_csv"),
+        os.path.join(cfg.models_dir, "model_predictions_csv"),
         level=level, threshold=threshold, tissue_filter=tissue_filter,
         device=device, **predict_kw,
     )
     log.info("Detections written: %s", csv_path)
+    return 0
+
+
+def main(argv=None) -> int:
+    argv = list(sys.argv[1:] if argv is None else argv)
+    parser = build_parser()
+    _reject_unknown_args(parser, argv)
+    args = parser.parse_args(argv)
+    if not (args.predict_slide is not None or args.train_mil
+            or args.extract_features or args.quantize):
+        parser.error("give at least one of --predict_slide, --train_mil, "
+                     "--extract_features and --quantize")
+    if args.simclr_features and not args.extract_features:
+        parser.error("--simclr_features goes with --extract_features")
+    if args.int8 and not (args.predict_slide is not None
+                          or args.extract_features):
+        parser.error("--int8 goes with --predict_slide or --extract_features")
+    cfg = _config_from_args(args)
+    level = 3 if args.patch_level == "all" else int(args.patch_level)
+    device = resolve_device(args.device)
+
+    if args.extract_features:
+        for lvl in _levels(args.patch_level):
+            if not patches_extracted(cfg.data, lvl):
+                log.error("Patches must be extracted at level %d before "
+                          "features.", lvl)
+                return 1
+        extract = (extract_features_with_simclr if args.simclr_features
+                   else extract_features)
+        extract(cfg, level=level, batch_size=args.batch_size, device=device,
+                int8=args.int8)
+    if args.train_mil:
+        train_mil_classifier(cfg, level=level, epochs=args.epochs,
+                             device=device)
+    if args.quantize:
+        path = quantize_classifier_to_artifact(cfg, level=level, device=device)
+        log.info("Quantized artifact written: %s", path)
+    if args.predict_slide is not None:
+        return _predict_slide(args, cfg, level, device)
     return 0
 
 

@@ -10,6 +10,7 @@ from __future__ import annotations
 
 import dataclasses
 import os
+from typing import Any, Mapping
 
 #: Per-pyramid-level patch edge length in pixels; all four levels cover the
 #: same physical field of view at four magnifications.
@@ -44,6 +45,9 @@ class DataConfig:
     data_dir: str = "data"
     patches_subdir: str = "patches"
     features_subdir: str = "features"
+    #: "png" = one PNG per patch; "packed" = memmapped uint8 store + manifest
+    #: (the CLI's ``--store``)
+    patch_store_format: str = "packed"
 
     @property
     def patches_dir(self) -> str:
@@ -126,3 +130,35 @@ class Config:
     uncertainty: UncertaintyConfig = dataclasses.field(
         default_factory=UncertaintyConfig)
     models_dir: str = MODELS_DIR
+
+    def replace(self, **updates: Any) -> "Config":
+        return dataclasses.replace(self, **updates)
+
+    def to_dict(self) -> dict:
+        return dataclasses.asdict(self)
+
+    @classmethod
+    def from_dict(cls, d: Mapping[str, Any]) -> "Config":
+        """A config from a (JSON) mapping as the JAX package's
+        ``Config.from_dict`` builds it: nested sections by name, keys that
+        are no field (here also: fields of slices not ported yet) skipped."""
+        def _build(dc_type, values):
+            fields = {f.name for f in dataclasses.fields(dc_type)}
+            kwargs = {}
+            for key, val in values.items():
+                if key not in fields:
+                    continue
+                sub = _FIELD_TYPES.get((dc_type.__name__, key))
+                kwargs[key] = _build(sub, val) if sub else val
+            return dc_type(**kwargs)
+
+        return _build(cls, dict(d))
+
+
+_FIELD_TYPES = {
+    ("Config", "data"): DataConfig,
+    ("Config", "train"): TrainConfig,
+    ("Config", "simclr"): SimCLRConfig,
+    ("Config", "mil"): MILConfig,
+    ("Config", "uncertainty"): UncertaintyConfig,
+}

@@ -135,3 +135,13 @@ def load_or_scan_manifest(patches_dir: str, level: int) -> PatchManifest:
     return PatchManifest.from_png_dir(
         os.path.join(patches_dir, f"level_{level}"), level
     )
+
+
+def patches_extracted(data, level: int) -> bool:
+    """Stage gate of the CLI (``patches_extracted`` of the JAX package's
+    ``io/download.py``): a manifest, or a PNG tree, with rows at ``level``
+    under ``data.patches_dir``. Anything that fails on the way is "no"."""
+    try:
+        return len(load_or_scan_manifest(data.patches_dir, level)) > 0
+    except Exception:
+        return False

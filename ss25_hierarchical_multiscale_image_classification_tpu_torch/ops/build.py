@@ -99,9 +99,14 @@ SOURCES = {
                                ctypes.c_int),
     },
     "int8_block.cu": {
-        # x, wt, mscales, biases, scalars, out, b, h, w, band_rows, stream
+        # x, wt, mscales, biases, scalars, out, b, h, w, rows, cluster, stream
         "hipac_fused_stage1_int8": (
-            [_P, _P, _P, _P, _P, _P, _I64, _I32, _I32, _I32, _P],
+            [_P, _P, _P, _P, _P, _P, _I64, _I32, _I32, _I32, _I32, _P],
+            ctypes.c_int,
+        ),
+        # h, w, rows, cluster, clusters (out)
+        "hipac_fused_stage1_int8_active_clusters": (
+            [_I32, _I32, _I32, _I32, ctypes.POINTER(ctypes.c_int)],
             ctypes.c_int,
         ),
     },

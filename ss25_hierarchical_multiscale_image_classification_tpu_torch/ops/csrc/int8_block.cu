@@ -12,296 +12,349 @@
 //
 // Design. The TPU kernel holds one whole padded image and its intermediate in
 // fast memory per grid step; an SM's 227 KB of shared memory does not hold two
-// such planes. Here a block of sixteen warps takes a band of R output rows of
-// one image at full width. It loads R + 8 input rows (one zero column each
-// side), and computes convolution 1 on R + 6 rows, 2 on R + 4 (residual from
-// the input band), 3 on R + 2 and 4 on R (residual from convolution 2's
-// band), through three int8 bands in shared memory that take turns. The halo
-// rows are computed again by the neighbouring band (1.43x the arithmetic at
-// R = 7). A halo row that lies outside the image is forced to zero after its
-// requantization: the reference zero-pads every intermediate plane, so such a
-// row is 0 and not the convolution of zeros plus a bias. Each convolution is
-// the implicit GEMM of int8_conv.cu: `mma.sync.m16n8k32` on A fragments read
-// with `ldmatrix` from the band as contiguous windows (pixel pitch 80 bytes
-// against bank conflicts) and B fragments read with `ldmatrix` from the
-// convolution's 36 KB of weights [o][ky][kx][ci], which are copied to shared
-// memory before each convolution (row pitch 592 bytes). The result band is
-// staged in shared memory and written with 16-byte stores. The first version
-// read its B fragments from device memory through L1, eight cache lines per
-// load instruction, and took 1.7x as long (PERF.md).
+// such planes (56 x 56 x 64 int8 is 200.7 KB). Here a thread-block cluster
+// holds an image: each of its (up to eight) blocks owns a slab of R output
+// rows at full width of all three planes (input, intermediate, block output;
+// three slabs of R + 2 rows in shared memory that take turns, one zero column
+// each side, pixel pitch 80 bytes against bank conflicts). After each
+// convolution a `cluster.sync()` lets every block copy its two halo rows (the
+// neighbours' edge rows) out of the neighbours' shared memory, so no row is
+// computed twice. Rows outside the image are forced to zero after their
+// requantization: the reference zero-pads every intermediate plane. Each
+// convolution is the implicit GEMM of int8_wgmma.cuh: four warpgroups take
+// tiles of 64 flat pixels of the slab, `wgmma.m64n64k32` with A fragments
+// read by `ldmatrix` in place (a tap is the tile shifted by whole pixels) and
+// B read by the tensor cores from the convolution's 36 KB weight image, which
+// the host packed in core-matrix order and one bulk copy lands. Two weight
+// buffers with an `mbarrier` each: the weights of convolution k + 2 arrive
+// while k + 1 runs. The scales, the biases and the pixel offsets of the flat
+// tiles sit in shared memory (no division and no device-memory read in the
+// epilogue), the requantization takes one branch per eight values
+// (int8_mma.cuh), and the result slab is written with 16-byte stores. What
+// is left at (512, 56, 56, 64), in this order: the epilogues, which no
+// product overlaps (the four warpgroups multiply together and then
+// requantize together); the products themselves (an n64 product reads as
+// many shared-memory bytes for A as for B); `cluster.sync()` with the halo
+// copy; the set-up of a block.
+//
+// The first design gave each block a band of 7 output rows and computed the
+// halo rows of every convolution again (R + 6, + 4, + 2 rows: 1.43x the
+// arithmetic) on `mma.sync.m16n8k32` with 32-pixel warp tiles, and stopped
+// between convolutions to fetch the weights: 2.39-2.55 ms at (512, 56, 56,
+// 64) on an NVIDIA H100 80GB HBM3 at 700 W; before that, B fragments from
+// device memory took 1.7x as long. This design's first version (scales and
+// biases from device memory, a division per pixel, a branch per value) took
+// 1.93 ms; a version that ran the tiles without halo rows before a split
+// cluster barrier was slower than this one (the second block-wide barrier
+// per convolution cost more than the wait it hid) (PERF.md).
 //
 // Built by ops/build.py (nvcc, plain C entry point, no PyTorch headers).
 
+#include <cooperative_groups.h>
 #include <cuda_runtime.h>
 
 #include <cstdint>
 
-#include "int8_mma.cuh"
+#include "int8_wgmma.cuh"
 
 namespace {
 
-using hipac_int8::cp_async_16;
-using hipac_int8::cp_async_wait_all;
-using hipac_int8::dequant;
-using hipac_int8::ldmatrix_x4;
-using hipac_int8::mma_s8;
-using hipac_int8::requant;
+namespace cg = cooperative_groups;
+using namespace hipac_int8;
 
-constexpr int kC = 64;         // channels in and out
-constexpr int kPix = 80;       // bytes between two pixels of a band
-constexpr int kK = 9 * kC;     // weights per output channel
-constexpr int kWPitch = kK + 16;  // bytes per output channel in shared memory
-constexpr int kWBytes = kC * kWPitch;
-constexpr int kThreads = 512;   // sixteen warps a block
+constexpr int kC = 64;          // channels in and out
+constexpr int kPix = 80;        // bytes between two pixels of a slab
+constexpr int kSteps = 18;      // K steps of 32 bytes: 2 channel halves x 9 taps
+constexpr int kWBytes = 9 * kC * kC;  // one convolution's weight image
+constexpr int kThreads = 512;   // four warpgroups a block
+constexpr int kMaxCluster = 8;  // the largest portable cluster
 constexpr int kMaxSmem = 232448;  // bytes a block may use on sm_90
 
-// The weights of one convolution, (64, 576) [o][ky][kx][ci] in device memory,
-// on their way to shared memory at a pitch of kWPitch bytes.
-__device__ __forceinline__ void copy_weights_async(const int8_t* __restrict__ wt,
-                                                   int8_t* wsm) {
-  constexpr int kPieces = kK / 16;
-  for (int e = threadIdx.x; e < kC * kPieces; e += blockDim.x) {
-    const int n = e / kPieces, piece = e % kPieces;
-    cp_async_16(wsm + n * kWPitch + piece * 16, wt + n * kK + piece * 16);
-  }
-}
-
-// One 3x3 convolution over a band. `src` holds rows_out + 2 rows, `dst`
-// receives rows_out rows whose first is image row `img_row0`; both are padded
-// bands of `rowb` bytes a row with the plane's column x at pixel x + 1. `res`
-// (or null) is a band whose row r + 2 lines up with dst row r. `wsm` holds
-// the convolution's weights (copy_weights_async).
-__device__ __forceinline__ void conv_band(
-    const int8_t* src, int8_t* dst, const int8_t* res, int rows_out,
-    int img_row0, int h, int w, int rowb, const int8_t* wsm,
-    const float* __restrict__ msc, const float* __restrict__ bias,
-    float res_scale, float s_out) {
+// One 3x3 convolution over this block's slab. `src` holds rows + 2 rows (its
+// halo rows first and last), `dst` receives rows 1 .. rows, whose first is
+// image row `img_row0`; both are padded slabs of (w + 2) pixels a row with
+// the plane's column x at pixel x + 1. `res` (or null) is a slab aligned with
+// `dst`. `msc` and `bias` are the convolution's scales and biases in shared
+// memory. `wsm` holds the convolution's weight image, `a_off` the A offset of
+// each K step, `pix_off[m]` the pixel index in a slab of the window of flat
+// pixel m (its top-left; a table, because an integer division has a latency
+// of some 200 cycles).
+__device__ __forceinline__ void conv_slab(
+    const int8_t* src, int8_t* dst, const int8_t* res, int rows, int img_row0,
+    int h, int w, const int8_t* wsm, const int* a_off, const int* pix_off,
+    const float* msc, const float* bias, float res_scale, float s_out) {
   const int lane = threadIdx.x & 31, warp = threadIdx.x >> 5;
-  const int warps = blockDim.x >> 5;
+  const int wg = warp >> 2, wg_warp = warp & 3;
   const int g = lane >> 2, t = lane & 3;
-  const int m_total = rows_out * w;
-  const int tiles = (m_total + 31) / 32;
+  const int wp = w + 2;
+  const int m_total = rows * w;
+  const int tiles = (m_total + 63) / 64;
+  // flat pixels from here on lie in rows outside the image
+  const int m_inside = img_row0 >= h ? 0 : (h - img_row0 < rows ? (h - img_row0) * w : m_total);
   const float inv_s = __frcp_rn(s_out);
-  // the B rows this lane addresses for ldmatrix: channel (lane & 7) + 8 * bit
-  // 4 of the lane (of a pair of 8-channel tiles) at k offset 16 * bit 3
-  const int8_t* bbase = wsm + ((lane & 7) + 8 * (lane >> 4)) * kWPitch +
-                        16 * ((lane >> 3) & 1);
-  for (int tile = warp; tile < tiles; tile += warps) {
-    int base[2][2];  // this thread's output pixels: rows g and g + 8
-    int row[2][2];
-    int abase[2];    // the A row this lane addresses for ldmatrix
-    bool active[2];
+  const uint64_t b_desc = wgmma_desc(wsm);
+  for (int tile = wg; tile < tiles; tile += kThreads / 128) {
+    const int m0 = tile * 64 + wg_warp * 16;
+    // this lane's ldmatrix row: pixel (lane & 7) + 8 * bit 3 of the lane of
+    // the warp's 16, at k offset 16 * bit 4; the window's top-left is src
+    // pixel (r, x)
+    const int ml = m0 + (lane & 7) + 8 * ((lane >> 3) & 1);
+    const int a_base =
+        pix_off[ml < m_total ? ml : 0] * kPix + 16 * (lane >> 4);
+    int acc[32];
+    wg_mma_steps<64, kSteps>(acc, src + a_base, a_off, kSteps, b_desc, true);
+    wg_mma_finish(acc);
 #pragma unroll
-    for (int mi = 0; mi < 2; ++mi) {
-      active[mi] = tile * 32 + mi * 16 < m_total;  // the same for the warp
+    for (int hf = 0; hf < 2; ++hf) {
+      const int m = m0 + g + 8 * hf;
+      if (m >= m_total) continue;
+      const bool inside = m < m_inside;
+      const int centre = (pix_off[m] + wp + 1) * kPix;
 #pragma unroll
-      for (int hf = 0; hf < 2; ++hf) {
-        const int m = tile * 32 + mi * 16 + g + 8 * hf;
-        const bool ok = m < m_total;
-        const int mm = ok ? m : 0;
-        const int r = mm / w, x = mm % w;
-        base[mi][hf] = r * rowb + x * kPix;
-        row[mi][hf] = ok ? r : -1;
-      }
-      // row (lane & 7) + 8 * bit 3 of the lane, at k offset 16 * bit 4
-      const int m = tile * 32 + mi * 16 + (lane & 7) + 8 * ((lane >> 3) & 1);
-      const int mm = m < m_total ? m : 0;
-      abase[mi] = (mm / w) * rowb + (mm % w) * kPix + 16 * (lane >> 4);
-    }
-    int acc[2][8][4];
+      for (int ng = 0; ng < 8; ng += 4) {  // four 8-channel tiles at a time
+        int q[8] = {};  // a row outside the image is zero
+        if (inside) {
+          float y[8];
 #pragma unroll
-    for (int mi = 0; mi < 2; ++mi) {
-#pragma unroll
-      for (int nt = 0; nt < 8; ++nt) {
-#pragma unroll
-        for (int j = 0; j < 4; ++j) acc[mi][nt][j] = 0;
-      }
-    }
-    for (int ky = 0; ky < 3; ++ky) {
-#pragma unroll
-      for (int kx = 0; kx < 3; ++kx) {
-#pragma unroll
-        for (int kk = 0; kk < 2; ++kk) {
-          const int aoff = ky * rowb + kx * kPix + kk * 32;
-          const int woff = (ky * 3 + kx) * kC + kk * 32;
-          uint32_t bf[8][2];
-#pragma unroll
-          for (int np = 0; np < 4; ++np) {
-            uint32_t r4[4];
-            ldmatrix_x4(r4, bbase + np * 16 * kWPitch + woff);
-            bf[2 * np][0] = r4[0];
-            bf[2 * np][1] = r4[1];
-            bf[2 * np + 1][0] = r4[2];
-            bf[2 * np + 1][1] = r4[3];
-          }
-#pragma unroll
-          for (int mi = 0; mi < 2; ++mi) {
-            if (active[mi]) {
-              uint32_t af[4];
-              ldmatrix_x4(af, src + abase[mi] + aoff);
-#pragma unroll
-              for (int nt = 0; nt < 8; ++nt) mma_s8(acc[mi][nt], af, bf[nt]);
-            }
-          }
-        }
-      }
-    }
-#pragma unroll
-    for (int mi = 0; mi < 2; ++mi) {
-#pragma unroll
-      for (int hf = 0; hf < 2; ++hf) {
-        const int r = row[mi][hf];
-        if (r < 0) continue;
-        const int img_row = img_row0 + r;
-        const bool inside = img_row >= 0 && img_row < h;
-        // the window's top-left is src pixel (r, x); the output is dst pixel
-        // (r, x + 1)
-        const int centre = base[mi][hf] + kPix;
-#pragma unroll
-        for (int nt = 0; nt < 8; ++nt) {
-          const int ch = nt * 8 + 2 * t;
-          char2 q = make_char2(0, 0);
-          if (inside) {
+          for (int j = 0; j < 4; ++j) {
+            const int ch = (ng + j) * 8 + 2 * t;
             const float2 ms = *reinterpret_cast<const float2*>(msc + ch);
             const float2 bs = *reinterpret_cast<const float2*>(bias + ch);
-            float y0 = dequant(acc[mi][nt][2 * hf], ms.x, bs.x);
-            float y1 = dequant(acc[mi][nt][2 * hf + 1], ms.y, bs.y);
+            float y0 = dequant(acc[(ng + j) * 4 + 2 * hf], ms.x, bs.x);
+            float y1 = dequant(acc[(ng + j) * 4 + 2 * hf + 1], ms.y, bs.y);
             if (res != nullptr) {
-              const char2 rr = *reinterpret_cast<const char2*>(
-                  res + 2 * rowb + centre + ch);
-              y0 = __fadd_rn(y0, __fmul_rn(__int2float_rn(rr.x), res_scale));
-              y1 = __fadd_rn(y1, __fmul_rn(__int2float_rn(rr.y), res_scale));
+              const unsigned int rr =
+                  *reinterpret_cast<const unsigned short*>(res + centre + ch) ^
+                  0x8080u;
+              y0 = __fadd_rn(y0, __fmul_rn(biased_byte_to_float(rr & 0xFFu),
+                                           res_scale));
+              y1 = __fadd_rn(y1, __fmul_rn(biased_byte_to_float(rr >> 8),
+                                           res_scale));
             }
-            q.x = static_cast<signed char>(requant(fmaxf(y0, 0.0f), s_out, inv_s));
-            q.y = static_cast<signed char>(requant(fmaxf(y1, 0.0f), s_out, inv_s));
+            y[2 * j] = y0;
+            y[2 * j + 1] = y1;
           }
-          *reinterpret_cast<char2*>(dst + centre + ch) = q;
+          requant_group(y, s_out, inv_s, 0.0f, q);  // the clip is the ReLU
+        }
+#pragma unroll
+        for (int j = 0; j < 4; ++j) {
+          *reinterpret_cast<char2*>(dst + centre + (ng + j) * 8 + 2 * t) =
+              make_char2(static_cast<signed char>(q[2 * j]),
+                         static_cast<signed char>(q[2 * j + 1]));
         }
       }
     }
   }
 }
 
-__global__ void __launch_bounds__(kThreads)
+__global__ void __launch_bounds__(kThreads, 1)
 fused_stage1_kernel(const int8_t* __restrict__ x, const int8_t* __restrict__ wt,
                     const float* __restrict__ msc, const float* __restrict__ bias,
                     const float* __restrict__ scal, int8_t* __restrict__ out,
-                    int h, int w, int band_rows, int bands) {
-  extern __shared__ __align__(16) unsigned char smem_raw[];
-  const int rowb = (w + 2) * kPix;
-  int8_t* buf0 = reinterpret_cast<int8_t*>(smem_raw);  // band_rows + 8 rows
-  int8_t* buf1 = buf0 + (band_rows + 8) * rowb;        // band_rows + 6 rows
-  int8_t* buf2 = buf1 + (band_rows + 6) * rowb;        // band_rows + 4 rows
-  int8_t* wsm = buf2 + (band_rows + 4) * rowb;         // one conv's weights
+                    int h, int w, int rows) {
+  extern __shared__ __align__(128) unsigned char smem_raw[];
+  __shared__ __align__(8) uint64_t wbar[2];
+  __shared__ int a_off[kSteps];
+  // the four convolutions' scales and biases (from device memory they came
+  // from L2 for every value and took most of the epilogue)
+  __shared__ __align__(8) float msc_sm[4 * kC], bias_sm[4 * kC];
+  cg::cluster_group cluster = cg::this_cluster();
+  const int ranks = static_cast<int>(cluster.num_blocks());
+  const int rank = static_cast<int>(cluster.block_rank());
+  const int wp = w + 2;
+  const int rowb = wp * kPix;
+  const int slab_bytes = (rows + 2) * rowb;
+  int8_t* wbuf = reinterpret_cast<int8_t*>(smem_raw);  // two weight images
+  int8_t* slab0 = wbuf + 2 * kWBytes;
+  int8_t* slab1 = slab0 + slab_bytes;
+  int8_t* slab2 = slab1 + slab_bytes;
+  int* pix_off = reinterpret_cast<int*>(slab2 + slab_bytes);
   const int tid = threadIdx.x;
-  const long long img = blockIdx.x / bands;
-  const int r0 = (blockIdx.x % bands) * band_rows;
+  const long long img = blockIdx.x / ranks;
+  const int r0 = rank * rows;  // this block's first image row
   const int8_t* xin = x + img * h * w * kC;
   int8_t* xout = out + img * h * w * kC;
 
-  // zero everything once: the pad columns of every band stay zero, and the
-  // input band's rows outside the image are the convolution's zero padding
-  const int total16 = (3 * band_rows + 18) * rowb / 16;
-  for (int e = tid; e < total16; e += blockDim.x) {
-    reinterpret_cast<uint4*>(smem_raw)[e] = make_uint4(0u, 0u, 0u, 0u);
+  for (int m = tid; m < rows * w; m += kThreads) {
+    pix_off[m] = (m / w) * wp + m % w;
   }
-  __syncthreads();
-  copy_weights_async(wt, wsm);
-  const int in_rows = band_rows + 8;
-  for (int e = tid; e < in_rows * w * 4; e += blockDim.x) {
-    const int j = e / (w * 4), rem = e % (w * 4);
-    const int px = rem >> 2, q = rem & 3;
-    const int iy = r0 - 4 + j;
-    if (iy >= 0 && iy < h) {
-      const uint4 v = __ldg(reinterpret_cast<const uint4*>(
-          xin + (static_cast<long long>(iy) * w + px) * kC + q * 16));
-      *reinterpret_cast<uint4*>(buf0 + j * rowb + (px + 1) * kPix + q * 16) = v;
+  if (tid < 4 * kC) {
+    msc_sm[tid] = msc[tid];
+    bias_sm[tid] = bias[tid];
+  }
+  if (tid < kSteps) {
+    const int tap = tid % 9;
+    a_off[tid] = ((tap / 3) * wp + tap % 3) * kPix + (tid / 9) * 32;
+  }
+  // the weights of the first two convolutions are on their way while the
+  // slabs are set up
+  auto fetch_weights = [&](int conv) {
+    mbar_arrive_expect_tx(&wbar[conv & 1], kWBytes);
+    bulk_copy_g2s(wbuf + (conv & 1) * kWBytes, wt + conv * kWBytes, kWBytes,
+                  &wbar[conv & 1]);
+  };
+  if (tid == 0) {
+    mbar_init(&wbar[0], 1);
+    mbar_init(&wbar[1], 1);
+    mbar_init_fence();
+    fetch_weights(0);
+    fetch_weights(1);
+  }
+  // the input rows are on their way (rows outside the image stay zero: the
+  // convolution's padding) while the rest is zeroed once: the pad columns
+  // stay zero, and so do halo rows outside the image
+  const int warp = tid >> 5, lane = tid & 31;
+  const int row16 = rowb / 16;
+  for (int j = warp; j < rows + 2; j += kThreads / 32) {  // a warp a row
+    const int iy = r0 - 1 + j;
+    const bool inside = iy >= 0 && iy < h;
+    if (inside) {
+      for (int i = lane; i < w * 4; i += 32) {
+        cp_async_16(slab0 + j * rowb + kPix + (i >> 2) * kPix + (i & 3) * 16,
+                    xin + (static_cast<long long>(iy) * w) * kC + i * 16);
+      }
     }
+    for (int i = lane; i < row16; i += 32) {
+      const int px = i / (kPix / 16);
+      if (!inside || px == 0 || px == wp - 1) {
+        reinterpret_cast<uint4*>(slab0 + j * rowb)[i] =
+            make_uint4(0u, 0u, 0u, 0u);
+      }
+    }
+  }
+  for (int e = tid; e < 2 * slab_bytes / 16; e += kThreads) {
+    reinterpret_cast<uint4*>(slab1)[e] = make_uint4(0u, 0u, 0u, 0u);
   }
   cp_async_wait_all();
   __syncthreads();
 
   const float s_x = scal[0], s_y1_b0 = scal[1], s_o_b0 = scal[2];
   const float s_y1_b1 = scal[3], s_o_b1 = scal[4];
-  // after each convolution every warp is past its reads of the weights and
-  // of the source band: the next convolution's weights take their place
-  auto next_weights = [&](int conv) {
-    __syncthreads();
-    copy_weights_async(wt + conv * kC * kK, wsm);
-    cp_async_wait_all();
-    __syncthreads();
-  };
   // block 0: y1 = requant(conv1(x)); x1 = requant(conv2(y1) + x * s_x)
-  conv_band(buf0, buf1, nullptr, band_rows + 6, r0 - 3, h, w, rowb, wsm, msc,
-            bias, 0.0f, s_y1_b0);
-  next_weights(1);
-  conv_band(buf1, buf2, buf0, band_rows + 4, r0 - 2, h, w, rowb, wsm, msc + kC,
-            bias + kC, s_x, s_o_b0);
-  next_weights(2);
-  // block 1: the input band's space takes y1, the first y1's the result
-  conv_band(buf2, buf0, nullptr, band_rows + 2, r0 - 1, h, w, rowb, wsm,
-            msc + 2 * kC, bias + 2 * kC, 0.0f, s_y1_b1);
-  next_weights(3);
-  conv_band(buf0, buf1, buf2, band_rows, r0, h, w, rowb, wsm, msc + 3 * kC,
-            bias + 3 * kC, s_o_b0, s_o_b1);
+  // block 1: the input's slab takes y1, the first y1's the result
+  int8_t* const srcs[4] = {slab0, slab1, slab2, slab0};
+  int8_t* const dsts[4] = {slab1, slab2, slab0, slab1};
+  const int8_t* const ress[4] = {nullptr, slab0, nullptr, slab2};
+  const float res_scales[4] = {0.0f, s_x, 0.0f, s_o_b0};
+  const float out_scales[4] = {s_y1_b0, s_o_b0, s_y1_b1, s_o_b1};
+#pragma unroll
+  for (int conv = 0; conv < 4; ++conv) {
+    mbar_wait(&wbar[conv & 1], (conv >> 1) & 1);
+    conv_slab(srcs[conv], dsts[conv], ress[conv], rows, r0, h, w,
+              wbuf + (conv & 1) * kWBytes, a_off, pix_off, msc_sm + conv * kC,
+              bias_sm + conv * kC, res_scales[conv], out_scales[conv]);
+    if (conv == 3) break;
+    // every block of the image has written its rows of this plane, and every
+    // warp here is past its reads of the weights: the weights after next take
+    // their place, and the neighbours' edge rows become this slab's halo rows
+    cluster.sync();
+    if (tid == 0 && conv + 2 < 4) fetch_weights(conv + 2);
+    int8_t* dst = dsts[conv];
+    if (rank > 0) {
+      const uint4* above = reinterpret_cast<const uint4*>(
+          cluster.map_shared_rank(dst + rows * rowb, rank - 1));
+      for (int e = tid; e < row16; e += kThreads) {
+        reinterpret_cast<uint4*>(dst)[e] = above[e];
+      }
+    }
+    if (rank + 1 < ranks) {
+      const uint4* below = reinterpret_cast<const uint4*>(
+          cluster.map_shared_rank(dst + rowb, rank + 1));
+      for (int e = tid; e < row16; e += kThreads) {
+        reinterpret_cast<uint4*>(dst + (rows + 1) * rowb)[e] = below[e];
+      }
+    }
+    __syncthreads();
+  }
   __syncthreads();
 
-  for (int e = tid; e < band_rows * w * 4; e += blockDim.x) {
-    const int j = e / (w * 4), rem = e % (w * 4);
-    const int px = rem >> 2, q = rem & 3;
-    const int oy = r0 + j;
-    if (oy < h) {
-      const uint4 v =
-          *reinterpret_cast<const uint4*>(buf1 + j * rowb + (px + 1) * kPix + q * 16);
-      *reinterpret_cast<uint4*>(xout + (static_cast<long long>(oy) * w + px) * kC +
-                                q * 16) = v;
+  for (int j = warp; j < rows && r0 + j < h; j += kThreads / 32) {
+    for (int i = lane; i < w * 4; i += 32) {
+      const uint4 v = *reinterpret_cast<const uint4*>(
+          slab1 + (j + 1) * rowb + kPix + (i >> 2) * kPix + (i & 3) * 16);
+      *reinterpret_cast<uint4*>(
+          xout + (static_cast<long long>(r0 + j) * w) * kC + i * 16) = v;
     }
   }
+  // no block leaves while a neighbour may still read its halo rows
+  cluster.sync();
 }
 
-// Bytes of shared memory a block needs for a band of `band_rows` output rows
-// of a plane `w` wide: bands of band_rows + 8, + 6 and + 4 rows, and one
-// convolution's weights.
-inline long long band_smem(int w, int band_rows) {
-  return static_cast<long long>(3 * band_rows + 18) * (w + 2) * kPix + kWBytes;
+// Shared memory of a block that owns `rows` rows of a plane `w` wide: two
+// weight images, three slabs of rows + 2 rows, and the pixel table.
+inline long long slab_smem(int w, int rows) {
+  return 2LL * kWBytes + 3LL * (rows + 2) * (w + 2) * kPix + 4LL * rows * w;
+}
+
+int configure(int h, int w, int rows, int cluster, long long b,
+              cudaLaunchConfig_t* cfg, cudaLaunchAttribute* attr) {
+  if (b <= 0 || h < 1 || w < 1 || rows < 1 || cluster < 1 ||
+      cluster > kMaxCluster || static_cast<long long>(rows) * cluster < h ||
+      b * cluster > 0x7fffffffLL) {
+    return cudaErrorInvalidValue;
+  }
+  const long long smem = slab_smem(w, rows);
+  if (smem > kMaxSmem) return cudaErrorInvalidValue;
+  cudaError_t err = cudaFuncSetAttribute(
+      fused_stage1_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
+      static_cast<int>(smem));
+  if (err != cudaSuccess) return static_cast<int>(err);
+  *cfg = cudaLaunchConfig_t{};
+  cfg->gridDim = dim3(static_cast<unsigned int>(b * cluster));
+  cfg->blockDim = dim3(kThreads);
+  cfg->dynamicSmemBytes = static_cast<size_t>(smem);
+  attr->id = cudaLaunchAttributeClusterDimension;
+  attr->val.clusterDim.x = static_cast<unsigned int>(cluster);
+  attr->val.clusterDim.y = 1;
+  attr->val.clusterDim.z = 1;
+  cfg->attrs = attr;
+  cfg->numAttrs = 1;
+  return cudaSuccess;
 }
 
 }  // namespace
 
-// x: (b, h, w, 64) int8 contiguous. wt: (4, 64, 576) int8, per convolution
-// [o][ky][kx][ci]. msc, bias: (4, 64) float32. scal: (5,) float32 on the
-// device, [s_x, s_y1_b0, s_o_b0, s_y1_b1, s_o_b1]. out: (b, h, w, 64) int8.
-// band_rows output rows per block; the bands must fit shared memory. Returns
-// a cudaError_t as int (0 = launched).
+// x: (b, h, w, 64) int8 contiguous. wt: (4, 36864) int8, per convolution the
+// shared-memory image [ci / 32][ky * 3 + kx][o / 8][2][8][16]
+// (pack_stage1_kernels of ops/int8_block.py). msc, bias: (4, 64) float32.
+// scal: (5,) float32 on the device, [s_x, s_y1_b0, s_o_b0, s_y1_b1, s_o_b1].
+// out: (b, h, w, 64) int8. A cluster of `cluster` blocks (at most 8) takes an
+// image, `rows` rows a block (rows * cluster >= h); the slabs must fit shared
+// memory. Returns a cudaError_t as int (0 = launched).
 extern "C" int hipac_fused_stage1_int8(const void* x, const void* wt,
                                        const void* msc, const void* bias,
                                        const void* scal, void* out, long long b,
-                                       int h, int w, int band_rows,
+                                       int h, int w, int rows, int cluster,
                                        void* stream) {
-  if (b <= 0 || h < 1 || w < 1 || band_rows < 1) {
-    return cudaErrorInvalidValue;
-  }
-  const long long smem = band_smem(w, band_rows);
-  if (smem > kMaxSmem) return cudaErrorInvalidValue;
   if (reinterpret_cast<uintptr_t>(x) % 16 || reinterpret_cast<uintptr_t>(wt) % 16 ||
       reinterpret_cast<uintptr_t>(msc) % 16 ||
       reinterpret_cast<uintptr_t>(bias) % 16 ||
       reinterpret_cast<uintptr_t>(out) % 16) {
     return cudaErrorInvalidValue;
   }
-  const int bands = (h + band_rows - 1) / band_rows;
-  const long long blocks = b * bands;
-  if (blocks > 0x7fffffffLL) return cudaErrorInvalidValue;
-  cudaError_t err = cudaFuncSetAttribute(
-      fused_stage1_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
-      static_cast<int>(smem));
+  cudaLaunchConfig_t cfg;
+  cudaLaunchAttribute attr;
+  const int rc = configure(h, w, rows, cluster, b, &cfg, &attr);
+  if (rc != cudaSuccess) return rc;
+  cfg.stream = static_cast<cudaStream_t>(stream);
+  cudaError_t err = cudaLaunchKernelEx(
+      &cfg, fused_stage1_kernel, static_cast<const int8_t*>(x),
+      static_cast<const int8_t*>(wt), static_cast<const float*>(msc),
+      static_cast<const float*>(bias), static_cast<const float*>(scal),
+      static_cast<int8_t*>(out), h, w, rows);
   if (err != cudaSuccess) return static_cast<int>(err);
-  fused_stage1_kernel<<<static_cast<unsigned int>(blocks), kThreads,
-                        static_cast<size_t>(smem),
-                        static_cast<cudaStream_t>(stream)>>>(
-      static_cast<const int8_t*>(x), static_cast<const int8_t*>(wt),
-      static_cast<const float*>(msc), static_cast<const float*>(bias),
-      static_cast<const float*>(scal), static_cast<int8_t*>(out), h, w,
-      band_rows, bands);
   return static_cast<int>(cudaGetLastError());
+}
+
+// How many such clusters the card runs at once (cudaOccupancyMaxActiveClusters)
+// into *clusters. Returns a cudaError_t as int.
+extern "C" int hipac_fused_stage1_int8_active_clusters(int h, int w, int rows,
+                                                       int cluster,
+                                                       int* clusters) {
+  cudaLaunchConfig_t cfg;
+  cudaLaunchAttribute attr;
+  const int rc = configure(h, w, rows, cluster, 1, &cfg, &attr);
+  if (rc != cudaSuccess) return rc;
+  return static_cast<int>(
+      cudaOccupancyMaxActiveClusters(clusters, fused_stage1_kernel, &cfg));
 }

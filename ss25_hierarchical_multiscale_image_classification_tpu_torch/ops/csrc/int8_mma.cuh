@@ -1,6 +1,7 @@
 // Shared pieces of the int8 kernels (int8_conv.cu, int8_block.cu): the
-// tensor-core product of int8 tiles with int32 accumulation, and the float32
-// requantization epilogue of models/quantized.py::_requant.
+// `mma.sync` product of int8 tiles with int32 accumulation (the stems; the
+// warpgroup products are in int8_wgmma.cuh), and the float32 requantization
+// epilogue of models/quantized.py::_requant.
 //
 // The epilogue is written with the explicitly rounded intrinsics so that nvcc
 // contracts nothing into an FMA: the plain PyTorch version rounds after the
@@ -21,12 +22,16 @@ namespace hipac_int8 {
 //   a[2]: row g,   k 16+4t..       a[3]: row g+8, k 16+4t..
 //   b[0]: col g,   k 4t..4t+3      b[1]: col g,   k 16+4t..
 //   c[0], c[1]: row g, cols 2t, 2t+1      c[2], c[3]: row g+8, same cols
-__device__ __forceinline__ void mma_s8(int (&c)[4], const uint32_t (&a)[4],
+// with c[j] = c[at + j] of the caller's accumulator array (`at` a
+// compile-time constant after unrolling).
+template <int kRegs>
+__device__ __forceinline__ void mma_s8(int (&c)[kRegs], int at,
+                                       const uint32_t (&a)[4],
                                        const uint32_t (&b)[2]) {
   asm volatile(
       "mma.sync.aligned.m16n8k32.row.col.s32.s8.s8.s32 "
       "{%0,%1,%2,%3}, {%4,%5,%6,%7}, {%8,%9}, {%0,%1,%2,%3};\n"
-      : "+r"(c[0]), "+r"(c[1]), "+r"(c[2]), "+r"(c[3])
+      : "+r"(c[at]), "+r"(c[at + 1]), "+r"(c[at + 2]), "+r"(c[at + 3])
       : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b[0]), "r"(b[1]));
 }
 
@@ -74,20 +79,57 @@ __device__ __forceinline__ float dequant(int acc, float mscale, float bias) {
   return __fadd_rn(__fmul_rn(__int2float_rn(acc), mscale), bias);
 }
 
-// round(y / s_out) clipped to +-127, as `torch.round(y / s_out).clamp(...)`:
-// the IEEE quotient, rounded half to even. `inv_s` is __frcp_rn(s_out). The
-// product y * inv_s is within 2 ulp of the quotient, so below 200 in size it
-// is within 5e-5 of it and rounds to the same integer unless it lies that
-// close to a half-integer; only there (within 1e-3, to be safe) is the
-// quotient itself computed, which costs several times the product. At 200
-// and above both clip to +-127.
-__device__ __forceinline__ int requant(float y, float s_out, float inv_s) {
-  float q = __fmul_rn(y, inv_s);
-  if (fabsf(fabsf(q - floorf(q)) - 0.5f) < 1e-3f && fabsf(q) < 200.0f) {
-    q = __fdiv_rn(y, s_out);
+// float32 of the int8 value whose byte, xor 0x80, is `biased` (0 .. 255):
+// the byte becomes the low mantissa bits of 2^23, and 2^23 + 128 is taken
+// off. Exact, and an add where a conversion instruction would run at an
+// eighth of the float32 rate.
+__device__ __forceinline__ float biased_byte_to_float(unsigned int biased) {
+  return __fadd_rn(__uint_as_float(0x4B000000u | biased), -8388736.0f);
+}
+
+// The requantization round(relu?(y) / s_out) clipped to +-127, as
+// `torch.round(torch.relu(y) / s_out).clamp(-127, 127)`: the IEEE quotient,
+// rounded half to even, of kCount values at once. q[i] receives an int whose
+// low byte is the int8 result (cast it to signed char). `inv_s` is
+// __frcp_rn(s_out); `lo` is 0 with the ReLU (which the clip then includes,
+// s_out being positive) and -127 without.
+//
+// Clipping comes first (the bounds are integers, so the order is free); the
+// clipped value plus 1.5 * 2^23, where a float32 ulp is 1, rounds half to
+// even as rintf does and carries the integer in its low mantissa bits, so no
+// conversion instruction is spent (those run at an eighth of the float32
+// rate). The product y * inv_s is within |q| * 2^-23 <= 1.6e-5 of the exact
+// quotient and the IEEE quotient within 0.8e-5, so both round to the same
+// integer unless the product lies within 2.4e-5 of a half-integer; within
+// 2^-13 = 1.2e-4 of one, the group is done again with the quotient itself,
+// which costs several times the product. One branch per group, not per
+// value: a branch per value cut the epilogue into blocks too short to
+// overlap anything and cost an eighth of the 16 convolutions' time
+// (PERF.md).
+constexpr float kUlpOne = 12582912.0f;          // 1.5 * 2^23
+constexpr float kNearTie = 0.4998779296875f;    // 0.5 - 2^-13
+
+template <int kCount>
+__device__ __forceinline__ void requant_group(const float (&y)[kCount],
+                                              float s_out, float inv_s,
+                                              float lo, int (&q)[kCount]) {
+  float t[kCount];
+  float worst = 0.0f;  // the largest distance from the rounded value
+#pragma unroll
+  for (int i = 0; i < kCount; ++i) {
+    const float c = fminf(fmaxf(__fmul_rn(y[i], inv_s), lo), 127.0f);
+    t[i] = __fadd_rn(c, kUlpOne);
+    worst = fmaxf(worst, fabsf(__fadd_rn(c, -__fadd_rn(t[i], -kUlpOne))));
   }
-  q = fminf(fmaxf(rintf(q), -127.0f), 127.0f);
-  return static_cast<int>(q);
+  if (worst > kNearTie) {
+#pragma unroll
+    for (int i = 0; i < kCount; ++i) {
+      const float c = fminf(fmaxf(__fdiv_rn(y[i], s_out), lo), 127.0f);
+      t[i] = __fadd_rn(c, kUlpOne);
+    }
+  }
+#pragma unroll
+  for (int i = 0; i < kCount; ++i) q[i] = __float_as_int(t[i]);
 }
 
 }  // namespace hipac_int8

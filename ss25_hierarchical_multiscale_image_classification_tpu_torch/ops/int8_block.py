@@ -20,6 +20,7 @@ test; here it is stage 1 of ``models/quantized.py::quant_forward``.
 
 from __future__ import annotations
 
+import ctypes
 from typing import Any, Mapping
 
 import torch
@@ -27,18 +28,22 @@ import torch
 from ss25_hierarchical_multiscale_image_classification_tpu_torch.ops.int8_conv import (
     int8_conv_reference,
     requant_reference,
+    wgmma_weight_image,
 )
 
 _C = 64
-#: Output rows per block of ``int8_block.cu``: bands of R + 8, R + 6 and
-#: R + 4 rows live in shared memory, and 8/R of the rows are computed twice.
-BAND_ROWS = 7
-_PIXEL_BYTES = 80  # a band's pixel pitch in shared memory
-_WEIGHT_BYTES = _C * (9 * _C + 16)  # one conv's weights in shared memory
-# bytes a block may use on sm_90, less the weights: what the bands may take
-_BAND_BUDGET = 232448 - _WEIGHT_BYTES
-#: Widest plane whose bands (of one output row) fit shared memory.
-MAX_WIDTH = _BAND_BUDGET // (21 * _PIXEL_BYTES) - 2
+#: Blocks of the largest thread-block cluster ``int8_block.cu`` gives an image.
+MAX_CLUSTER = 8
+#: Rows per block up to which an image takes a smaller cluster.
+SLAB_ROWS = 8
+_PIXEL_BYTES = 80  # a slab's pixel pitch in shared memory
+_WEIGHT_BYTES = 9 * _C * _C  # one conv's weight image in shared memory
+# bytes a block may use on sm_90, less two weight images: what the three
+# slabs (R + 2 rows each, one pad column each side) and the table of R · W
+# pixel offsets may take
+_SLAB_BUDGET = 232448 - 2 * _WEIGHT_BYTES
+#: Widest plane whose slabs (of one row a block) fit shared memory.
+MAX_WIDTH = (_SLAB_BUDGET - 2 * 3 * 3 * _PIXEL_BYTES) // (3 * 3 * _PIXEL_BYTES + 4)
 _NAMES = ("s1b0c1", "s1b0c2", "s1b1c1", "s1b1c2")
 
 
@@ -83,21 +88,39 @@ def fused_stage1_int8_reference(xq: torch.Tensor, kernels: torch.Tensor,
 
 
 def pack_stage1_kernels(kernels: torch.Tensor) -> torch.Tensor:
-    """(4, 3, 3, C, C) HWIO per conv → (4, C, 9·C) int8, per conv
-    ``[o][ky][kx][ci]``: the layout ``int8_block.cu`` reads."""
-    c = kernels.shape[-1]
-    return kernels.permute(0, 4, 1, 2, 3).reshape(4, c, 9 * c).contiguous()
+    """(4, 3, 3, 64, 64) HWIO per conv → (4, 36864) int8, per conv the
+    shared-memory image ``int8_block.cu`` hands the tensor cores
+    (:func:`~.int8_conv.wgmma_weight_image` with one block of 64 output
+    channels: ``[ci / 32][ky·3 + kx][o / 8][half][o % 8][16]``)."""
+    if tuple(kernels.shape) != (4, 3, 3, _C, _C):
+        raise ValueError(f"the fused stage-1 kernel takes (4, 3, 3, {_C}, "
+                         f"{_C}) kernels, got {tuple(kernels.shape)}")
+    ohwi = kernels.permute(0, 4, 1, 2, 3)
+    return torch.stack([wgmma_weight_image(k, _C).reshape(-1) for k in ohwi])
 
 
-def band_rows_for(width: int) -> int:
-    """The output rows per block for a plane ``width`` wide: :data:`BAND_ROWS`
-    if its three bands fit shared memory beside the weights, else the most
-    that do."""
-    fit = (_BAND_BUDGET // ((width + 2) * _PIXEL_BYTES) - 18) // 3
-    if fit < 1:
-        raise ValueError(f"the fused stage-1 kernel takes planes up to "
-                         f"{MAX_WIDTH} wide, got {width}")
-    return min(BAND_ROWS, fit)
+def cluster_plan(height: int, width: int) -> tuple[int, int]:
+    """``(cluster, rows)`` for a plane: the blocks of the cluster that holds
+    an image and the rows each owns. The smallest power of two of blocks that
+    leaves a block at most :data:`SLAB_ROWS` rows and fits three slabs of
+    ``rows + 2`` rows into its shared memory beside two weight images, at
+    most :data:`MAX_CLUSTER`."""
+    def slabs(rows: int) -> int:
+        return 3 * (rows + 2) * (width + 2) * _PIXEL_BYTES + 4 * rows * width
+
+    cluster = 1
+    while cluster < MAX_CLUSTER and (
+            -(-height // cluster) > SLAB_ROWS
+            or slabs(-(-height // cluster)) > _SLAB_BUDGET):
+        cluster *= 2
+    rows = -(-height // cluster)
+    if slabs(rows) > _SLAB_BUDGET:
+        raise ValueError(
+            f"the fused stage-1 kernel holds an image in the shared memory "
+            f"of {MAX_CLUSTER} blocks: planes up to {MAX_WIDTH} wide with 3 · "
+            f"(R + 2) · (W + 2) · {_PIXEL_BYTES} + 4 · R · W ≤ {_SLAB_BUDGET} "
+            f"bytes for R = ceil(H / {MAX_CLUSTER}), got {height} × {width}")
+    return cluster, rows
 
 
 def fused_stage1_int8_kernel(xq: torch.Tensor, kernels: torch.Tensor,
@@ -121,13 +144,13 @@ def fused_stage1_int8_kernel(xq: torch.Tensor, kernels: torch.Tensor,
         raise ValueError("mscales, biases and scalars are float32")
     if packed is None:
         packed = pack_stage1_kernels(kernels)
-    if tuple(packed.shape) != (4, _C, 9 * _C) or packed.dtype != torch.int8:
+    if tuple(packed.shape) != (4, _WEIGHT_BYTES) or packed.dtype != torch.int8:
         raise ValueError(f"packed kernels of shape {tuple(packed.shape)} do "
                          f"not belong to this stage")
     if not all(t.is_contiguous() for t in (xq, packed, mscales, biases,
                                            scalars)):
         raise ValueError("the fused stage-1 kernel needs contiguous inputs")
-    rows = band_rows_for(w)
+    cluster, rows = cluster_plan(h, w)
     from ss25_hierarchical_multiscale_image_classification_tpu_torch.ops.build import (
         load_library,
     )
@@ -137,7 +160,7 @@ def fused_stage1_int8_kernel(xq: torch.Tensor, kernels: torch.Tensor,
         rc = load_library().hipac_fused_stage1_int8(
             xq.data_ptr(), packed.data_ptr(), mscales.data_ptr(),
             biases.data_ptr(), scalars.data_ptr(), out.data_ptr(), b, h, w,
-            rows, torch.cuda.current_stream().cuda_stream)
+            rows, cluster, torch.cuda.current_stream().cuda_stream)
     if rc != 0:
         raise RuntimeError(f"fused_stage1_int8 kernel launch failed: "
                            f"cudaError {rc}")
@@ -146,6 +169,23 @@ def fused_stage1_int8_kernel(xq: torch.Tensor, kernels: torch.Tensor,
 
 
 fused_stage1_int8_kernel.launches = 0
+
+
+def active_clusters(height: int, width: int) -> int:
+    """How many of the kernel's clusters the current card runs at once for a
+    plane (``cudaOccupancyMaxActiveClusters``); builds the kernels."""
+    from ss25_hierarchical_multiscale_image_classification_tpu_torch.ops.build import (
+        load_library,
+    )
+
+    cluster, rows = cluster_plan(height, width)
+    count = ctypes.c_int(0)
+    rc = load_library().hipac_fused_stage1_int8_active_clusters(
+        height, width, rows, cluster, ctypes.byref(count))
+    if rc != 0:
+        raise RuntimeError(f"cudaOccupancyMaxActiveClusters failed: "
+                           f"cudaError {rc}")
+    return count.value
 
 
 def fused_stage1_int8(xq: torch.Tensor, kernels: torch.Tensor,

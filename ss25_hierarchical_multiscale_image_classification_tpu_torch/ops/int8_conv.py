@@ -24,9 +24,9 @@ functions and the card's checks hold the kernel against, bit for bit: the
 sums are integers, and the kernel's epilogue rounds where the eager ops
 round (no FMA contraction, IEEE quotient by a device scalar, half to even).
 
-Weights are ``(C_out, C_in, KH, KW)`` int8, best in channels_last memory
-(that is ``[o][ky][kx][ci]``, the layout the kernel reads);
-:func:`pack_int8_kernel` gives the kernel's layout once, so that a forward
+Weights are ``(C_out, C_in, KH, KW)`` int8; :func:`pack_int8_kernel` gives
+the kernel's layout once (for the stage convolutions the shared-memory image
+that the tensor cores read, :func:`wgmma_weight_image`), so that a forward
 packs nothing per call. A stem's few input channels (12 after
 space-to-depth; 3, padded with zeros to 4) are handled by zero padding, which
 is exact (int8 0 is real 0.0).
@@ -170,16 +170,64 @@ def int8_conv_requant_reference(
 # ---------------------------------------------------------------------------
 
 
+#: Input channels per ring stage of ``int8_conv.cu``'s ``wgmma`` path.
+CHUNK = 32
+
+
+def wgmma_block(c_out: int, taps: int) -> int:
+    """Output channels per block (the ``wgmma`` N) for ``c_out`` channels and
+    a kernel of ``taps`` = KH·KW: 128 where they divide C_out and two stages
+    of the weights (taps · N · 32 bytes each) leave room in shared memory,
+    else 64."""
+    return 128 if c_out % 128 == 0 and taps <= 16 else 64
+
+
+def wgmma_weight_image(w_ohwi: torch.Tensor, n_block: int) -> torch.Tensor:
+    """(O, KH, KW, I) int8, O a multiple of ``n_block`` and I of 32 → the
+    weights as the tensor cores read them from shared memory, ``(O / N, I /
+    32, KH·KW·N·32)``: per block of N output channels and chunk of 32 input
+    channels one contiguous image ``[tap][o / 8][half][o % 8][16]`` (tap = ky
+    · KW + kx; half = which 16 of the chunk's 32 input channels). The cell
+    ``[o / 8][half]`` is a core matrix of a K-major ``wgmma`` operand without
+    swizzle, 8 channels × 16 bytes stored as 128 contiguous bytes; the two
+    halves lie 128 bytes apart, groups of 8 channels 256. So one bulk copy
+    per (block, chunk) lands a ring stage's weights ready for a matrix
+    descriptor."""
+    o, kh, kw, i = w_ohwi.shape
+    if o % n_block or n_block % 8 or i % CHUNK:
+        raise ValueError(f"a weight image takes C_out in multiples of "
+                         f"{n_block} and C_in in multiples of {CHUNK}, got "
+                         f"{o}, {i}")
+    w = w_ohwi.reshape(o // n_block, n_block // 8, 8, kh * kw, i // CHUNK, 2, 16)
+    # (block, group, row, tap, chunk, half, byte) → (block, chunk, tap, group,
+    # half, row, byte)
+    w = w.permute(0, 4, 3, 1, 5, 2, 6)
+    return w.contiguous().reshape(o // n_block, i // CHUNK,
+                                  kh * kw * n_block * CHUNK)
+
+
+def packed_shape(c_out: int, c_in: int, kh: int, kw: int) -> tuple[int, ...]:
+    """Shape of :func:`pack_int8_kernel`'s result (``c_in`` as the kernel
+    sees it: a stem's channels padded to a multiple of 4)."""
+    if c_in % 64 == 0:
+        n = wgmma_block(c_out, kh * kw)
+        return c_out // n, c_in // CHUNK, kh * kw * n * CHUNK
+    return c_out, kh, -(-kw * c_in // 32) * 32
+
+
 def pack_int8_kernel(qkernel: torch.Tensor) -> torch.Tensor:
     """(C_out, C_in, KH, KW) int8 → the weights as ``int8_conv.cu`` reads
-    them, ``[o][ky][row]`` contiguous: for C_in a multiple of 64 the row is
-    ``[kx][ci]`` (a channels_last kernel already is that, and is returned as
-    it is); for a stem (C_in ≤ 16, padded with zero channels to a multiple of
-    4) the row ``[kx][ci]`` is zero-filled to a multiple of 32 bytes."""
+    them. For C_in a multiple of 64 that is :func:`wgmma_weight_image` with
+    blocks of :func:`wgmma_block` output channels; for a stem (C_in ≤ 16,
+    padded with zero channels to a multiple of 4) ``[o][ky][row]`` with the
+    row ``[kx][ci]`` zero-filled to a multiple of 32 bytes."""
     c_out, c_in, kh, kw = qkernel.shape
     w = qkernel.permute(0, 2, 3, 1)  # (O, KH, KW, I)
     if c_in % 64 == 0:
-        return w.contiguous().reshape(c_out, kh, kw * c_in)
+        if c_out % 64:
+            raise ValueError(f"the int8 conv kernel takes C_out in multiples "
+                             f"of 64, got {c_out}")
+        return wgmma_weight_image(w, wgmma_block(c_out, kh * kw))
     if c_in > 16:
         raise ValueError(f"the int8 conv kernel takes C_in in multiples of "
                          f"64, or a stem of at most 16 channels, got {c_in}")
@@ -220,10 +268,8 @@ def int8_conv_requant_kernel(
     if c_in % 64 and c_in % 4:  # a stem's 3 channels: one zero channel more
         xq = F.pad(xq, (0, 4 - c_in % 4))
         c_in = xq.shape[3]
-    if packed.dtype != torch.int8 or packed.dim() != 3 \
-            or packed.shape[:2] != (c_out, kh) \
-            or packed.shape[2] != (kw * c_in if c_in % 64 == 0
-                                   else -(-kw * c_in // 32) * 32):
+    if packed.dtype != torch.int8 \
+            or tuple(packed.shape) != packed_shape(c_out, c_in, kh, kw):
         raise ValueError(f"packed weights of shape {tuple(packed.shape)} do "
                          f"not belong to this convolution")
     floats = [mscale, bias] + [t for t in (s_out, residual_scale)

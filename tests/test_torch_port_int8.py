@@ -188,20 +188,72 @@ def test_requant_reference_rounds_half_to_even_and_clips():
     assert relu.tolist() == [[1, 3, 5, 0, 127, 0, 0]]
 
 
-@pytest.mark.parametrize("c_in,kw_,rows", [(64, 3, 192), (128, 1, 128),
-                                           (12, 4, 64), (3, 7, 32)])
+def _image_offsets(c_out, c_in, kh, kw, n):
+    """A numpy model of the shared-memory weight image that the ``wgmma``
+    kernels read: the byte offset of weight ``[o][ky][kx][ci]``. Per block of
+    ``n`` output channels and chunk of 32 input channels the taps follow each
+    other; a tap's tile is ``n`` channels × 32 bytes in core matrices (8
+    channels × 16 bytes, 128 contiguous bytes): groups of 8 channels 256 bytes
+    apart, the two 16-byte halves of the chunk 128."""
+    o, ky, kx, ci = np.meshgrid(np.arange(c_out), np.arange(kh), np.arange(kw),
+                                np.arange(c_in), indexing="ij")
+    tap = ky * kw + kx
+    block, group, row = o // n, (o % n) // 8, o % 8
+    chunk, half, byte = ci // 32, (ci % 32) // 16, ci % 16
+    tile = ((block * (c_in // 32) + chunk) * (kh * kw) + tap) * (n * 32)
+    return tile + group * 256 + half * 128 + row * 16 + byte
+
+
+@pytest.mark.parametrize("c_in,kw_,rows", [(12, 4, 64), (3, 7, 32)])
 def test_pack_int8_kernel_layout(c_in, kw_, rows):
     rng = np.random.default_rng(5)
     k = torch.from_numpy(rng.integers(-127, 128, (64, c_in, kw_, kw_))
                          .astype(np.int8))
     packed = ic.pack_int8_kernel(k)
     assert packed.shape == (64, kw_, rows) and packed.is_contiguous()
-    cp = c_in if c_in % 64 == 0 else -(-c_in // 4) * 4
+    assert packed.shape == ic.packed_shape(64, -(-c_in // 4) * 4, kw_, kw_)
+    cp = -(-c_in // 4) * 4
     ohwi = torch.zeros(64, kw_, kw_, cp, dtype=torch.int8)
     ohwi[..., :c_in] = k.permute(0, 2, 3, 1)
     want = torch.zeros(64, kw_, rows, dtype=torch.int8)
     want[:, :, :kw_ * cp] = ohwi.reshape(64, kw_, kw_ * cp)
     assert torch.equal(packed, want)
+
+
+# (C_out, C_in, k): the stage convolutions and 1x1 downsamples of the int8
+# forward at full width, a 64-channel block (stage 1) and an odd C_out
+@pytest.mark.parametrize("c_out,c_in,k", [
+    (64, 64, 3), (128, 64, 3), (128, 64, 1), (128, 128, 3), (256, 128, 3),
+    (256, 128, 1), (256, 256, 3), (512, 256, 3), (512, 256, 1), (512, 512, 3),
+    (192, 64, 3), (128, 64, 5),
+])
+def test_pack_int8_kernel_wgmma_image_unpacks_exactly(c_out, c_in, k):
+    """The packed image, read back through the numpy model of the layout,
+    is ``[o][ky][kx][ci]`` exactly, and every byte of it is a weight."""
+    rng = np.random.default_rng(c_out + c_in + k)
+    w = rng.integers(-127, 128, (c_out, c_in, k, k)).astype(np.int8)
+    packed = ic.pack_int8_kernel(torch.from_numpy(w))
+    n = ic.wgmma_block(c_out, k * k)
+    assert n == (128 if c_out % 128 == 0 and k < 5 else 64)
+    assert packed.dtype == torch.int8 and packed.is_contiguous()
+    assert packed.shape == (c_out // n, c_in // 32, k * k * n * 32)
+    assert packed.shape == ic.packed_shape(c_out, c_in, k, k)
+    at = _image_offsets(c_out, c_in, k, k, n)
+    assert np.array_equal(np.sort(at.reshape(-1)), np.arange(w.size))
+    np.testing.assert_array_equal(packed.numpy().reshape(-1)[at],
+                                  w.transpose(0, 2, 3, 1))
+    # the same image from a channels_last kernel
+    cl = torch.from_numpy(w).contiguous(memory_format=torch.channels_last)
+    assert torch.equal(ic.pack_int8_kernel(cl), packed)
+
+
+def test_pack_int8_kernel_refuses_other_widths():
+    with pytest.raises(ValueError, match="multiples of 64"):
+        ic.pack_int8_kernel(torch.zeros(32, 64, 3, 3, dtype=torch.int8))
+    with pytest.raises(ValueError, match="at most 16"):
+        ic.pack_int8_kernel(torch.zeros(64, 24, 3, 3, dtype=torch.int8))
+    with pytest.raises(ValueError, match="weight image"):
+        ic.wgmma_weight_image(torch.zeros(64, 3, 3, 48, dtype=torch.int8), 64)
 
 
 def test_int8_conv_requant_refuses_bad_arguments():
@@ -332,20 +384,41 @@ def test_fused_stage1_int8_zero_pads_every_intermediate():
 
 
 def test_band_rows_fit_shared_memory():
-    assert ib.band_rows_for(56) == ib.BAND_ROWS
-    assert ib.MAX_WIDTH == 113
-    for width in (56, 100, ib.MAX_WIDTH):
-        rows = ib.band_rows_for(width)
-        # three bands and one conv's weights (64 rows of 576 + 16 bytes)
-        assert (3 * rows + 18) * (width + 2) * 80 + 64 * 592 <= 232448
-    with pytest.raises(ValueError, match="113"):
-        ib.band_rows_for(ib.MAX_WIDTH + 1)
-    k = torch.arange(4 * 9 * 4).reshape(4, 3, 3, 2, 2).to(torch.int8)
-    packed = ib.pack_stage1_kernels(k)
-    assert packed.shape == (4, 2, 18)
-    # [conv][o][(ky·3 + kx)·C + ci] = kernels[conv, ky, kx, ci, o]
-    assert packed[1, 1, (0 * 3 + 1) * 2 + 1].item() == k[1, 0, 1, 1, 1].item()
-    assert packed[3, 0, (2 * 3 + 1) * 2 + 0].item() == k[3, 2, 1, 0, 0].item()
+    """The cluster plan: blocks per image and rows per block, within a
+    block's shared memory (three slabs of rows + 2 rows of W + 2 pixels at 80
+    bytes, a table of rows · W offsets, two weight images of 36,864 bytes)."""
+    assert ib.cluster_plan(56, 56) == (8, 7)
+    assert ib.cluster_plan(30, 26) == (4, 8)
+    assert ib.cluster_plan(6, 6) == (1, 6)
+    assert ib.cluster_plan(9, 7) == (2, 5)
+    assert ib.cluster_plan(56, 64) == (8, 7)
+    assert ib.MAX_WIDTH == 217
+    for height, width in ((56, 56), (56, 64), (8, ib.MAX_WIDTH), (30, 100)):
+        cluster, rows = ib.cluster_plan(height, width)
+        assert cluster in (1, 2, 4, 8) and cluster * rows >= height
+        assert cluster * rows - height < rows or cluster == 1
+        assert (3 * (rows + 2) * (width + 2) * 80 + 4 * rows * width
+                + 2 * 36864 <= 232448)
+    with pytest.raises(ValueError, match="217"):
+        ib.cluster_plan(8, ib.MAX_WIDTH + 1)
+    with pytest.raises(ValueError, match="112 × 112"):
+        ib.cluster_plan(112, 112)
+
+
+@pytest.mark.parametrize("seed", [0, 1])
+def test_pack_stage1_kernels_image_unpacks_exactly(seed):
+    rng = np.random.default_rng(seed)
+    k = rng.integers(-127, 128, (4, 3, 3, 64, 64)).astype(np.int8)
+    packed = ib.pack_stage1_kernels(torch.from_numpy(k))
+    assert packed.shape == (4, 36864) and packed.is_contiguous()
+    at = _image_offsets(64, 64, 3, 3, 64)
+    assert np.array_equal(np.sort(at.reshape(-1)), np.arange(36864))
+    for conv in range(4):
+        # HWIO → [o][ky][kx][ci]
+        np.testing.assert_array_equal(packed[conv].numpy()[at],
+                                      k[conv].transpose(3, 0, 1, 2))
+    with pytest.raises(ValueError, match="64"):
+        ib.pack_stage1_kernels(torch.zeros(4, 3, 3, 8, 8, dtype=torch.int8))
 
 
 # ---------------------------------------------------------------------------
@@ -637,7 +710,33 @@ CUDA_CONV_CASES = [
 @pytest.mark.parametrize("case", CUDA_CONV_CASES,
                          ids=[c[0] for c in CUDA_CONV_CASES])
 def test_int8_conv_cuda_kernel_is_exact(cuda_device, case):
-    xq, hwio, mscale, bias, res, p = _conv_operands(7, 5, case)
+    _check_conv_on_card(cuda_device, 5, case)
+
+
+# what the tiling of the wgmma path can get wrong: a batch smaller than a
+# tile at C_out = 128, planes whose pixels fill no tile of 64, a strided 1x1
+# over an odd plane, two blocks of 128 channels over a strided 3x3, blocks
+# of 64 channels at C_out = 192, and a kernel size whose taps the products'
+# loop is not unrolled for
+CUDA_TILING_CASES = [
+    (1, ("cout128_batch1", (7, 7, 64), 128, 3, 1, 1, "relu")),
+    (3, ("ragged_tiles", (10, 11, 128), 128, 3, 1, 1, "res_i8")),
+    (2, ("down_odd_plane", (7, 9, 128), 256, 1, 2, 0, "f32")),
+    (37, ("stride2_two_blocks", (14, 14, 128), 256, 3, 2, 1, "relu")),
+    (2, ("cout192_blocks_of_64", (12, 12, 64), 192, 3, 1, 1, "res_f32")),
+    (3, ("kernel_5x5", (9, 10, 64), 128, 5, 1, 2, "relu")),
+]
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("batch,case", CUDA_TILING_CASES,
+                         ids=[c[0] for _, c in CUDA_TILING_CASES])
+def test_int8_conv_cuda_kernel_tilings_are_exact(cuda_device, batch, case):
+    _check_conv_on_card(cuda_device, batch, case)
+
+
+def _check_conv_on_card(cuda_device, batch, case):
+    xq, hwio, mscale, bias, res, p = _conv_operands(7, batch, case)
     args, kw = _torch_conv_args(xq, hwio, mscale, bias, res, case[6])
     args = tuple(a.to(cuda_device) for a in args)
     args = (args[0], args[1].contiguous(memory_format=torch.channels_last),
@@ -659,7 +758,9 @@ def test_int8_conv_cuda_kernel_is_exact(cuda_device, case):
 
 @pytest.mark.cuda
 @pytest.mark.parametrize("shape", [(3, 56, 56, 64), (2, 30, 26, 64),
-                                   (1, 5, 113, 64)])
+                                   (1, 5, 113, 64), (1, 56, 56, 64),
+                                   (2, 9, 7, 64), (3, 6, 6, 64),
+                                   (1, 56, 64, 64), (2, 33, 20, 64)])
 def test_fused_stage1_cuda_kernel_is_exact(cuda_device, shape):
     ops = _stage1_operands(9, shape)
     xq, kernels, _, mscales, biases, scalars = (
@@ -707,6 +808,14 @@ def test_requant_ties_and_clipping_on_the_card(cuda_device):
         torch.cuda.synchronize()
         want = ic.int8_conv_requant_reference(*args, 1, 0, relu=False)
         assert torch.equal(got, want), (mscale, s_out)
+        # the same values twice over 128 channels: the wider block's staged
+        # 16-byte stores
+        wide = (args[0], torch.cat([args[1], args[1]]).contiguous(
+                    memory_format=torch.channels_last),
+                args[2].repeat(2), args[3].repeat(2), args[4])
+        got = ic.int8_conv_requant_kernel(*wide, 1, 0, relu=False)
+        torch.cuda.synchronize()
+        assert torch.equal(got, torch.cat([want, want], dim=3)), (mscale, s_out)
 
 
 @pytest.mark.cuda

@@ -397,9 +397,17 @@ def test_cli_quantize_artifact_loads_in_jax(tmp_path):
 
 
 def test_cli_quantize_without_patches_fails(tmp_path):
-    rc = cli.main(["--quantize", "--data_dir", str(tmp_path / "nothing"),
-                   "--models_dir", str(tmp_path / "models"), "--device", "cpu"])
-    assert rc == 1
+    """``--quantize`` has no stage gate (the JAX CLI has none): it fails where
+    it reads, first at the classifier's weights, then at the empty level."""
+    argv = ["--quantize", "--data_dir", str(tmp_path / "nothing"),
+            "--models_dir", str(tmp_path / "models"), "--device", "cpu"]
+    with pytest.raises(FileNotFoundError, match="resnet18_patch_classifier"):
+        cli.main(argv)
+    save_model(str(tmp_path / "models" / "resnet18_patch_classifier"),
+               _randomized_state(69))
+    with pytest.raises(FileNotFoundError, match="no patches at level 3"):
+        cli.main(argv)
+    assert not os.path.exists(tmp_path / "models" / qa.CLASSIFIER_ARTIFACT)
 
 
 @pytest.mark.parametrize("argv", [
@@ -407,11 +415,17 @@ def test_cli_quantize_without_patches_fails(tmp_path):
     ["--quantize", "--int8"],
     ["--train_mil", "--int8"],
 ])
-def test_cli_int8_flags_go_with_their_actions(argv, capsys):
+def test_cli_int8_flags_go_with_their_actions(argv, capsys, tmp_path):
+    argv = argv + ["--device", "cpu", "--data_dir", str(tmp_path / "none"),
+                   "--models_dir", str(tmp_path / "models")]
+    if "--int8" not in argv:
+        # two actions: --extract_features comes first and has no patches
+        assert cli.main(argv) == 1
+        return
     with pytest.raises(SystemExit) as err:
-        cli.main(argv + ["--device", "cpu"])
+        cli.main(argv)
     assert err.value.code == 2
-    assert "--" in capsys.readouterr().err
+    assert "--int8 goes with" in capsys.readouterr().err
 
 
 @pytest.mark.parametrize("with_artifact", [True, False],

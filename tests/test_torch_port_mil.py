@@ -662,11 +662,19 @@ def test_cli_train_mil_on_cpu(tmp_path):
 
 @pytest.mark.parametrize("argv", [[], ["--predict_slide", "s.wsi.npz",
                                        "--train_mil"]])
-def test_cli_needs_exactly_one_action(argv, capsys):
-    with pytest.raises(SystemExit) as exc:
-        cli.main(argv + ["--device", "cpu"])
-    assert exc.value.code == 2
-    assert "exactly one of --predict_slide, --train_mil" in capsys.readouterr().err
+def test_cli_needs_exactly_one_action(argv, capsys, tmp_path):
+    """No action is refused; two actions run in the JAX CLI's order, so
+    ``--train_mil`` comes before ``--predict_slide`` and misses its features."""
+    argv = argv + ["--device", "cpu", "--data_dir", str(tmp_path / "none")]
+    if not argv[0].startswith("--predict"):
+        with pytest.raises(SystemExit) as exc:
+            cli.main(argv)
+        assert exc.value.code == 2
+        assert ("at least one of --predict_slide, --train_mil"
+                in capsys.readouterr().err)
+        return
+    with pytest.raises(FileNotFoundError, match="patch_features_3.npy"):
+        cli.main(argv)
 
 
 def test_export_script_writes_a_mil_artifact(tmp_path):
