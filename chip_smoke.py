@@ -21,8 +21,12 @@ against its plain PyTorch version on the card. Phases:
    medians of kernel and plain at B=512;
 3b. NT-Xent kernels against the plain version (loss rows, m, l, dz) at
    (2N, D) = (1024, 128) with the path's 592 dead rows, (1024, 128),
-   (74, 128), (8192, 128) and (130, 100); CUDA-event medians and quartiles
-   of forward, backward and both, at 2N = 1024 and 32768;
+   (74, 128), (8192, 128) and (130, 100) with the loss's mean as upstream
+   gradient, then with random upstream gradients at (2, 128), (74, 128),
+   (1000, 64), (1024, 128) with dead rows, (4096, 200) and (32768, 128);
+   dz of a second backward call bit-identical; CUDA-event medians and
+   quartiles of forward, backward and both, at 2N = 1024 and 32768, per
+   call and back to back;
 3c. the MIL attention-pool kernel against the plain version at (B, K, D, H)
    = (1, 4096, 512, 128) (the path), (8, 4096, 512, 128), (3, 1000, 512,
    128) with random masks, a fully masked bag and a bag whose first 512
@@ -34,9 +38,10 @@ against its plain PyTorch version on the card. Phases:
    CUDA-event medians and quartiles at B=512 bf16, GB/s against 3.35 TB/s;
 3e. the ``fused_stem`` kernel against its plain version (a float32 conv of
    the same rounded inputs, TF32 off) at B = 512, 37 and 1, with a (64,)
-   bias and with the folded route's bias map, float32 and bfloat16 products;
-   medians at B=512 beside the library conv + ``bias_relu_pool`` for the
-   same stem;
+   bias and with the folded route's bfloat16 bias map, float32 and bfloat16
+   products; conv planes 45, 125 and 128 wide, with float32 and bfloat16
+   maps; medians at B=512 (per call and back to back) beside the library
+   conv + ``bias_relu_pool`` for the same stem;
 3f. ``int8_conv_requant`` against its plain version (an exact integer
    convolution in float64, eager float32 epilogue), exactly equal, at the
    16 convolutions of one int8 forward (space-to-depth stem with its bias map; per stage 2–4 the stride-2
@@ -140,11 +145,17 @@ MODES_ATOL = BF16_ATOL
 F32_ATOL = 1e-4
 KERNEL_SHAPES = [(BATCH, 224, 224, 3), (37, 224, 224, 3), (5, 7, 13, 3)]
 TAU = 0.5
-# NT-Xent cases as (pairs N, D, valid pairs): 2N = 1024 with the SimCLR
-# path's last batch (216 of 512 pairs real: 592 dead rows), full batches,
-# a ragged one and an odd width
-NTX_CASES = [(512, 128, 216), (512, 128, 512), (37, 128, 37), (4096, 128, 4096),
-             (65, 100, 60)]
+# NT-Xent cases as (pairs N, D, valid pairs, upstream gradient): 2N = 1024
+# with the SimCLR path's last batch (216 of 512 pairs real: 592 dead rows),
+# full batches, a ragged one and an odd width (the loss's mean as upstream
+# gradient); then the backward's split plans: one row (2N = 2), 2N = 74,
+# 1000 at D = 64, 4096 at D = 200 and 32768, with random upstream gradients
+NTX_CASES = [(512, 128, 216, "mean"), (512, 128, 512, "mean"),
+             (37, 128, 37, "mean"), (4096, 128, 4096, "mean"),
+             (65, 100, 60, "mean"), (1, 128, 1, "random"),
+             (37, 128, 37, "random"), (500, 64, 480, "random"),
+             (512, 128, 216, "random"), (2048, 200, 2000, "random"),
+             (16384, 128, 16384, "random")]
 NTX_TIMING_ROWS = (1024, 32768)
 NTX_TIMING_RUNS = 50
 # NT-Xent bounds, kernel against the plain version (TF32 off) on the card.
@@ -207,6 +218,10 @@ POOL_CASES = [((BATCH, 112, 112, 64), "bfloat16", False),
               ((3, 112, 112, 64), "float32", True),
               ((2, 30, 26, 16), "float32", False)]
 STEM_BATCHES = (BATCH, 37, 1)
+# more fused_stem planes as (B, H, W, layout, bias map type): conv planes
+# 45 wide (one warpgroup of the wgmma kernel), 125 and 128 wide (three)
+STEM_PLANES = [(2, 62, 90, "s2d", "float32"), (2, 224, 250, "folded", "bfloat16"),
+               (2, 256, 256, "s2d", "float32"), (3, 64, 96, "folded", "bfloat16")]
 # fused_stem against a float32 conv of the same rounded inputs (TF32 off).
 # Measured (H100 80GB HBM3, 700 W): float32 products ≤ 1.05e-5 at max|ref| 15
 # (7e-7 relative; FMA chains of 192 terms in another order than cuDNN's);
@@ -523,6 +538,7 @@ def phase_ntxent(dev) -> dict:
     import torch
 
     from ss25_hierarchical_multiscale_image_classification_tpu_torch.ops.nt_xent import (
+        bwd_splits,
         nt_xent_bwd,
         nt_xent_fwd,
         nt_xent_rows,
@@ -531,18 +547,26 @@ def phase_ntxent(dev) -> dict:
 
     torch.backends.cuda.matmul.allow_tf32 = False
     g = torch.Generator(device=dev).manual_seed(SEED)
+    sms = torch.cuda.get_device_properties(dev).multi_processor_count
     err_fwd = err_bwd = 0.0
-    for pairs, d, valid_pairs in NTX_CASES:
+    for pairs, d, valid_pairs, upstream in NTX_CASES:
         z, pos = ntxent_inputs(dev, g, pairs, d, valid_pairs)
         n = 2 * pairs
         denom = max(int((pos >= 0).sum()), 1)
+        up = (torch.full((n,), 1.0 / denom, device=dev) if upstream == "mean"
+              else torch.rand(n, device=dev, generator=g) + 0.5)
         zk = z.clone().requires_grad_()
         rows, m, l = nt_xent_rows(zk, pos, TAU)
-        (rows.sum() / denom).backward()
+        rows.backward(up)
         zr = z.clone().requires_grad_()
         rows_r, m_r, l_r = nt_xent_rows_reference(zr, pos, TAU)
-        (rows_r.sum() / denom).backward()
+        rows_r.backward(up)
+        # the same dz, bit for bit, from a second call (a fixed order of
+        # the cluster's partial sums, no atomics)
+        up_live = torch.where(pos >= 0, up, 0.0)
+        again = nt_xent_bwd(z, pos, m, l, up_live, 1.0 / TAU)
         torch.cuda.synchronize()
+        same = torch.equal(again, zk.grad)
         d_rows = (rows - rows_r).abs().max().item()
         d_m = (m - m_r).abs().max().item()
         d_l = ((l - l_r).abs() / l_r).max().item()
@@ -553,16 +577,20 @@ def phase_ntxent(dev) -> dict:
         dz_bound = NTX_DZ_RTOL * max(1.0, (n / 1024) ** 0.5) * max_dz
         err_fwd = max(err_fwd, d_rows, d_m)
         err_bwd = max(err_bwd, d_dz)
-        log(f"[ntxent] 2N={n} D={d} dead rows {n - 2 * valid_pairs}: loss rows "
+        log(f"[ntxent] 2N={n} D={d} dead rows {n - 2 * valid_pairs}, upstream "
+            f"{upstream}, split {bwd_splits(n, d + -d % 4, sms)}: loss rows "
             f"max|Δ| {d_rows:.3g} (max|loss| {max_rows:.4g}), m {d_m:.3g} "
             f"(max|m| {max_m:.4g}), l rel {d_l:.3g}; dz max|Δ| {d_dz:.3g} "
-            f"(max|dz| {max_dz:.3g}, bound {dz_bound:.3g})")
+            f"(max|dz| {max_dz:.3g}, bound {dz_bound:.3g}); second call "
+            f"bit-identical {same}")
         if not (torch.isfinite(rows).all() and torch.isfinite(zk.grad).all()):
             raise AssertionError(f"non-finite NT-Xent output at 2N={n}")
         if (d_rows > NTX_RTOL * max_rows or d_m > NTX_RTOL * max_m
-                or d_l > NTX_RTOL or d_dz > dz_bound):
+                or d_l > NTX_RTOL or d_dz > dz_bound or not same):
             raise AssertionError(f"NT-Xent kernels differ from the plain "
-                                 f"version at 2N={n} D={d}")
+                                 f"version (or from themselves) at 2N={n} D={d}")
+        del z, zk, zr, rows_r, again
+        torch.cuda.empty_cache()
 
     times = {}
     for n in NTX_TIMING_ROWS:
@@ -600,6 +628,11 @@ def phase_ntxent(dev) -> dict:
                 f"(quartiles {kq[0]:.4f}–{kq[2]:.4f}; {flop / kq[1] / 1e9:.1f}"
                 f" TFLOP/s), plain {pq[1]:.4f} ms ({pq[0]:.4f}–{pq[2]:.4f}); "
                 f"medians of {2 * half}")
+            if what != "fwd+bwd":  # device time without the host's launch
+                per = 20 if n <= 1024 else 2
+                kb = statistics.median(back_to_back_ms(kernel, 5, per))
+                log(f"[ntxent] 2N={n} D=128 {what} back to back: kernel "
+                    f"{kb:.4f} ms ({flop / kb / 1e9:.1f} TFLOP/s)")
         del zg, rows_r
         torch.cuda.empty_cache()
     path_rows = NTX_TIMING_ROWS[0]
@@ -809,46 +842,59 @@ def phase_fused_stem(dev, sd) -> dict:
     w2_vec, bias_vec = w2_vec.to(dev), bias_vec.to(dev)
     fp = folded_to(fold_resnet18_inference(sd, (224, 224), stem_s2d=True,
                                            dtype=torch.bfloat16), dev)
-    w2_map, bias_map = fp["stem_w2"].float(), fp["stem_bias_map"].float()
+    # the path's weights and map as the folded forward hands them over
+    w2_map, bias_map = fp["stem_w2"], fp["stem_bias_map"]
 
     def folded_cells(imgs):
-        n = imgs.shape[0]
+        n, h, w, _ = imgs.shape
         t = imgs.to(torch.bfloat16) - 128
-        s = t.reshape(n, 112, 2, 112, 2, 3).permute(0, 1, 3, 2, 4, 5)
-        return t, F.pad(s.reshape(n, 112, 112, 12), (0, 0, 2, 1, 2, 1))
+        s = t.reshape(n, h // 2, 2, w // 2, 2, 3).permute(0, 1, 3, 2, 4, 5)
+        return t, F.pad(s.reshape(n, h // 2, w // 2, 12), (0, 0, 2, 1, 2, 1))
 
-    max_err = 0.0
+    cases = []
     for batch in STEM_BATCHES:
         imgs = torch.randint(0, 256, (batch, 224, 224, 3), dtype=torch.uint8,
                              device=dev, generator=g)
-        inputs = {"vector": (stem_space_to_depth(imgs), w2_vec, bias_vec),
-                  "map": (folded_cells(imgs)[1], w2_map, bias_map)}
-        for kind, (in2, w2, bias) in inputs.items():
-            out = fused_stem(in2, w2, bias, torch.float32, torch.float32)
-            torch.cuda.synchronize()
-            ref = fused_stem_reference(in2, w2, bias, torch.float32,
-                                       torch.float32)
-            scale = ref.abs().max().item()
-            e32 = (out - ref).abs().max().item()
-            out16 = fused_stem(in2, w2, bias, torch.bfloat16, torch.bfloat16)
-            torch.cuda.synchronize()
-            ref16 = fused_stem_reference(in2, w2, bias, torch.bfloat16,
-                                         torch.bfloat16).float()
-            d16 = (out16.float() - ref16).abs()
-            steps = (d16 / (STEM_BF16_STEP * ref16.abs().clamp_min(1.0))).max().item()
-            max_err = max(max_err, d16.max().item())
-            log(f"[stem] fused_stem B={batch} {in2.dtype} cells, bias {kind}: "
-                f"f32 products max|Δ| {e32:.3g} (max|ref| {scale:.4g}, "
-                f"{e32 / scale:.3g} relative, bound {STEM_F32_RTOL}); bf16 "
-                f"products and output max|Δ| {d16.max().item():.3g} = "
-                f"{steps:.3g} bf16 steps of the output (bound 1), "
-                f"{(d16 > 0).float().mean().item():.3g} of the elements differ")
-            if not (torch.isfinite(out).all() and torch.isfinite(out16).all()):
-                raise AssertionError(f"non-finite fused_stem output at B={batch}")
-            if out.shape != ref.shape or e32 > STEM_F32_RTOL * scale or steps > 1.0:
-                raise AssertionError(f"fused_stem differs from its plain "
-                                     f"version at B={batch}, bias {kind}")
-        del inputs, out, ref, out16, ref16, d16
+        cases.append((batch, 224, 224, "vector",
+                      (stem_space_to_depth(imgs), w2_vec, bias_vec)))
+        cases.append((batch, 224, 224, "map",
+                      (folded_cells(imgs)[1], w2_map, bias_map)))
+    for batch, h, w, layout, map_type in STEM_PLANES:
+        imgs = torch.randint(0, 256, (batch, h, w, 3), dtype=torch.uint8,
+                             device=dev, generator=g)
+        in2 = stem_space_to_depth(imgs) if layout == "s2d" else folded_cells(imgs)[1]
+        bmap = bias_vec + torch.randn(h // 2, w // 2, 64, device=dev, generator=g)
+        cases.append((batch, h, w, f"{map_type} map, {layout} cells",
+                      (in2, w2_vec, bmap.to(getattr(torch, map_type)))))
+        cases.append((batch, h, w, f"vector, {layout} cells", (in2, w2_vec, bias_vec)))
+
+    max_err = 0.0
+    for batch, h, w, kind, (in2, w2, bias) in cases:
+        out = fused_stem(in2, w2, bias, torch.float32, torch.float32)
+        torch.cuda.synchronize()
+        ref = fused_stem_reference(in2, w2, bias.float(), torch.float32,
+                                   torch.float32)
+        scale = ref.abs().max().item()
+        e32 = (out - ref).abs().max().item()
+        out16 = fused_stem(in2, w2, bias, torch.bfloat16, torch.bfloat16)
+        torch.cuda.synchronize()
+        ref16 = fused_stem_reference(in2, w2, bias.float(), torch.bfloat16,
+                                     torch.bfloat16).float()
+        d16 = (out16.float() - ref16).abs()
+        steps = (d16 / (STEM_BF16_STEP * ref16.abs().clamp_min(1.0))).max().item()
+        max_err = max(max_err, d16.max().item())
+        log(f"[stem] fused_stem B={batch} {h}×{w} {in2.dtype} cells, bias {kind}: "
+            f"f32 products max|Δ| {e32:.3g} (max|ref| {scale:.4g}, "
+            f"{e32 / scale:.3g} relative, bound {STEM_F32_RTOL}); bf16 "
+            f"products and output max|Δ| {d16.max().item():.3g} = "
+            f"{steps:.3g} bf16 steps of the output (bound 1), "
+            f"{(d16 > 0).float().mean().item():.3g} of the elements differ")
+        if not (torch.isfinite(out).all() and torch.isfinite(out16).all()):
+            raise AssertionError(f"non-finite fused_stem output at B={batch}")
+        if out.shape != ref.shape or e32 > STEM_F32_RTOL * scale or steps > 1.0:
+            raise AssertionError(f"fused_stem differs from its plain "
+                                 f"version at B={batch} {h}×{w}, bias {kind}")
+    del cases, out, ref, out16, ref16, d16
 
     # times at B=512 on the path's inputs: bf16 cells, bias map, bf16 out
     imgs = torch.randint(0, 256, (BATCH, 224, 224, 3), dtype=torch.uint8,
@@ -868,23 +914,29 @@ def phase_fused_stem(dev, sd) -> dict:
                     dev)
     w7, tn = fp7["kernels"]["stem"], t.permute(0, 3, 1, 2)
 
+    map32 = bias_map.float()  # what bias_relu_pool hands its kernel
+
     def conv_then_pool():
         y = F.conv2d(tn, w7, None, 2, 3)
-        return bias_relu_pool_kernel(y.permute(0, 2, 3, 1), bias_map,
+        return bias_relu_pool_kernel(y.permute(0, 2, 3, 1), map32,
                                      torch.bfloat16)
 
     conv = quartiles(cuda_ms(lambda: F.conv2d(tn, w7, None, 2, 3),
                              STEM_TIMING_RUNS))
     both = quartiles(cuda_ms(conv_then_pool, STEM_TIMING_RUNS))
+    kb = statistics.median(back_to_back_ms(
+        lambda: fused_stem(in2, w2_map, bias_map, torch.bfloat16,
+                           torch.bfloat16), 5, 10))
     flop = 2 * BATCH * 112 * 112 * 192 * 64
-    moved = in2.numel() * 2 + (w2_map.numel() + bias_map.numel()) * 4 \
-        + BATCH * 56 * 56 * 64 * 2
+    moved = in2.numel() * 2 + (w2_map.numel() + bias_map.numel()) \
+        * bias_map.element_size() + BATCH * 56 * 56 * 64 * 2
     bound = bound_ms(moved, flop, BF16_FLOP_S)
     log(f"[stem] fused_stem B={BATCH}, bf16 cells + map → bf16 "
         f"({flop / 1e9:.1f} GFLOP, {moved / 1e6:.0f} MB): kernel {kq[1]:.4f} ms "
         f"(quartiles {kq[0]:.4f}–{kq[2]:.4f}; {flop / kq[1] / 1e9:.1f} TFLOP/s = "
         f"{flop / kq[1] / BF16_FLOP_S * 1e5:.1f} % of the 989 TFLOP/s dense bf16 "
-        f"tensor peak; bound {bound['bound_ms']:.4f} ms), f32 cells and "
+        f"tensor peak; bound {bound['bound_ms']:.4f} ms; back to back "
+        f"{kb:.4f} ms), f32 cells and "
         f"products on FP32 FMAs {k32[1]:.4f} ms ({flop / k32[1] / 1e9:.1f} "
         f"TFLOP/s; at least {flop / FP32_FLOP_S * 1e3:.4f} ms at the 67 TFLOP/s "
         f"FP32 peak), plain {pq[1]:.4f} ms "

@@ -50,8 +50,9 @@ SOURCES = {
         # z, pos_idx, n_rows, d, inv_tau, loss, m, l, stream
         "hipac_nt_xent_fwd": ([_P, _P, _I64, _I64, _F32, _P, _P, _P, _P],
                               ctypes.c_int),
-        # z, pos_idx, m, l, g, n_rows, d, inv_tau, dz, stream
-        "hipac_nt_xent_bwd": ([_P, _P, _P, _P, _P, _I64, _I64, _F32, _P, _P],
+        # z, pos_idx, m, l, g, n_rows, d, inv_tau, dz, splits, stream
+        "hipac_nt_xent_bwd": ([_P, _P, _P, _P, _P, _I64, _I64, _F32, _P, _I32,
+                               _P],
                               ctypes.c_int),
     },
     "mil_pool.cu": {
@@ -75,10 +76,11 @@ SOURCES = {
             [_P, _P, _P, _P, _I64, _I32, _I32, _I32, _I32, _I32, _P],
             ctypes.c_int,
         ),
-        # in2, wt, bias, out, b, hin, win, pool_rows, bias_map, out_bf16,
-        # stream
-        "hipac_fused_stem_mma": (
-            [_P, _P, _P, _P, _I64, _I32, _I32, _I32, _I32, _I32, _P],
+        # in2, wimg, bias, out, b, hin, win, pool_rows, blocks, tiles,
+        # bias_map, bias_bf16, out_bf16, stream
+        "hipac_fused_stem_wgmma": (
+            [_P, _P, _P, _P, _I64, _I32, _I32, _I32, _I32, _I32, _I32, _I32,
+             _I32, _P],
             ctypes.c_int,
         ),
     },

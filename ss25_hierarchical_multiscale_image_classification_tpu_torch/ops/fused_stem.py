@@ -15,8 +15,9 @@ NHWC layout.
   (``models/quantized.py``), whose stem epilogue this kernel is.
 - :func:`fused_stem` computes the stem's 7×7/2 convolution as a 4×4 stride-1
   convolution over a 2×2 space-to-depth input (K = 192) in its own body
-  (bfloat16 products on the tensor cores, float32 products on FMAs), then
-  the same epilogue, and writes only the pooled plane.
+  (bfloat16 products on ``wgmma`` from a weight image packed once,
+  :func:`pack_stem_weights`; float32 products on FMAs), then the same
+  epilogue, and writes only the pooled plane.
 
 Each sends a CUDA tensor to its kernel (``ops/csrc/bias_relu_pool.cu``,
 ``ops/csrc/fused_stem.cu``; ``bias_relu_pool_kernel.launches`` and
@@ -34,6 +35,8 @@ with it in float32, where that trick is exact.
 
 from __future__ import annotations
 
+import weakref
+
 import numpy as np
 import torch
 import torch.nn.functional as F
@@ -44,11 +47,21 @@ from ss25_hierarchical_multiscale_image_classification_tpu_torch.config import (
 )
 
 _DTYPES = (torch.float32, torch.bfloat16)
-#: Widest conv plane (columns) one block of ``fused_stem.cu`` covers.
+#: Widest conv plane (columns) ``fused_stem.cu`` takes.
 MAX_CONV_WIDTH = 128
-#: Pooled rows per block of ``fused_stem.cu``; its first conv row is computed
-#: twice, 1/(2·POOL_ROWS) extra work.
+#: Pooled rows per block of the float32 (FMA) kernel of ``fused_stem.cu``;
+#: its first conv row is computed twice, 1/(2·POOL_ROWS) extra work.
 POOL_ROWS = 14
+#: The bfloat16 (wgmma) kernel of ``fused_stem.cu``: slots of its input-row
+#: ring, the dynamic shared memory a block may use, the pooled columns one
+#: warp writes, the elements of a column of its bias band (64 + 8 against
+#: bank conflicts) and the bytes of its weight image (``kRing``,
+#: ``kSmemBudget``, ``kPoolsPerWarp``, ``kBiasPitch``, ``kWImgBytes``).
+RING_SLOTS = 8
+SMEM_BUDGET = 232448 - 256
+POOLS_PER_WARP = 7
+BIAS_PITCH = 72
+W_IMAGE_BYTES = 12 * 64 * 16 * 2
 
 
 def _pooled(n: int) -> int:
@@ -230,14 +243,81 @@ def fused_stem_reference(in2: torch.Tensor, w2: torch.Tensor,
     return bias_relu_pool_reference(y, bias, out_dtype)
 
 
+def pack_stem_weights(w2: torch.Tensor) -> torch.Tensor:
+    """The bfloat16 weight image of the wgmma kernel from ``w2`` (4, 48, 64):
+    (12·64·16,), per K step of 16 (K = KY·48 + KX·12 + slot, the order in
+    which a conv column's 48 values of one KY lie in the space-to-depth row)
+    the core-matrix order ``[channel // 8][K half][channel % 8][8 values]``
+    that the tensor cores read B in (``fused_stem.cu``)."""
+    if w2.dim() != 3 or tuple(w2.shape) != (4, 48, 64):
+        raise ValueError(f"expected w2 of (4, 48, 64), got {tuple(w2.shape)}")
+    # (KX, KY·12 + s, o) → wt[o][KY·48 + KX·12 + s]
+    wt = w2.reshape(4, 4, 12, 64).permute(3, 1, 0, 2).reshape(64, 192)
+    # [o // 8][o % 8][ks][K half][8] → [ks][o // 8][K half][o % 8][8]
+    img = wt.to(torch.bfloat16).reshape(8, 8, 12, 2, 8).permute(2, 0, 3, 1, 4)
+    return img.contiguous().reshape(-1)
+
+
+_PACKED: dict = {}
+
+
+def _packed_weights(w2: torch.Tensor) -> torch.Tensor:
+    """:func:`pack_stem_weights` of ``w2``, made once per weight tensor (and
+    again after an in-place change of it; an inference-mode tensor keeps no
+    version counter, so one changed in place is not packed again)."""
+    version = None if w2.is_inference() else w2._version
+    key = (w2.data_ptr(), w2.device, w2.dtype, version)
+    hit = _PACKED.get(key)
+    if hit is not None and hit[0]() is w2:
+        return hit[1]
+    if len(_PACKED) >= 8:
+        _PACKED.clear()
+    packed = pack_stem_weights(w2)
+    _PACKED[key] = (weakref.ref(w2), packed)
+    return packed
+
+
+def stem_wgmma_plan(b: int, hin: int, win: int, bias_map: bool,
+                    bias_bf16: bool, sms: int) -> tuple[int, int, int, int]:
+    """Launch plan of the wgmma kernel for ``b`` space-to-depth planes of
+    ``hin × win`` cells: ``(pool_rows, blocks, tiles, smem)``.
+
+    A block keeps the weight image, a ring of :data:`RING_SLOTS` input rows
+    and the bias map's rows of one band of ``pool_rows`` pooled rows (2 ·
+    pool_rows + 1 conv rows) in ``smem`` bytes of shared memory, so the band
+    is as tall as :data:`SMEM_BUDGET` allows (the whole plane for a (64,)
+    bias). ``blocks`` persistent blocks (at most one an SM) share the
+    (band, image) items; ``tiles`` consumer warpgroups of 4 ·
+    :data:`POOLS_PER_WARP` pooled columns each cover a row.
+    """
+    hc, wc = hin - 3, win - 3
+    ho, wo = _pooled(hc), _pooled(wc)
+    tiles = -(-wo // (4 * POOLS_PER_WARP))
+    slot = (win * 24 + 16 + 15) // 16 * 16
+    fixed = W_IMAGE_BYTES + RING_SLOTS * slot
+    if bias_map:
+        row = wc * BIAS_PITCH * (2 if bias_bf16 else 4)
+        pool_rows = min(((SMEM_BUDGET - fixed) // row - 1) // 2, ho)
+        if pool_rows < 1:
+            raise ValueError(f"a bias map {wc} columns wide does not fit "
+                             f"the stem kernel's shared memory")
+        band = min(2 * pool_rows + 1, hc) * row
+    else:
+        pool_rows, band = ho, 64 * 4
+    blocks = min(sms, b * -(-ho // pool_rows))
+    return pool_rows, blocks, tiles, fixed + band
+
+
 def fused_stem_kernel(in2: torch.Tensor, w2: torch.Tensor, bias: torch.Tensor,
                       out_dtype: torch.dtype = torch.bfloat16,
                       mm_dtype: torch.dtype = torch.bfloat16) -> torch.Tensor:
     """Launch the kernel on a contiguous CUDA ``in2`` (B, Hc+3, Wc+3, 12) in
-    float32 or bfloat16, Wc ≤ 128, with contiguous float32 ``w2`` (4, 48, 64)
-    and ``bias`` (64,) or (Hc, Wc, 64). ``mm_dtype`` bfloat16 runs the
-    tensor-core kernel (bfloat16 products, float32 accumulation), float32
-    the FMA kernel. Raises on anything else."""
+    float32 or bfloat16, Wc ≤ 128, with ``w2`` (4, 48, 64) and ``bias`` (64,)
+    or (Hc, Wc, 64). ``mm_dtype`` bfloat16 runs the wgmma kernel (bfloat16
+    products, float32 accumulation) from the weight image of ``w2``, packed
+    once per weight tensor, and reads a bias map in its own type (bfloat16
+    or float32); float32 runs the FMA kernel on float32 ``w2`` and bias.
+    Raises on anything else."""
     _check_stem(in2, w2, bias, out_dtype, mm_dtype)
     if in2.device.type != "cuda":
         raise ValueError(f"the fused_stem kernel runs on CUDA tensors, not "
@@ -249,9 +329,13 @@ def fused_stem_kernel(in2: torch.Tensor, w2: torch.Tensor, bias: torch.Tensor,
     if win - 3 > MAX_CONV_WIDTH:
         raise ValueError(f"the fused_stem kernel takes conv planes up to "
                          f"{MAX_CONV_WIDTH} wide, got {win - 3}")
-    if w2.dtype != torch.float32 or bias.dtype != torch.float32:
-        raise ValueError("the fused_stem kernel takes float32 w2 and bias")
+    if w2.dtype not in _DTYPES or bias.dtype not in _DTYPES:
+        raise ValueError("the fused_stem kernel takes float32 or bfloat16 w2 "
+                         "and bias")
     in2 = in2.to(mm_dtype)  # the product's inputs are rounded to mm_dtype
+    bias_map = bias.dim() == 3
+    if mm_dtype == torch.float32 or not bias_map:
+        bias = bias.float()
     if not all(t.is_contiguous() for t in (in2, w2, bias)):
         raise ValueError("the fused_stem kernel needs contiguous inputs")
     from ss25_hierarchical_multiscale_image_classification_tpu_torch.ops.build import (
@@ -261,21 +345,24 @@ def fused_stem_kernel(in2: torch.Tensor, w2: torch.Tensor, bias: torch.Tensor,
     out = torch.empty(b, _pooled(hin - 3), _pooled(win - 3), 64,
                       dtype=out_dtype, device=in2.device)
     lib = load_library()
+    out_bf16 = int(out_dtype == torch.bfloat16)
     with torch.cuda.device(in2.device):
         stream = torch.cuda.current_stream().cuda_stream
         if mm_dtype == torch.bfloat16:
-            # (KX, KY·12 + s, o) → wt[o][KY·48 + KX·12 + s]
-            wt = w2.reshape(4, 4, 12, 64).permute(3, 1, 0, 2).reshape(64, 192)
-            wt = wt.to(torch.bfloat16).contiguous()
-            rc = lib.hipac_fused_stem_mma(
-                in2.data_ptr(), wt.data_ptr(), bias.data_ptr(), out.data_ptr(),
-                b, hin, win, POOL_ROWS, int(bias.dim() == 3),
-                int(out_dtype == torch.bfloat16), stream)
+            bias_bf16 = bias.dtype == torch.bfloat16
+            sms = torch.cuda.get_device_properties(in2.device).multi_processor_count
+            pool_rows, blocks, tiles, _ = stem_wgmma_plan(
+                b, hin, win, bias_map, bias_bf16, sms)
+            rc = lib.hipac_fused_stem_wgmma(
+                in2.data_ptr(), _packed_weights(w2).data_ptr(),
+                bias.data_ptr(), out.data_ptr(), b, hin, win, pool_rows,
+                blocks, tiles, int(bias_map), int(bias_bf16), out_bf16, stream)
         else:
+            w32 = w2.float()
             rc = lib.hipac_fused_stem(
-                in2.data_ptr(), w2.data_ptr(), bias.data_ptr(), out.data_ptr(),
-                b, hin, win, POOL_ROWS, int(bias.dim() == 3),
-                int(out_dtype == torch.bfloat16), stream)
+                in2.data_ptr(), w32.data_ptr(),
+                bias.data_ptr(), out.data_ptr(), b, hin, win, POOL_ROWS,
+                int(bias_map), out_bf16, stream)
     if rc != 0:
         raise RuntimeError(f"fused_stem kernel launch failed: cudaError {rc}")
     fused_stem_kernel.launches += 1
@@ -305,8 +392,8 @@ def fused_stem(in2: torch.Tensor, w2: torch.Tensor, bias: torch.Tensor,
     """
     if in2.device.type == "cpu":
         return fused_stem_reference(in2, w2, bias, out_dtype, mm_dtype)
-    return fused_stem_kernel(in2.contiguous(), w2.float().contiguous(),
-                             bias.float().contiguous(), out_dtype, mm_dtype)
+    return fused_stem_kernel(in2.contiguous(), w2.contiguous(),
+                             bias.contiguous(), out_dtype, mm_dtype)
 
 
 def stem_forward(imgs_u8: torch.Tensor, conv_kernel, bn_scale, bn_bias,

@@ -31,8 +31,8 @@ import torch
 #: is 0 for every finite row maximum.
 NEG_INF = -1e30
 #: Widest rows the wrapper passes to the kernels. They stage z in chunks of
-#: 32 columns and write dz in slices of 128, so any width works; the card's
-#: tests reach 512 (the projection width is 128).
+#: 32 (forward) or 128 columns (backward) and write dz in slices of 128, so
+#: any width works; the card's tests reach 512 (the projection width is 128).
 MAX_D = 4096
 
 
@@ -107,11 +107,27 @@ def nt_xent_fwd(z: torch.Tensor, pos_idx: torch.Tensor, inv_tau: float
     return loss, m, l
 
 
+def bwd_splits(n: int, d: int, sms: int) -> int:
+    """Blocks (1, 2, 4 or 8: one cluster) that the backward kernel splits the
+    64-wide column tiles of each 64-row block over: doubled while the grid
+    (row blocks × slices of 128 columns of dz × splits) has fewer blocks than
+    the card has SMs and every split keeps a tile (2N = 1024: 8, 128 blocks;
+    2N = 32768: 1)."""
+    row_blocks = tiles = -(-n // 64)
+    base = row_blocks * -(-d // 128)
+    splits = 1
+    while splits < 8 and 2 * splits <= tiles and base * splits < sms:
+        splits *= 2
+    return splits
+
+
 def nt_xent_bwd(z: torch.Tensor, pos_idx: torch.Tensor, m: torch.Tensor,
                 l: torch.Tensor, g: torch.Tensor, inv_tau: float
                 ) -> torch.Tensor:
     """Launch the backward kernel: dL/dz for upstream gradient ``g`` of the
-    loss rows (dead rows' entries of ``g`` are ignored)."""
+    loss rows (dead rows' entries of ``g`` are ignored). Rows whose width is
+    not a multiple of 4 go through the kernel zero-padded to one (bulk
+    copies move 16-byte pieces); the padding's gradient is dropped."""
     _check(z, pos_idx)
     _check_kernel_args(z, pos_idx)
     for name, t in (("m", m), ("l", l), ("g", g)):
@@ -124,15 +140,18 @@ def nt_xent_bwd(z: torch.Tensor, pos_idx: torch.Tensor, m: torch.Tensor,
     )
 
     n, d = z.shape
-    dz = torch.empty_like(z)
+    zp = z if d % 4 == 0 else torch.nn.functional.pad(z, (0, -d % 4))
+    dz = torch.empty_like(zp)
+    sms = torch.cuda.get_device_properties(z.device).multi_processor_count
     with torch.cuda.device(z.device):
         rc = load_library().hipac_nt_xent_bwd(
-            z.data_ptr(), pos_idx.data_ptr(), m.data_ptr(), l.data_ptr(),
-            g.data_ptr(), n, d, inv_tau, dz.data_ptr(),
+            zp.data_ptr(), pos_idx.data_ptr(), m.data_ptr(), l.data_ptr(),
+            g.data_ptr(), n, zp.shape[1], inv_tau, dz.data_ptr(),
+            bwd_splits(n, zp.shape[1], sms),
             torch.cuda.current_stream().cuda_stream)
     _raise_on(rc, "nt_xent_bwd")
     nt_xent_bwd.launches += 1
-    return dz
+    return dz if d % 4 == 0 else dz[:, :d].contiguous()
 
 
 nt_xent_fwd.launches = 0

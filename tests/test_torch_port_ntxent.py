@@ -26,6 +26,7 @@ from ss25_hierarchical_multiscale_image_classification_tpu_torch.models.simclr i
 )
 from ss25_hierarchical_multiscale_image_classification_tpu_torch.ops.nt_xent import (
     MAX_D,
+    bwd_splits,
     nt_xent_bwd,
     nt_xent_fwd,
     nt_xent_loss_kernel,
@@ -171,6 +172,28 @@ def test_nt_xent_wrapper_rejects_bad_input_and_counts_no_cpu_launch():
         nt_xent_bwd(z, pos, torch.ones(6), torch.ones(6), torch.ones(6), 2.0)
 
 
+@pytest.mark.parametrize("n", [1, 2, 63, 64, 74, 130, 1000, 1024, 4096, 8192,
+                               32768, 65536])
+@pytest.mark.parametrize("d", [4, 64, 128, 200, 512])
+def test_bwd_splits_fill_the_card_and_keep_a_tile_each(n, d):
+    """The backward's column split: a cluster of 1, 2, 4 or 8 blocks, every
+    split keeps at least one 64-wide column tile, and the split doubles only
+    while the grid has fewer blocks than the card's SMs."""
+    sms = 132
+    tiles = -(-n // 64)
+    base = tiles * -(-d // 128)
+    splits = bwd_splits(n, d, sms)
+    assert splits in (1, 2, 4, 8) and splits <= tiles
+    if splits > 1:
+        assert base * splits // 2 < sms
+    if splits < 8 and 2 * splits <= tiles:
+        assert base * splits >= sms
+    if (n, d) == (1024, 128):
+        assert splits == 8 and base * splits == 128  # the path: 128 blocks
+    if n >= 8448:
+        assert splits == 1
+
+
 def _pairs(device, g, pairs, d, valid_pairs):
     """Rows and positive indices as ``nt_xent_loss_kernel`` builds them,
     the last ``pairs − valid_pairs`` pairs dead in both views."""
@@ -184,21 +207,25 @@ def _pairs(device, g, pairs, d, valid_pairs):
 @pytest.mark.cuda
 @pytest.mark.parametrize("pairs,d,valid_pairs", [
     (512, 128, 216), (512, 128, 512), (37, 128, 37), (4096, 128, 4096),
-    (65, 100, 60), (150, 512, 140)])
+    (65, 100, 60), (150, 512, 140), (1, 128, 1), (500, 64, 480),
+    (2048, 200, 2000), (16384, 128, 16384), (3, 7, 3)])
+@pytest.mark.parametrize("upstream", ["ones", "random"])
 def test_nt_xent_cuda_kernels_match_plain_version(cuda_device, pairs, d,
-                                                  valid_pairs):
+                                                  valid_pairs, upstream):
     g = torch.Generator(device=cuda_device).manual_seed(pairs)
     z, pos = _pairs(cuda_device, g, pairs, d, valid_pairs)
+    up = (torch.ones(2 * pairs, device=cuda_device) if upstream == "ones"
+          else torch.rand(2 * pairs, device=cuda_device, generator=g) + 0.5)
     before = (nt_xent_fwd.launches, nt_xent_bwd.launches)
     zk = z.clone().requires_grad_()
     rows, m, l = nt_xent_rows(zk, pos, 0.5)
-    rows.sum().backward()
+    rows.backward(up)
     torch.cuda.synchronize()
     assert (nt_xent_fwd.launches, nt_xent_bwd.launches) == (before[0] + 1,
                                                            before[1] + 1)
     zr = z.clone().requires_grad_()
     rows_r, m_r, l_r = nt_xent_rows_reference(zr, pos, 0.5)
-    rows_r.sum().backward()
+    rows_r.backward(up)
     # as chip_smoke.py: 1e-5 relative on the forward; on dz 1e-5 of max|dz|,
     # times sqrt(2N / 1024) above 2N = 1024 (sequential sums over 2N terms)
     assert (rows - rows_r).abs().max() <= 1e-5 * rows_r.abs().max()
@@ -208,6 +235,22 @@ def test_nt_xent_cuda_kernels_match_plain_version(cuda_device, pairs, d,
     assert (zk.grad - zr.grad).abs().max() <= dz_tol * zr.grad.abs().max()
     dead = pos < 0
     assert not rows[dead].any() and not zk.grad[dead].any()
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("pairs,d", [(512, 128), (37, 200), (4096, 128)])
+def test_nt_xent_bwd_gives_the_same_bits_twice(cuda_device, pairs, d):
+    """The column split sums its partials in a fixed rank order, with no
+    atomics: two calls on the same input give bit-identical dz."""
+    g = torch.Generator(device=cuda_device).manual_seed(7)
+    z, pos = _pairs(cuda_device, g, pairs, d, pairs - 1)
+    _, m, l = nt_xent_fwd(z, pos, 2.0)
+    up = torch.where(pos >= 0, torch.rand(2 * pairs, device=cuda_device,
+                                          generator=g), 0.0)
+    first = nt_xent_bwd(z, pos, m, l, up, 2.0)
+    second = nt_xent_bwd(z, pos, m, l, up, 2.0)
+    torch.cuda.synchronize()
+    assert torch.equal(first, second)
 
 
 @pytest.mark.cuda

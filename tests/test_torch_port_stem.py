@@ -291,6 +291,94 @@ def test_resnet_from_stem_matches_jax():
     np.testing.assert_allclose(out.numpy(), ref, rtol=1e-3, atol=2e-4)
 
 
+def _stem_image_offsets():
+    """numpy model of the wgmma weight image: the bf16 element offset of
+    ``w2[KX, KY·12 + slot, o]``. K = KY·48 + KX·12 + slot runs in steps of
+    16 (2 KB each); in a step, core matrices of 8 channels × 8 values (16
+    contiguous bytes a channel): channel groups 256 bytes apart, the two K
+    halves 128."""
+    kx, r, o = np.meshgrid(np.arange(4), np.arange(48), np.arange(64),
+                           indexing="ij")
+    ky, slot = r // 12, r % 12
+    k = ky * 48 + kx * 12 + slot
+    ks, half, e = k // 16, (k % 16) // 8, k % 8
+    return ks * 1024 + (o // 8) * 128 + half * 64 + (o % 8) * 8 + e
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("seed", [17, 18])
+def test_pack_stem_weights_unpacks_exactly(dtype, seed):
+    """Packing, then reading back through the numpy model of the layout,
+    gives ``w2`` rounded to bfloat16 exactly, and every element of the image
+    is a weight."""
+    w2 = torch.from_numpy(np.random.default_rng(seed).normal(
+        0, 0.1, (4, 48, 64)).astype(np.float32)).to(dtype)
+    packed = fs.pack_stem_weights(w2)
+    assert packed.dtype == torch.bfloat16 and packed.is_contiguous()
+    assert packed.numel() * 2 == fs.W_IMAGE_BYTES
+    at = _stem_image_offsets()
+    assert np.array_equal(np.sort(at.reshape(-1)), np.arange(packed.numel()))
+    assert torch.equal(packed[torch.from_numpy(at.reshape(-1))].reshape(4, 48, 64),
+                       w2.to(torch.bfloat16))
+    # the folded forward's s2d stem weights take the same packing
+    assert torch.equal(fs.pack_stem_weights(w2.contiguous()), packed)
+
+
+def test_pack_stem_weights_cache_and_refusals():
+    w2 = torch.randn(4, 48, 64)
+    first = fs._packed_weights(w2)
+    assert fs._packed_weights(w2) is first  # packed once per weight tensor
+    w2.mul_(2)  # an in-place change packs again
+    again = fs._packed_weights(w2)
+    assert again is not first
+    assert torch.equal(again, fs.pack_stem_weights(w2))
+    with torch.inference_mode():  # the feature loop's weights
+        w_inf = torch.randn(4, 48, 64)
+        packed = fs._packed_weights(w_inf)
+        assert fs._packed_weights(w_inf) is packed
+    assert torch.equal(packed, fs.pack_stem_weights(w_inf))
+    with pytest.raises(ValueError):
+        fs.pack_stem_weights(torch.zeros(4, 48, 32))
+
+
+# (B, Hc + 3, Wc + 3): the path's plane, Wc < 64, an odd plane, the widest
+@pytest.mark.parametrize("b,hin,win", [(512, 115, 115), (37, 115, 115),
+                                       (1, 115, 115), (2, 34, 48), (3, 35, 51),
+                                       (2, 115, 128), (1, 131, 131), (4, 4, 4)])
+@pytest.mark.parametrize("bias", ["vector", "map bf16", "map f32"])
+def test_stem_wgmma_plan_fits_and_covers(b, hin, win, bias):
+    """The plan's shared memory fits a block, its warps cover every pooled
+    column, its bands every pooled row, and there are no more blocks than
+    SMs or work items; a (64,) bias takes the whole plane as one band."""
+    hc, wc = hin - 3, win - 3
+    ho, wo = (hc - 1) // 2 + 1, (wc - 1) // 2 + 1
+    is_map, bf16 = bias != "vector", bias == "map bf16"
+    pool_rows, blocks, tiles, smem = fs.stem_wgmma_plan(b, hin, win, is_map,
+                                                        bf16, 132)
+    assert smem <= fs.SMEM_BUDGET
+    assert tiles in (1, 2, 3)
+    assert 4 * tiles * fs.POOLS_PER_WARP >= wo > 4 * (tiles - 1) * fs.POOLS_PER_WARP
+    assert 1 <= pool_rows <= ho
+    bands = -(-ho // pool_rows)
+    assert 1 <= blocks == min(132, b * bands)
+    band_rows = min(2 * pool_rows + 1, hc)
+    slot = (win * 24 + 16 + 15) // 16 * 16
+    assert slot >= win * 24 + 8 and slot % 16 == 0
+    if is_map:
+        elem = 2 if bf16 else 4
+        assert smem == (fs.W_IMAGE_BYTES + fs.RING_SLOTS * slot
+                        + band_rows * wc * fs.BIAS_PITCH * elem)
+        # one more pooled row would not fit
+        if pool_rows < ho:
+            taller = min(2 * pool_rows + 3, hc) * wc * fs.BIAS_PITCH * elem
+            assert smem - band_rows * wc * fs.BIAS_PITCH * elem + taller \
+                > fs.SMEM_BUDGET
+    else:
+        assert pool_rows == ho
+    if (b, hin, win, bias) == (512, 115, 115, "map bf16"):
+        assert (pool_rows, blocks, tiles) == (5, 132, 2)  # the path
+
+
 def test_stem_wrappers_reject_bad_input_and_count_no_cpu_launch():
     before = (fs.bias_relu_pool_kernel.launches, fs.fused_stem_kernel.launches)
     y = torch.zeros(1, 8, 8, 8)
@@ -349,33 +437,55 @@ def test_bias_relu_pool_cuda_kernel_is_exact(cuda_device, shape, dtype,
         assert torch.equal(out, ref)
 
 
+def _folded_cells(imgs):
+    """The folded forward's space-to-depth input: ``u8 − 128`` cut into
+    cells, then padded (2, 1), in bfloat16 (exact)."""
+    n, h, w, _ = imgs.shape
+    t = imgs.to(torch.bfloat16) - 128
+    s = t.reshape(n, h // 2, 2, w // 2, 2, 3).permute(0, 1, 3, 2, 4, 5)
+    return F.pad(s.reshape(n, h // 2, w // 2, 12), (0, 0, 2, 1, 2, 1))
+
+
 @pytest.mark.cuda
-@pytest.mark.parametrize("batch,hw", [(1, (224, 224)), (37, (224, 224)),
-                                      (3, (64, 96)), (2, (62, 90))])
-def test_fused_stem_cuda_kernel_matches_plain_version(cuda_device, batch, hw):
+@pytest.mark.parametrize("batch,hw,layout", [
+    (1, (224, 224), "s2d"), (37, (224, 224), "s2d"), (3, (64, 96), "s2d"),
+    (2, (62, 90), "s2d"), (512, (224, 224), "folded"), (37, (224, 224), "folded"),
+    (2, (224, 250), "folded"), (2, (256, 256), "s2d"), (1, (222, 226), "folded")])
+def test_fused_stem_cuda_kernel_matches_plain_version(cuda_device, batch, hw,
+                                                      layout):
+    """Both kernels against the plain version: B of 1, 37 and 512; conv
+    planes 45–128 wide (one, two and three warpgroups of the wgmma kernel);
+    planes of an odd number of cells, whose rows start 0 and 8 bytes past a
+    16-byte boundary in turn; a (64,) bias and a map (float32 with the
+    ``stem_space_to_depth`` layout, bfloat16 with the folded route's)."""
     torch.backends.cudnn.allow_tf32 = False
     params = _stem_params(15)
     imgs = torch.from_numpy(_u8(16, (batch, *hw, 3))).to(cuda_device)
     w2, bias = fs.fold_stem_params(*params)
     w2, bias = w2.to(cuda_device), bias.to(cuda_device)
-    in2 = fs.stem_space_to_depth(imgs)
+    in2 = fs.stem_space_to_depth(imgs) if layout == "s2d" else _folded_cells(imgs)
     g = torch.Generator(device=cuda_device).manual_seed(1)
     bias_map = bias + torch.randn(hw[0] // 2, hw[1] // 2, 64,
                                   device=cuda_device, generator=g)
+    if layout == "folded":
+        bias_map = bias_map.to(torch.bfloat16)
     for bb in (bias, bias_map):
         before = fs.fused_stem_kernel.launches
         out = fs.fused_stem(in2, w2, bb, torch.float32, torch.float32)
         torch.cuda.synchronize()
         assert fs.fused_stem_kernel.launches == before + 1
-        ref = fs.fused_stem_reference(in2, w2, bb, torch.float32, torch.float32)
+        ref = fs.fused_stem_reference(in2, w2, bb.float(), torch.float32,
+                                      torch.float32)
         assert out.shape == ref.shape
         # float32 FMA chains of 192 terms in another order than cuDNN's
         assert (out - ref).abs().max().item() <= 1e-4 * ref.abs().max().item()
         # bfloat16 products: the same rounded inputs, float32 accumulation;
         # the bfloat16 output may round across one step (2^-8 relative)
-        out16 = fs.fused_stem(in2.to(torch.bfloat16), w2, bb)
-        ref16 = fs.fused_stem_reference(in2.to(torch.bfloat16), w2, bb)
-        torch.cuda.synchronize()
-        assert out16.dtype == torch.bfloat16
-        step = 2.0 ** -7 * ref16.float().abs().clamp_min(1.0)
-        assert ((out16.float() - ref16.float()).abs() <= step).all()
+        for out_dtype in (torch.bfloat16, torch.float32):
+            out16 = fs.fused_stem(in2.to(torch.bfloat16), w2, bb, out_dtype)
+            ref16 = fs.fused_stem_reference(in2.to(torch.bfloat16), w2,
+                                            bb.float(), out_dtype)
+            torch.cuda.synchronize()
+            assert out16.dtype == out_dtype and out16.shape == ref16.shape
+            step = 2.0 ** -7 * ref16.float().abs().clamp_min(1.0)
+            assert ((out16.float() - ref16.float()).abs() <= step).all()
