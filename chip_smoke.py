@@ -23,15 +23,19 @@ against its plain PyTorch version on the card. Phases:
    (2N, D) = (1024, 128) with the path's 592 dead rows, (1024, 128),
    (74, 128), (8192, 128) and (130, 100) with the loss's mean as upstream
    gradient, then with random upstream gradients at (2, 128), (74, 128),
-   (1000, 64), (1024, 128) with dead rows, (4096, 200) and (32768, 128);
-   dz of a second backward call bit-identical; CUDA-event medians and
-   quartiles of forward, backward and both, at 2N = 1024 and 32768, per
-   call and back to back;
+   (1000, 64), (1024, 128) with dead rows, (4096, 200), (32768, 128),
+   (300, 7), (512, 512) and (17000, 100) (the forward's 128-row blocks);
+   the backward on the forward's m, l; loss rows, m, l and dz of second
+   calls bit-identical; CUDA-event medians and quartiles of forward,
+   backward and both, at 2N = 1024 and 32768, per call and back to back;
 3c. the MIL attention-pool kernel against the plain version at (B, K, D, H)
    = (1, 4096, 512, 128) (the path), (8, 4096, 512, 128), (3, 1000, 512,
    128) with random masks, a fully masked bag and a bag whose first 512
-   slots are masked, (2, 37, 100, 24) and (1, 65536, 512, 128); CUDA-event
-   medians and quartiles at K = 4096 and 65536, per call and back to back;
+   slots are masked, (2, 37, 100, 24), (1, 65536, 512, 128), then the
+   kernel's layouts: (3, 200, 200, 128) with the traps, (2, 70, 1024, 128),
+   (2, 50, 37, 21) and (1, 300, 2048, 512) (V read from device memory); a
+   second call bit-identical; CUDA-event medians and quartiles at K = 4096
+   and 65536, per call and back to back;
 3d. the ``bias_relu_pool`` kernel against its plain version, exactly equal,
    at (512, 112, 112, 64) bf16 with a (64,) bias and with a (112, 112, 64)
    bias map, (3, 112, 112, 64) f32 and an odd plane (2, 30, 26, 16);
@@ -148,14 +152,18 @@ TAU = 0.5
 # NT-Xent cases as (pairs N, D, valid pairs, upstream gradient): 2N = 1024
 # with the SimCLR path's last batch (216 of 512 pairs real: 592 dead rows),
 # full batches, a ragged one and an odd width (the loss's mean as upstream
-# gradient); then the backward's split plans: one row (2N = 2), 2N = 74,
-# 1000 at D = 64, 4096 at D = 200 and 32768, with random upstream gradients
+# gradient); then the split plans of both kernels: one row (2N = 2), 2N = 74,
+# 1000 at D = 64, 4096 at D = 200 and 32768, with random upstream gradients;
+# then the forward's edges: a width of 7 (padded to 8) over 4 splits, 512
+# columns in depth chunks over 8 splits, and 128-row blocks (8 x 8 tiles) on
+# a ragged 2N = 17000 at D = 100 with dead rows
 NTX_CASES = [(512, 128, 216, "mean"), (512, 128, 512, "mean"),
              (37, 128, 37, "mean"), (4096, 128, 4096, "mean"),
              (65, 100, 60, "mean"), (1, 128, 1, "random"),
              (37, 128, 37, "random"), (500, 64, 480, "random"),
              (512, 128, 216, "random"), (2048, 200, 2000, "random"),
-             (16384, 128, 16384, "random")]
+             (16384, 128, 16384, "random"), (150, 7, 140, "random"),
+             (256, 512, 250, "mean"), (8500, 100, 8400, "random")]
 NTX_TIMING_ROWS = (1024, 32768)
 NTX_TIMING_RUNS = 50
 # NT-Xent bounds, kernel against the plain version (TF32 off) on the card.
@@ -186,10 +194,15 @@ PALLAS_XLA_GRAD_RTOL = 1e-2  # of max|grad|, per projector tensor
 BF16_LOSS_ATOL = 1e-3
 BF16_GRAD_RTOL = 5e-2  # of max|grad| of the last projector layer
 # MIL pool cases as (B, K, D, H, masks): the path's one bag, a trainer-sized
-# batch of bags of random lengths, the mask traps, odd sizes, a long bag
+# batch of bags of random lengths, the mask traps, odd sizes, a long bag;
+# then the kernel's layouts: clusters of 2 (the traps again) and 8, widths
+# not a multiple of 4 (D = 37, H = 21), V too large to stay in shared memory
+# (D = 2048, H = 512: read from device memory)
 MIL_CASES = [(1, 4096, 512, 128, "full"), (8, 4096, 512, 128, "lengths"),
              (3, 1000, 512, 128, "traps"), (2, 37, 100, 24, "lengths"),
-             (1, 65536, 512, 128, "full")]
+             (1, 65536, 512, 128, "full"), (3, 200, 200, 128, "traps"),
+             (2, 70, 1024, 128, "lengths"), (2, 50, 37, 21, "lengths"),
+             (1, 300, 2048, 512, "lengths")]
 MIL_TIMING_K = (4096, 65536)
 MIL_TIMING_RUNS = 50
 # MIL pool bound, kernel against the plain version (TF32 off) on the card,
@@ -314,6 +327,7 @@ INT8_CPU_STEPS = 1.0
 # The card's published peaks (H100 SXM): device memory and dense rates.
 HBM_BYTES_S = 3.35e12
 FP32_FLOP_S = 67e12
+TF32_FLOP_S = 495e12
 BF16_FLOP_S = 989e12
 INT8_OP_S = 1979e12
 
@@ -539,6 +553,8 @@ def phase_ntxent(dev) -> dict:
 
     from ss25_hierarchical_multiscale_image_classification_tpu_torch.ops.nt_xent import (
         bwd_splits,
+        fwd_splits,
+        fwd_tile,
         nt_xent_bwd,
         nt_xent_fwd,
         nt_xent_rows,
@@ -565,8 +581,10 @@ def phase_ntxent(dev) -> dict:
         # the cluster's partial sums, no atomics)
         up_live = torch.where(pos >= 0, up, 0.0)
         again = nt_xent_bwd(z, pos, m, l, up_live, 1.0 / TAU)
+        rows2, m2, l2 = nt_xent_fwd(z, pos, 1.0 / TAU)
         torch.cuda.synchronize()
-        same = torch.equal(again, zk.grad)
+        same = (torch.equal(again, zk.grad) and torch.equal(rows2, rows.detach())
+                and torch.equal(m2, m) and torch.equal(l2, l))
         d_rows = (rows - rows_r).abs().max().item()
         d_m = (m - m_r).abs().max().item()
         d_l = ((l - l_r).abs() / l_r).max().item()
@@ -577,19 +595,22 @@ def phase_ntxent(dev) -> dict:
         dz_bound = NTX_DZ_RTOL * max(1.0, (n / 1024) ** 0.5) * max_dz
         err_fwd = max(err_fwd, d_rows, d_m)
         err_bwd = max(err_bwd, d_dz)
+        d4 = d + -d % 4
         log(f"[ntxent] 2N={n} D={d} dead rows {n - 2 * valid_pairs}, upstream "
-            f"{upstream}, split {bwd_splits(n, d + -d % 4, sms)}: loss rows "
+            f"{upstream}, fwd {fwd_tile(n, d4, sms)}-row blocks x "
+            f"{fwd_splits(n, d4, sms)} splits, bwd {bwd_splits(n, d4, sms)} "
+            f"splits: loss rows "
             f"max|Δ| {d_rows:.3g} (max|loss| {max_rows:.4g}), m {d_m:.3g} "
             f"(max|m| {max_m:.4g}), l rel {d_l:.3g}; dz max|Δ| {d_dz:.3g} "
-            f"(max|dz| {max_dz:.3g}, bound {dz_bound:.3g}); second call "
-            f"bit-identical {same}")
+            f"(max|dz| {max_dz:.3g}, bound {dz_bound:.3g}); second calls "
+            f"(fwd and bwd) bit-identical {same}")
         if not (torch.isfinite(rows).all() and torch.isfinite(zk.grad).all()):
             raise AssertionError(f"non-finite NT-Xent output at 2N={n}")
         if (d_rows > NTX_RTOL * max_rows or d_m > NTX_RTOL * max_m
                 or d_l > NTX_RTOL or d_dz > dz_bound or not same):
             raise AssertionError(f"NT-Xent kernels differ from the plain "
                                  f"version (or from themselves) at 2N={n} D={d}")
-        del z, zk, zr, rows_r, again
+        del z, zk, zr, rows_r, again, rows2
         torch.cuda.empty_cache()
 
     times = {}
@@ -631,8 +652,11 @@ def phase_ntxent(dev) -> dict:
             if what != "fwd+bwd":  # device time without the host's launch
                 per = 20 if n <= 1024 else 2
                 kb = statistics.median(back_to_back_ms(kernel, 5, per))
+                pb = statistics.median(back_to_back_ms(plain, 5, per))
+                times[(n, what, "b2b")] = kb
                 log(f"[ntxent] 2N={n} D=128 {what} back to back: kernel "
-                    f"{kb:.4f} ms ({flop / kb / 1e9:.1f} TFLOP/s)")
+                    f"{kb:.4f} ms ({flop / kb / 1e9:.1f} TFLOP/s), plain "
+                    f"{pb:.4f} ms")
         del zg, rows_r
         torch.cuda.empty_cache()
     path_rows = NTX_TIMING_ROWS[0]
@@ -670,7 +694,7 @@ def mil_pool_inputs(dev, g, b, k, d, h, masks):
     else:
         m = torch.rand(b, k, device=dev, generator=g) > 0.3
         m[1] = False
-        m[2, :512] = False
+        m[2, :512 if k > 512 else k // 2] = False
     v = torch.randn(d, h, device=dev, generator=g) / d ** 0.5
     vb = 0.1 * torch.randn(h, device=dev, generator=g)
     w = torch.randn(h, device=dev, generator=g) / h ** 0.5
@@ -685,6 +709,7 @@ def phase_milpool(dev) -> dict:
     from ss25_hierarchical_multiscale_image_classification_tpu_torch.ops.mil_pool import (
         mil_attention_pool_kernel,
         mil_attention_pool_reference,
+        pool_layout,
     )
 
     torch.backends.cuda.matmul.allow_tf32 = False
@@ -693,16 +718,22 @@ def phase_milpool(dev) -> dict:
     for b, k, d, h, masks in MIL_CASES:
         x, m, v, vb, w = mil_pool_inputs(dev, g, b, k, d, h, masks)
         got = mil_attention_pool_kernel(x, m, v, w, vb)
+        again = mil_attention_pool_kernel(x, m, v, w, vb)
         torch.cuda.synchronize()
         ref = mil_attention_pool_reference(x, m, v, w, vb)
         err = (got - ref).abs().max().item()
         scale = ref.abs().max().item()
+        same = torch.equal(got, again)
         max_err = max(max_err, err)
-        log(f"[milpool] B={b} K={k} D={d} H={h} masks={masks}: max|Δ| "
-            f"{err:.3g} (max|bag| {scale:.4g}, {err / scale:.3g} relative)")
-        if not torch.isfinite(got).all() or err > MIL_RTOL * scale:
+        cs, ds, resident, stages = pool_layout(d, h)
+        log(f"[milpool] B={b} K={k} D={d} H={h} masks={masks} (cluster {cs}, "
+            f"slices of {ds}, V {'resident' if resident else 'read from memory'},"
+            f" {stages} stages): max|Δ| {err:.3g} (max|bag| {scale:.4g}, "
+            f"{err / scale:.3g} relative); second call bit-identical {same}")
+        if not torch.isfinite(got).all() or err > MIL_RTOL * scale or not same:
             raise AssertionError(f"MIL pool kernel differs from its plain "
-                                 f"version at B={b} K={k} D={d} H={h}")
+                                 f"version (or from itself) at B={b} K={k} "
+                                 f"D={d} H={h}")
         if masks == "traps":
             d_mean = (got[1] - x[1].mean(dim=0)).abs().max().item()
             log(f"[milpool] fully masked bag against the mean of its rows: "
@@ -734,14 +765,28 @@ def phase_milpool(dev) -> dict:
         kb, pb = statistics.median(kb), statistics.median(pb)
         log(f"[milpool] B=1 K={k} back to back: kernel {kb:.4f} ms "
             f"({flop / kb / 1e9:.2f} TFLOP/s = {flop / kb / 1e9 / 67 * 100:.1f} "
-            f"% of the 67 TFLOP/s FP32 peak), plain {pb:.4f} ms "
-            f"({flop / pb / 1e9:.2f} TFLOP/s)")
-    # K = 4096: h, mask, V, w, b read, the bag written; h V and the pooled sum
+            f"% of the 67 TFLOP/s FP32 peak; its 3 TF32 products a product "
+            f"{3 * flop / kb / 1e9:.1f} TFLOP/s = "
+            f"{3 * flop / kb / TF32_FLOP_S * 1e5:.1f} % of the 495 TFLOP/s "
+            f"TF32 peak), plain {pb:.4f} ms ({flop / pb / 1e9:.2f} TFLOP/s)")
+    # K = 4096: h, mask, V, w, b read, the bag written; h V (three TF32
+    # products each on the tensor cores) and the pooled sum. bound_ms is the
+    # tensor-core bound of the work as the kernel does it (the share uses
+    # it); the float32 FMA bound of the same function stands beside it.
     k, d, h = 4096, 512, 128
+    moved = 4 * (k * d + d * h + 2 * h + d) + k
+    rest = 2 * k * h + 2 * k * d
+    fp32 = bound_ms(moved, 2 * k * d * h + rest)
+    by_ops = (3 * 2 * k * d * h / TF32_FLOP_S + rest / FP32_FLOP_S) * 1e3
+    by_bytes = moved / HBM_BYTES_S * 1e3
+    tc = {"bound_ms": max(by_ops, by_bytes),
+          "bound_by": "operations" if by_ops >= by_bytes else "bytes"}
+    log(f"[milpool] bound at K=4096: {tc['bound_ms']:.4f} ms by "
+        f"{tc['bound_by']} (3xTF32 on the tensor cores, used for the share), "
+        f"{fp32['bound_ms']:.4f} ms by {fp32['bound_by']} (float32 FMA)")
     return {"max_abs_err": max_err, "ms": times[4096][0],
-            "plain_ms": times[4096][1], "library_ms": None,
-            **bound_ms(4 * (k * d + d * h + 2 * h + d) + k,
-                       2 * k * d * h + 2 * k * h + 2 * k * d)}
+            "plain_ms": times[4096][1], "library_ms": None, **tc,
+            "bound_fp32_ms": fp32["bound_ms"]}
 
 
 def timed_in_turns(kernel, plain, runs: int):
@@ -2426,6 +2471,7 @@ def main() -> int:
         "bound_ms": k["bound_ms"],
         "bound_by": k["bound_by"],
         "library_ms": k["library_ms"],
+        **{key: k[key] for key in ("bound_fp32_ms",) if key in k},
     } for name, source, replaces, k in rows]}
     log(smi)  # the card's name and power limit, as nvidia-smi prints them
     log(json.dumps(table))

@@ -19,6 +19,7 @@ into an FMA.
 
 from __future__ import annotations
 
+import contextlib
 import ctypes
 import functools
 import hashlib
@@ -47,8 +48,9 @@ SOURCES = {
         ),
     },
     "nt_xent.cu": {
-        # z, pos_idx, n_rows, d, inv_tau, loss, m, l, stream
-        "hipac_nt_xent_fwd": ([_P, _P, _I64, _I64, _F32, _P, _P, _P, _P],
+        # z, pos_idx, n_rows, d, inv_tau, loss, m, l, tile, splits, stream
+        "hipac_nt_xent_fwd": ([_P, _P, _I64, _I64, _F32, _P, _P, _P, _I32,
+                               _I32, _P],
                               ctypes.c_int),
         # z, pos_idx, m, l, g, n_rows, d, inv_tau, dz, splits, stream
         "hipac_nt_xent_bwd": ([_P, _P, _P, _P, _P, _I64, _I64, _F32, _P, _I32,
@@ -56,9 +58,16 @@ SOURCES = {
                               ctypes.c_int),
     },
     "mil_pool.cu": {
-        # h, mask, v, vb, w, b, k, d, hd, ws_m, ws_l, ws_acc, out, stream
+        # h, mask, v, vb, w, b, k, d, hd, cs, runs, resident, stages, ws_m,
+        # ws_l, ws_acc, tickets, out, stream
         "hipac_mil_attention_pool": (
-            [_P, _P, _P, _P, _P, _I64, _I64, _I64, _I64, _P, _P, _P, _P, _P],
+            [_P, _P, _P, _P, _P, _I64, _I64, _I64, _I64, _I32, _I32, _I32,
+             _I32, _P, _P, _P, _P, _P, _P],
+            ctypes.c_int,
+        ),
+        # d, hd, cs, resident, stages, clusters (out)
+        "hipac_mil_pool_active_clusters": (
+            [_I64, _I64, _I32, _I32, _I32, ctypes.POINTER(ctypes.c_int)],
             ctypes.c_int,
         ),
     },
@@ -183,3 +192,22 @@ def load_library() -> types.SimpleNamespace:
             fn.restype = restype
             entry_points[name] = fn
     return types.SimpleNamespace(**entry_points)
+
+
+def on_device(device):
+    """``torch.cuda.device(device)``, or nothing when ``device`` is already
+    the current one: entering the context costs a few microseconds a
+    launch, more than a small kernel takes on the card."""
+    import torch
+
+    if device.index is None or device.index == torch.cuda.current_device():
+        return contextlib.nullcontext()
+    return torch.cuda.device(device)
+
+
+@functools.cache
+def multiprocessors(device) -> int:
+    """Streaming multiprocessors of a CUDA device."""
+    import torch
+
+    return torch.cuda.get_device_properties(device).multi_processor_count

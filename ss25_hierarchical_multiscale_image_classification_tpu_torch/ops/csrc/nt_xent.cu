@@ -31,18 +31,15 @@
 // n*n*d FMAs (2N = 32768, D = 128: ~137 GFLOP), the backward twice that
 // (the scores are recomputed, then the coefficients multiply Z again).
 // At the training path's 2N = 1024, D = 128 the forward is ~0.13 GFLOP and
-// the launch and the 16 row blocks' latency bound it, not arithmetic.
+// the launch and the blocks' latency bound it, not arithmetic.
 //
-// Design of the forward: 256 threads own a 64 x 64 tile of scores as 4 x 4
-// register micro-tiles; z is staged through shared memory in depth chunks of
-// 32, transposed so that each thread reads its 4 rows and 4 columns as two
-// float4 loads per depth step (16 FMAs per 2 shared loads). Each thread
-// keeps its own online (m, l) over the columns it sees and the 16 threads
-// of a row merge theirs with warp shuffles once at the end, so the column
-// loop has no reductions. The backward (further down) splits the columns
-// of a row block over a cluster and sums the partials in a fixed order. No
-// atomics, and neither result depends on the order blocks run in. Plain
-// float32 FMA, no tensor cores: TF32 products miss the gradient's bound.
+// Both kernels split the 2N columns of a block of rows over a thread-block
+// cluster of 1, 2, 4 or 8 blocks (ops/nt_xent.py::fwd_splits, bwd_splits),
+// keep the block's rows resident in shared memory, bring column tiles by
+// bulk copy into a 2-deep mbarrier ring, and merge the splits' partials in
+// rank order through distributed shared memory. No atomics, and neither
+// result depends on the order blocks run in: two calls give the same bits.
+// Plain float32 FMA, no tensor cores: TF32 products miss the bounds.
 //
 // Bound with ctypes: plain C entry points, launched on the caller's stream,
 // allocating nothing; each returns cudaGetLastError().
@@ -62,56 +59,13 @@ using namespace hipac_int8;  // mbarriers, bulk copies
 constexpr int kThreads = 256;
 constexpr int kBR = 64;   // rows of a block
 constexpr int kBC = 64;   // columns of a score tile
-constexpr int kDK = 32;   // depth of a staged chunk of z
-constexpr int kLD = 68;   // padded row of a transposed chunk (float4-aligned)
+constexpr int kLD = 68;   // padded row of the backward's coefficients (float4-aligned)
 constexpr int kDO = 128;  // width of the dz slice a backward block writes
 constexpr int kLDO = kDO + 4;
 constexpr float kMasked = -1e30f;  // as the Pallas kernel: exp(kMasked - m) = 0
 
 static_assert(kThreads == 256 && kBR == 64 && kBC == 64,
               "the 16 x 16 thread grid of 4 x 4 micro-tiles assumes these");
-
-// rows [row0, row0 + 64) x depth [k0, k0 + 32) of z into dst[k][r], zero
-// outside the matrix
-__device__ __forceinline__ void stage_chunk(const float* __restrict__ z,
-                                            int n, int d, int row0, int k0,
-                                            float* dst) {
-  for (int e = threadIdx.x; e < kBR * kDK; e += kThreads) {
-    const int r = e / kDK, k = e % kDK;
-    const int row = row0 + r, kk = k0 + k;
-    dst[k * kLD + r] =
-        (row < n && kk < d) ? z[(int64_t)row * d + kk] : 0.f;
-  }
-}
-
-// acc[i][j] = z_{row0 + 4 ty + i} . z_{col0 + 4 tx + j}
-__device__ __forceinline__ void score_tile(const float* __restrict__ z, int n,
-                                           int d, int row0, int col0,
-                                           float* As, float* Bs,
-                                           float (&acc)[4][4]) {
-  const int ty = threadIdx.x / 16, tx = threadIdx.x % 16;
-#pragma unroll
-  for (int i = 0; i < 4; ++i)
-#pragma unroll
-    for (int j = 0; j < 4; ++j) acc[i][j] = 0.f;
-  for (int k0 = 0; k0 < d; k0 += kDK) {
-    __syncthreads();  // every reader of the previous chunk is done
-    stage_chunk(z, n, d, row0, k0, As);
-    stage_chunk(z, n, d, col0, k0, Bs);
-    __syncthreads();
-#pragma unroll 8
-    for (int k = 0; k < kDK; ++k) {
-      const float4 a = *reinterpret_cast<const float4*>(As + k * kLD + 4 * ty);
-      const float4 b = *reinterpret_cast<const float4*>(Bs + k * kLD + 4 * tx);
-      const float av[4] = {a.x, a.y, a.z, a.w};
-      const float bv[4] = {b.x, b.y, b.z, b.w};
-#pragma unroll
-      for (int i = 0; i < 4; ++i)
-#pragma unroll
-        for (int j = 0; j < 4; ++j) acc[i][j] = fmaf(av[i], bv[j], acc[i][j]);
-    }
-  }
-}
 
 // sum and max over the 16 lanes that share a row (one half of a warp)
 __device__ __forceinline__ float row_max(float v) {
@@ -128,68 +82,231 @@ __device__ __forceinline__ float row_sum(float v) {
   return v;
 }
 
-__global__ void __launch_bounds__(kThreads)
+// ---- forward: a column split over a thread-block cluster ----
+//
+// Grid: row blocks of kB = 16 T rows x column splits; the splits of one row
+// block form a cluster. Each block walks its own run of kB-wide column
+// tiles with a T x T register tile a thread (T = 4: 64 x 64 tiles, the
+// training path's shape; T = 8: 128 x 128, for long batches of D <= 128,
+// 16 FMAs per float4 loaded instead of 8). Thread (ty, tx) owns rows
+// ty + 16 i and columns tx + 16 j: rows are staged with a pitch of
+// kc + 4 or kc + 8 floats (an odd number of float4s), so the 16 rows a
+// half-warp reads at one depth fall in 8 different bank groups, and every
+// thread walks the depth in the same order (no stagger is needed). For
+// d <= kKC the block's rows land once (one bulk copy a row) and stay; else
+// each ring stage holds a depth chunk of the rows and of the tile. Each
+// thread keeps an online (m, l) and the positive's score for its T rows
+// over the columns it sees, masked as the header says; the 16 threads of a
+// row merge theirs by shuffles, and rank k of the cluster merges the
+// splits' (m, l, ps) of its rows in rank order:
+//   M = max_k m_k, L = sum_k l_k exp(m_k - M), loss = -sum_k ps_k + M + log L.
+//
+// The first design gave each of the ceil(n / 64) blocks all column
+// tiles (16 blocks on 132 SMs at the path's 2N = 1024) and staged the
+// block's own rows again for every tile through two block barriers per
+// 32-deep chunk (PERF.md).
+
+constexpr int kKC = kDO;  // depth chunk of z in shared memory (floats)
+
+// Row pitch of a staged chunk of kc floats in the forward: an odd number of
+// float4s.
+__host__ __device__ inline int fwd_pitch(int kc) { return kc + ((kc / 4) % 2 ? 8 : 4); }
+
+// Dynamic shared memory of a forward block (T x T tiles) for rows of width d.
+__host__ __device__ inline size_t fwd_smem(int t, int d) {
+  const int kb = 16 * t;
+  const int kc = d < kKC ? d : kKC;
+  const int lp = fwd_pitch(kc);
+  const bool resident = d <= kKC;
+  const int stage = (resident ? 1 : 2) * kb * lp;
+  return sizeof(float) * ((resident ? kb * lp : 0) + 2 * stage + 3 * kb);
+}
+
+template <int T>
+__global__ void __launch_bounds__(kThreads, 1)
     nt_xent_fwd_kernel(const float* __restrict__ z,
                        const int* __restrict__ pos_idx, int n, int d,
                        float inv_tau, float* __restrict__ loss,
-                       float* __restrict__ m_out, float* __restrict__ l_out) {
-  __shared__ __align__(16) float As[kDK * kLD];
-  __shared__ __align__(16) float Bs[kDK * kLD];
-  const int ty = threadIdx.x / 16, tx = threadIdx.x % 16;
-  const int row0 = blockIdx.x * kBR;
+                       float* __restrict__ m_out, float* __restrict__ l_out,
+                       int splits) {
+  constexpr int kB = 16 * T;  // rows of a block, columns of a tile
+  extern __shared__ __align__(128) float smem[];
+  __shared__ __align__(8) uint64_t full[2], rbar;
+  cg::cluster_group cluster = cg::this_cluster();
+  const int rank = static_cast<int>(cluster.block_rank());
+  const int tid = threadIdx.x, warp = tid / 32, lane = tid % 32;
+  const int ty = tid / 16, tx = tid % 16;
+  const int row0 = (blockIdx.x / splits) * kB;
+  const int nch = (d + kKC - 1) / kKC;
+  const int kc = min(d, kKC);
+  const int lp = fwd_pitch(kc);
+  const int rows_r = min(kB, n - row0);
+  const bool resident = nch == 1;
+  float* zr_res = smem;  // kB x lp when resident
+  float* ring = smem + (resident ? kB * lp : 0);
+  const int stage = (resident ? 1 : 2) * kB * lp;  // floats of a stage
+  float* red = ring + 2 * stage;  // kB x (m, l, ps) of this block
+  const int tiles = (n + kB - 1) / kB;
+  const int t_begin = rank * tiles / splits, t_end = (rank + 1) * tiles / splits;
+  const int units = (t_end - t_begin) * nch;
 
-  int row[4], pos[4];
-  float m[4], l[4], ps[4];
+  // rows [r0, r0 + rows) x depth [c0, c0 + cw) of z into dst (pitch lp),
+  // one bulk copy a row, by the lanes of warp 0
+  auto copy_rows = [&](float* dst, int r0, int rows, int c0, int cw,
+                       uint64_t* bar) {
+    for (int r = lane; r < rows; r += 32)
+      bulk_copy_g2s(dst + r * lp, z + static_cast<int64_t>(r0 + r) * d + c0,
+                    static_cast<uint32_t>(cw) * 4, bar);
+  };
+  // unit u: tile t_begin + u / nch, depth chunk u % nch
+  auto issue = [&](int u) {
+    float* st = ring + (u & 1) * stage;
+    const int col0 = (t_begin + u / nch) * kB;
+    const int c = u % nch;
+    const int cw = min(kKC, d - c * kKC);
+    const int rows_c = min(kB, n - col0);
+    if (lane == 0)
+      mbar_arrive_expect_tx(&full[u & 1], static_cast<uint32_t>(
+          (rows_c + (resident ? 0 : rows_r)) * cw * 4));
+    __syncwarp();
+    if (!resident) copy_rows(st, row0, rows_r, c * kKC, cw, &full[u & 1]);
+    copy_rows(st + (resident ? 0 : kB * lp), col0, rows_c, c * kKC, cw,
+              &full[u & 1]);
+  };
+
+  // rows past n and past a ragged tile read as zeros (their scores are
+  // masked or never written)
+  for (int e = tid; e < (resident ? kB * lp : 0) + 2 * stage; e += kThreads)
+    smem[e] = 0.f;
+  fence_async_proxy();
+  if (tid == 0) {
+    mbar_init(&full[0], 1);
+    mbar_init(&full[1], 1);
+    mbar_init(&rbar, 1);
+    mbar_init_fence();
+  }
+  __syncthreads();
+  if (warp == 0) {
+    if (resident) {
+      if (lane == 0)
+        mbar_arrive_expect_tx(&rbar, static_cast<uint32_t>(rows_r) * d * 4);
+      __syncwarp();
+      copy_rows(zr_res, row0, rows_r, 0, d, &rbar);
+    }
+    for (int u = 0; u < 2 && u < units; ++u) issue(u);
+  }
+
+  int row[T], pos[T];
+  float m[T], l[T], ps[T];
 #pragma unroll
-  for (int i = 0; i < 4; ++i) {
-    row[i] = row0 + 4 * ty + i;
+  for (int i = 0; i < T; ++i) {
+    row[i] = row0 + ty + 16 * i;
     pos[i] = row[i] < n ? pos_idx[row[i]] : -1;
     m[i] = kMasked;
     l[i] = 0.f;
     ps[i] = 0.f;
   }
+  if (resident) mbar_wait(&rbar, 0);
 
-  for (int col0 = 0; col0 < n; col0 += kBC) {
-    float acc[4][4];
-    score_tile(z, n, d, row0, col0, As, Bs, acc);
-    int col[4];
-    bool in[4], dead[4];
+  float acc[T][T];
+  for (int u = 0; u < units; ++u) {
+    const float* st = ring + (u & 1) * stage;
+    const float* zr = resident ? zr_res : st;
+    const float* zc = resident ? st : st + kB * lp;
+    const int j = u % nch;
+    const int nq = min(kKC, d - j * kKC) / 4;  // float4s of this chunk's rows
+    if (j == 0) {
 #pragma unroll
-    for (int j = 0; j < 4; ++j) {
-      col[j] = col0 + 4 * tx + j;
-      in[j] = col[j] < n;
-      dead[j] = in[j] && pos_idx[col[j]] < 0;
+      for (int i = 0; i < T; ++i)
+#pragma unroll
+        for (int jj = 0; jj < T; ++jj) acc[i][jj] = 0.f;
     }
+    mbar_wait(&full[u & 1], static_cast<uint32_t>((u >> 1) & 1));
+    for (int q = 0; q < nq; ++q) {
+      float4 a[T];
 #pragma unroll
-    for (int i = 0; i < 4; ++i) {
-      float s[4];
-      float mt = m[i];
+      for (int i = 0; i < T; ++i)
+        a[i] = *reinterpret_cast<const float4*>(zr + (ty + 16 * i) * lp + 4 * q);
 #pragma unroll
-      for (int j = 0; j < 4; ++j) {
-        s[j] = (col[j] == row[i] || dead[j]) ? kMasked : acc[i][j] * inv_tau;
-        if (!in[j]) s[j] = -INFINITY;  // past the matrix: no part in m or l
-        if (col[j] == pos[i]) ps[i] += s[j];
-        mt = fmaxf(mt, s[j]);
+      for (int jj = 0; jj < T; ++jj) {
+        const float4 b =
+            *reinterpret_cast<const float4*>(zc + (tx + 16 * jj) * lp + 4 * q);
+#pragma unroll
+        for (int i = 0; i < T; ++i) {
+          float s = fmaf(a[i].x, b.x, acc[i][jj]);
+          s = fmaf(a[i].y, b.y, s);
+          s = fmaf(a[i].z, b.z, s);
+          acc[i][jj] = fmaf(a[i].w, b.w, s);
+        }
       }
-      float lt = l[i] * expf(m[i] - mt);
-#pragma unroll
-      for (int j = 0; j < 4; ++j) lt += expf(s[j] - mt);
-      m[i] = mt;
-      l[i] = lt;
     }
+
+    if (j == nch - 1) {  // the tile's scores are complete
+      const int col0 = (t_begin + u / nch) * kB;
+      int col[T];
+      bool in[T], dead[T];
+#pragma unroll
+      for (int jj = 0; jj < T; ++jj) {
+        col[jj] = col0 + tx + 16 * jj;
+        in[jj] = col[jj] < n;
+        dead[jj] = in[jj] && pos_idx[col[jj]] < 0;
+      }
+#pragma unroll
+      for (int i = 0; i < T; ++i) {
+        float s[T];
+        float mt = m[i];
+#pragma unroll
+        for (int jj = 0; jj < T; ++jj) {
+          s[jj] = (col[jj] == row[i] || dead[jj]) ? kMasked : acc[i][jj] * inv_tau;
+          if (!in[jj]) s[jj] = -INFINITY;  // past the matrix: no part in m or l
+          if (col[jj] == pos[i]) ps[i] += s[jj];
+          mt = fmaxf(mt, s[jj]);
+        }
+        float lt = l[i] * expf(m[i] - mt);
+#pragma unroll
+        for (int jj = 0; jj < T; ++jj) lt += expf(s[jj] - mt);
+        m[i] = mt;
+        l[i] = lt;
+      }
+    }
+    __syncthreads();  // every thread is past this stage
+    if (warp == 0 && u + 2 < units) issue(u + 2);
   }
 
+  // the 16 threads of a row, then the cluster's splits in rank order
 #pragma unroll
-  for (int i = 0; i < 4; ++i) {
+  for (int i = 0; i < T; ++i) {
     const float mr = row_max(m[i]);
     const float lr = row_sum(l[i] * expf(m[i] - mr));
     const float pr = row_sum(ps[i]);
-    if (tx == 0 && row[i] < n) {
-      loss[row[i]] = pos[i] >= 0 ? -pr + mr + logf(lr) : 0.f;
-      m_out[row[i]] = mr;
-      l_out[row[i]] = lr;
+    if (tx == 0) {
+      float* rp = red + 3 * (ty + 16 * i);
+      rp[0] = mr;
+      rp[1] = lr;
+      rp[2] = pr;
     }
   }
+  cluster.sync();
+  const int share = kB / splits;
+  for (int r = rank * share + tid; r < (rank + 1) * share; r += kThreads) {
+    float M = kMasked;
+    for (int k = 0; k < splits; ++k)
+      M = fmaxf(M, *cluster.map_shared_rank(red + 3 * r, k));
+    float L = 0.f, PS = 0.f;
+    for (int k = 0; k < splits; ++k) {
+      const float* rp = cluster.map_shared_rank(red + 3 * r, k);
+      L = fmaf(rp[1], expf(rp[0] - M), L);
+      PS += rp[2];
+    }
+    const int gr = row0 + r;
+    if (gr < n) {
+      loss[gr] = pos_idx[gr] >= 0 ? -PS + M + logf(L) : 0.f;
+      m_out[gr] = M;
+      l_out[gr] = L;
+    }
+  }
+  // no block leaves while another may still read its partials
+  cluster.sync();
 }
 
 // ---- backward: a column split over a thread-block cluster ----
@@ -224,8 +341,6 @@ __global__ void __launch_bounds__(kThreads)
 // column tiles (16 blocks on 132 SMs at the path's 2N = 1024) and staged the
 // block's own rows again for every tile, through four block barriers per
 // 32-deep chunk (PERF.md).
-
-constexpr int kKC = kDO;  // depth chunk of z in shared memory (floats)
 
 // Rows [r0, r0 + rows) x columns [c0, c0 + cw) of z (pitch d) into dst
 // (pitch kc), reporting to `bar`: one copy when the rows are contiguous.
@@ -451,15 +566,40 @@ inline size_t bwd_smem(int d) {
 
 }  // namespace
 
+// z: (n_rows, d) float32, d a multiple of 4, 16-byte aligned. tile: rows of
+// a block and columns of a tile, 64 or 128 (128 only for d <= 128);
+// splits: blocks a row block's columns are split over, one cluster (1, 2, 4
+// or 8). Both from ops/nt_xent.py::fwd_tile and fwd_splits.
 extern "C" int hipac_nt_xent_fwd(const float* z, const int* pos_idx,
                                  long long n_rows, long long d, float inv_tau,
-                                 float* loss, float* m, float* l,
-                                 void* stream) {
-  if (n_rows < 1 || d < 1 || n_rows > INT32_MAX || d > INT32_MAX)
+                                 float* loss, float* m, float* l, int tile,
+                                 int splits, void* stream) {
+  if (n_rows < 1 || d < 1 || n_rows > INT32_MAX || d > INT32_MAX || d % 4 ||
+      (tile != 64 && !(tile == 128 && d <= kKC)) ||
+      (splits != 1 && splits != 2 && splits != 4 && splits != 8) ||
+      reinterpret_cast<uintptr_t>(z) % 16)
     return (int)cudaErrorInvalidValue;
-  const dim3 grid((unsigned)((n_rows + kBR - 1) / kBR));
-  nt_xent_fwd_kernel<<<grid, kThreads, 0, (cudaStream_t)stream>>>(
-      z, pos_idx, (int)n_rows, (int)d, inv_tau, loss, m, l);
+  const int t = tile / 16;
+  auto kernel = t == 8 ? nt_xent_fwd_kernel<8> : nt_xent_fwd_kernel<4>;
+  const size_t smem = fwd_smem(t, (int)d);
+  cudaError_t err = cudaFuncSetAttribute(
+      kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
+  if (err != cudaSuccess) return (int)err;
+  cudaLaunchConfig_t cfg = {};
+  cfg.gridDim = dim3((unsigned)((n_rows + tile - 1) / tile * splits));
+  cfg.blockDim = dim3(kThreads);
+  cfg.dynamicSmemBytes = smem;
+  cfg.stream = (cudaStream_t)stream;
+  cudaLaunchAttribute attr;
+  attr.id = cudaLaunchAttributeClusterDimension;
+  attr.val.clusterDim.x = (unsigned)splits;
+  attr.val.clusterDim.y = 1;
+  attr.val.clusterDim.z = 1;
+  cfg.attrs = &attr;
+  cfg.numAttrs = 1;
+  err = cudaLaunchKernelEx(&cfg, kernel, z, pos_idx, (int)n_rows, (int)d,
+                           inv_tau, loss, m, l, splits);
+  if (err != cudaSuccess) return (int)err;
   return (int)cudaGetLastError();
 }
 

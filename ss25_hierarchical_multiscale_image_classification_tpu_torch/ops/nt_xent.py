@@ -31,8 +31,8 @@ import torch
 #: is 0 for every finite row maximum.
 NEG_INF = -1e30
 #: Widest rows the wrapper passes to the kernels. They stage z in chunks of
-#: 32 (forward) or 128 columns (backward) and write dz in slices of 128, so
-#: any width works; the card's tests reach 512 (the projection width is 128).
+#: 128 columns and write dz in slices of 128, so any width works; the card's
+#: tests reach 512 (the projection width is 128).
 MAX_D = 4096
 
 
@@ -86,6 +86,33 @@ def _raise_on(rc: int, name: str) -> None:
         raise RuntimeError(f"{name} kernel launch failed: cudaError {rc}")
 
 
+def fwd_tile(n: int, d: int, sms: int) -> int:
+    """Rows of a forward block and columns of its tiles: 128 (8 x 8 scores a
+    thread) once rows of width ``d`` <= 128 make at least one such block per
+    SM (2N >= 128 · SMs: 2N = 32768 gives 256 blocks), else 64 (4 x 4)."""
+    return 128 if d <= 128 and -(-n // 128) >= sms else 64
+
+
+def fwd_splits(n: int, d: int, sms: int) -> int:
+    """Blocks (1, 2, 4 or 8: one cluster) that the forward kernel splits the
+    column tiles of each row block over: doubled while the grid has fewer
+    blocks than the card has SMs and every split keeps a tile (2N = 1024,
+    D = 128: 8, 128 blocks of 64 rows; 2N = 32768: 1, 256 blocks of 128)."""
+    tile = fwd_tile(n, d, sms)
+    row_blocks = tiles = -(-n // tile)
+    splits = 1
+    while splits < 8 and 2 * splits <= tiles and row_blocks * splits < sms:
+        splits *= 2
+    return splits
+
+
+def _pad4(z: torch.Tensor) -> torch.Tensor:
+    """Rows zero-padded to a multiple of 4 wide (bulk copies move 16-byte
+    pieces); zero columns leave every dot product unchanged."""
+    d = z.shape[1]
+    return z if d % 4 == 0 else torch.nn.functional.pad(z, (0, -d % 4))
+
+
 def nt_xent_fwd(z: torch.Tensor, pos_idx: torch.Tensor, inv_tau: float
                 ) -> tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
     """Launch the forward kernel: (loss rows, m, l) of CUDA rows ``z``."""
@@ -93,15 +120,21 @@ def nt_xent_fwd(z: torch.Tensor, pos_idx: torch.Tensor, inv_tau: float
     _check_kernel_args(z, pos_idx)
     from ss25_hierarchical_multiscale_image_classification_tpu_torch.ops.build import (
         load_library,
+        multiprocessors,
+        on_device,
     )
 
-    n, d = z.shape
+    n = z.shape[0]
+    zp = _pad4(z)
+    d = zp.shape[1]
+    sms = multiprocessors(z.device)
     loss, m, l = (torch.empty(n, dtype=torch.float32, device=z.device)
                   for _ in range(3))
-    with torch.cuda.device(z.device):
+    with on_device(z.device):
         rc = load_library().hipac_nt_xent_fwd(
-            z.data_ptr(), pos_idx.data_ptr(), n, d, inv_tau, loss.data_ptr(),
-            m.data_ptr(), l.data_ptr(), torch.cuda.current_stream().cuda_stream)
+            zp.data_ptr(), pos_idx.data_ptr(), n, d, inv_tau, loss.data_ptr(),
+            m.data_ptr(), l.data_ptr(), fwd_tile(n, d, sms),
+            fwd_splits(n, d, sms), torch.cuda.current_stream().cuda_stream)
     _raise_on(rc, "nt_xent_fwd")
     nt_xent_fwd.launches += 1
     return loss, m, l
@@ -137,13 +170,15 @@ def nt_xent_bwd(z: torch.Tensor, pos_idx: torch.Tensor, m: torch.Tensor,
                              f"float32 tensor on {z.device}")
     from ss25_hierarchical_multiscale_image_classification_tpu_torch.ops.build import (
         load_library,
+        multiprocessors,
+        on_device,
     )
 
     n, d = z.shape
-    zp = z if d % 4 == 0 else torch.nn.functional.pad(z, (0, -d % 4))
+    zp = _pad4(z)
     dz = torch.empty_like(zp)
-    sms = torch.cuda.get_device_properties(z.device).multi_processor_count
-    with torch.cuda.device(z.device):
+    sms = multiprocessors(z.device)
+    with on_device(z.device):
         rc = load_library().hipac_nt_xent_bwd(
             zp.data_ptr(), pos_idx.data_ptr(), m.data_ptr(), l.data_ptr(),
             g.data_ptr(), n, zp.shape[1], inv_tau, dz.data_ptr(),

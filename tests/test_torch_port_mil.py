@@ -43,9 +43,15 @@ from ss25_hierarchical_multiscale_image_classification_tpu_torch.models.convert 
 from ss25_hierarchical_multiscale_image_classification_tpu_torch.ops.mil_pool import (
     MAX_D,
     MAX_H,
+    NEG_INF,
+    SMEM_CAP,
+    TILE_K,
     mil_attention_pool,
     mil_attention_pool_kernel,
     mil_attention_pool_reference,
+    pool_layout,
+    pool_runs,
+    pool_smem,
 )
 from ss25_hierarchical_multiscale_image_classification_tpu_torch.train import (
     mil_trainer,
@@ -171,6 +177,133 @@ def test_mil_pool_wrapper_checks_input_and_counts_no_cpu_launch():
         mil_attention_pool(x, m, v, w, vb[:3])  # bias length
     with pytest.raises(ValueError):
         mil_attention_pool_kernel(x, m, v, w, vb)  # a CPU tensor
+
+
+@pytest.mark.parametrize("k", [1, 37, 4096, 65536])
+@pytest.mark.parametrize("d,h", [(100, 24), (512, 128)])
+@pytest.mark.parametrize("b", [1, 8])
+def test_pool_plan_fills_one_wave_and_keeps_a_tile_each(b, k, d, h):
+    """The kernel's plan: a cluster of 1, 2, 4 or 8 blocks whose depth
+    slices cover D and whose shared memory fits; runs of whole 64-instance
+    tiles, at least one each, as many as fill the clusters the card runs at
+    once (33 clusters of 4 on 132 SMs at the path's shape)."""
+    cs, ds, resident, stages = pool_layout(d, h)
+    assert cs in (1, 2, 4, 8) and ds % 4 == 0 and cs * ds >= d > (cs - 1) * ds
+    assert pool_smem(ds, -(-h // 4) * 4, resident, stages) <= SMEM_CAP
+    if (d, h) == (512, 128):
+        assert (cs, ds, resident, stages) == (4, 128, True, 2)
+    slots = 132 // cs
+    runs = pool_runs(b, k, slots)
+    tiles = -(-k // TILE_K)
+    assert 1 <= runs <= tiles  # every run keeps a tile
+    assert b * runs <= slots  # one wave
+    assert runs == tiles or b * (runs + 1) > slots  # and no fewer runs
+
+
+@pytest.mark.parametrize("d,h", [(4096, 512), (2048, 512), (4096, 4),
+                                 (600, 200), (7, 3)])
+def test_pool_layout_streams_v_only_where_it_cannot_stay(d, h):
+    """Large D·H: V is read from device memory, or the ring has one stage;
+    chosen by shape, and always within the shared memory a block has."""
+    cs, ds, resident, stages = pool_layout(d, h)
+    h4 = -(-h // 4) * 4
+    assert pool_smem(ds, h4, resident, stages) <= SMEM_CAP
+    ds8 = -(-d // 32) * 4  # the slice of a cluster of 8
+    if not resident:  # no cluster would keep its slice of V
+        assert pool_smem(ds8, h4, True, 1) > SMEM_CAP
+    if stages == 1:  # no cluster keeps two h tiles beside its slice of V
+        assert pool_smem(ds8, h4, resident, 2) > SMEM_CAP
+    if d <= 128 and h <= 128:
+        assert (cs, resident, stages) == (1, True, 2)
+
+
+def _emulate_pool(x, m, v, w, vb, slots):
+    """The kernel's blocking and merge order in float32: the plan's depth
+    slices (their partial pre-activations summed in rank order), 64-instance
+    tiles walked in runs with an online (m, l, acc), the runs merged in
+    index order by weights exp(m_c - M)."""
+    b, k, d = x.shape
+    h = v.shape[1]
+    cs, ds, _, _ = pool_layout(d, h)
+    runs = pool_runs(b, k, slots)
+    tiles = -(-k // TILE_K)
+    out = torch.zeros(b, d)
+    for bag in range(b):
+        parts = []
+        for run in range(runs):
+            m_run, l_run, acc = torch.tensor(NEG_INF), torch.tensor(0.0), torch.zeros(d)
+            for t in range(run * tiles // runs, (run + 1) * tiles // runs):
+                rows = x[bag, t * TILE_K:(t + 1) * TILE_K]
+                pre = torch.zeros(rows.shape[0], h)
+                for r in range(cs):
+                    sl = slice(r * ds, (r + 1) * ds)
+                    pre = pre + rows[:, sl] @ v[sl]
+                a = (torch.tanh(pre + vb) * w).sum(dim=1)
+                a = torch.where(m[bag, t * TILE_K:(t + 1) * TILE_K], a, NEG_INF)
+                mt = torch.maximum(m_run, a.max())
+                scale = torch.exp(m_run - mt)
+                p = torch.exp(a - mt)
+                l_run = l_run * scale + p.sum()
+                acc = acc * scale + p @ rows
+                m_run = mt
+            parts.append((m_run, l_run, acc))
+        big_m = max(pm for pm, _, _ in parts)
+        big_l = torch.tensor(0.0)
+        total = torch.zeros(d)
+        for pm, pl_, pa in parts:
+            wgt = torch.exp(pm - big_m)
+            big_l = big_l + pl_ * wgt
+            total = total + pa * wgt
+        out[bag] = total / torch.clamp_min(big_l, 1e-30)
+    return out
+
+
+@pytest.mark.parametrize("b,k,d,h,slots,traps", [
+    (1, 4096, 64, 24, 33, "first"),  # 33 runs; the first 3 tiles masked
+    (3, 1000, 32, 16, 132, "runs"),  # a fully masked bag; a masked run
+    (2, 37, 100, 24, 132, "lengths"),  # ragged K (one tile)
+    (2, 130, 600, 200, 16, "lengths"),  # a cluster of 8 splits D
+    (4, 300, 512, 128, 33, "lengths"),  # the path's layout, 8 runs a bag
+])
+def test_pool_emulation_of_the_kernel_order_matches_plain_version(
+        b, k, d, h, slots, traps):
+    rng = np.random.default_rng(k + d)
+    x = torch.from_numpy(np.maximum(rng.normal(size=(b, k, d)) + 0.5, 0)
+                         .astype(np.float32))
+    if traps == "lengths":
+        m = torch.arange(k)[None] < torch.from_numpy(rng.integers(1, k + 1, (b, 1)))
+    else:
+        m = torch.from_numpy(rng.random((b, k)) > 0.3)
+    if traps == "first":
+        m[0, :3 * TILE_K] = False
+    if traps == "runs":
+        m[1] = False  # every logit -1e30: the mean of the bag's rows
+        m[2, TILE_K:2 * TILE_K] = False  # one run (a tile) all masked
+    v = torch.from_numpy((rng.normal(size=(d, h)) / np.sqrt(d)).astype(np.float32))
+    vb = torch.from_numpy((0.1 * rng.normal(size=h)).astype(np.float32))
+    w = torch.from_numpy((rng.normal(size=h) / np.sqrt(h)).astype(np.float32))
+    got = _emulate_pool(x, m, v, w, vb, slots)
+    ref = mil_attention_pool_reference(x, m, v, w, vb)
+    assert (got - ref).abs().max() <= 1e-6 * ref.abs().max()
+    if traps == "runs":
+        torch.testing.assert_close(got[1], x[1].mean(0), rtol=1e-6, atol=1e-6)
+
+
+def test_pool_emulation_matches_jax_pallas():
+    """The emulated kernel order against the Pallas kernel (interpret mode,
+    blocks of 8) on ragged runs of a 3-bag batch with the mask traps."""
+    import jax.numpy as jnp
+
+    from ss25_hierarchical_multiscale_image_classification_tpu.ops.pallas.mil_pool import (
+        mil_attention_pool_pallas,
+    )
+
+    x, m, v, vb, w = _pool_inputs(9, 3, 200, D, HA)
+    ref = np.asarray(mil_attention_pool_pallas(
+        jnp.asarray(x), jnp.asarray(m), jnp.asarray(v), jnp.asarray(w),
+        v_bias=jnp.asarray(vb), block_k=8))
+    got = _emulate_pool(*_t(x, m, v, w, vb), slots=4)
+    np.testing.assert_allclose(got.numpy(), ref, rtol=RTOL, atol=ATOL)
 
 
 # ---------------------------------------------------------------------------
@@ -720,6 +853,31 @@ def test_mil_pool_cuda_kernel_matches_plain_version(cuda_device, b, k, d, h):
     ref = mil_attention_pool_reference(x, m, v, w, vb)
     # as chip_smoke.py: relative to the largest |value| of the bags
     assert (got - ref).abs().max() <= 1e-5 * ref.abs().max()
+    if b > 2:  # the fully masked bag is its mean
+        torch.testing.assert_close(got[1], x[1].mean(0), rtol=1e-5, atol=1e-6)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("b,k,d,h,layout", [
+    (2, 37, 100, 24, (1, True, 2)), (3, 200, 200, 128, (2, True, 2)),
+    (1, 4096, 512, 128, (4, True, 2)), (2, 70, 1024, 128, (8, True, 2)),
+    (1, 300, 2048, 512, (8, False, 2)), (2, 50, 37, 21, (1, True, 2)),
+    (3, 130, 4096, 8, (8, True, 1))])
+def test_mil_pool_cuda_layouts_give_the_same_bits_twice(cuda_device, b, k, d,
+                                                         h, layout):
+    """Clusters of 1, 2, 4 and 8, widths not a multiple of 4, V read from
+    device memory (D·H too large to stay), one ring stage: within 1e-5 of
+    the plain version, and a second call gives the same bits (the runs are
+    merged in index order, no atomics in any sum)."""
+    cs, _, resident, stages = pool_layout(d, h)
+    assert (cs, resident, stages) == layout
+    x, m, v, vb, w = (t.to(cuda_device) for t in _t(*_pool_inputs(k, b, k, d, h)))
+    got = mil_attention_pool(x, m, v, w, vb)
+    again = mil_attention_pool(x, m, v, w, vb)
+    torch.cuda.synchronize()
+    ref = mil_attention_pool_reference(x, m, v, w, vb)
+    assert (got - ref).abs().max() <= 1e-5 * ref.abs().max()
+    assert torch.equal(got, again)
     if b > 2:  # the fully masked bag is its mean
         torch.testing.assert_close(got[1], x[1].mean(0), rtol=1e-5, atol=1e-6)
 

@@ -26,7 +26,10 @@ from ss25_hierarchical_multiscale_image_classification_tpu_torch.models.simclr i
 )
 from ss25_hierarchical_multiscale_image_classification_tpu_torch.ops.nt_xent import (
     MAX_D,
+    NEG_INF,
     bwd_splits,
+    fwd_splits,
+    fwd_tile,
     nt_xent_bwd,
     nt_xent_fwd,
     nt_xent_loss_kernel,
@@ -194,6 +197,130 @@ def test_bwd_splits_fill_the_card_and_keep_a_tile_each(n, d):
         assert splits == 1
 
 
+@pytest.mark.parametrize("n", [2, 74, 1000, 1024, 4096, 32768])
+@pytest.mark.parametrize("d", [100, 128, 512])
+def test_fwd_splits_fill_one_wave_and_keep_a_tile_each(n, d):
+    """The forward's plan: 128-row blocks only for D <= 128 and at least one
+    such block per SM, else 64; a cluster of 1, 2, 4 or 8 blocks, every
+    split keeps at least one column tile, and the split doubles only while
+    the grid has fewer blocks than the card's SMs."""
+    sms = 132
+    tile = fwd_tile(n, d, sms)
+    assert tile in (64, 128)
+    assert tile == 64 or (d <= 128 and -(-n // 128) >= sms)
+    tiles = -(-n // tile)
+    splits = fwd_splits(n, d, sms)
+    assert splits in (1, 2, 4, 8) and splits <= tiles
+    if splits > 1:
+        assert tiles * splits // 2 < sms
+    if splits < 8 and 2 * splits <= tiles:
+        assert tiles * splits >= sms
+    if (n, d) == (1024, 128):
+        assert (tile, splits) == (64, 8)  # the path: 128 blocks of 64 rows
+    if (n, d) == (32768, 128):
+        assert (tile, splits) == (128, 1)  # 256 blocks of 128 rows
+
+
+def _xor_tree(v, op):
+    """The kernel's shuffle merge over the 16 lanes of a row (last axis):
+    offsets 8, 4, 2, 1, each lane with the lane ``i ^ off``."""
+    lanes = torch.arange(16)
+    for off in (8, 4, 2, 1):
+        v = op(v, v[..., lanes ^ off])
+    return v
+
+
+def _emulate_fwd(z, pos, inv_tau, sms):
+    """The forward kernel's blocking and merge order in float32: the plan's
+    column tiles split over ``fwd_splits`` ranks; within a rank, lane tx of
+    a row sees columns ``col0 + tx + 16 j`` of every tile of the rank's run
+    with an online (m, l, ps); the 16 lanes merge by the shuffle tree, the
+    ranks in rank order."""
+    n, d = z.shape
+    tile, splits = fwd_tile(n, d, sms), fwd_splits(n, d, sms)
+    tiles = -(-n // tile)
+    idx = torch.arange(n)
+    s = (z @ z.T) * inv_tau
+    s = s.masked_fill((idx[:, None] == idx[None, :]) | (pos < 0)[None, :], NEG_INF)
+    parts = []
+    for rank in range(splits):
+        m = torch.full((n, 16), NEG_INF)
+        l = torch.zeros(n, 16)
+        ps = torch.zeros(n, 16)
+        for t in range(rank * tiles // splits, (rank + 1) * tiles // splits):
+            cols = t * tile + torch.arange(tile).view(tile // 16, 16)  # [j, tx]
+            sc = torch.where(cols < n, s[:, cols.clamp(max=n - 1)],
+                             torch.tensor(-float("inf")))  # (n, j, tx)
+            mt = torch.maximum(m, sc.amax(dim=1))
+            l = l * torch.exp(m - mt) + torch.exp(sc - mt[:, None]).sum(dim=1)
+            ps = ps + torch.where(cols[None] == pos[:, None, None].long(), sc,
+                                  0.0).sum(dim=1)
+            m = mt
+        mr = _xor_tree(m, torch.maximum)[:, 0]
+        lr = _xor_tree(l * torch.exp(m - mr[:, None]), torch.add)[:, 0]
+        parts.append((mr, lr, _xor_tree(ps, torch.add)[:, 0]))
+    big_m = parts[0][0]
+    for mk, _, _ in parts[1:]:
+        big_m = torch.maximum(big_m, mk)
+    big_l = torch.zeros(n)
+    big_ps = torch.zeros(n)
+    for mk, lk, pk in parts:
+        big_l = big_l + lk * torch.exp(mk - big_m)
+        big_ps = big_ps + pk
+    rows = torch.where(pos >= 0, -big_ps + big_m + torch.log(big_l), 0.0)
+    return rows, big_m, big_l
+
+
+def _cpu_pairs(seed, pairs, d, dead_pairs=()):
+    rng = np.random.default_rng(seed)
+    z = torch.from_numpy(rng.normal(size=(2 * pairs, d)).astype(np.float32))
+    z = z / z.norm(dim=1, keepdim=True)
+    ar = torch.arange(pairs, dtype=torch.int32)
+    pos = torch.cat([ar + pairs, ar])
+    dead = torch.zeros(pairs, dtype=torch.bool)
+    dead[list(dead_pairs)] = True
+    return z, torch.where(torch.cat([dead, dead]), -1, pos)
+
+
+@pytest.mark.parametrize("pairs,d,dead,sms", [
+    (1, 128, (), 132),  # one pair: each row's only other column
+    (37, 128, (3, 30), 132),  # ragged 2N = 74, dead rows and columns
+    (500, 100, tuple(range(480, 500)), 132),  # ragged 2N = 1000, D = 100
+    # the path's 2N = 1024: splits of 128 columns; pairs 0-127 dead, so the
+    # splits over columns 0-127 and 512-639 see masked columns only
+    (512, 128, tuple(range(128)), 132),
+    (300, 64, (0, 299), 4),  # 128-row blocks (a 4-SM plan): 8 x 8 tiles
+    (2, 16, (0, 1), 132),  # every row dead
+])
+def test_fwd_emulation_of_the_kernel_order_matches_plain_version(pairs, d, dead,
+                                                                  sms):
+    z, pos = _cpu_pairs(pairs, pairs, d, dead)
+    rows, m, l = _emulate_fwd(z, pos, 2.0, sms)
+    rows_r, m_r, l_r = nt_xent_rows_reference(z, pos, 0.5)
+    assert (rows - rows_r).abs().max() <= 1e-6 * max(rows_r.abs().max(), 1.0)
+    assert (m - m_r).abs().max() <= 1e-6 * m_r.abs().max()
+    assert ((l - l_r).abs() / l_r).max() <= 1e-6
+    assert not rows[pos < 0].any()
+
+
+def test_fwd_emulation_matches_jax_pallas_forward():
+    """The emulated kernel order against the JAX forward kernel (interpret
+    mode, 8 x 8 blocks) on 2N = 32 rows with two dead pairs."""
+    jax = pytest.importorskip("jax")
+    jnp = jax.numpy
+    from ss25_hierarchical_multiscale_image_classification_tpu.ops.pallas.nt_xent import (
+        _run_fwd,
+    )
+
+    z, pos = _cpu_pairs(11, 16, 16, (2, 9))
+    got = _emulate_fwd(z, pos, 2.0, 132)
+    ref = _run_fwd(jnp.asarray(z.numpy()), jnp.asarray(pos.numpy()[:, None]),
+                   0.5, 8, 8)
+    for g, r in zip(got, ref):
+        np.testing.assert_allclose(g.numpy(), np.asarray(r)[:, 0], rtol=RTOL,
+                                   atol=ATOL)
+
+
 def _pairs(device, g, pairs, d, valid_pairs):
     """Rows and positive indices as ``nt_xent_loss_kernel`` builds them,
     the last ``pairs − valid_pairs`` pairs dead in both views."""
@@ -251,6 +378,39 @@ def test_nt_xent_bwd_gives_the_same_bits_twice(cuda_device, pairs, d):
     second = nt_xent_bwd(z, pos, m, l, up, 2.0)
     torch.cuda.synchronize()
     assert torch.equal(first, second)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("pairs,d,valid_pairs,plan", [
+    (1, 128, 1, (64, 1)), (37, 128, 37, (64, 2)), (150, 7, 140, (64, 4)),
+    (512, 128, 216, (64, 8)), (256, 512, 250, (64, 8)),
+    (8500, 100, 8400, (128, 1))])
+def test_nt_xent_fwd_plans_give_the_same_bits_and_feed_the_backward(
+        cuda_device, pairs, d, valid_pairs, plan):
+    """Every split count, a width not a multiple of 4, depth chunks (D >
+    128) and 128-row blocks: the forward within 1e-5 of the plain version,
+    the same bits from a second call, and the backward within its bound on
+    the forward's m and l."""
+    n, d4 = 2 * pairs, d + -d % 4
+    sms = torch.cuda.get_device_properties(cuda_device).multi_processor_count
+    if sms == 132:  # the plans above are those of a 132-SM card
+        assert (fwd_tile(n, d4, sms), fwd_splits(n, d4, sms)) == plan
+    g = torch.Generator(device=cuda_device).manual_seed(pairs)
+    z, pos = _pairs(cuda_device, g, pairs, d, valid_pairs)
+    rows, m, l = nt_xent_fwd(z, pos, 2.0)
+    again = nt_xent_fwd(z, pos, 2.0)
+    up = torch.where(pos >= 0, torch.rand(n, device=cuda_device, generator=g), 0.0)
+    dz = nt_xent_bwd(z, pos, m, l, up, 2.0)
+    torch.cuda.synchronize()
+    assert all(torch.equal(a, b) for a, b in zip((rows, m, l), again))
+    zr = z.clone().requires_grad_()
+    rows_r, m_r, l_r = nt_xent_rows_reference(zr, pos, 0.5)
+    rows_r.backward(up)
+    assert (rows - rows_r).abs().max() <= 1e-5 * max(rows_r.abs().max(), 1.0)
+    assert (m - m_r).abs().max() <= 1e-5 * m_r.abs().max()
+    assert ((l - l_r).abs() / l_r).max() <= 1e-5
+    dz_tol = 1e-5 * max(1.0, (n / 1024) ** 0.5)
+    assert (dz - zr.grad).abs().max() <= dz_tol * zr.grad.abs().max()
 
 
 @pytest.mark.cuda
