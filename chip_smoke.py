@@ -1,24 +1,27 @@
 #!/usr/bin/env python3
 """Smoke run of the PyTorch/CUDA port on one NVIDIA card.
 
-Drives the port's five paths once each with random weights from a seed:
+Drives the port's seven paths once each with random weights from a seed:
 full-slide tumor detection at the full width of ResNet18 (224² patches,
-64-wide stem, batch 512) on a numpy-rendered synthetic slide
-(``predict_slide`` → detections → CSV, then the ``hipac-torch`` CLI),
+64-wide stem, batch 512) on a numpy-rendered synthetic slide with a tumor
+polygon (``predict_slide`` → detections → CSV, then the ``hipac-torch``
+CLI, then ``--predict_slide <dir> --run_evaluation`` to the FROC score),
 SimCLR pretraining (``pretrain_simclr``) on the slide's tissue cells,
 attention-MIL slide classification at the full width of ``MILConfig``
 (``--train_mil``, then ``mil_predict`` with MC dropout) on synthetic bag
 features, folded bf16 feature extraction (``extract_features``) over the
 slide's tissue cells at batch 512, and the int8 (w8a8) path (``--quantize``,
 ``--predict_slide --int8``, ``run_feature_extraction(int8=True)``) on the
-same slide and cells. It checks every hand-written kernel of those paths
-against its plain PyTorch version on the card. Phases:
+same slide and cells, and patch-classifier training (``--train``, the
+``self_supervised`` strategy, ``--evaluate``) on the slide's labelled tissue
+cells. It checks every hand-written kernel of those paths against its plain
+PyTorch version on the card. Phases:
 
 1. card and software: ``nvidia-smi`` name and power limit, torch, CUDA, nvcc;
 2. build: the kernels from ``ops/csrc/`` of this checkout;
 3. kernel against plain version: ``fused_normalize`` at B=512×224²×3, a
    ragged B=37 and an odd 7×13 patch, f32 and bf16, exactly equal; CUDA-event
-   medians of kernel and plain at B=512;
+   medians of kernel and plain at B=512, and bf16 back to back;
 3b. NT-Xent kernels against the plain version (loss rows, m, l, dz) at
    (2N, D) = (1024, 128) with the path's 592 dead rows, (1024, 128),
    (74, 128), (8192, 128) and (130, 100) with the loss's mean as upstream
@@ -58,6 +61,10 @@ against its plain PyTorch version on the card. Phases:
    four convolutions as bfloat16 library calls;
 3h. ``int8_maxpool`` against its plain version (the pool in bfloat16),
    exactly equal, at (512, 112, 112, 64), a batch of 3 and an odd plane;
+3i. the training augmentation's kernels against their plain version,
+   exactly equal, at (512, 224, 224, 3), B = 37 and a 7×7 image, over every
+   D4 element forced, the jitter ranges' edges and all-black and all-white
+   images; CUDA-event medians at B = 512 per call and back to back;
 4. the slice: a 3,072-cell slide (level 3 of 14336×10752, stride 28) in both
    tissue-filter modes, launch counts read around the run, partitions equal,
    the timed bfloat16 run's margins on sampled tissue cells against a float32
@@ -66,6 +73,11 @@ against its plain PyTorch version on the card. Phases:
    bound); detections written to a CSV;
 5. the CLI: ``--predict_slide … --tissue_filter device --device cuda`` as a
    subprocess on the same slide and weights;
+4b. FROC: the slide under ``test/img`` with its level-5 ground-truth mask
+   (``{case}_mask.npy``), ``--predict_slide <dir> --run_evaluation
+   --tissue_filter device`` through the CLI's ``main`` in this process, the
+   normalize kernel's launches counted around it; the FROC score in [0, 1]
+   and equal to an in-process ``run_froc_evaluation`` on the same CSVs;
 6. SimCLR: the slide's tissue cells cut into a packed store, then
    ``pretrain_simclr`` for two epochs at batch 512 with the NT-Xent kernels
    (``loss_impl="pallas"``); launch counts read around it, losses finite,
@@ -94,6 +106,17 @@ against its plain PyTorch version on the card. Phases:
    ``run_feature_extraction(int8=True, qtree=artifact)`` with its launches,
    features identical at two batch sizes; the forward's time at B = 512; the
    card's ``quant_forward`` against the CPU's plain one on 64 cells;
+10. training (run before phase 8): ``--train --epochs 2`` through the CLI's
+   ``main`` on the packed store's labelled cells (a numpy manifest; one
+   slide, so validation reads training cells), the augment kernels'
+   launches counted (2 a step); ``train_resnet_classifier_strategic(
+   "self_supervised")`` for an epoch from phase 6's encoder, checked not to
+   pretrain again; ``--evaluate``; the artifacts reloaded and
+   ``--predict_slide <dir> --run_evaluation`` from the trained classifier
+   (its FROC score logged); one bf16 card step
+   against a float32 CPU step from the same weights, cells and draws; warm
+   step time, patches/s, peak device memory, and (last in the run) one
+   epoch's device idle share under the profiler;
 8. feature extraction: the packed store of the slide's 1,752 tissue cells,
    the slice's ResNet18 saved as ``resnet18_patch_classifier.pt``,
    ``extract_features(cfg, level=3, dataset=ds, device="cuda")`` at batch 512
@@ -148,6 +171,13 @@ MODES_ATOL = BF16_ATOL
 # - the card's float32 forward (TF32 off) against the CPU's: measured 3.6e-6.
 F32_ATOL = 1e-4
 KERNEL_SHAPES = [(BATCH, 224, 224, 3), (37, 224, 224, 3), (5, 7, 13, 3)]
+# augment cases as (batch, size, D4 element or random, jitter at the range
+# edges, an all-black and an all-white image): the path's shape, a ragged
+# batch, an odd size, then every D4 element forced on a batch
+AUG_CASES = [(BATCH, 224, None, False, False), (BATCH, 224, None, True, True),
+             (37, 224, None, True, True), (16, 7, None, True, True),
+             *[(8, 224, e, True, True) for e in range(8)]]
+AUG_TIMING_RUNS = 20
 TAU = 0.5
 # NT-Xent cases as (pairs N, D, valid pairs, upstream gradient): 2N = 1024
 # with the SimCLR path's last batch (216 of 512 pairs real: 592 dead rows),
@@ -180,6 +210,15 @@ NTX_DZ_RTOL = 1e-5
 SIMCLR_EPOCHS = 2
 SIMCLR_TIMED_STEPS = 8  # warm steps timed after the path's run
 REF_BATCH = 32  # cells of the bf16-card against float32-CPU step
+TRAIN_EPOCHS = 2  # cut from TrainConfig.epochs = 30
+TRAIN_TIMED_STEPS = 8
+# classifier step bounds, bf16 card against float32 CPU on REF_BATCH cells
+# of the trained classifier, the same draws (the augmented inputs are equal
+# bit for bit). Measured (H100 80GB HBM3, 700 W): loss |Δ| 6.5e-4 at a loss
+# of 0.65; the head's gradients 8.4e-3 of max|g| (the inner layers' spread
+# to 0.55 of theirs: training BN over 32 cells in bf16)
+TRAIN_LOSS_ATOL = 5e-3
+TRAIN_GRAD_RTOL = 5e-2  # of max|grad|, the head's tensors
 # SimCLR step bounds, measured on the card (H100 80GB HBM3, 700 W):
 # - kernels against the dense loss, same state and views, the path's last
 #   batch: loss |Δ| measured 0 (bound: the kernels' 1e-5 of phase 3b);
@@ -479,10 +518,18 @@ def phase_kernels(dev) -> dict:
         log(f"[kernel] fused_normalize B={BATCH} 224² → {dtype}: kernel "
             f"{times[dtype][0]:.4f} ms ({mb / times[dtype][0]:.1f} GB/s), "
             f"plain {times[dtype][1]:.4f} ms (medians of {2 * TIMING_RUNS})")
+    # back to back at B=512 bf16: the four launches of a call (allocation,
+    # zeroing, kernel, the means' division) without the host between calls
+    b2b = statistics.median(back_to_back_ms(
+        lambda: fused_normalize(x, torch.bfloat16)))
     # bf16 at B=512: each byte read once, two written; a subtract and a divide
+    bound = bound_ms(x.numel() * 3 + 4 * BATCH, 2 * x.numel())
+    log(f"[kernel] fused_normalize B={BATCH} → bf16 back to back: {b2b:.4f} ms "
+        f"a call (median of 10 groups of 20; bound {bound['bound_ms']:.4f} ms, "
+        f"{bound['bound_ms'] / b2b * 100:.1f} % of it)")
     return {"max_abs_err": max_err, "ms": times[torch.bfloat16][0],
-            "plain_ms": times[torch.bfloat16][1], "library_ms": None,
-            **bound_ms(x.numel() * 3 + 4 * BATCH, 2 * x.numel())}
+            "back_to_back_ms": b2b, "plain_ms": times[torch.bfloat16][1],
+            "library_ms": None, **bound}
 
 
 def ntxent_launchers():
@@ -511,6 +558,9 @@ def int8_launchers():
 
 def reset_counts() -> None:
     """Every kernel's launch count to 0, just before a path runs."""
+    from ss25_hierarchical_multiscale_image_classification_tpu_torch.ops.augment import (
+        augment_batch_kernel,
+    )
     from ss25_hierarchical_multiscale_image_classification_tpu_torch.ops.fused_stem import (
         bias_relu_pool_kernel,
         fused_stem_kernel,
@@ -523,7 +573,8 @@ def reset_counts() -> None:
     )
 
     for fn in (fused_normalize, *ntxent_launchers(), mil_attention_pool_kernel,
-               bias_relu_pool_kernel, fused_stem_kernel, *int8_launchers()):
+               bias_relu_pool_kernel, fused_stem_kernel, *int8_launchers(),
+               augment_batch_kernel):
         fn.launches = 0
 
 
@@ -1167,6 +1218,118 @@ def phase_int8_pool(dev) -> dict:
             "library_ms": None, **bound}
 
 
+def augment_params(dev, g, b, element, edges):
+    """Augmentation draws for ``b`` images from ``g``; ``element`` (0..7:
+    bit 0 transpose, bit 1 x-reverse, bit 2 y-reverse) forces one D4
+    element on every image, ``edges`` puts the jitter factors at the edges
+    of their ranges."""
+    import torch
+
+    from ss25_hierarchical_multiscale_image_classification_tpu_torch.data.augment import (
+        _D4_FX,
+        _D4_FY,
+        _D4_T,
+        sample_augment_params,
+    )
+
+    p = sample_augment_params(g, b)
+    if element is not None:
+        h, v, k = next((h, v, k) for h in range(2) for v in range(2)
+                       for k in range(4)
+                       if _D4_T[h, v, k] + 2 * _D4_FX[h, v, k]
+                       + 4 * _D4_FY[h, v, k] == element)
+        p["h"] = torch.full((b,), bool(h), device=dev)
+        p["v"] = torch.full((b,), bool(v), device=dev)
+        p["k"] = torch.full((b,), k, device=dev)
+    if edges:
+        pick = lambda lo, hi: torch.where(  # noqa: E731
+            torch.rand(b, generator=g, device=dev) < 0.5,
+            torch.full((b,), lo, device=dev), torch.full((b,), hi, device=dev))
+        p.update(fb=pick(0.8, 1.2), fc=pick(0.8, 1.2), fs=pick(0.8, 1.2),
+                 fh=pick(-0.1, 0.1))
+    return p
+
+
+def phase_augment(dev) -> dict:
+    """The augment kernels against their plain version, exactly equal, at
+    the path's shape, a ragged batch and an odd size, over every D4 element
+    forced, the jitter ranges' edges and all-black and all-white images;
+    then CUDA-event medians at B=512, per call and back to back."""
+    import torch
+
+    from ss25_hierarchical_multiscale_image_classification_tpu_torch.data.augment import (
+        MEAN_255,
+        STD_255,
+        augment_batch,
+        augment_color,
+        augment_means,
+    )
+    from ss25_hierarchical_multiscale_image_classification_tpu_torch.ops.augment import (
+        D4_PACKED,
+        INV_255_BF16,
+        augment_batch_kernel,
+    )
+    from ss25_hierarchical_multiscale_image_classification_tpu_torch.ops.build import (
+        load_library,
+    )
+
+    g = torch.Generator(device=dev).manual_seed(SEED)
+    for batch, size, element, edges, extremes in AUG_CASES:
+        x = torch.randint(0, 256, (batch, size, size, 3), dtype=torch.uint8,
+                          device=dev, generator=g)
+        if extremes:
+            x[0] = 0
+            x[1] = 255
+        p = augment_params(dev, g, batch, element, edges)
+        got = augment_batch_kernel(p, x)
+        torch.cuda.synchronize()
+        ref = augment_batch(p, x)
+        same = torch.equal(got, ref)
+        log(f"[augment] ({batch}, {size}, {size}, 3) D4 "
+            f"{'random' if element is None else element} edges={edges} "
+            f"black/white={extremes}: exact={same}")
+        if not same:
+            raise AssertionError(f"augment kernel differs from its plain "
+                                 f"version at {(batch, size)} D4 {element}")
+    x = torch.randint(0, 256, (BATCH, 224, 224, 3), dtype=torch.uint8,
+                      device=dev, generator=g)
+    p = augment_params(dev, g, BATCH, None, False)
+    kq, pq = timed_in_turns(lambda: augment_batch_kernel(p, x),
+                            lambda: augment_batch(p, x), AUG_TIMING_RUNS)
+    b2b = statistics.median(back_to_back_ms(lambda: augment_batch_kernel(p, x)))
+    # each input byte read once, four written; ~12 operations an output
+    bound = bound_ms(5 * x.numel(), 12 * x.numel())
+    # the two kernels alone, back to back, on the call's own arguments
+    lib = load_library()
+    stream = torch.cuda.current_stream().cuda_stream
+    n = x[0].numel()
+    sums = torch.zeros(BATCH, dtype=torch.int64, device=dev)
+    md, biasd = augment_color(p, augment_means(
+        x.reshape(BATCH, -1).sum(dim=1, dtype=torch.int64), n))
+    out = torch.empty(x.shape, dtype=torch.float32, device=dev)
+    hv = [p[key].to(torch.bool).contiguous() for key in ("h", "v")]
+    kk = p["k"].to(torch.int64).contiguous()
+    alone = {name: statistics.median(back_to_back_ms(fn)) for name, fn in (
+        ("sums", lambda: lib.hipac_augment_sums(x.data_ptr(), sums.data_ptr(),
+                                                BATCH, n, stream)),
+        ("apply", lambda: lib.hipac_augment_apply(
+            x.data_ptr(), hv[0].data_ptr(), hv[1].data_ptr(), kk.data_ptr(),
+            D4_PACKED, md.data_ptr(), biasd.data_ptr(), out.data_ptr(), BATCH,
+            224, INV_255_BF16, *MEAN_255, *STD_255, stream)))}
+    log(f"[augment] the kernels alone, back to back: sums {alone['sums']:.4f} "
+        f"ms ({x.numel() / alone['sums'] / 1e6:.0f} GB/s), apply "
+        f"{alone['apply']:.4f} ms ({5 * x.numel() / alone['apply'] / 1e6:.0f} "
+        f"GB/s); the call's PyTorch ops (zeroing, mean, affine) the rest")
+    log(f"[augment] B={BATCH} 224² u8 → f32 ({5 * x.numel() / 1e6:.1f} MB "
+        f"moved): kernels {kq[1]:.4f} ms per call (quartiles {kq[0]:.4f}–"
+        f"{kq[2]:.4f}), {b2b:.4f} back to back = "
+        f"{5 * x.numel() / b2b / 1e6:.0f} GB/s; bound {bound['bound_ms']:.4f} "
+        f"ms ({bound['bound_ms'] / b2b * 100:.1f} % of it); plain "
+        f"{pq[1]:.4f} ms ({pq[0]:.4f}–{pq[2]:.4f})")
+    return {"max_abs_err": 0.0, "ms": kq[1], "back_to_back_ms": b2b,
+            "plain_ms": pq[1], "library_ms": None, **bound}
+
+
 def stage1_inputs(dev, g, shape):
     """Stage-1 operands at the scale of a calibrated forward: a non-negative
     int8 plane (it follows a ReLU and a maxpool), int8 weights, and scales
@@ -1526,9 +1689,33 @@ def phase_cli(sd, slide) -> None:
         f"{os.path.basename(csv_path)}")
 
 
-def simclr_dataset(slide, grid, cells, tmp):
-    """The tissue cells (224² at level 3) cut into a packed store under
-    ``tmp`` through the port's writer, as a ``PatchDataset``."""
+def tumor_labels(spec, slide, grid, cells):
+    """Each cell's label from the slide's tumor polygons: tumor iff a mask
+    pixel lies in its window (the level's mask, padded to the grid)."""
+    import numpy as np
+
+    from ss25_hierarchical_multiscale_image_classification_tpu_torch.grid.labeling import (
+        patch_labels_from_mask_host,
+    )
+    from ss25_hierarchical_multiscale_image_classification_tpu_torch.grid.rasterize import (
+        polygons_to_mask,
+    )
+    from ss25_hierarchical_multiscale_image_classification_tpu_torch.io.synthetic import (
+        polygons_level0,
+    )
+
+    mask = polygons_to_mask(polygons_level0(spec), slide.level_dimensions[LEVEL],
+                            slide.level_dimensions[0])
+    padded = np.zeros((grid.padded_height, grid.padded_width), np.uint8)
+    padded[:mask.shape[0], :mask.shape[1]] = mask
+    coords = np.stack([cells[:, 1], cells[:, 0]], axis=1) * grid.stride
+    return patch_labels_from_mask_host(padded, coords, grid.patch_size)
+
+
+def simclr_dataset(slide, grid, cells, labels, tmp):
+    """The tissue cells (224² at level 3) with their labels cut into a
+    packed store under ``tmp`` through the port's writer, as a
+    ``PatchDataset``."""
     import numpy as np
 
     from ss25_hierarchical_multiscale_image_classification_tpu_torch.data.datasets import (
@@ -1548,9 +1735,111 @@ def simclr_dataset(slide, grid, cells, tmp):
         part = cells[i:i + BATCH]
         patches = np.stack([read_cell(slide, grid, iy, ix) for iy, ix in part])
         recs += writer.write_batch(patches, coords[i:i + BATCH],
-                                   np.zeros(len(part), np.int64))
+                                   labels[i:i + BATCH].astype(np.int64))
     writer.close()
     return PatchDataset(PatchManifest(recs))
+
+
+class _Messages:
+    """A logging handler keeping the records of one of the port's loggers
+    (the ``hipac`` tree does not propagate)."""
+
+    def __init__(self, name: str):
+        import logging
+
+        from ss25_hierarchical_multiscale_image_classification_tpu_torch.logging_utils import (
+            get_logger,
+        )
+
+        self.records = []
+        self.logger = get_logger(name)
+        self.handler = logging.Handler(logging.INFO)
+        self.handler.emit = self.records.append
+
+    def __enter__(self):
+        self.logger.addHandler(self.handler)
+        return self.records
+
+    def __exit__(self, *exc):
+        self.logger.removeHandler(self.handler)
+
+
+def run_cli(argv: list[str]) -> tuple[int, float]:
+    """The port's command line, in this process (so that the kernels'
+    launch counts can be read around it): exit code and wall in s."""
+    from ss25_hierarchical_multiscale_image_classification_tpu_torch.cli.main import (
+        main as cli_main,
+    )
+
+    import torch
+
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    rc = cli_main(argv)
+    torch.cuda.synchronize()
+    return rc, time.perf_counter() - t0
+
+
+def phase_froc(sd, slide, spec, grid, tmp) -> int:
+    """``--predict_slide <dir> --run_evaluation`` on the slide and its
+    level-5 ground-truth mask, the normalize kernel's launches counted
+    around it; the FROC score in [0, 1] and equal to an in-process
+    ``run_froc_evaluation`` on the same CSVs."""
+    import numpy as np
+    import torch
+
+    from ss25_hierarchical_multiscale_image_classification_tpu_torch.evaluation.froc import (
+        run_froc_evaluation,
+    )
+    from ss25_hierarchical_multiscale_image_classification_tpu_torch.io.slide import (
+        save_npz_slide,
+    )
+    from ss25_hierarchical_multiscale_image_classification_tpu_torch.io.synthetic import (
+        write_mask_npy,
+    )
+    from ss25_hierarchical_multiscale_image_classification_tpu_torch.ops.preprocess import (
+        fused_normalize,
+    )
+
+    data_dir = os.path.join(tmp, "froc_data")
+    models_dir = os.path.join(tmp, "froc_models")
+    img_dir = os.path.join(data_dir, "test", "img")
+    mask_dir = os.path.join(data_dir, "test", "mask")
+    os.makedirs(img_dir)
+    os.makedirs(models_dir)
+    save_npz_slide(os.path.join(img_dir, "smoke_slide.wsi.npz"),
+                   [slide.level_array(i) for i in range(slide.level_count)])
+    mask_path = write_mask_npy(mask_dir, "smoke_slide", spec)
+    mask = np.load(mask_path)
+    torch.save(sd, os.path.join(models_dir, "resnet18_patch_classifier.pt"))
+    argv = ["--predict_slide", img_dir, "--run_evaluation", "--data_dir",
+            data_dir, "--models_dir", models_dir, "--tissue_filter", "device",
+            "--stride", str(STRIDE), "--device", "cuda"]
+    reset_counts()  # counts from here on are the FROC path's
+    with _Messages("evaluation.froc") as records:
+        rc, wall = run_cli(argv)
+    launches = fused_normalize.launches
+    scores = [r.args[0] for r in records if r.msg.startswith("FROC score")]
+    if rc != 0 or len(scores) != 1:
+        raise AssertionError(f"--predict_slide <dir> --run_evaluation: exit "
+                             f"{rc}, FROC scores logged {scores}")
+    csv_dir = os.path.join(models_dir, "model_predictions_csv")
+    again = run_froc_evaluation(csv_dir, mask_dir)
+    rows = np.loadtxt(os.path.join(csv_dir, "smoke_slide.csv"), delimiter=",",
+                      ndmin=2)
+    batches = -(-grid.num_patches // BATCH)
+    log(f"[froc] {' '.join(argv[:3])} … exit 0 in {wall:.1f} s; level-5 mask "
+        f"{mask.shape} with {int((mask > 0).sum())} tumor pixels; "
+        f"{len(rows)} detections; fused_normalize launches {launches}; FROC "
+        f"score {scores[0]!r}, in-process run_froc_evaluation "
+        f"{again['score']!r}; {len(again['fps_per_image'])} curve points")
+    if launches != batches:
+        raise AssertionError(f"expected {batches} normalize launches on the "
+                             f"FROC path, counted {launches}")
+    if not 0.0 <= scores[0] <= 1.0 or scores[0] != again["score"]:
+        raise AssertionError("FROC score outside [0, 1] or unlike the "
+                             "in-process evaluation")
+    return launches
 
 
 def simclr_model(sd, dev):
@@ -1755,6 +2044,278 @@ def phase_simclr_check(dev, ds, sd) -> None:
     if abs(ref_loss - blind) < 10 * BF16_LOSS_ATOL:
         raise AssertionError("the reference loss is too close to ln(2N−1) to "
                              "check the bf16 step")
+
+
+def phase_train(dev, ds, slide, spec, simclr_models, tmp) -> dict:
+    """The patch-classifier trainer on the card through the command line:
+    ``--train`` for TRAIN_EPOCHS epochs on the slide's labelled tissue cells
+    at batch 512, the augment kernels' launches counted around it; the
+    ``self_supervised`` strategy from phase 6's encoder without pretraining
+    again; ``--evaluate``; the artifacts reloaded and ``--predict_slide
+    <dir> --run_evaluation`` from the trained classifier. Then one bf16 card
+    step against a float32 CPU step from the same weights, cells and draws,
+    and warm step times."""
+    import hashlib
+    import shutil
+
+    import numpy as np
+    import torch
+
+    from ss25_hierarchical_multiscale_image_classification_tpu_torch.config import (
+        Config,
+        DataConfig,
+        TrainConfig,
+    )
+    from ss25_hierarchical_multiscale_image_classification_tpu_torch.data.augment import (
+        augment_batch,
+        sample_augment_params,
+    )
+    from ss25_hierarchical_multiscale_image_classification_tpu_torch.data.datasets import (
+        BatchIterator,
+    )
+    from ss25_hierarchical_multiscale_image_classification_tpu_torch.data.manifest import (
+        PatchManifest,
+        manifest_npz_path,
+    )
+    from ss25_hierarchical_multiscale_image_classification_tpu_torch.io.slide import (
+        save_npz_slide,
+    )
+    from ss25_hierarchical_multiscale_image_classification_tpu_torch.io.synthetic import (
+        write_mask_npy,
+    )
+    from ss25_hierarchical_multiscale_image_classification_tpu_torch.models.convert import (
+        resnet18_from_state_dict,
+    )
+    from ss25_hierarchical_multiscale_image_classification_tpu_torch.ops.augment import (
+        augment_batch_kernel,
+    )
+    from ss25_hierarchical_multiscale_image_classification_tpu_torch.train.checkpoints import (
+        load_model,
+    )
+    from ss25_hierarchical_multiscale_image_classification_tpu_torch.train.losses import (
+        class_weights_inv_min,
+    )
+    from ss25_hierarchical_multiscale_image_classification_tpu_torch.train.simclr_trainer import (
+        to_device,
+    )
+    from ss25_hierarchical_multiscale_image_classification_tpu_torch.train.state import (
+        create_train_state,
+    )
+    from ss25_hierarchical_multiscale_image_classification_tpu_torch.train.trainer import (
+        classifier_loss,
+        make_train_step,
+        train_resnet_classifier_strategic,
+    )
+
+    data_dir = os.path.join(tmp, "train_data")
+    models_dir = os.path.join(tmp, "train_models")
+    logs_dir = os.path.join(tmp, "train_logs")
+    img_dir = os.path.join(data_dir, "train", "img")
+    os.makedirs(img_dir)
+    os.makedirs(models_dir)
+    save_npz_slide(os.path.join(img_dir, "smoke_slide.wsi.npz"),
+                   [slide.level_array(i) for i in range(slide.level_count)])
+    # the packed store of phase 6, now with a manifest on disk: numpy
+    # columns, as this machine has no pyarrow
+    manifest = ds.manifest
+    manifest.save(manifest_npz_path(os.path.join(data_dir, "patches"), LEVEL))
+    encoder = os.path.join(models_dir, "simclr_encoder.pt")
+    shutil.copy(os.path.join(simclr_models, "simclr_encoder.pt"), encoder)
+    cfg_path = os.path.join(tmp, "train_config.json")
+    with open(cfg_path, "w") as f:
+        json.dump({"log_dir": logs_dir,
+                   "train": {"checkpoint_every_epochs": 1}}, f)
+    common = ["--data_dir", data_dir, "--models_dir", models_dir, "--config",
+              cfg_path, "--patch_level", str(LEVEL), "--device", "cuda"]
+    labels = ds.labels
+    steps = TRAIN_EPOCHS * -(-len(ds) // BATCH)
+    log(f"[train] {len(ds)} tissue cells of one slide, {int(labels.sum())} "
+        f"tumor, {int((labels == 0).sum())} normal (the split puts the one "
+        f"slide on both sides: validation reads training cells)")
+
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    reset_counts()  # counts from here on are the training path's
+    rc, wall = run_cli(["--train", "--epochs", str(TRAIN_EPOCHS), *common])
+    launches = augment_batch_kernel.launches
+    peak = torch.cuda.max_memory_allocated()
+    with open(os.path.join(logs_dir, "train_history.json")) as f:
+        history = json.load(f)
+    names = sorted(os.listdir(models_dir))
+    log(f"[train] --train --epochs {TRAIN_EPOCHS}: exit {rc} in {wall:.2f} s "
+        f"(cold); {steps} steps, augment launches {launches}; peak device "
+        f"memory {peak / 2**30:.2f} GiB; history "
+        f"{[{k: round(v, 4) for k, v in h.items()} for h in history]}; "
+        f"artifacts {names}")
+    if rc != 0:
+        raise AssertionError(f"--train failed with exit code {rc}")
+    if launches != 2 * steps:
+        raise AssertionError(f"expected {2 * steps} augment launches on the "
+                             f"training path, counted {launches}")
+    want = {"resnet18_patch_classifier.pt", "resnet18_patch_classifier_best.pt",
+            *(f"resnet18_patch_classifier_epoch{e + 1}.pt"
+              for e in range(TRAIN_EPOCHS))}
+    if not want <= set(names) or len(history) != TRAIN_EPOCHS:
+        raise AssertionError(f"training artifacts missing: {names}")
+    if not all(np.isfinite(h["train_loss"]) for h in history):
+        raise AssertionError("non-finite training loss")
+    for name in ("resnet18_patch_classifier", "resnet18_patch_classifier_best"):
+        sd = load_model(os.path.join(models_dir, name))
+        resnet18_from_state_dict(sd)  # strict: every tensor in place
+        if not all(torch.isfinite(v).all() for v in sd.values()
+                   if v.is_floating_point()):
+            raise AssertionError(f"non-finite weights in {name}.pt")
+
+    # the self_supervised strategy from phase 6's encoder, no pretraining
+    digest = hashlib.sha256(open(encoder, "rb").read()).hexdigest()
+    fwd, bwd = ntxent_launchers()
+    reset_counts()
+    t0 = time.perf_counter()
+    cfg = Config(data=DataConfig(data_dir=data_dir), models_dir=models_dir,
+                 log_dir=logs_dir, train=TrainConfig(batch_size=BATCH))
+    trainer = train_resnet_classifier_strategic(
+        cfg, level=LEVEL, strategy="self_supervised", epochs=1,
+        manifest=manifest, device="cuda")
+    torch.cuda.synchronize()
+    strategy_wall = time.perf_counter() - t0
+    same = hashlib.sha256(open(encoder, "rb").read()).hexdigest() == digest
+    log(f"[train] self_supervised, 1 epoch from simclr_encoder.pt: "
+        f"{strategy_wall:.2f} s, augment launches "
+        f"{augment_batch_kernel.launches}, NT-Xent launches "
+        f"{fwd.launches + bwd.launches}, encoder unchanged {same}; "
+        f"history {trainer.history}")
+    if fwd.launches or bwd.launches or not same:
+        raise AssertionError("the self_supervised strategy pretrained again")
+    if not os.path.exists(os.path.join(
+            models_dir, "resnet18_patch_classifier_self_supervised.pt")):
+        raise AssertionError("self_supervised artifact missing")
+
+    with _Messages("evaluation.classifier") as records:
+        rc, eval_wall = run_cli(["--evaluate", *common])
+    acc = [r.args[0] for r in records if r.msg.startswith("Validation accuracy")]
+    log(f"[train] --evaluate: exit {rc} in {eval_wall:.2f} s, validation "
+        f"accuracy {acc}")
+    if rc != 0 or len(acc) != 1 or not 0.0 <= acc[0] <= 1.0:
+        raise AssertionError("--evaluate failed")
+    # the main path from the trained classifier: the slide's detections and
+    # their FROC against its level-5 mask
+    write_mask_npy(os.path.join(data_dir, "test", "mask"), "smoke_slide", spec)
+    with _Messages("evaluation.froc") as records:
+        rc, pred_wall = run_cli(["--predict_slide", img_dir, "--run_evaluation",
+                                 "--stride", str(STRIDE), "--tissue_filter",
+                                 "device", *common])
+    scores = [r.args[0] for r in records if r.msg.startswith("FROC score")]
+    rows = np.loadtxt(os.path.join(models_dir, "model_predictions_csv",
+                                   "smoke_slide.csv"), delimiter=",", ndmin=2)
+    log(f"[train] --predict_slide <dir> --run_evaluation from the trained "
+        f"classifier: exit {rc} in {pred_wall:.2f} s, {len(rows)} detections, "
+        f"FROC score {scores}")
+    if (rc != 0 or len(scores) != 1 or not 0.0 <= scores[0] <= 1.0
+            or (rows.size and not ((rows[:, 0] > 0) & (rows[:, 0] < 1)).all())):
+        raise AssertionError("--predict_slide from the trained model failed")
+
+    # one bf16 card step against a float32 CPU step: same weights, cells,
+    # augmentation draws and class weights
+    sd = load_model(os.path.join(models_dir, "resnet18_patch_classifier"))
+    imgs, lab = ds.read_batch(range(REF_BATCH))
+    cw = class_weights_inv_min(labels, 2)
+    params = sample_augment_params(torch.Generator().manual_seed(SEED),
+                                   REF_BATCH)
+    out = {}
+    for where in ("cuda", "cpu"):
+        d = torch.device(where)
+        model = resnet18_from_state_dict(sd).to(
+            d, memory_format=torch.channels_last).train()
+        p = {k: v.to(d) for k, v in params.items()}
+        x_u8 = torch.from_numpy(imgs).to(d)
+        x = (augment_batch_kernel(p, x_u8) if where == "cuda"
+             else augment_batch(p, x_u8))
+        loss, _ = classifier_loss(model, x, torch.from_numpy(lab).long().to(d),
+                                  torch.from_numpy(cw).to(d))
+        loss.backward()
+        out[where] = (loss.item(), x.cpu(),
+                      {k: q.grad.detach().float().cpu()
+                       for k, q in model.named_parameters()})
+    d_loss = abs(out["cuda"][0] - out["cpu"][0])
+    d_x = (out["cuda"][1] - out["cpu"][1]).abs().max().item()
+    d_grad = {k: (out["cuda"][2][k] - g).abs().max().item() / g.abs().max().item()
+              for k, g in out["cpu"][2].items() if g.abs().max() > 0}
+    head = max(d_grad["fc.weight"], d_grad["fc.bias"])
+    log(f"[train-check] {REF_BATCH} cells: bf16 card loss {out['cuda'][0]:.6f}, "
+        f"float32 CPU loss {out['cpu'][0]:.6f} (|Δ| {d_loss:.3g}, bound "
+        f"{TRAIN_LOSS_ATOL}); augmented inputs card kernel vs CPU plain "
+        f"max|Δ| {d_x:.3g}; head grads max|Δ|/max|g| {head:.3g} (bound "
+        f"{TRAIN_GRAD_RTOL}); all tensors: median {np.median(list(d_grad.values())):.3g}"
+        f", max {max(d_grad.values()):.3g}")
+    if not (np.isfinite(out["cuda"][0]) and np.isfinite(out["cpu"][0])):
+        raise AssertionError("non-finite classifier loss")
+    if d_loss > TRAIN_LOSS_ATOL or head > TRAIN_GRAD_RTOL:
+        raise AssertionError("bf16 card step outside its bound of the "
+                             "float32 CPU step")
+
+    # warm steps of the path's step function on the path's batches
+    state = create_train_state(resnet18_from_state_dict(sd), 1e-4, dev)
+    step = make_train_step(cw)
+    gen = torch.Generator(device=dev).manual_seed(SEED)
+    batches = [(torch.from_numpy(i).to(dev), torch.from_numpy(t).long().to(dev),
+                torch.from_numpy(v).to(dev))
+               for i, t, v in BatchIterator(ds, BATCH, seed=SEED)]
+    step_ms, losses = [], []
+    for k in range(TRAIN_TIMED_STEPS + 1):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        state, metrics = step(state, gen, *batches[k % len(batches)])
+        torch.cuda.synchronize()
+        if k:  # the first is a warm-up
+            step_ms.append((time.perf_counter() - t0) * 1e3)
+        losses.append(metrics["loss"].item())
+    q1, med, q3 = quartiles(step_ms)
+    log(f"[train] warm step (batch on the card, synchronized): median "
+        f"{med:.2f} ms (quartiles {q1:.2f}–{q3:.2f}, {len(step_ms)} steps) = "
+        f"{BATCH / med * 1e3:.0f} patches/s; losses "
+        f"{', '.join(f'{v:.4f}' for v in losses)}")
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    epoch = trainer.train_epoch(0)
+    torch.cuda.synchronize()
+    epoch_ms = (time.perf_counter() - t0) * 1e3
+    log(f"[train] one warm epoch as Trainer.train_epoch runs it "
+        f"({epoch['steps']} steps, packed-store reads included): "
+        f"{epoch_ms:.1f} ms = {epoch_ms / epoch['steps']:.2f} ms/step = "
+        f"{len(ds) / epoch_ms * 1e3:.0f} patches/s")
+    return {"launches": launches, "trainer": trainer}
+
+
+def phase_train_profile(trainer, n: int) -> None:
+    """One warm epoch of the trainer under the profiler: the device's idle
+    share. Last in the run: walls taken after a profiler session run long."""
+    import torch
+    from torch.profiler import ProfilerActivity, profile
+
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        t0 = time.perf_counter()
+        stats = trainer.train_epoch(1)
+        torch.cuda.synchronize()
+        wall_ms = (time.perf_counter() - t0) * 1e3
+    busy = busy_us(prof) / 1e3
+    log(f"[train] warm epoch under the profiler ({stats['steps']} steps, "
+        f"packed-store reads included): {wall_ms:.1f} ms = "
+        f"{n / wall_ms * 1e3:.0f} patches/s; device busy {busy:.1f} ms, idle "
+        f"share {1 - busy / wall_ms:.3f}")
+
+    def device_ms(e):
+        return (getattr(e, "self_device_time_total", None)
+                or getattr(e, "self_cuda_time_total", 0)) / 1e3
+
+    kernels = [e for e in prof.key_averages()
+               if e.device_type == torch.autograd.DeviceType.CUDA]
+    top = sorted(kernels, key=device_ms, reverse=True)[:12]
+    log(f"[train] device time by kernel over the epoch (ms, launches; "
+        f"{len(kernels)} kernels, {sum(map(device_ms, kernels)):.1f} ms in "
+        f"all): " + "; ".join(f"{e.key[:60]} {device_ms(e):.2f} ({e.count})"
+                              for e in top))
 
 
 def mil_features(data_dir: str) -> list:
@@ -2385,17 +2946,21 @@ def main() -> int:
     import numpy as np
 
     from ss25_hierarchical_multiscale_image_classification_tpu_torch.io.synthetic import (
-        SyntheticSlideSpec,
         make_synthetic_slide,
+        tumor_spec,
     )
 
     t0 = time.perf_counter()
-    slide = make_synthetic_slide(
-        SyntheticSlideSpec(width=SLIDE_W, height=SLIDE_H, seed=1))
-    log(f"[slide] {SLIDE_W}×{SLIDE_H} synthetic slide (no tumor polygons) "
-        f"rendered in {time.perf_counter() - t0:.1f} s; level {LEVEL} "
+    spec = tumor_spec(width=SLIDE_W, height=SLIDE_H, seed=1)
+    slide = make_synthetic_slide(spec)
+    log(f"[slide] {SLIDE_W}×{SLIDE_H} synthetic slide with the default tumor "
+        f"polygon rendered in {time.perf_counter() - t0:.1f} s; level {LEVEL} "
         f"{slide.level_dimensions[LEVEL]}")
     grid, tissue = tissue_cells(slide)
+    labels = tumor_labels(spec, slide, grid, tissue)
+    log(f"[slide] grid {grid.num_patches} cells: {len(tissue)} tissue, of "
+        f"them {int(labels.sum())} tumor (a tumor pixel in the window) and "
+        f"{int((labels == 0).sum())} normal")
     pick = np.random.default_rng(SEED).permutation(len(tissue))
     calib, ref = tissue[pick[:CALIB_CELLS]], tissue[pick[-REF_CELLS:]]
     cells = lambda idx: np.stack([read_cell(slide, grid, iy, ix)  # noqa: E731
@@ -2406,6 +2971,8 @@ def main() -> int:
     host_margins = kernel.pop("host_margins")
     check_reference(sd, f32_card, ref_u8, kernel.pop("ref_margins"), dev)
     phase_cli(sd, slide)
+    with tempfile.TemporaryDirectory() as froc_tmp:
+        froc_launches = phase_froc(sd, slide, spec, grid, froc_tmp)
     del f32_card, model
     torch.cuda.empty_cache()
     stem_pool = phase_stem_pool(dev)
@@ -2414,10 +2981,11 @@ def main() -> int:
     int8_conv = phase_int8_conv(dev)
     stage1 = phase_fused_stage1(dev)
     int8_pool = phase_int8_pool(dev)
+    aug = phase_augment(dev)
     torch.cuda.empty_cache()
 
     with tempfile.TemporaryDirectory() as tmp:
-        ds = simclr_dataset(slide, grid, tissue, tmp)
+        ds = simclr_dataset(slide, grid, tissue, labels, tmp)
         simclr = phase_simclr(dev, ds, tmp)
         phase_simclr_check(dev, ds, simclr["sd"])
         simclr_launches = simclr["launches"]
@@ -2429,13 +2997,19 @@ def main() -> int:
         int8_launches = phase_int8(dev, ds, sd, slide, host_margins, ref,
                                    ref_u8, tmp)
         torch.cuda.empty_cache()
-        # last: it ends under torch.profiler, and host-clock walls taken in
+        train = phase_train(dev, ds, slide, spec, os.path.join(tmp, "models"),
+                            tmp)
+        torch.cuda.empty_cache()
+        # last: they end under torch.profiler, and host-clock walls taken in
         # this process after a profiler session come out longer
         feature_launches = phase_features(dev, ds, sd, tmp)
+        phase_train_profile(train.pop("trainer"), len(ds))
     del ds
 
     jax_pkg = "ss25_hierarchical_multiscale_image_classification_tpu"
     ops = f"{jax_pkg}/ops/pallas"
+    log(f"[paths] fused_normalize launches: slide path {kernel['launches']}, "
+        f"FROC path {froc_launches}")
     rows = [("fused_normalize", "fused_normalize.cu", f"{ops}/preprocess.py:35",
              kernel)]
     for name, line in (("nt_xent_fwd", 63), ("nt_xent_bwd", 157)):
@@ -2459,6 +3033,9 @@ def main() -> int:
     rows.append(("int8_maxpool", "int8_pool.cu",
                  f"{jax_pkg}/models/quantized.py:524",
                  {"launches": int8_launches["int8_maxpool"], **int8_pool}))
+    # the port's own: XLA fuses augment_batch inside the JAX train step
+    rows.append(("augment", "augment.cu", f"{jax_pkg}/data/augment.py:350",
+                 {"launches": train["launches"], **aug}))
     table = {"kernels": [{
         "name": name,
         "route": "cuda",
@@ -2471,7 +3048,8 @@ def main() -> int:
         "bound_ms": k["bound_ms"],
         "bound_by": k["bound_by"],
         "library_ms": k["library_ms"],
-        **{key: k[key] for key in ("bound_fp32_ms",) if key in k},
+        **{key: k[key] for key in ("bound_fp32_ms", "back_to_back_ms")
+           if key in k},
     } for name, source, replaces, k in rows]}
     log(smi)  # the card's name and power limit, as nvidia-smi prints them
     log(json.dumps(table))

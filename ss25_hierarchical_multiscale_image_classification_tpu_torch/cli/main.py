@@ -1,20 +1,36 @@
-"""Command line of the port: single-slide ``--predict_slide``,
-``--train_mil``, ``--extract_features`` and ``--quantize``.
+"""Command line of the port: ``--predict_slide`` (one slide or a
+directory), ``--run_evaluation``, ``--train``, ``--train_strategy``,
+``--evaluate``, ``--train_mil``, ``--extract_features`` and ``--quantize``.
 
 Counterpart of the JAX CLI (``cli/main.py`` of the JAX package) for these
-four actions, with their flags under the same names and defaults, plus
+actions, with their flags under the same names and defaults, plus
 ``--device``. As there, one call runs every action given, in a fixed order
-(``--extract_features``, ``--train_mil``, ``--quantize``,
-``--predict_slide``), and stops with exit code 1 at a stage whose inputs are
-missing; ``--config`` reads a JSON config (nested sections as in
-``config.py``), ``--base_dir`` stands for ``--data_dir``, ``--store`` sets
-the patch store format; an argument it does not know is logged and exits 1.
+(``--extract_features``, ``--train``, ``--train_strategy``, ``--evaluate``,
+``--train_mil``, ``--quantize``, ``--predict_slide``, ``--run_evaluation``),
+and stops with exit code 1 at a stage whose inputs are missing;
+``--config`` reads a JSON config (nested sections as in ``config.py``),
+``--base_dir`` stands for ``--data_dir``, ``--store`` sets the patch store
+format; an argument it does not know is logged and exits 1.
 
 ``--predict_slide`` loads ``<models_dir>/<model_name>.pt`` (a
-torchvision-layout ResNet18 state dict, e.g. written by
-``scripts/export_jax_checkpoint_to_torch.py``) and writes the detection CSV
-to ``<models_dir>/model_predictions_csv/<slide>.csv``, where the JAX CLI
-writes it.
+torchvision-layout ResNet18 state dict, written by ``--train`` or by
+``scripts/export_jax_checkpoint_to_torch.py``) once and writes one
+detection CSV a slide to ``<models_dir>/model_predictions_csv/<slide>.csv``,
+where the JAX CLI writes it; given a directory, it runs every ``.tif``,
+``.tiff`` and ``.wsi.npz`` slide in it, sorted. ``--run_evaluation`` then
+scores those CSVs against the masks under ``<data_dir>/test/mask``
+(``{case}_mask.npy`` and the other forms ``evaluation/froc.py`` reads) with
+the official CAMELYON16 FROC.
+
+``--train`` trains the ResNet18 patch classifier on the level's patches
+(weighted loss, ``--epochs``, default 30) and writes
+``<models_dir>/resnet18_patch_classifier.pt`` (+``_best``, ``_epoch{N}``);
+``--train_strategy --strategy {balanced,weighted_loss,self_supervised}``
+writes ``resnet18_patch_classifier_<strategy>.pt`` (``self_supervised``
+pretrains SimCLR first when ``simclr_encoder.pt`` is missing);
+``--freeze_bn`` keeps BatchNorm's statistics; ``--evaluate`` reports the
+saved classifier on the validation split. Training needs a slide under
+``<data_dir>/train/img`` and the level's patch manifest.
 
 ``--train_mil`` trains the attention-MIL slide classifier on the feature
 triplet under ``<data_dir>/features`` at ``--patch_level`` and writes
@@ -22,6 +38,11 @@ triplet under ``<data_dir>/features`` at ``--patch_level`` and writes
 
     python -m ss25_hierarchical_multiscale_image_classification_tpu_torch.cli.main \\
         --predict_slide slide.wsi.npz --tissue_filter device --device cuda
+    python -m ss25_hierarchical_multiscale_image_classification_tpu_torch.cli.main \\
+        --predict_slide data/camelyon16/test/img --run_evaluation \\
+        --data_dir data/camelyon16
+    python -m ss25_hierarchical_multiscale_image_classification_tpu_torch.cli.main \\
+        --train --data_dir data/camelyon16 --patch_level 3 --epochs 30
     python -m ss25_hierarchical_multiscale_image_classification_tpu_torch.cli.main \\
         --train_mil --data_dir data/camelyon16 --epochs 20 --device cuda
     python -m ss25_hierarchical_multiscale_image_classification_tpu_torch.cli.main \\
@@ -46,9 +67,9 @@ else with scales calibrated lazily on the run's first batches.
     python -m ss25_hierarchical_multiscale_image_classification_tpu_torch.cli.main \\
         --predict_slide slide.wsi.npz --int8
 
-Tiled TIFF slides, directory (fleet) inputs, ``--overlay``,
-``--run_evaluation``, ``--qat`` and ``--multiscale`` come with later slices.
-On the card the float model runs in bfloat16, on the CPU in float32.
+Tiled TIFF slides, multi-card fleets, ``--overlay``, ``--qat`` and
+``--multiscale`` come with later slices. On the card the float model runs
+in bfloat16, on the CPU in float32.
 """
 
 from __future__ import annotations
@@ -71,12 +92,22 @@ from ss25_hierarchical_multiscale_image_classification_tpu_torch.data.manifest i
 from ss25_hierarchical_multiscale_image_classification_tpu_torch.device import (
     resolve_device,
 )
+from ss25_hierarchical_multiscale_image_classification_tpu_torch.evaluation.classifier_eval import (
+    evaluate_resnet_classifier,
+)
+from ss25_hierarchical_multiscale_image_classification_tpu_torch.evaluation.froc import (
+    run_froc_evaluation,
+)
 from ss25_hierarchical_multiscale_image_classification_tpu_torch.infer.features import (
     extract_features,
     extract_features_with_simclr,
 )
 from ss25_hierarchical_multiscale_image_classification_tpu_torch.infer.sliding_window import (
+    SLIDE_EXTENSIONS,
     predict_and_export,
+)
+from ss25_hierarchical_multiscale_image_classification_tpu_torch.io.download import (
+    images_downloaded,
 )
 from ss25_hierarchical_multiscale_image_classification_tpu_torch.logging_utils import get_logger
 from ss25_hierarchical_multiscale_image_classification_tpu_torch.models.convert import (
@@ -91,6 +122,10 @@ from ss25_hierarchical_multiscale_image_classification_tpu_torch.models.quant_ar
 from ss25_hierarchical_multiscale_image_classification_tpu_torch.train.mil_trainer import (
     train_mil_classifier,
 )
+from ss25_hierarchical_multiscale_image_classification_tpu_torch.train.trainer import (
+    train_resnet_classifier,
+    train_resnet_classifier_strategic,
+)
 
 log = get_logger("torch.cli")
 
@@ -98,13 +133,29 @@ log = get_logger("torch.cli")
 def build_parser() -> argparse.ArgumentParser:
     parser = argparse.ArgumentParser(
         prog="hipac-torch",
-        description="Sliding-window tumor detection on one slide, "
-                    "attention-MIL slide classification, patch feature "
-                    "extraction and int8 quantization (PyTorch/CUDA)",
+        description="Sliding-window tumor detection and its FROC "
+                    "evaluation, patch-classifier training, attention-MIL "
+                    "slide classification, patch feature extraction and "
+                    "int8 quantization (PyTorch/CUDA)",
     )
     parser.add_argument("--predict_slide", type=str, default=None,
-                        help="Sliding-window inference on one slide: writes "
-                             "the detection CSV (FROC producer)")
+                        help="Sliding-window inference on one slide, or on "
+                             "every slide of a directory: writes the "
+                             "detection CSVs (FROC producer)")
+    parser.add_argument("--run_evaluation", action="store_true",
+                        help="Run the official CAMELYON16 FROC evaluation")
+    parser.add_argument("-train", "--train", action="store_true",
+                        help="Train ResNet model (weighted loss, 30 epochs)")
+    parser.add_argument("--train_strategy", action="store_true",
+                        help="Train with a specific strategy")
+    parser.add_argument("--strategy", type=str, default="self_supervised",
+                        choices=["balanced", "weighted_loss", "self_supervised"],
+                        help="Training strategy")
+    parser.add_argument("-eval", "--evaluate", action="store_true",
+                        help="Evaluate ResNet model on the validation split")
+    parser.add_argument("--freeze_bn", action="store_true",
+                        help="Fine-tune with frozen BatchNorm statistics "
+                             "(gamma/beta still train)")
     parser.add_argument("--train_mil", action="store_true",
                         help="Train the attention-MIL slide classifier on "
                              "extracted features")
@@ -185,8 +236,8 @@ def _config_from_args(args) -> Config:
     """The run's config by the JAX CLI's rules: ``--config`` JSON first; the
     data root from ``--data_dir``, else ``--base_dir``, else the JSON's, else
     ``./data/camelyon16`` (the data section is then rebuilt around it);
-    ``--store``, ``--models_dir`` and ``--batch_size`` (trainer and SimCLR)
-    over it."""
+    ``--store``, ``--models_dir``, ``--batch_size`` (trainer and SimCLR)
+    and ``--freeze_bn`` over it."""
     if args.config:
         with open(args.config) as f:
             cfg = Config.from_dict(json.load(f))
@@ -203,6 +254,8 @@ def _config_from_args(args) -> Config:
     if args.batch_size:
         cfg.train.batch_size = args.batch_size
         cfg.simclr.batch_size = args.batch_size
+    if args.freeze_bn:
+        cfg.train.freeze_bn = True
     return cfg
 
 
@@ -210,10 +263,19 @@ def _levels(patch_level: str) -> list[int]:
     return [0, 1, 2, 3] if patch_level == "all" else [int(patch_level)]
 
 
+def _slide_paths(target: str) -> list[str]:
+    """The slide itself, or every slide of a directory, sorted as the JAX
+    CLI lists them."""
+    if not os.path.isdir(target):
+        return [target]
+    return sorted(os.path.join(target, f) for f in os.listdir(target)
+                  if f.endswith(SLIDE_EXTENSIONS))
+
+
 def _predict_slide(args, cfg: Config, level: int, device) -> int:
-    if os.path.isdir(args.predict_slide):
-        log.error("--predict_slide takes one slide file here; directory "
-                  "(fleet) inputs are not ported yet")
+    paths = _slide_paths(args.predict_slide)
+    if not paths:
+        log.error("No slides in %s", args.predict_slide)
         return 1
     weights = os.path.join(cfg.models_dir, f"{args.model_name}.pt")
     model = resnet18_from_state_dict(load_state_dict_file(weights))
@@ -238,14 +300,42 @@ def _predict_slide(args, cfg: Config, level: int, device) -> int:
         predict_kw["int8"] = True
         predict_kw["qtree"] = maybe_load_artifact(cfg.models_dir,
                                                   CLASSIFIER_ARTIFACT)
-    _, csv_path = predict_and_export(
-        args.predict_slide, model,
-        os.path.join(cfg.models_dir, "model_predictions_csv"),
-        level=level, threshold=threshold, tissue_filter=tissue_filter,
-        device=device, **predict_kw,
-    )
-    log.info("Detections written: %s", csv_path)
+    for path in paths:
+        _, csv_path = predict_and_export(
+            path, model,
+            os.path.join(cfg.models_dir, "model_predictions_csv"),
+            level=level, threshold=threshold, tissue_filter=tissue_filter,
+            device=device, **predict_kw,
+        )
+        log.info("Detections written: %s", csv_path)
     return 0
+
+
+def _run_evaluation(cfg: Config) -> int:
+    log.info("Running CAMELYON16 evaluation script.")
+    mask_dir = os.path.join(cfg.data.data_dir, "test", "mask")
+    csv_dir = os.path.join(cfg.models_dir, "model_predictions_csv")
+    if not os.path.exists(mask_dir):
+        log.error("Evaluation mask folder '%s' not found.", mask_dir)
+        return 1
+    if not os.path.exists(csv_dir):
+        log.error("Model results folder '%s' not found.", csv_dir)
+        return 1
+    run_froc_evaluation(csv_dir, mask_dir,
+                        plot_path=os.path.join(cfg.models_dir, "froc_curve.png"))
+    return 0
+
+
+def _training_inputs(cfg: Config, level: int) -> bool:
+    """The training actions' gates: slides downloaded, the level's patches
+    extracted (each failure logged as the JAX CLI logs it)."""
+    if not images_downloaded(cfg.data):
+        log.error("Images must be downloaded before training.")
+        return False
+    if not patches_extracted(cfg.data, level):
+        log.error("Patches must be extracted before training.")
+        return False
+    return True
 
 
 def main(argv=None) -> int:
@@ -253,10 +343,12 @@ def main(argv=None) -> int:
     parser = build_parser()
     _reject_unknown_args(parser, argv)
     args = parser.parse_args(argv)
-    if not (args.predict_slide is not None or args.train_mil
-            or args.extract_features or args.quantize):
+    if not (args.predict_slide is not None or args.run_evaluation
+            or args.train or args.train_strategy or args.evaluate
+            or args.train_mil or args.extract_features or args.quantize):
         parser.error("give at least one of --predict_slide, --train_mil, "
-                     "--extract_features and --quantize")
+                     "--extract_features, --quantize, --run_evaluation, "
+                     "--train, --train_strategy and --evaluate")
     if args.simclr_features and not args.extract_features:
         parser.error("--simclr_features goes with --extract_features")
     if args.int8 and not (args.predict_slide is not None
@@ -276,6 +368,19 @@ def main(argv=None) -> int:
                    else extract_features)
         extract(cfg, level=level, batch_size=args.batch_size, device=device,
                 int8=args.int8)
+    if args.train:
+        if not _training_inputs(cfg, level):
+            return 1
+        train_resnet_classifier(cfg, level=level, epochs=args.epochs,
+                                device=device)
+    if args.train_strategy:
+        if not _training_inputs(cfg, level):
+            return 1
+        train_resnet_classifier_strategic(cfg, level=level,
+                                          strategy=args.strategy,
+                                          epochs=args.epochs, device=device)
+    if args.evaluate:
+        evaluate_resnet_classifier(cfg, level=level, device=device)
     if args.train_mil:
         train_mil_classifier(cfg, level=level, epochs=args.epochs,
                              device=device)
@@ -283,7 +388,11 @@ def main(argv=None) -> int:
         path = quantize_classifier_to_artifact(cfg, level=level, device=device)
         log.info("Quantized artifact written: %s", path)
     if args.predict_slide is not None:
-        return _predict_slide(args, cfg, level, device)
+        rc = _predict_slide(args, cfg, level, device)
+        if rc:
+            return rc
+    if args.run_evaluation:
+        return _run_evaluation(cfg)
     return 0
 
 

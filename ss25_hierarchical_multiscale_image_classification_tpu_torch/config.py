@@ -37,17 +37,39 @@ INPUT_SIZE: int = 224
 #: Global batch size (the JAX package's ``BATCH_SIZE``).
 BATCH_SIZE: int = 512
 
+#: FROC evaluation constants: masks at level 5, 0.243 µm a level-0 pixel,
+#: annotations expanded by 75 µm, isolated tumor cells below 275 µm.
+EVALUATION_MASK_LEVEL: int = 5
+L0_RESOLUTION_UM_PER_PX: float = 0.243
+FROC_ANNOTATION_EXPANSION_UM: float = 75.0
+FROC_ITC_THRESHOLD_UM: float = 275.0
+
 
 @dataclasses.dataclass
 class DataConfig:
     """The ``DataConfig`` fields that the ported slices read."""
 
     data_dir: str = "data"
+    train_img_subdir: str = os.path.join("train", "img")
+    test_img_subdir: str = os.path.join("test", "img")
     patches_subdir: str = "patches"
     features_subdir: str = "features"
     #: "png" = one PNG per patch; "packed" = memmapped uint8 store + manifest
     #: (the CLI's ``--store``)
     patch_store_format: str = "packed"
+    #: slide-level train/val split: sklearn's ``test_size`` and
+    #: ``random_state``; the seed of the validation set's class balancing
+    val_fraction: float = 0.2
+    split_seed: int = 42
+    balance_val_seed: int = 42
+
+    @property
+    def train_img_dir(self) -> str:
+        return os.path.join(self.data_dir, self.train_img_subdir)
+
+    @property
+    def test_img_dir(self) -> str:
+        return os.path.join(self.data_dir, self.test_img_subdir)
 
     @property
     def patches_dir(self) -> str:
@@ -59,12 +81,35 @@ class DataConfig:
 
 
 @dataclasses.dataclass
-class TrainConfig:
-    """The ``TrainConfig`` fields that the MIL trainer (``seed``) and
-    feature extraction (``batch_size``) read."""
+class ModelConfig:
+    """ResNet18 patch classifier: every field and default of the JAX
+    package's ``ModelConfig``."""
 
+    num_classes: int = 2
+    feature_dim: int = 512
+    #: parameter dtype; compute runs in ``compute_dtype``
+    param_dtype: str = "float32"
+    compute_dtype: str = "bfloat16"
+    #: start from torchvision's ImageNet weights when the file is on disk
+    #: (``models/torch_import.py``); He init otherwise
+    pretrained: bool = True
+
+
+@dataclasses.dataclass
+class TrainConfig:
+    """Patch-classifier training: every field and default of the JAX
+    package's ``TrainConfig``."""
+
+    epochs: int = 30
+    learning_rate: float = 1e-4
     batch_size: int = BATCH_SIZE
+    checkpoint_every_epochs: int = 10
+    strategy_epochs: int = 5  # the strategy trainer's
+    log_every_steps: int = 50
     seed: int = 0
+    #: fine-tune with frozen BatchNorm statistics (γ and β still train);
+    #: the CLI's ``--freeze_bn``
+    freeze_bn: bool = False
 
 
 @dataclasses.dataclass
@@ -124,12 +169,15 @@ class Config:
     """The ``Config`` fields that the ported slices read."""
 
     data: DataConfig = dataclasses.field(default_factory=DataConfig)
+    model: ModelConfig = dataclasses.field(default_factory=ModelConfig)
     train: TrainConfig = dataclasses.field(default_factory=TrainConfig)
     simclr: SimCLRConfig = dataclasses.field(default_factory=SimCLRConfig)
     mil: MILConfig = dataclasses.field(default_factory=MILConfig)
     uncertainty: UncertaintyConfig = dataclasses.field(
         default_factory=UncertaintyConfig)
     models_dir: str = MODELS_DIR
+    #: where the trainers write their per-epoch history JSON
+    log_dir: str = "logs"
 
     def replace(self, **updates: Any) -> "Config":
         return dataclasses.replace(self, **updates)
@@ -157,6 +205,7 @@ class Config:
 
 _FIELD_TYPES = {
     ("Config", "data"): DataConfig,
+    ("Config", "model"): ModelConfig,
     ("Config", "train"): TrainConfig,
     ("Config", "simclr"): SimCLRConfig,
     ("Config", "mil"): MILConfig,

@@ -1,19 +1,23 @@
-"""Preprocessing on the device: ImageNet normalize, bilinear resize, and the
-SimCLR views.
+"""Preprocessing on the device: ImageNet normalize, bilinear resize, the
+SimCLR views and the classifier's training augmentation.
 
 Counterparts of the JAX package's ``data/augment.py``: ``normalize``, the
-``jax.image.resize(..., "bilinear")`` call of its sliding-window step, and
-the fused SimCLR view path (``sample_simclr_view_params``,
+``jax.image.resize(..., "bilinear")`` call of its sliding-window step, the
+fused SimCLR view path (``sample_simclr_view_params``,
 ``_sample_crop_box``, ``_interp_matrix``, ``_jitter_affine``,
-``_apply_color_affine``, ``simclr_view_batch``, ``simclr_two_views``). The
-classifier's training augmentation (``augment_batch``) comes with the
-classifier trainer.
+``_apply_color_affine``, ``simclr_view_batch``, ``simclr_two_views``), and
+the training augmentation (``_d4_tables``, ``sample_augment_params``,
+``augment_batch``, its per-example oracle ``_augment_one_with_params``,
+``preprocess_batch``). :func:`augment_batch` is the plain version of the
+hand-written kernel of ``ops/augment.py``, which the trainer runs on the
+card; the multiscale batch comes with the multiscale slice.
 
 Random draws come from a ``torch.Generator`` on the device and are kept
-apart from the arithmetic: :func:`sample_crop_boxes` and
-:func:`sample_simclr_view_params` draw, :func:`simclr_view_batch` computes,
-so a test can hand both packages the same boxes and parameters (the two
-frameworks' generators give different bits from one seed).
+apart from the arithmetic: :func:`sample_crop_boxes`,
+:func:`sample_simclr_view_params` and :func:`sample_augment_params` draw,
+:func:`simclr_view_batch` and :func:`augment_batch` compute, so a test can
+hand both packages the same boxes and parameters (the two frameworks'
+generators give different bits from one seed).
 """
 
 from __future__ import annotations
@@ -261,3 +265,211 @@ def simclr_two_views(generator: torch.Generator, imgs_u8: torch.Tensor,
         params = sample_simclr_view_params(generator, b)
         views.append(simclr_view_batch(boxes, params, imgs_u8, out_size))
     return views[0], views[1]
+
+
+# ---------------------------------------------------------------------------
+# Classifier training augmentation
+#
+# Flips and k·90° rotations generate the dihedral group D4, every element of
+# which is (transpose?) ∘ (x-reverse?) ∘ (y-reverse?): one index map per
+# image. Brightness, contrast, saturation and hue are jointly one affine
+# colour map per image (``_jitter_affine``), whose contrast offset needs the
+# image's mean. So the batch is: a per-image mean, then one pass of index
+# map, affine, clip and normalize.
+# ---------------------------------------------------------------------------
+
+
+def _d4_tables():
+    """Brute-force the (hflip, vflip, rot_k) → (transpose, xrev, yrev)
+    composition table with numpy at import time."""
+    probe = np.arange(16.0).reshape(4, 4)
+
+    def old(h, v, k):
+        x = probe[:, ::-1] if h else probe
+        x = x[::-1] if v else x
+        return np.rot90(x, k)
+
+    def rep(t, fx, fy):
+        x = probe.T if t else probe
+        x = x[:, ::-1] if fx else x
+        return x[::-1] if fy else x
+
+    t_tab = np.zeros((2, 2, 4), np.int32)
+    fx_tab = np.zeros((2, 2, 4), np.int32)
+    fy_tab = np.zeros((2, 2, 4), np.int32)
+    for h in range(2):
+        for v in range(2):
+            for k in range(4):
+                want = old(h, v, k)
+                matches = [
+                    (t, fx, fy)
+                    for t in range(2)
+                    for fx in range(2)
+                    for fy in range(2)
+                    if np.array_equal(rep(t, fx, fy), want)
+                ]
+                if not matches:
+                    raise AssertionError("D4 decomposition failed")
+                t_tab[h, v, k], fx_tab[h, v, k], fy_tab[h, v, k] = matches[0]
+    return t_tab, fx_tab, fy_tab
+
+
+_D4_T, _D4_FX, _D4_FY = _d4_tables()
+
+
+@functools.lru_cache(maxsize=None)
+def _d4_device_tables(device: torch.device) -> torch.Tensor:
+    """(3, 2, 2, 4) int64: the three D4 tables on ``device``, made once."""
+    return torch.as_tensor(np.stack([_D4_T, _D4_FX, _D4_FY]),
+                           dtype=torch.int64).to(device)
+
+
+def d4_flags(params: dict) -> tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
+    """(transpose, x-reverse, y-reverse) as (B,) bool tensors for the draws
+    ``h``, ``v``, ``k`` of ``params``."""
+    h, v, k = params["h"].long(), params["v"].long(), params["k"].long()
+    tab = _d4_device_tables(k.device)
+    return tab[0][h, v, k] != 0, tab[1][h, v, k] != 0, tab[2][h, v, k] != 0
+
+
+def sample_augment_params(generator: torch.Generator, b: int,
+                          brightness: float = 0.2, contrast: float = 0.2,
+                          saturation: float = 0.2, hue: float = 0.1) -> dict:
+    """Per-example augmentation draws for a batch of ``b`` images: hflip and
+    vflip at 0.5, k uniform in 0..3, and the ColorJitter factors uniform in
+    [max(0, 1−s), 1+s] (hue in [−hue, hue]), on the generator's device."""
+    dev = generator.device
+
+    def bernoulli() -> torch.Tensor:
+        return torch.rand(b, generator=generator, device=dev) < 0.5
+
+    return {
+        "h": bernoulli(),
+        "v": bernoulli(),
+        "k": torch.randint(0, 4, (b,), generator=generator, device=dev),
+        "fb": _uniform(generator, b, max(0.0, 1 - brightness), 1 + brightness),
+        "fc": _uniform(generator, b, max(0.0, 1 - contrast), 1 + contrast),
+        "fs": _uniform(generator, b, max(0.0, 1 - saturation), 1 + saturation),
+        "fh": _uniform(generator, b, -hue, hue),
+    }
+
+
+def augment_means(sums: torch.Tensor, n: int) -> torch.Tensor:
+    """Exact per-image integer sums of the uint8 pixels → each image's mean
+    in [0, 1], float32: the sum rounded to float32, then two IEEE divisions
+    (by ``n`` and by 255, device tensors as in ``normalize``)."""
+    dev = sums.device
+    return sums.to(torch.float32) / _scalar(float(n), dev) / _scalar(255.0, dev)
+
+
+def augment_color(params: dict, m0: torch.Tensor,
+                  dtype: torch.dtype = torch.bfloat16
+                  ) -> tuple[torch.Tensor, torch.Tensor]:
+    """The per-image colour affine of ``params`` for images of mean ``m0``:
+    (B, 3, 3) matrix and (B,) bias, rounded to ``dtype``, contiguous."""
+    m, bias = _jitter_affine(params, m0)
+    return m.to(dtype).contiguous(), bias.to(dtype).contiguous()
+
+
+@functools.lru_cache(maxsize=None)
+def _inv255(dtype: torch.dtype, device: torch.device) -> torch.Tensor:
+    return torch.full((), 1.0 / 255.0, dtype=dtype, device=device)
+
+
+def augment_batch(params: dict, imgs_u8: torch.Tensor,
+                  dtype: torch.dtype = torch.bfloat16) -> torch.Tensor:
+    """Batched training augmentation: uint8 (B, S, S, 3) → ImageNet-
+    normalized float32 (B, S, S, 3), each image through its D4 element and
+    colour affine. The plain version of ``ops/augment.py``'s kernel.
+
+    In the JAX function's order and roundings: the D4 map; the per-image
+    mean (here an exact integer sum, see :func:`augment_means`); the affine
+    rounded to ``dtype``; each channel ``x·(1/255)`` in ``dtype``; each
+    output channel ``((m_d0·r + m_d1·g) + m_d2·b) + bias`` with every
+    product and sum rounded to ``dtype``; clip to [0, 1]; in float32
+    ``(c·255 − 255·mean_d) / (255·std_d)`` with IEEE divisions.
+    """
+    b, hh, ww = imgs_u8.shape[0], imgs_u8.shape[1], imgs_u8.shape[2]
+    if hh != ww:
+        raise ValueError(f"D4 augmentation needs square images, got {hh}×{ww}")
+    t, fx, fy = d4_flags(params)
+    x = imgs_u8
+    x = torch.where(t[:, None, None, None], x.transpose(1, 2), x)
+    x = torch.where(fx[:, None, None, None], x.flip(2), x)
+    x = torch.where(fy[:, None, None, None], x.flip(1), x)
+
+    sums = imgs_u8.reshape(b, -1).sum(dim=1, dtype=torch.int64)
+    m0 = augment_means(sums, imgs_u8[0].numel())
+    md, biasd = augment_color(params, m0, dtype)
+    xd = x.to(dtype) * _inv255(dtype, x.device)
+    r, g, b3 = xd[..., 0], xd[..., 1], xd[..., 2]
+    mean, std = _affine(x.device)
+
+    def chan(d):
+        c = (md[:, d, 0, None, None] * r + md[:, d, 1, None, None] * g
+             + md[:, d, 2, None, None] * b3 + biasd[:, None, None])
+        c = torch.clamp(c, 0.0, 1.0).to(torch.float32)
+        return (c * 255.0 - mean[d]) / std[d]
+
+    return torch.stack([chan(0), chan(1), chan(2)], dim=-1)
+
+
+def _adjust_contrast(img: torch.Tensor, factor: torch.Tensor) -> torch.Tensor:
+    # the mean reduced in float32
+    mean = img.float().mean(dim=(-3, -2, -1), keepdim=True).to(img.dtype)
+    return (img - mean) * factor + mean
+
+
+def _apply_3x3(img: torch.Tensor, m) -> torch.Tensor:
+    r, g, b = img[..., 0], img[..., 1], img[..., 2]
+    return torch.stack([m[i][0] * r + m[i][1] * g + m[i][2] * b
+                        for i in range(3)], dim=-1)
+
+
+def _adjust_hue(img: torch.Tensor, delta_turns: torch.Tensor) -> torch.Tensor:
+    """Hue rotation by ``delta_turns`` through a chroma-plane rotation in
+    YIQ space."""
+    theta = delta_turns.float() * 2.0 * math.pi
+    cos, sin = torch.cos(theta).to(img.dtype), torch.sin(theta).to(img.dtype)
+    yiq = _apply_3x3(img, _YIQ_FROM_RGB_64.tolist())
+    y = yiq[..., 0]
+    i = yiq[..., 1] * cos - yiq[..., 2] * sin
+    q = yiq[..., 1] * sin + yiq[..., 2] * cos
+    return _apply_3x3(torch.stack([y, i, q], dim=-1), _RGB_FROM_YIQ_64.tolist())
+
+
+def _augment_one_with_params(img_u8: torch.Tensor, h, v, k, fb, fc, fs, fh
+                             ) -> torch.Tensor:
+    """The per-example op chain (flips → rot90 → brightness, contrast,
+    saturation, hue → clip) in bfloat16, driven by one image's draws: the
+    oracle that :func:`augment_batch` is held to. Returns (S, S, 3) in
+    [0, 1], before normalization."""
+    img = img_u8.to(torch.bfloat16) / 255.0
+    if bool(h):
+        img = img.flip(1)
+    if bool(v):
+        img = img.flip(0)
+    img = torch.rot90(img, int(k), dims=(0, 1))
+    img = img * torch.as_tensor(fb).to(img.dtype)
+    img = _adjust_contrast(img, torch.as_tensor(fc).to(img.dtype))
+    fs = torch.as_tensor(fs).to(img.dtype)
+    gray = img.mean(dim=-1, keepdim=True)
+    img = (img - gray) * fs + gray
+    img = _adjust_hue(img, torch.as_tensor(fh))
+    return torch.clamp(img, 0.0, 1.0)
+
+
+def preprocess_batch(generator: torch.Generator | None, imgs_u8: torch.Tensor,
+                     training: bool = True) -> torch.Tensor:
+    """uint8 (B, S, S, 3) → normalized float32 (B, S, S, 3). Training: one
+    draw of :func:`sample_augment_params` from ``generator`` and the
+    augmentation (on a card through the kernel of ``ops/augment.py``);
+    evaluation: ``normalize`` only."""
+    if not training:
+        return normalize(imgs_u8)
+    from ss25_hierarchical_multiscale_image_classification_tpu_torch.ops.augment import (
+        augment_batch_kernel,
+    )
+
+    params = sample_augment_params(generator, imgs_u8.shape[0])
+    return augment_batch_kernel(params, imgs_u8)

@@ -7,9 +7,12 @@ by exact tests. A manifest is a table with columns
     slide, level, x, y, label, store, path, row
 
 where ``store`` is "png" (``path`` is the PNG file) or "packed" (``path`` is
-the pack file, ``row`` the index into its memmap). It persists as parquet;
-``pyarrow`` is imported only when a manifest is loaded, so the rest works
-where it is missing (an in-memory manifest over a packed store).
+the pack file, ``row`` the index into its memmap). It persists as parquet,
+as in the JAX package; ``pyarrow`` is imported only when a parquet manifest
+is loaded or saved. Where pyarrow is missing (the card's machine), a
+manifest saved to a ``.npz`` path persists as numpy columns instead, and
+:func:`load_or_scan_manifest` reads ``manifest.npz`` when a level has no
+``manifest.parquet``; the JAX package reads parquet only.
 Reference-layout PNG directories (``{slide}_x{x}_y{y}_{label}.png``) are
 scanned as well.
 """
@@ -20,7 +23,7 @@ import dataclasses
 import glob
 import os
 import re
-from typing import Sequence
+from typing import Iterable, Sequence
 
 import numpy as np
 
@@ -49,9 +52,7 @@ class PatchRecord:
 
 
 class PatchManifest:
-    """Columnar patch manifest, loaded from parquet or a PNG-tree scan.
-    (Writing, and the slide filters, come with patch extraction and the
-    classifier trainer.)"""
+    """Columnar patch manifest, loaded from parquet or a PNG-tree scan."""
 
     COLUMNS = ("slide", "level", "x", "y", "label", "store", "path", "row")
 
@@ -68,20 +69,62 @@ class PatchManifest:
     def __iter__(self):
         return iter(self._records)
 
+    @property
+    def records(self) -> list[PatchRecord]:
+        return self._records
+
     def labels(self) -> np.ndarray:
         return np.array([r.label for r in self._records], dtype=np.int32)
+
+    def slides(self) -> list[str]:
+        return sorted({r.slide for r in self._records})
+
+    def filter(self, fn) -> "PatchManifest":
+        return PatchManifest([r for r in self._records if fn(r)])
+
+    def for_slides(self, slide_names: Iterable[str]) -> "PatchManifest":
+        names = set(slide_names)
+        return self.filter(lambda r: r.slide in names)
 
     def class_counts(self) -> dict[int, int]:
         labels = self.labels()
         return {c: int((labels == c).sum()) for c in np.unique(labels)}
 
     # -- persistence ------------------------------------------------------
-    @classmethod
-    def load(cls, path: str) -> "PatchManifest":
+    def save(self, path: str) -> None:
+        """Parquet, or numpy columns when ``path`` ends in ``.npz``."""
+        if path.endswith(".npz"):
+            os.makedirs(os.path.dirname(path) or ".", exist_ok=True)
+            np.savez(path, **{name: np.array([getattr(r, name)
+                                              for r in self._records])
+                              for name in self.COLUMNS})
+            return
+        import pyarrow as pa
         import pyarrow.parquet as pq
 
-        table = pq.read_table(path)
-        d = {name: table.column(name).to_pylist() for name in cls.COLUMNS}
+        os.makedirs(os.path.dirname(path) or ".", exist_ok=True)
+        cols = {
+            "slide": pa.array([r.slide for r in self._records], pa.string()),
+            "level": pa.array([r.level for r in self._records], pa.int32()),
+            "x": pa.array([r.x for r in self._records], pa.int64()),
+            "y": pa.array([r.y for r in self._records], pa.int64()),
+            "label": pa.array([r.label for r in self._records], pa.int32()),
+            "store": pa.array([r.store for r in self._records], pa.string()),
+            "path": pa.array([r.path for r in self._records], pa.string()),
+            "row": pa.array([r.row for r in self._records], pa.int64()),
+        }
+        pq.write_table(pa.table(cols), path)
+
+    @classmethod
+    def load(cls, path: str) -> "PatchManifest":
+        if path.endswith(".npz"):
+            with np.load(path, allow_pickle=False) as z:
+                d = {name: z[name].tolist() for name in cls.COLUMNS}
+        else:
+            import pyarrow.parquet as pq
+
+            table = pq.read_table(path)
+            d = {name: table.column(name).to_pylist() for name in cls.COLUMNS}
         recs = [
             PatchRecord(
                 slide=d["slide"][i],
@@ -126,12 +169,18 @@ def manifest_path(patches_dir: str, level: int) -> str:
     return os.path.join(patches_dir, f"level_{level}", "manifest.parquet")
 
 
+def manifest_npz_path(patches_dir: str, level: int) -> str:
+    """The numpy manifest of a level, for machines without pyarrow."""
+    return os.path.join(patches_dir, f"level_{level}", "manifest.npz")
+
+
 def load_or_scan_manifest(patches_dir: str, level: int) -> PatchManifest:
-    """Load the manifest for a level, falling back to a PNG-directory scan for
-    interop with reference-produced patch trees."""
-    mpath = manifest_path(patches_dir, level)
-    if os.path.exists(mpath):
-        return PatchManifest.load(mpath)
+    """Load the manifest for a level (parquet, else numpy), falling back to
+    a PNG-directory scan for interop with reference-produced patch trees."""
+    for mpath in (manifest_path(patches_dir, level),
+                  manifest_npz_path(patches_dir, level)):
+        if os.path.exists(mpath):
+            return PatchManifest.load(mpath)
     return PatchManifest.from_png_dir(
         os.path.join(patches_dir, f"level_{level}"), level
     )

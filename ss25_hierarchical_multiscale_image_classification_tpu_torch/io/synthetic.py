@@ -1,17 +1,34 @@
-"""Synthetic tissue slides, rendered with numpy alone.
+"""Synthetic tissue slides with tumor polygons, rendered with numpy alone.
 
-Copy of the JAX package's ``io/synthetic.py`` renderer for slides without
-tumor polygons (those need PIL to rasterize), held to the original by
-exact-equality tests: a white canvas with an elliptical, noise-textured
-pink tissue blob, and a 2× box-averaged pyramid.
+Copy of the JAX package's ``io/synthetic.py`` renderer: a white canvas with
+an elliptical, noise-textured pink tissue blob, zero or more tumor polygons
+tinted darker (``"tint"``) or carrying a zero-mean checkerboard
+(``"texture"``), and a 2× box-averaged pyramid. Slides without polygons
+equal the JAX package's byte for byte. The JAX package fills the polygons
+with PIL, which the card's machine lacks; here the numpy fill of
+``grid/rasterize.py`` does it, at the same fractional vertices, and the two
+renders differ only in pixels within a pixel and a half of a polygon edge
+(the tests count them).
+
+:func:`write_mask_npy` writes a tumor case's ground truth where the FROC
+evaluation reads it: ``<mask_dir>/<case>_mask.npy``, the polygons
+rasterized at the evaluation level.
 """
 
 from __future__ import annotations
 
 import dataclasses
+import os
 
 import numpy as np
 
+from ss25_hierarchical_multiscale_image_classification_tpu_torch.config import (
+    EVALUATION_MASK_LEVEL,
+)
+from ss25_hierarchical_multiscale_image_classification_tpu_torch.grid.rasterize import (
+    fill_polygons,
+    polygons_to_mask,
+)
 from ss25_hierarchical_multiscale_image_classification_tpu_torch.io.slide import (
     ArraySlide,
 )
@@ -21,19 +38,46 @@ from ss25_hierarchical_multiscale_image_classification_tpu_torch.io.slide import
 class SyntheticSlideSpec:
     """Procedural slide description: the level-0 canvas is white, with an
     elliptical tissue blob whose mean RGB is well under the tissue
-    threshold."""
+    threshold, and tumor polygons inside it."""
 
     width: int = 1024
     height: int = 768
     num_levels: int = 4
     tissue_center: tuple[float, float] = (0.5, 0.5)  # fraction of (w, h)
     tissue_radii: tuple[float, float] = (0.38, 0.4)  # fraction of (w, h)
+    tumor_polygons: tuple[tuple[tuple[float, float], ...], ...] = ()
+    #: fractional (x, y) vertices; empty tuple = normal slide
     seed: int = 0
     noise: float = 8.0
+    #: "tint": the tumor is a flat darker-purple shift, separable at every
+    #: level; "texture": the tissue's mean colour with a zero-mean 4-px
+    #: checkerboard (± ``texture_amp``) that level 3 averages to exactly 0
+    tumor_style: str = "tint"
+    texture_amp: float = 20.0
 
 
-def make_level0(spec: SyntheticSlideSpec) -> np.ndarray:
-    """Render the level-0 (H, W, 3) uint8 image."""
+def _default_tumor_polygon() -> tuple[tuple[float, float], ...]:
+    return ((0.40, 0.35), (0.62, 0.38), (0.65, 0.58), (0.45, 0.62), (0.38, 0.5))
+
+
+def tumor_spec(**kw) -> SyntheticSlideSpec:
+    kw.setdefault("tumor_polygons", (_default_tumor_polygon(),))
+    return SyntheticSlideSpec(**kw)
+
+
+def normal_spec(**kw) -> SyntheticSlideSpec:
+    return SyntheticSlideSpec(**kw)
+
+
+def polygons_level0(spec: SyntheticSlideSpec) -> list[np.ndarray]:
+    """The spec's tumor polygons in level-0 pixels, (K, 2) float64 each."""
+    w, h = spec.width, spec.height
+    return [np.array([(px * w, py * h) for px, py in poly], dtype=np.float64)
+            for poly in spec.tumor_polygons]
+
+
+def make_level0(spec: SyntheticSlideSpec) -> tuple[np.ndarray, list[np.ndarray]]:
+    """Render the level-0 image; returns (image, tumor_polygons_level0)."""
     rng = np.random.default_rng(spec.seed)
     h, w = spec.height, spec.width
     img = np.full((h, w, 3), 255, dtype=np.float32)
@@ -48,8 +92,20 @@ def make_level0(spec: SyntheticSlideSpec) -> np.ndarray:
     tex = rng.normal(0.0, spec.noise, size=(h, w, 3)).astype(np.float32)
     img[tissue] = base[None, :] + tex[tissue]
 
+    polys = polygons_level0(spec)
+    for poly_px in polys:
+        mm = fill_polygons([poly_px], w, h)
+        if spec.tumor_style == "texture":
+            # zero-mean checkerboard, 4-px cells aligned to the level-0
+            # grid so pyramid box-averaging cancels it exactly at level 3
+            checker = (((xx // 4) + (yy // 4)) % 2).astype(np.float32)
+            checker = (checker * 2.0 - 1.0) * spec.texture_amp
+            img[mm] = base[None, :] + checker[mm, None] + tex[mm]
+        else:
+            img[mm] = np.array([150.0, 90.0, 160.0])[None, :] + tex[mm]
+
     np.clip(img, 0, 255, out=img)
-    return img.astype(np.uint8)
+    return img.astype(np.uint8), polys
 
 
 def build_pyramid(level0: np.ndarray, num_levels: int) -> list[np.ndarray]:
@@ -66,6 +122,23 @@ def build_pyramid(level0: np.ndarray, num_levels: int) -> list[np.ndarray]:
 
 
 def make_synthetic_slide(spec: SyntheticSlideSpec | None = None) -> ArraySlide:
-    """Build an in-memory synthetic slide."""
+    """Build an in-memory synthetic slide (its tumor polygons in level-0
+    pixels are :func:`polygons_level0` of the spec)."""
     spec = spec or SyntheticSlideSpec()
-    return ArraySlide(build_pyramid(make_level0(spec), spec.num_levels))
+    level0, _ = make_level0(spec)
+    return ArraySlide(build_pyramid(level0, spec.num_levels))
+
+
+def write_mask_npy(mask_dir: str, case: str, spec: SyntheticSlideSpec,
+                   level: int = EVALUATION_MASK_LEVEL) -> str:
+    """Write the spec's tumor polygons rasterized at ``level`` (0/255 uint8,
+    (H, W) of that level of a 2× pyramid) to ``<mask_dir>/<case>_mask.npy``,
+    the ground truth ``evaluation/froc.py::run_froc_evaluation`` reads;
+    returns the path."""
+    dims = (max(1, spec.width >> level), max(1, spec.height >> level))
+    mask = polygons_to_mask(polygons_level0(spec), dims,
+                            (spec.width, spec.height))
+    os.makedirs(mask_dir, exist_ok=True)
+    path = os.path.join(mask_dir, f"{case}_mask.npy")
+    np.save(path, mask)
+    return path

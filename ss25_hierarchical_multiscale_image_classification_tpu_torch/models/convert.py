@@ -167,6 +167,41 @@ def quantized_from_jax(qtree: Mapping[str, Any],
     return quantized_to(tree_from_arrays(flat), device)
 
 
+def _param_entries(params: Mapping[str, Any]) -> dict[str, torch.Tensor]:
+    """A flax ResNet18 ``params``-shaped tree (parameters, or optax's Adam
+    moments of them) → the state dict's parameter entries."""
+    def stats_like(node):
+        if "scale" in node:
+            return {"mean": node["scale"], "var": node["scale"]}
+        return {k: stats_like(v) for k, v in node.items() if isinstance(v, Mapping)}
+
+    sd = state_dict_from_flax({"params": params, "batch_stats": stats_like(params)})
+    return {k: v for k, v in sd.items()
+            if not k.endswith(("running_mean", "running_var"))}
+
+
+def adam_state_from_optax(model: torch.nn.Module, count, mu: Mapping[str, Any],
+                          nu: Mapping[str, Any]) -> dict:
+    """optax ``adam``'s state of a flax ResNet18 (``count``, first moments
+    ``mu``, second moments ``nu``) → the ``state`` of a
+    ``torch.optim.Adam`` over ``model.parameters()``, for
+    ``optimizer.load_state_dict``."""
+    m, v = _param_entries(mu), _param_entries(nu)
+    return {i: {"step": torch.tensor(float(count)), "exp_avg": m[name],
+                "exp_avg_sq": v[name]}
+            for i, (name, _) in enumerate(model.named_parameters())}
+
+
+def classifier_trunk_from_simclr(sd: Mapping[str, torch.Tensor]
+                                 ) -> dict[str, torch.Tensor]:
+    """A SimCLR model's state dict → its encoder's entries under the
+    classifier's names (``encoder.`` dropped, the projector left out): the
+    trunk that the ``self_supervised`` strategy fine-tunes under a fresh
+    head."""
+    return {k.removeprefix("encoder."): v for k, v in sd.items()
+            if k.startswith("encoder.")}
+
+
 def strip_head(sd: Mapping[str, torch.Tensor]) -> dict[str, torch.Tensor]:
     """A classifier's state dict without its ``fc`` head, so that the trunk
     loads into a feature extractor (the JAX ``models/resnet.py::strip_head``)."""

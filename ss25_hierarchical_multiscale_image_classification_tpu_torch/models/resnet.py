@@ -14,6 +14,10 @@ Semantics kept from the JAX model:
 - the stem maxpool pads with −inf (``nn.MaxPool2d`` does);
 - eval-mode BatchNorm at ``eps=1e-5`` with the stored running statistics;
 - training-mode BatchNorm with flax's running statistics (:class:`BatchNorm2d`);
+- ``frozen_bn=True``: BatchNorm normalizes with the stored running
+  statistics in training mode too and leaves them as they are, while γ and
+  β still train (every BN layer stays in eval mode inside a model that is
+  otherwise in training mode);
 - the classifier returns float32 logits, the feature extractor float32
   (B, 8·num_filters) pooled features.
 
@@ -98,6 +102,7 @@ class ResNet(nn.Module):
     are initialised from ``generator`` (seed 0 when none is given) and never
     from PyTorch's global generator: the layers are built on the meta device
     and then filled, as the JAX model's ``init`` fills from its key.
+    ``frozen_bn`` keeps every BatchNorm in eval mode under ``train()``.
     """
 
     def __init__(
@@ -106,8 +111,10 @@ class ResNet(nn.Module):
         num_classes: int | None = 2,
         num_filters: int = 64,
         generator: torch.Generator | None = None,
+        frozen_bn: bool = False,
     ):
         super().__init__()
+        self.frozen_bn = frozen_bn
         with torch.device("meta"):
             self.conv1 = nn.Conv2d(3, num_filters, 7, 2, 3, bias=False)
             self.bn1 = BatchNorm2d(num_filters, eps=1e-5)
@@ -133,6 +140,14 @@ class ResNet(nn.Module):
             else torch.Generator().manual_seed(0)
         )
         self.eval()
+
+    def train(self, mode: bool = True) -> "ResNet":
+        super().train(mode)
+        if self.frozen_bn:
+            for m in self.modules():
+                if isinstance(m, nn.BatchNorm2d):
+                    m.eval()
+        return self
 
     @torch.no_grad()
     def reset_parameters(self, generator: torch.Generator) -> None:
@@ -180,9 +195,11 @@ class ResNet(nn.Module):
 
 
 def ResNet18Classifier(num_classes: int = 2, num_filters: int = 64,
-                       generator: torch.Generator | None = None) -> ResNet:
+                       generator: torch.Generator | None = None,
+                       frozen_bn: bool = False) -> ResNet:
     """ResNet18 with an ``fc`` head of ``num_classes`` logits."""
-    return ResNet((2, 2, 2, 2), num_classes, num_filters, generator)
+    return ResNet((2, 2, 2, 2), num_classes, num_filters, generator,
+                  frozen_bn)
 
 
 def ResNet18FeatureExtractor(num_filters: int = 64,

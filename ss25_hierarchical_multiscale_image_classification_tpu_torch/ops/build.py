@@ -8,8 +8,9 @@ that source, the shared headers and the flags: an edited source builds anew, an 
 loads the library already there. Nothing is built or imported when this
 module is imported, so CPU-only installations import it freely.
 
-No ``--use_fast_math``: the normalize kernel's division must be the IEEE
-quotient so that it equals its plain PyTorch version bit for bit, the
+No ``--use_fast_math``: the normalize and augment kernels' divisions must
+be the IEEE quotient so that they equal their plain PyTorch versions bit
+for bit, the
 NT-Xent and MIL-pool kernels' ``expf``/``logf``/``tanhf`` stay the
 accurate ones, and the stem kernels' float32 adds stay IEEE adds. The int8
 kernels write their float32 epilogue with the explicitly rounded intrinsics
@@ -44,6 +45,17 @@ SOURCES = {
         "hipac_fused_normalize": (
             [_P, _P, _P, _I64, _I64, _I32, _F32, _F32, _F32, _F32, _F32, _F32,
              _P],
+            ctypes.c_int,
+        ),
+    },
+    "augment.cu": {
+        # in, sums, batch, n, stream
+        "hipac_augment_sums": ([_P, _P, _I64, _I64, _P], ctypes.c_int),
+        # in, hflip, vflip, k, d4 table, mat, bias, out, batch, s, inv255,
+        # mean255 x3, std255 x3, stream
+        "hipac_augment_apply": (
+            [_P, _P, _P, _P, ctypes.c_ulonglong, _P, _P, _P, _I64, _I32, _F32,
+             _F32, _F32, _F32, _F32, _F32, _F32, _P],
             ctypes.c_int,
         ),
     },

@@ -1,13 +1,34 @@
-"""Classification losses.
+"""Classification losses and class-weight schemes.
 
 Counterpart of the JAX package's ``train/losses.py``
-(``weighted_cross_entropy``, ``accuracy``). The class-weight schemes come
-with the patch-classifier trainer.
+(``weighted_cross_entropy``, ``accuracy``, ``class_weights_inv_min``,
+``class_weights_total_over_count``). The default trainer weights classes
+by ``(1/count)/min(1/count)``, the strategy trainer by ``total/count``.
 """
 
 from __future__ import annotations
 
+import numpy as np
 import torch
+
+
+def _counts(labels: np.ndarray, num_classes: int) -> np.ndarray:
+    return np.array([max(int((labels == c).sum()), 1)
+                     for c in range(num_classes)], np.float64)
+
+
+def class_weights_inv_min(labels: np.ndarray, num_classes: int = 2
+                          ) -> np.ndarray:
+    """``(1/count)/min(1/count)`` per class, float32 (a class without rows
+    counts as one)."""
+    w = 1.0 / _counts(labels, num_classes)
+    return (w / w.min()).astype(np.float32)
+
+
+def class_weights_total_over_count(labels: np.ndarray, num_classes: int = 2
+                                   ) -> np.ndarray:
+    """``total/count`` per class, float32."""
+    return (len(labels) / _counts(labels, num_classes)).astype(np.float32)
 
 
 def weighted_cross_entropy(logits: torch.Tensor, labels: torch.Tensor,

@@ -124,13 +124,13 @@ def test_config_json_gives_equal_subtrees(jx, tmp_path):
         "uncertainty": {"monte_carlo_samples": 25},
         "data": {"data_dir": str(tmp_path / "from_json"),
                  "patch_store_format": "png"},
-        "model": {"feature_dim": 256},  # a section the port has not ported
+        "model": {"feature_dim": 256},
         "no_such_section": {"x": 1},
         "models_dir": str(tmp_path / "m"),
     }))
     cfg, jcfg = _both_configs(jx, ["--config", str(path)])
     got, want = cfg.to_dict(), jcfg.to_dict()
-    for section in ("mil", "simclr", "uncertainty"):
+    for section in ("mil", "simclr", "uncertainty", "model"):
         assert got[section] == want[section]
     assert got["mil"]["attention_hidden_dim"] == 96
     assert got["simclr"]["loss_impl"] == "pallas"
