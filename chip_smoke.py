@@ -61,10 +61,11 @@ PyTorch version on the card. Phases:
    four convolutions as bfloat16 library calls;
 3h. ``int8_maxpool`` against its plain version (the pool in bfloat16),
    exactly equal, at (512, 112, 112, 64), a batch of 3 and an odd plane;
-3i. the training augmentation's kernels against their plain version,
-   exactly equal, at (512, 224, 224, 3), B = 37 and a 7×7 image, over every
-   D4 element forced, the jitter ranges' edges and all-black and all-white
-   images; CUDA-event medians at B = 512 per call and back to back;
+3i. the training augmentation's kernel against its plain version, exactly
+   equal, at (512, 224, 224, 3), B = 37, a 7×7 image and (64, 448, 448, 3),
+   over every D4 element forced, the jitter ranges' edges and all-black and
+   all-white images; CUDA-event medians at B = 512 per call and back to
+   back, of the call, of the kernel alone and of the call's matrix ops;
 4. the slice: a 3,072-cell slide (level 3 of 14336×10752, stride 28) in both
    tissue-filter modes, launch counts read around the run, partitions equal,
    the timed bfloat16 run's margins on sampled tissue cells against a float32
@@ -108,8 +109,8 @@ PyTorch version on the card. Phases:
    card's ``quant_forward`` against the CPU's plain one on 64 cells;
 10. training (run before phase 8): ``--train --epochs 2`` through the CLI's
    ``main`` on the packed store's labelled cells (a numpy manifest; one
-   slide, so validation reads training cells), the augment kernels'
-   launches counted (2 a step); ``train_resnet_classifier_strategic(
+   slide, so validation reads training cells), the augment kernel's
+   launches counted (1 a step); ``train_resnet_classifier_strategic(
    "self_supervised")`` for an epoch from phase 6's encoder, checked not to
    pretrain again; ``--evaluate``; the artifacts reloaded and
    ``--predict_slide <dir> --run_evaluation`` from the trained classifier
@@ -173,9 +174,11 @@ F32_ATOL = 1e-4
 KERNEL_SHAPES = [(BATCH, 224, 224, 3), (37, 224, 224, 3), (5, 7, 13, 3)]
 # augment cases as (batch, size, D4 element or random, jitter at the range
 # edges, an all-black and an all-white image): the path's shape, a ragged
-# batch, an odd size, then every D4 element forced on a batch
+# batch, an odd size, the larger training size, then every D4 element forced
+# on a batch
 AUG_CASES = [(BATCH, 224, None, False, False), (BATCH, 224, None, True, True),
              (37, 224, None, True, True), (16, 7, None, True, True),
+             (64, 448, None, True, True),
              *[(8, 224, e, True, True) for e in range(8)]]
 AUG_TIMING_RUNS = 20
 TAU = 0.5
@@ -1251,18 +1254,19 @@ def augment_params(dev, g, b, element, edges):
 
 
 def phase_augment(dev) -> dict:
-    """The augment kernels against their plain version, exactly equal, at
-    the path's shape, a ragged batch and an odd size, over every D4 element
-    forced, the jitter ranges' edges and all-black and all-white images;
-    then CUDA-event medians at B=512, per call and back to back."""
+    """The augment kernel against its plain version, exactly equal, at the
+    path's shape, a ragged batch, an odd size and S = 448, over every D4
+    element forced, the jitter ranges' edges and all-black and all-white
+    images; then CUDA-event medians at B=512, per call and back to back:
+    the call, the kernel alone on the call's own arguments, and the call's
+    matrix ops."""
     import torch
 
     from ss25_hierarchical_multiscale_image_classification_tpu_torch.data.augment import (
         MEAN_255,
         STD_255,
         augment_batch,
-        augment_color,
-        augment_means,
+        augment_matrix,
     )
     from ss25_hierarchical_multiscale_image_classification_tpu_torch.ops.augment import (
         D4_PACKED,
@@ -1299,34 +1303,38 @@ def phase_augment(dev) -> dict:
     b2b = statistics.median(back_to_back_ms(lambda: augment_batch_kernel(p, x)))
     # each input byte read once, four written; ~12 operations an output
     bound = bound_ms(5 * x.numel(), 12 * x.numel())
-    # the two kernels alone, back to back, on the call's own arguments
+    # the kernel alone, on the call's own arguments, and the matrix ops
     lib = load_library()
     stream = torch.cuda.current_stream().cuda_stream
-    n = x[0].numel()
-    sums = torch.zeros(BATCH, dtype=torch.int64, device=dev)
-    md, biasd = augment_color(p, augment_means(
-        x.reshape(BATCH, -1).sum(dim=1, dtype=torch.int64), n))
+    md = augment_matrix(p)
     out = torch.empty(x.shape, dtype=torch.float32, device=dev)
-    hv = [p[key].to(torch.bool).contiguous() for key in ("h", "v")]
-    kk = p["k"].to(torch.int64).contiguous()
-    alone = {name: statistics.median(back_to_back_ms(fn)) for name, fn in (
-        ("sums", lambda: lib.hipac_augment_sums(x.data_ptr(), sums.data_ptr(),
-                                                BATCH, n, stream)),
-        ("apply", lambda: lib.hipac_augment_apply(
-            x.data_ptr(), hv[0].data_ptr(), hv[1].data_ptr(), kk.data_ptr(),
-            D4_PACKED, md.data_ptr(), biasd.data_ptr(), out.data_ptr(), BATCH,
-            224, INV_255_BF16, *MEAN_255, *STD_255, stream)))}
-    log(f"[augment] the kernels alone, back to back: sums {alone['sums']:.4f} "
-        f"ms ({x.numel() / alone['sums'] / 1e6:.0f} GB/s), apply "
-        f"{alone['apply']:.4f} ms ({5 * x.numel() / alone['apply'] / 1e6:.0f} "
-        f"GB/s); the call's PyTorch ops (zeroing, mean, affine) the rest")
+    alone_fn = lambda: lib.hipac_augment(  # noqa: E731
+        x.data_ptr(), p["h"].data_ptr(), p["v"].data_ptr(), p["k"].data_ptr(),
+        p["k"].element_size() // 4, D4_PACKED, md.data_ptr(),
+        p["fb"].data_ptr(), p["fc"].data_ptr(), out.data_ptr(), BATCH, 224,
+        INV_255_BF16, *MEAN_255, *STD_255, stream)
+    alone_q = quartiles(cuda_ms(alone_fn, AUG_TIMING_RUNS))
+    alone = statistics.median(back_to_back_ms(alone_fn))
+    matrix_q = quartiles(cuda_ms(lambda: augment_matrix(p), AUG_TIMING_RUNS))
+    matrix = statistics.median(back_to_back_ms(lambda: augment_matrix(p)))
+    torch.cuda.synchronize()
+    if not torch.equal(out, augment_batch_kernel(p, x)):
+        raise AssertionError("the kernel alone differs from the call")
+    log(f"[augment] the kernel alone: {alone_q[1]:.4f} ms per call "
+        f"(quartiles {alone_q[0]:.4f}–{alone_q[2]:.4f}), {alone:.4f} back to "
+        f"back = {5 * x.numel() / alone / 1e6:.0f} GB/s, "
+        f"{bound['bound_ms'] / alone * 100:.1f} % of the "
+        f"{bound['bound_ms']:.4f} ms bound; the call's matrix ops "
+        f"(augment_matrix) {matrix_q[1]:.4f} ms per call, {matrix:.4f} back "
+        f"to back = {matrix / b2b * 100:.1f} % of the call back to back")
     log(f"[augment] B={BATCH} 224² u8 → f32 ({5 * x.numel() / 1e6:.1f} MB "
-        f"moved): kernels {kq[1]:.4f} ms per call (quartiles {kq[0]:.4f}–"
+        f"moved): the call {kq[1]:.4f} ms per call (quartiles {kq[0]:.4f}–"
         f"{kq[2]:.4f}), {b2b:.4f} back to back = "
         f"{5 * x.numel() / b2b / 1e6:.0f} GB/s; bound {bound['bound_ms']:.4f} "
         f"ms ({bound['bound_ms'] / b2b * 100:.1f} % of it); plain "
         f"{pq[1]:.4f} ms ({pq[0]:.4f}–{pq[2]:.4f})")
     return {"max_abs_err": 0.0, "ms": kq[1], "back_to_back_ms": b2b,
+            "kernel_ms": alone_q[1], "kernel_back_to_back_ms": alone,
             "plain_ms": pq[1], "library_ms": None, **bound}
 
 
@@ -2049,7 +2057,7 @@ def phase_simclr_check(dev, ds, sd) -> None:
 def phase_train(dev, ds, slide, spec, simclr_models, tmp) -> dict:
     """The patch-classifier trainer on the card through the command line:
     ``--train`` for TRAIN_EPOCHS epochs on the slide's labelled tissue cells
-    at batch 512, the augment kernels' launches counted around it; the
+    at batch 512, the augment kernel's launches counted around it; the
     ``self_supervised`` strategy from phase 6's encoder without pretraining
     again; ``--evaluate``; the artifacts reloaded and ``--predict_slide
     <dir> --run_evaluation`` from the trained classifier. Then one bf16 card
@@ -2149,8 +2157,8 @@ def phase_train(dev, ds, slide, spec, simclr_models, tmp) -> dict:
         f"artifacts {names}")
     if rc != 0:
         raise AssertionError(f"--train failed with exit code {rc}")
-    if launches != 2 * steps:
-        raise AssertionError(f"expected {2 * steps} augment launches on the "
+    if launches != steps:
+        raise AssertionError(f"expected {steps} augment launches on the "
                              f"training path, counted {launches}")
     want = {"resnet18_patch_classifier.pt", "resnet18_patch_classifier_best.pt",
             *(f"resnet18_patch_classifier_epoch{e + 1}.pt"
@@ -3048,7 +3056,8 @@ def main() -> int:
         "bound_ms": k["bound_ms"],
         "bound_by": k["bound_by"],
         "library_ms": k["library_ms"],
-        **{key: k[key] for key in ("bound_fp32_ms", "back_to_back_ms")
+        **{key: k[key] for key in ("bound_fp32_ms", "back_to_back_ms",
+                                   "kernel_ms", "kernel_back_to_back_ms")
            if key in k},
     } for name, source, replaces, k in rows]}
     log(smi)  # the card's name and power limit, as nvidia-smi prints them

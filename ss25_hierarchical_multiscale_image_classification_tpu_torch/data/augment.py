@@ -362,13 +362,23 @@ def augment_means(sums: torch.Tensor, n: int) -> torch.Tensor:
     return sums.to(torch.float32) / _scalar(float(n), dev) / _scalar(255.0, dev)
 
 
-def augment_color(params: dict, m0: torch.Tensor,
-                  dtype: torch.dtype = torch.bfloat16
-                  ) -> tuple[torch.Tensor, torch.Tensor]:
-    """The per-image colour affine of ``params`` for images of mean ``m0``:
-    (B, 3, 3) matrix and (B,) bias, rounded to ``dtype``, contiguous."""
-    m, bias = _jitter_affine(params, m0)
-    return m.to(dtype).contiguous(), bias.to(dtype).contiguous()
+def augment_matrix(params: dict, dtype: torch.dtype = torch.bfloat16
+                   ) -> torch.Tensor:
+    """The per-image colour matrix of ``params``, (B, 3, 3) rounded to
+    ``dtype``, contiguous: :func:`_jitter_affine`'s, which depends on the
+    draws only."""
+    fb = params["fb"]
+    m, _ = _jitter_affine(params, torch.zeros(fb.shape, device=fb.device))
+    return m.to(dtype).contiguous()
+
+
+def augment_bias(params: dict, m0: torch.Tensor,
+                 dtype: torch.dtype = torch.bfloat16) -> torch.Tensor:
+    """The per-image contrast bias of ``params`` for images of mean ``m0``:
+    :func:`_jitter_affine`'s ``((1 − fc)·fb)·m0`` in float32, rounded to
+    ``dtype``, contiguous."""
+    fb, fc = params["fb"].float(), params["fc"].float()
+    return ((1.0 - fc) * fb * m0.float()).to(dtype).contiguous()
 
 
 @functools.lru_cache(maxsize=None)
@@ -384,9 +394,10 @@ def augment_batch(params: dict, imgs_u8: torch.Tensor,
 
     In the JAX function's order and roundings: the D4 map; the per-image
     mean (here an exact integer sum, see :func:`augment_means`); the affine
-    rounded to ``dtype``; each channel ``x·(1/255)`` in ``dtype``; each
-    output channel ``((m_d0·r + m_d1·g) + m_d2·b) + bias`` with every
-    product and sum rounded to ``dtype``; clip to [0, 1]; in float32
+    (:func:`augment_matrix`, :func:`augment_bias`) rounded to ``dtype``;
+    each channel ``x·(1/255)`` in ``dtype``; each output channel
+    ``((m_d0·r + m_d1·g) + m_d2·b) + bias`` with every product and sum
+    rounded to ``dtype``; clip to [0, 1]; in float32
     ``(c·255 − 255·mean_d) / (255·std_d)`` with IEEE divisions.
     """
     b, hh, ww = imgs_u8.shape[0], imgs_u8.shape[1], imgs_u8.shape[2]
@@ -400,7 +411,7 @@ def augment_batch(params: dict, imgs_u8: torch.Tensor,
 
     sums = imgs_u8.reshape(b, -1).sum(dim=1, dtype=torch.int64)
     m0 = augment_means(sums, imgs_u8[0].numel())
-    md, biasd = augment_color(params, m0, dtype)
+    md, biasd = augment_matrix(params, dtype), augment_bias(params, m0, dtype)
     xd = x.to(dtype) * _inv255(dtype, x.device)
     r, g, b3 = xd[..., 0], xd[..., 1], xd[..., 2]
     mean, std = _affine(x.device)

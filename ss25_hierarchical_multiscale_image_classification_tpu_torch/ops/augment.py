@@ -1,19 +1,21 @@
-"""The classifier's training augmentation as two hand-written CUDA kernels.
+"""The classifier's training augmentation as one hand-written CUDA kernel.
 
 The JAX package's ``data/augment.py::augment_batch`` (D4 element, colour
 affine, clip, ImageNet normalize) has no Pallas kernel: XLA fuses it into a
 few passes inside the jitted train step. Eager PyTorch would run each of its
 ~15 operations as a pass over the batch, so the port's trainer runs it as
-``ops/csrc/augment.cu``: one pass for each image's exact byte sum, then the
-affine from the draws and the mean (plain PyTorch on (B,) vectors), then one
-pass that reads every pixel through its D4 map (looked up in the kernel
-from the draws) and writes the normalized float32 output.
+``ops/csrc/augment.cu``: one launch, a cluster of blocks an image, which
+reads every input byte once, takes the image's exact byte sum over the
+cluster, derives the mean and the contrast bias, and writes the normalized
+float32 output through the image's D4 map. The colour matrix depends on the
+draws only: :func:`augment_matrix` (plain PyTorch on (B,) vectors) makes it
+before the launch.
 
-For a CUDA tensor :func:`augment_batch_kernel` launches the two kernels or
-raises; ``augment_batch_kernel.launches`` counts each launch (two a call).
+For a CUDA tensor :func:`augment_batch_kernel` launches the kernel or
+raises; ``augment_batch_kernel.launches`` counts each launch (one a call).
 For a CPU tensor it takes ``data/augment.py::augment_batch``, the plain
 version, which the CPU tests hold against the JAX function and which the
-kernels must equal bit for bit.
+kernel must equal bit for bit.
 """
 
 from __future__ import annotations
@@ -27,8 +29,7 @@ from ss25_hierarchical_multiscale_image_classification_tpu_torch.data.augment im
     MEAN_255,
     STD_255,
     augment_batch,
-    augment_color,
-    augment_means,
+    augment_matrix,
 )
 
 #: bfloat16(1/255) as a float: the kernel's channel scale
@@ -40,6 +41,32 @@ D4_PACKED = sum(
     int(_D4_T[h, v, k] + 2 * _D4_FX[h, v, k] + 4 * _D4_FY[h, v, k])
     << (3 * (8 * h + 4 * v + k))
     for h in range(2) for v in range(2) for k in range(4))
+
+
+#: Blocks of the cluster that handles an image; block j owns the source
+#: rows [j·R, (j+1)·R), R = ceil(S / CLUSTER).
+CLUSTER = 8
+#: Shared memory of a block ahead of its band, and at most in all (sm_90).
+_HEADER_BYTES = 96 + 4 * 4 * 32 * 3 * 4
+_MAX_SMEM = 232448
+
+
+def band_rows(s: int) -> int:
+    """R: the source rows of an image's band (the last bands may be
+    shorter or empty)."""
+    return -(-s // CLUSTER)
+
+
+def band_pitch(s: int) -> int:
+    """A band row's pitch in shared memory: 3·S bytes rounded up to an odd
+    number of 16-byte units."""
+    units = -(-3 * s // 16)
+    return 16 * (units if units % 2 else units + 1)
+
+
+#: The largest S whose band fits a block's shared memory.
+MAX_SIZE = max(s for s in range(1, 2048)
+               if _HEADER_BYTES + band_rows(s) * band_pitch(s) <= _MAX_SMEM)
 
 
 def _check(params: dict, imgs_u8: torch.Tensor) -> None:
@@ -63,10 +90,15 @@ def augment_batch_kernel(params: dict, imgs_u8: torch.Tensor) -> torch.Tensor:
     augmentation of ``params`` (see ``data/augment.py::augment_batch``),
     in bfloat16 colour arithmetic.
 
-    A CUDA tensor must be contiguous, B ≤ 65535; the kernels launch on the
-    current stream.
+    S ≤ :data:`MAX_SIZE` (the kernel's band of rows must fit a block's
+    shared memory). A CUDA tensor must be contiguous, B ≤ 65535; the kernel
+    launches on the current stream.
     """
     _check(params, imgs_u8)
+    s = imgs_u8.shape[1]
+    if s > MAX_SIZE:
+        raise ValueError(f"augment_batch_kernel takes images of at most "
+                         f"{MAX_SIZE}×{MAX_SIZE} pixels, got {s}×{s}")
     dev = imgs_u8.device
     if dev.type == "cpu":
         return augment_batch(params, imgs_u8)
@@ -80,32 +112,29 @@ def augment_batch_kernel(params: dict, imgs_u8: torch.Tensor) -> torch.Tensor:
     )
 
     lib = load_library()
-    b, s = imgs_u8.shape[0], imgs_u8.shape[1]
-    n = s * s * 3
+    b = imgs_u8.shape[0]
     if b > 65535:
         raise ValueError(f"augment_batch_kernel takes at most 65535 images, "
                          f"got {b}")
-    stream = torch.cuda.current_stream(dev).cuda_stream
-    sums = torch.zeros(b, dtype=torch.int64, device=dev)
-    with on_device(dev):
-        rc = lib.hipac_augment_sums(imgs_u8.data_ptr(), sums.data_ptr(), b, n,
-                                    stream)
-    if rc != 0:
-        raise RuntimeError(f"augment sums kernel launch failed: cudaError {rc}")
-    augment_batch_kernel.launches += 1
-
-    md, biasd = augment_color(params, augment_means(sums, n))
+    md = augment_matrix(params)
     # the draws as the kernel reads them (no copy when they already are)
     h, v = (params[key].to(torch.bool).contiguous() for key in ("h", "v"))
-    k = params["k"].to(torch.int64).contiguous()
+    k = params["k"]
+    if k.dtype not in (torch.int32, torch.int64):
+        k = k.to(torch.int64)
+    k = k.contiguous()
+    fb, fc = (params[key].to(torch.float32).contiguous()
+              for key in ("fb", "fc"))
     out = torch.empty(imgs_u8.shape, dtype=torch.float32, device=dev)
+    stream = torch.cuda.current_stream(dev).cuda_stream
     with on_device(dev):
-        rc = lib.hipac_augment_apply(
+        rc = lib.hipac_augment(
             imgs_u8.data_ptr(), h.data_ptr(), v.data_ptr(), k.data_ptr(),
-            D4_PACKED, md.data_ptr(), biasd.data_ptr(), out.data_ptr(), b, s,
-            INV_255_BF16, *MEAN_255, *STD_255, stream)
+            k.element_size() // 4, D4_PACKED, md.data_ptr(), fb.data_ptr(),
+            fc.data_ptr(), out.data_ptr(), b, s, INV_255_BF16, *MEAN_255,
+            *STD_255, stream)
     if rc != 0:
-        raise RuntimeError(f"augment apply kernel launch failed: cudaError {rc}")
+        raise RuntimeError(f"augment kernel launch failed: cudaError {rc}")
     augment_batch_kernel.launches += 1
     return out
 

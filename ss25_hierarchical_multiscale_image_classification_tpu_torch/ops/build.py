@@ -49,15 +49,14 @@ SOURCES = {
         ),
     },
     "augment.cu": {
-        # in, sums, batch, n, stream
-        "hipac_augment_sums": ([_P, _P, _I64, _I64, _P], ctypes.c_int),
-        # in, hflip, vflip, k, d4 table, mat, bias, out, batch, s, inv255,
-        # mean255 x3, std255 x3, stream
-        "hipac_augment_apply": (
-            [_P, _P, _P, _P, ctypes.c_ulonglong, _P, _P, _P, _I64, _I32, _F32,
-             _F32, _F32, _F32, _F32, _F32, _F32, _P],
+        # in, hflip, vflip, k, k_words, d4 table, mat, fb, fc, out, batch, s,
+        # inv255, mean255 x3, std255 x3, stream
+        "hipac_augment": (
+            [_P, _P, _P, _P, _I32, ctypes.c_ulonglong, _P, _P, _P, _P, _I64,
+             _I32, _F32, _F32, _F32, _F32, _F32, _F32, _F32, _P],
             ctypes.c_int,
         ),
+        "hipac_augment_max_size": ([], ctypes.c_int),
     },
     "nt_xent.cu": {
         # z, pos_idx, n_rows, d, inv_tau, loss, m, l, tile, splits, stream

@@ -14,7 +14,7 @@ Counterpart of the JAX package's ``train/trainer.py``:
 
 A step (:func:`make_train_step`) draws the augmentation from a
 ``torch.Generator`` on the card, runs it through the hand-written kernel
-(``ops/augment.py``, two launches), the forward under bf16 autocast over
+(``ops/augment.py``, one launch), the forward under bf16 autocast over
 float32 parameters, the weighted cross entropy in float32 with the ``valid``
 mask of a wrap-padded last batch (whose padded rows still enter BN's batch
 statistics, as in the JAX step), the backward and one Adam update.

@@ -12,6 +12,8 @@ the plain version by ``test_augment_cuda_kernel_is_exact`` (marker
 that compare with it, so that test also runs where jax is absent.
 """
 
+from fractions import Fraction
+
 import numpy as np
 import pytest
 import torch
@@ -20,7 +22,11 @@ from ss25_hierarchical_multiscale_image_classification_tpu_torch.data import (
     augment,
 )
 from ss25_hierarchical_multiscale_image_classification_tpu_torch.ops.augment import (
+    CLUSTER,
+    MAX_SIZE,
     augment_batch_kernel,
+    band_pitch,
+    band_rows,
 )
 
 torch.set_num_threads(2)
@@ -269,6 +275,7 @@ def _cases():
         (512, 224, None, False, False),
         (37, 224, None, True, True),
         (16, 7, None, True, True),
+        (8, 448, None, True, True),
         # each D4 element forced on a whole batch
         *[(8, 33, [combos[i]] * 8, True, True) for i in range(0, 16, 2)],
     ]
@@ -284,7 +291,200 @@ def test_augment_cuda_kernel_is_exact(cuda_device, batch, size, geometry,
     before = augment_batch_kernel.launches
     out = augment_batch_kernel(p, imgs)
     torch.cuda.synchronize()
-    assert augment_batch_kernel.launches == before + 2
+    assert augment_batch_kernel.launches == before + 1
     ref = augment.augment_batch(p, imgs)
     assert out.dtype == torch.float32 and out.shape == imgs.shape
     assert torch.equal(out, ref)
+
+
+@pytest.mark.cuda
+def test_augment_cuda_size_limit_matches(cuda_device):
+    from ss25_hierarchical_multiscale_image_classification_tpu_torch.ops.build import (
+        load_library,
+    )
+
+    assert load_library().hipac_augment_max_size() == MAX_SIZE
+
+
+# ---- the affine split into the matrix and the in-kernel bias ----
+
+
+def _affine_before_split(params, m0, dtype=torch.bfloat16):
+    """The affine as ``augment_batch`` rounded it before the split: both
+    halves of ``_jitter_affine`` to ``dtype``, contiguous."""
+    m, bias = augment._jitter_affine(params, m0)
+    return m.to(dtype).contiguous(), bias.to(dtype).contiguous()
+
+
+def _augment_batch_before_split(params, imgs_u8, dtype=torch.bfloat16):
+    """``augment_batch`` as it was before the split, kept to hold the
+    current one to it bit for bit."""
+    b = imgs_u8.shape[0]
+    t, fx, fy = augment.d4_flags(params)
+    x = imgs_u8
+    x = torch.where(t[:, None, None, None], x.transpose(1, 2), x)
+    x = torch.where(fx[:, None, None, None], x.flip(2), x)
+    x = torch.where(fy[:, None, None, None], x.flip(1), x)
+    sums = imgs_u8.reshape(b, -1).sum(dim=1, dtype=torch.int64)
+    m0 = augment.augment_means(sums, imgs_u8[0].numel())
+    md, biasd = _affine_before_split(params, m0, dtype)
+    xd = x.to(dtype) * torch.full((), 1.0 / 255.0, dtype=dtype)
+    r, g, b3 = xd[..., 0], xd[..., 1], xd[..., 2]
+    mean, std = augment._affine(x.device)
+
+    def chan(d):
+        c = (md[:, d, 0, None, None] * r + md[:, d, 1, None, None] * g
+             + md[:, d, 2, None, None] * b3 + biasd[:, None, None])
+        c = torch.clamp(c, 0.0, 1.0).to(torch.float32)
+        return (c * 255.0 - mean[d]) / std[d]
+
+    return torch.stack([chan(0), chan(1), chan(2)], dim=-1)
+
+
+@pytest.mark.parametrize("edges", [False, True])
+def test_augment_matrix_and_bias_equal_the_affine(edges):
+    n = 20000
+    p = _torch_params(_params(n, 20 + edges, edges))
+    sums = torch.from_numpy(np.random.default_rng(21).integers(
+        0, 224 * 224 * 3 * 255 + 1, n))
+    sums[:2] = torch.tensor([0, 224 * 224 * 3 * 255])  # black, white
+    m0 = augment.augment_means(sums, 224 * 224 * 3)
+    want_m, want_b = _affine_before_split(p, m0)
+    got_m, got_b = augment.augment_matrix(p), augment.augment_bias(p, m0)
+    assert got_m.dtype == got_b.dtype == torch.bfloat16
+    assert got_m.is_contiguous() and got_b.is_contiguous()
+    assert torch.equal(got_m.view(torch.int16), want_m.view(torch.int16))
+    assert torch.equal(got_b.view(torch.int16), want_b.view(torch.int16))
+
+
+@pytest.mark.parametrize("size,batch,seed,edges,extremes", [
+    (32, 16, 30, False, False),
+    (17, 16, 31, True, True),
+    (64, 8, 32, True, False),
+])
+def test_augment_batch_unchanged_by_the_split(size, batch, seed, edges,
+                                              extremes):
+    p = _torch_params(_params(batch, seed, edges))
+    imgs = torch.from_numpy(_imgs(seed, (batch, size, size, 3), extremes))
+    want = _augment_batch_before_split(p, imgs)
+    got = augment.augment_batch(p, imgs)
+    assert torch.equal(got.view(torch.int32), want.view(torch.int32))
+
+
+def _bf16_rne(x):
+    """float32 → bfloat16 to nearest even, as float32 (numpy, finite x)."""
+    u = np.asarray(x, np.float32).view(np.uint32).astype(np.uint64)
+    u = (u + 0x7FFF + ((u >> 16) & 1)) & 0xFFFF0000
+    return u.astype(np.uint32).view(np.float32)
+
+
+def test_in_kernel_bias_mirror_equals_augment_bias():
+    """The kernel's bias, in float32 numpy: m0 = float32(sum) / n / 255,
+    then bf16(((1 − fc)·fb)·m0)."""
+    n_img = 4096
+    for size in (7, 224, 448):
+        n = size * size * 3
+        p = _params(n_img, size, edges=size == 7)
+        sums = np.random.default_rng(size).integers(0, n * 255 + 1, n_img)
+        sums[:2] = (0, n * 255)
+        m0 = (sums.astype(np.float32) / np.float32(n)) / np.float32(255.0)
+        want = _bf16_rne((np.float32(1.0) - p["fc"]) * p["fb"] * m0)
+        got = augment.augment_bias(
+            _torch_params(p), augment.augment_means(torch.from_numpy(sums), n))
+        np.testing.assert_array_equal(got.float().numpy().view(np.uint32),
+                                      want.view(np.uint32))
+
+
+def _band_plan(s: int, j: int, code: int
+              ) -> tuple[int, int, int, int, int, int, int]:
+    """The kernel's index math (``ops/csrc/augment.cu``), mirrored:
+    (y0, ny, x0, nx, org, dy, dx): block ``j`` of an image of size ``s``
+    under the D4 element ``code`` (bit 0 transpose, bit 1 x-reverse, bit 2
+    y-reverse) writes the output rows [y0, y0+ny) by columns [x0, x0+nx)
+    (output rows without a transpose, output columns with one, so that every
+    pixel it reads lies in its own band), and the region's pixel (iy, ix)
+    reads its band's byte ``org + iy·dy + ix·dx`` (rows ``band_pitch(s)``
+    apart)."""
+    rows, pitch = band_rows(s), band_pitch(s)
+    r0 = j * rows
+    nr = max(0, min(rows, s - r0))
+    t, fx, fy = code & 1, code & 2, code & 4
+    ny, nx = (s, nr) if t else (nr, s)
+    y0 = 0 if t else (s - r0 - nr if fy else r0)
+    x0 = (s - r0 - nr if fx else r0) if t else 0
+    uy, ux = (3, pitch) if t else (pitch, 3)
+    org = ((ny - 1) * uy if fy else 0) + ((nx - 1) * ux if fx else 0)
+    return y0, ny, x0, nx, org, -uy if fy else uy, -ux if fx else ux
+
+
+@pytest.mark.parametrize("size", [7, 37, 224, 448])
+@pytest.mark.parametrize("code", range(8))
+def test_band_plan_covers_each_output_pixel_once(size, code):
+    """Block j of an image's cluster writes the region ``_band_plan`` gives;
+    every output pixel is written by exactly one block, and the band byte
+    the plan reads for it is the first byte of the source pixel the D4
+    element maps it to, inside that block's own band (the kernel's index
+    math)."""
+    t, fx, fy = code & 1, code & 2, code & 4
+    rows, pitch = band_rows(size), band_pitch(size)
+    hits = np.zeros((size, size), np.int32)
+    for j in range(CLUSTER):
+        y0, ny, x0, nx, org, dy, dx = _band_plan(size, j, code)
+        iy, ix = np.meshgrid(np.arange(ny), np.arange(nx), indexing="ij")
+        oy, ox = y0 + iy, x0 + ix
+        yy = size - 1 - oy if fy else oy
+        xx = size - 1 - ox if fx else ox
+        sy, sx = (xx, yy) if t else (yy, xx)
+        srow = sy - j * rows
+        assert ((srow >= 0) & (srow < rows) & (sy < size)).all()
+        np.testing.assert_array_equal(org + iy * dy + ix * dx,
+                                      srow * pitch + 3 * sx)
+        np.add.at(hits, (oy, ox), 1)
+    assert (hits == 1).all()
+
+
+def _rn32(x):
+    """The float32 nearest to the rational ``x``, ties to even."""
+    r = np.float32(float(x))
+    return min((r, np.nextafter(r, np.float32(np.inf)),
+                np.nextafter(r, np.float32(-np.inf))),
+               key=lambda c: (abs(Fraction(float(c)) - x),
+                              int(np.float32(c).view(np.uint32)) & 1))
+
+
+def test_kernel_division_is_the_ieee_quotient():
+    """The kernel divides a = c·255 − mean_d by std_d as q0 = RN(a·y),
+    q = RN(q0 + RN(a − std·q0)·y) with y = RN(1/std) (two FMAs). For every
+    bfloat16 c in [0, 1] (the clipped channel) and each channel, in exact
+    arithmetic, that is the IEEE float32 quotient the plain version takes."""
+    c = (np.arange(0x3F81, dtype=np.uint32) << 16).view(np.float32)
+    for mean, std in zip(augment.MEAN_255, augment.STD_255):
+        b, mean = np.float32(std), np.float32(mean)
+        y = _rn32(1 / Fraction(float(b)))
+        a = c * np.float32(255.0) - mean
+        # a·y and a − std·q0 are exact in float64, so one rounding each
+        q0 = (a.astype(np.float64) * np.float64(y)).astype(np.float32)
+        r = (a.astype(np.float64) - np.float64(b) * q0).astype(np.float32)
+        y_exact = Fraction(float(y))
+        got = np.array([_rn32(Fraction(float(qi)) + Fraction(float(ri))
+                              * y_exact) for qi, ri in zip(q0, r)],
+                       np.float32)
+        np.testing.assert_array_equal(got.view(np.uint32),
+                                      (a / b).view(np.uint32))
+
+
+def test_augment_kernel_band_fits_and_size_limit():
+    """The band plan's shared memory: the pitch holds a row in an odd
+    number of 16-byte units; S = MAX_SIZE fits, S = MAX_SIZE + 1 does not
+    and the wrapper names the limit, on every route."""
+    for s in (7, 37, 224, 448, MAX_SIZE):
+        pitch = band_pitch(s)
+        assert pitch >= 3 * s and pitch % 16 == 0 and (pitch // 16) % 2 == 1
+    assert 448 < MAX_SIZE < 800
+    s = MAX_SIZE + 1
+    p = _torch_params(_params(1, 13))
+    imgs = torch.zeros((1, s, s, 3), dtype=torch.uint8)
+    before = augment_batch_kernel.launches
+    with pytest.raises(ValueError, match=str(MAX_SIZE)):
+        augment_batch_kernel(p, imgs)
+    assert augment_batch_kernel.launches == before
