@@ -1,7 +1,7 @@
 #!/usr/bin/env python3
 """Smoke run of the PyTorch/CUDA port on one NVIDIA card.
 
-Drives the port's seven paths once each with random weights from a seed:
+Drives the port's eight paths once each with random weights from a seed:
 full-slide tumor detection at the full width of ResNet18 (224² patches,
 64-wide stem, batch 512) on a numpy-rendered synthetic slide with a tumor
 polygon (``predict_slide`` → detections → CSV, then the ``hipac-torch``
@@ -12,16 +12,19 @@ attention-MIL slide classification at the full width of ``MILConfig``
 features, folded bf16 feature extraction (``extract_features``) over the
 slide's tissue cells at batch 512, and the int8 (w8a8) path (``--quantize``,
 ``--predict_slide --int8``, ``run_feature_extraction(int8=True)``) on the
-same slide and cells, and patch-classifier training (``--train``, the
+same slide and cells, patch-classifier training (``--train``, the
 ``self_supervised`` strategy, ``--evaluate``) on the slide's labelled tissue
-cells. It checks every hand-written kernel of those paths against its plain
-PyTorch version on the card. Phases:
+cells, and hierarchical multiscale slide inference (``--predict_slide
+--multiscale`` at levels (2, 3): float, cascade and int8 on the stacked
+trunk batch) on the same slide. It checks every hand-written kernel of
+those paths against its plain PyTorch version on the card. Phases:
 
 1. card and software: ``nvidia-smi`` name and power limit, torch, CUDA, nvcc;
 2. build: the kernels from ``ops/csrc/`` of this checkout;
 3. kernel against plain version: ``fused_normalize`` at B=512×224²×3, a
-   ragged B=37 and an odd 7×13 patch, f32 and bf16, exactly equal; CUDA-event
-   medians of kernel and plain at B=512, and bf16 back to back;
+   ragged B=37, an odd 7×13 patch and the multiscale level-2 batch
+   (256, 448, 448, 3), f32 and bf16, exactly equal; CUDA-event medians of
+   kernel and plain at B=512, and bf16 back to back;
 3b. NT-Xent kernels against the plain version (loss rows, m, l, dz) at
    (2N, D) = (1024, 128) with the path's 592 dead rows, (1024, 128),
    (74, 128), (8192, 128) and (130, 100) with the loss's mean as upstream
@@ -54,7 +57,10 @@ PyTorch version on the card. Phases:
    16 convolutions of one int8 forward (space-to-depth stem with its bias map; per stage 2–4 the stride-2
    conv, the 1×1 downsample with a float32 output, the convs with a float32
    and an int8 residual), the direct 7×7 stem with 3 input channels and a
-   stage-1 conv, at B = 37 and 512; CUDA-event medians at B = 512;
+   stage-1 conv, at B = 37 and 512; CUDA-event medians at B = 512; stage 1
+   of planes no cluster holds ((16, 64, 64, 64), a 256² input's, and an odd
+   one) through ``fused_stage1_int8``: four ``int8_conv_requant`` launches,
+   exactly equal;
 3g. ``fused_stage1_int8`` against its plain version, exactly equal, at
    (512, 56, 56, 64), a batch of 3 and an odd plane; at B = 512 in turns
    with four ``int8_conv_requant`` calls and the plain version, beside the
@@ -118,6 +124,24 @@ PyTorch version on the card. Phases:
    against a float32 CPU step from the same weights, cells and draws; warm
    step time, patches/s, peak device memory, and (last in the run) one
    epoch's device idle share under the profiler;
+11. multiscale (run before phase 8): a ``hierarchical_classifier`` from the
+   slice's BN-calibrated trunk, seeded heads set along the features'
+   principal directions and a non-trivial calibration (crop input mode);
+   ``predict_slide_multiscale`` at levels (2, 3), stride 28, 256 cells a
+   batch (512 images a trunk call) in both input modes, 2a's launches
+   counted (2 a batch), the tissue partition equal to phase 4's host
+   partition, the five bf16 columns on the reference cells against a
+   float32 CPU forward of the same multiscale cells, the component
+   identities; ``--predict_slide --multiscale --ms_components`` and
+   ``<dir> --multiscale --run_evaluation`` through the CLI's ``main`` (FROC
+   in [0, 1]); a cascade at the median screen score (survivors, fill,
+   launches) and a keep-everything cascade that bails out;
+   ``quantize_trunk_to_artifact`` (``--quantize --multiscale``) on a packed
+   store of the calibration cells at both levels, then the int8 path with
+   1 + 16 + 1 launches a stacked batch and a logit cosine against float32,
+   and ``--predict_slide --multiscale --int8`` picking the artifact up; warm
+   walls in turns with the single-level host-filter slice, peak memory, and
+   (last in the run) one run's idle share under the profiler;
 8. feature extraction: the packed store of the slide's 1,752 tissue cells,
    the slice's ResNet18 saved as ``resnet18_patch_classifier.pt``,
    ``extract_features(cfg, level=3, dataset=ds, device="cuda")`` at batch 512
@@ -171,7 +195,10 @@ BF16_ATOL = 0.1
 MODES_ATOL = BF16_ATOL
 # - the card's float32 forward (TF32 off) against the CPU's: measured 3.6e-6.
 F32_ATOL = 1e-4
-KERNEL_SHAPES = [(BATCH, 224, 224, 3), (37, 224, 224, 3), (5, 7, 13, 3)]
+# the slice's B=512 224² batch, a ragged batch, an odd patch, and the
+# multiscale path's level-2 batch (256 cells of 448²)
+KERNEL_SHAPES = [(BATCH, 224, 224, 3), (37, 224, 224, 3), (5, 7, 13, 3),
+                 (256, 448, 448, 3)]
 # augment cases as (batch, size, D4 element or random, jitter at the range
 # edges, an all-black and an all-white image): the path's shape, a ragged
 # batch, an odd size, the larger training size, then every D4 element forced
@@ -350,6 +377,9 @@ INT8_PLAIN_RUNS = 4  # the plain version is a float64 im2col convolution
 # cluster of one
 STAGE1_SHAPES = [(BATCH, 56, 56, 64), (3, 56, 56, 64), (2, 30, 26, 64),
                  (1, 56, 56, 64), (2, 9, 9, 64), (3, 6, 7, 64)]
+# planes no cluster of the fused stage-1 kernel holds: a 256² input's 64 × 64
+# and an odd one; they run stage 1 as four int8_conv_requant launches
+STAGE1_CONV_ROUTE_SHAPES = [(16, 64, 64, 64), (3, 70, 66, 64)]
 INT8_POOL_SHAPES = [(BATCH, 112, 112, 64), (3, 112, 112, 64), (2, 31, 27, 16)]
 # int8 path checks (phase 9), bounds from the H100 run recorded in PERF.md
 # (NVIDIA H100 80GB HBM3, 700 W):
@@ -366,6 +396,23 @@ INT8_MARGIN_ATOL = 0.5
 #   the stem's bias map sum or of the mean could differ.
 INT8_CPU_CELLS = 64
 INT8_CPU_STEPS = 1.0
+# multiscale slide inference (phase 11): levels (2, 3) on the slice's grid
+# (base level 3, stride 28), 256 cells a batch = 512 images a trunk call;
+# the artifact's calibration (temperatures, weights, combine = ensemble,
+# input mode 1 = crop: the card has no cv2 for --quantize --multiscale)
+MS_LEVELS = (2, 3)
+MS_BATCH = 256
+MS_CAL = {"temperature": 1.3, "aux_temperature": 0.9, "ensemble_weight": 0.6,
+          "ensemble_base_weight": 0.4, "combine": 0, "input_mode": 1}
+# bf16 card scores against the float32 CPU forward of the same multiscale
+# cells, absolute, on calibrated log-odds that must spread ≥ 10x the bound:
+# the trunk's bf16 rounding through heads scaled as the slice's (margin std
+# MARGIN_STD, divided by the temperatures). Measured on the H100 run
+# recorded in PERF.md (NVIDIA H100 80GB HBM3, 700 W): max|Δ| 0.0438 (crop)
+# and 0.0480 (resize) over the five columns of 32 cells spreading 4.4-7.4;
+# the bound is the slice's
+MS_BF16_ATOL = BF16_ATOL
+MS_WALL_RUNS = 3  # warm runs of each path, in turns
 # The card's published peaks (H100 SXM): device memory and dense rates.
 HBM_BYTES_S = 3.35e12
 FP32_FLOP_S = 67e12
@@ -1081,6 +1128,37 @@ def int8_conv_inputs(dev, g, batch, case):
     return (xq, qk, mscale, bias, s_out, stride, pad), kw, ops, moved
 
 
+def stage1_convs_route(dev, g) -> None:
+    """Stage 1 of a plane that no cluster of the fused kernel holds (64 × 64,
+    a 256² input): ``fused_stage1_int8`` takes four ``int8_conv_requant``
+    launches instead, exactly equal to the plain version."""
+    import torch
+
+    from ss25_hierarchical_multiscale_image_classification_tpu_torch.ops.int8_block import (
+        fused_stage1_int8,
+        fused_stage1_int8_reference,
+        stage1_route,
+    )
+
+    stage1, conv, _ = int8_launchers()
+    for shape in STAGE1_CONV_ROUTE_SHAPES:
+        ops = stage1_inputs(dev, g, shape)
+        ref = fused_stage1_int8_reference(*ops)
+        before = (stage1.launches, conv.launches)
+        got = fused_stage1_int8(*ops)
+        torch.cuda.synchronize()
+        launched = (stage1.launches - before[0], conv.launches - before[1])
+        same = torch.equal(got, ref)
+        log(f"[int8-conv] stage 1 at {shape}: route "
+            f"{stage1_route(*shape[1:3])!r}, launches fused_stage1_int8 "
+            f"{launched[0]}, int8_conv_requant {launched[1]}; exactly equal to "
+            f"the plain version: {same} (output std "
+            f"{ref.float().std().item():.4g})")
+        if launched != (0, 4) or not same:
+            raise AssertionError(f"stage 1 at {shape} did not take four exact "
+                                 f"int8_conv_requant launches")
+
+
 def phase_int8_conv(dev) -> dict:
     """``int8_conv_requant`` against its plain version, exactly equal, at
     every case and two batch sizes; then the times at B=512."""
@@ -1127,6 +1205,7 @@ def phase_int8_conv(dev) -> dict:
                     f"C_out {cout}")
     log(f"[int8-conv] rounding ties and clipping at {len(INT8_TIE_SCALES)} "
         f"scale pairs, C_out 64 and 128: exactly equal to the plain version")
+    stage1_convs_route(dev, g)
     for case in INT8_CONV_CASES:
         name = case[0]
         for batch in (INT8_ODD_BATCH, BATCH):
@@ -2539,6 +2618,505 @@ def phase_mil(dev, tmp) -> dict:
     return {"launches": launches}
 
 
+def ms_cells(slide, grid, cells) -> dict:
+    """The co-located patches of grid cells at every level of MS_LEVELS,
+    as ``predict_slide_multiscale`` cuts them (white past the slide): each
+    level's patch shares the base cell's level-0 origin."""
+    import numpy as np
+
+    from ss25_hierarchical_multiscale_image_classification_tpu_torch.grid.pyramid import (
+        patch_size_for_level,
+    )
+
+    out = {}
+    for lvl in MS_LEVELS:
+        ps = patch_size_for_level(lvl)
+        out[lvl] = np.stack([
+            slide.read_region(grid.level0_origin(ix * grid.stride,
+                                                 iy * grid.stride),
+                              lvl, (ps, ps)) for iy, ix in cells])
+    return out
+
+
+def _center(x, size: int = 224):
+    off = (x.shape[1] - size) // 2
+    return x[:, off:off + size, off:off + size]
+
+
+def make_hierarchical(dev, sd, calib_u8) -> dict:
+    """The multiscale classifier of phase 11 as a state dict with its
+    calibration (``hierarchical_classifier.pt``): the slice's BN-calibrated
+    trunk, a seeded scale embedding and heads, and the heads set as
+    ``make_model`` sets its head. Over the calibration cells' features (the
+    artifact's crop input mode), ``aux_head`` reads the first principal
+    direction of the scale-embedded per-level features, and two units of
+    ``head_hidden`` read that of the concatenated features, one each way,
+    whose difference ``head_out`` takes: the fused margin is linear in it.
+    Both spread with std MARGIN_STD, far beyond the bf16 bound."""
+    import torch
+
+    from ss25_hierarchical_multiscale_image_classification_tpu_torch.data.augment import (
+        normalize,
+    )
+    from ss25_hierarchical_multiscale_image_classification_tpu_torch.models.convert import (
+        CALIBRATION_PREFIX,
+        strip_head,
+    )
+    from ss25_hierarchical_multiscale_image_classification_tpu_torch.models.hierarchical import (
+        HierarchicalPatchClassifier,
+    )
+
+    g = torch.Generator().manual_seed(SEED + 11)
+    model = HierarchicalPatchClassifier(levels=MS_LEVELS, aux=True, generator=g)
+    model.trunk.load_state_dict(strip_head(sd))
+    model = model.to(dev)
+    n = len(calib_u8[MS_LEVELS[0]])
+    x = torch.cat([torch.from_numpy(_center(calib_u8[MS_LEVELS[0]]).copy()),
+                   torch.from_numpy(calib_u8[MS_LEVELS[1]])]).to(dev)
+
+    def direction(rows):
+        mean = rows.mean(dim=0)
+        d = torch.linalg.svd(rows - mean, full_matrices=False).Vh[0]
+        d = d * (MARGIN_STD / ((rows - mean) @ d).std())
+        return d, -(mean @ d)
+
+    with torch.no_grad():
+        feats = model.trunk(normalize(x)).reshape(2, n, -1).transpose(0, 1)
+        e = feats + model.scale_embed[None]
+        d, c = direction(e.reshape(n, -1))
+        model.head_hidden.weight[0] = d
+        model.head_hidden.bias[0] = c
+        model.head_hidden.weight[1] = -d
+        model.head_hidden.bias[1] = -c
+        fused = e.reshape(n, -1) @ d + c
+        da, ca = direction(e.reshape(2 * n, -1))
+        # the aux margins rise with the fused ones (an SVD direction's sign
+        # is arbitrary): the ensembles then spread as their parts do
+        if torch.corrcoef(torch.stack([fused, (e[:, -1] @ da + ca)]))[0, 1] < 0:
+            da, ca = -da, -ca
+        model.aux_head.weight.copy_(torch.stack([-da / 2, da / 2]))
+        model.aux_head.bias.copy_(torch.stack([-ca / 2, ca / 2]))
+        model.head_out.weight.zero_()
+        model.head_out.weight[0, :2] = torch.tensor([-0.5, 0.5])
+        model.head_out.weight[1, :2] = torch.tensor([0.5, -0.5])
+        model.head_out.bias.zero_()
+    state = {k: v.detach().cpu().clone() for k, v in model.state_dict().items()}
+    for key, value in MS_CAL.items():
+        state[f"{CALIBRATION_PREFIX}{key}"] = torch.tensor(float(value),
+                                                          dtype=torch.float64)
+    return state
+
+
+def ms_reference(state, calibration, u8, input_mode):
+    """The float32 CPU scores (cells, 5) of multiscale cells, through the
+    port's step with its plain versions."""
+    import torch
+
+    from ss25_hierarchical_multiscale_image_classification_tpu_torch.infer.multiscale import (
+        make_prob_step_multiscale,
+    )
+    from ss25_hierarchical_multiscale_image_classification_tpu_torch.models.convert import (
+        hierarchical_from_state_dict,
+    )
+
+    cpu = hierarchical_from_state_dict(state, MS_LEVELS)
+    step = make_prob_step_multiscale(
+        cpu, MS_LEVELS, 224, temperature=calibration["temperature"],
+        aux_temperature=calibration["aux_temperature"],
+        ensemble_weight=calibration["ensemble_weight"], with_aux=True,
+        ensemble_base_weight=calibration["ensemble_base_weight"],
+        input_mode=input_mode)
+    return step({lvl: torch.from_numpy(x) for lvl, x in u8.items()}).numpy()
+
+
+def phase_multiscale(dev, sd, slide, spec, grid, host_margins, calib, ref,
+                     tmp) -> dict:
+    """``--predict_slide --multiscale`` at levels (2, 3) on the slice's grid:
+    the float path in both input modes with 2a's launches counted, against
+    the float32 CPU forward of the same multiscale cells; the component
+    identities; the CLI with ``--ms_components``, and ``<dir> --run_evaluation``;
+    the cascade (survivors, and a bailout); ``--quantize --multiscale`` and
+    the int8 path on the stacked batch; walls in turns with the single-level
+    host-filter slice."""
+    import numpy as np
+    import torch
+    import torch.nn.functional as F
+
+    from ss25_hierarchical_multiscale_image_classification_tpu_torch.config import (
+        Config,
+        DataConfig,
+    )
+    from ss25_hierarchical_multiscale_image_classification_tpu_torch.data.manifest import (
+        PatchManifest,
+    )
+    from ss25_hierarchical_multiscale_image_classification_tpu_torch.data.multiscale import (
+        MultiscaleDataset,
+    )
+    from ss25_hierarchical_multiscale_image_classification_tpu_torch.data.patch_store import (
+        PackedPatchWriter,
+    )
+    from ss25_hierarchical_multiscale_image_classification_tpu_torch.infer.multiscale import (
+        COMBINE_COLUMNS,
+        COMPONENT_EXPORTS,
+        predict_slide_multiscale,
+    )
+    from ss25_hierarchical_multiscale_image_classification_tpu_torch.infer.sliding_window import (
+        NON_TISSUE_MARGIN,
+        predict_slide,
+        prob_to_margin,
+        sigmoid,
+    )
+    from ss25_hierarchical_multiscale_image_classification_tpu_torch.io.slide import (
+        save_npz_slide,
+    )
+    from ss25_hierarchical_multiscale_image_classification_tpu_torch.io.synthetic import (
+        write_mask_npy,
+    )
+    from ss25_hierarchical_multiscale_image_classification_tpu_torch.models.convert import (
+        hierarchical_from_state_dict,
+        resnet18_from_state_dict,
+        split_calibration,
+    )
+    from ss25_hierarchical_multiscale_image_classification_tpu_torch.models.quant_artifact import (
+        TRUNK_ARTIFACT,
+        artifact_input_hw,
+        load_quantized,
+        quantize_trunk_to_artifact,
+    )
+    from ss25_hierarchical_multiscale_image_classification_tpu_torch.models.quantized import (
+        quant_forward,
+        quantized_to,
+    )
+    from ss25_hierarchical_multiscale_image_classification_tpu_torch.ops.preprocess import (
+        fused_normalize,
+    )
+    from ss25_hierarchical_multiscale_image_classification_tpu_torch.train.checkpoints import (
+        save_model,
+    )
+
+    torch.backends.cudnn.allow_tf32 = False
+    torch.backends.cuda.matmul.allow_tf32 = False
+    s = len(MS_LEVELS)
+    calib_u8 = ms_cells(slide, grid, calib)
+    state = make_hierarchical(dev, sd, calib_u8)
+    module_state, cal = split_calibration(state)
+    models_dir = os.path.join(tmp, "ms_models")
+    save_model(os.path.join(models_dir, "hierarchical_classifier"), state)
+    model = hierarchical_from_state_dict(module_state, MS_LEVELS).for_inference(
+        dev, torch.bfloat16)
+    white = host_margins == NON_TISSUE_MARGIN
+    n_tissue = int((~white).sum())
+    batches = -(-n_tissue // MS_BATCH)
+    kw = dict(levels=MS_LEVELS, stride=STRIDE, batch_size=MS_BATCH,
+              output="margin", return_components=True, device=dev)
+    ref_u8 = ms_cells(slide, grid, ref)
+    iy, ix = ref[:, 0], ref[:, 1]
+
+    # the float path, in the artifact's crop mode and in resize mode (2a at
+    # 448² in float32 before the antialiased resize)
+    full = {}
+    for mode in ("crop", "resize"):
+        reset_counts()  # counts from here on are the multiscale path's
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        out, ms_grid, comps = predict_slide_multiscale(
+            slide, model, cal, input_mode=mode, **kw)
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+        launches = fused_normalize.launches
+        full[mode] = (out, comps, launches)
+        log(f"[multiscale] predict_slide_multiscale levels {MS_LEVELS}, "
+            f"input_mode={mode}: {ms_grid.num_patches} cells "
+            f"({ms_grid.nx}×{ms_grid.ny}, base level {ms_grid.level}) in "
+            f"{wall:.3f} s (first run); {batches} batches of ≤ {MS_BATCH} "
+            f"cells = {s * MS_BATCH} images a trunk call; fused_normalize "
+            f"launches {launches}")
+        if (ms_grid.nx, ms_grid.ny) != (grid.nx, grid.ny):
+            raise AssertionError("the multiscale grid is not the slice's")
+        if launches != s * batches:
+            raise AssertionError(f"expected {s * batches} fused_normalize "
+                                 f"launches, counted {launches}")
+        for name in COMBINE_COLUMNS:
+            if not np.isfinite(comps[name]).all():
+                raise AssertionError(f"non-finite {name} scores")
+            if not np.array_equal(comps[name] == NON_TISSUE_MARGIN, white):
+                raise AssertionError(f"the {name} tissue partition differs "
+                                     f"from the slice's host partition")
+        # the component identities, in log-odds space
+        w, wb = cal["ensemble_weight"], cal["ensemble_base_weight"]
+        t = ~white
+        d_ens = np.abs(comps["ensemble"][t] - (w * comps["fusion"][t] + (
+            1 - w) * comps["aux"][t])).max()
+        d_base = np.abs(comps["ensemble_base"][t] - (wb * comps["fusion"][t] + (
+            1 - wb) * comps["aux_base"][t])).max()
+        if (not np.array_equal(out, comps["ensemble"])
+                or max(d_ens, d_base) > 1e-4):
+            raise AssertionError("multiscale component identities do not hold")
+        want = ms_reference(module_state, cal, ref_u8, mode)
+        got = np.stack([comps[name][iy, ix] for name in COMBINE_COLUMNS], 1)
+        d = np.abs(got - want).max(axis=0)
+        spread = np.ptp(want, axis=0)
+        log(f"[multiscale] {len(ref)} reference cells, input_mode={mode}: "
+            f"bf16 card against float32 CPU per column "
+            f"{dict(zip(COMBINE_COLUMNS, np.round(d, 4).tolist()))} (bound "
+            f"{MS_BF16_ATOL}); CPU spreads "
+            f"{dict(zip(COMBINE_COLUMNS, np.round(spread, 3).tolist()))}; "
+            f"identities max|Δ| {d_ens:.3g}, {d_base:.3g}")
+        if (spread < 10 * MS_BF16_ATOL).any() or (d > MS_BF16_ATOL).any():
+            raise AssertionError("multiscale bf16 scores outside their bound "
+                                 "of the float32 forward, or the reference "
+                                 "spreads too little to check them")
+        # the fine stream's input mode changes the fused scores, not aux_base
+    d_modes = np.abs(full["crop"][1]["fusion"][~white]
+                     - full["resize"][1]["fusion"][~white]).max()
+    log(f"[multiscale] crop against resize: fusion max|Δ| {d_modes:.4g}")
+    out, comps, ms_launches = full["crop"]
+
+    # the CLI: --ms_components, then <dir> --run_evaluation
+    slide_path = os.path.join(tmp, "ms_slide", "smoke_slide.wsi.npz")
+    os.makedirs(os.path.dirname(slide_path))
+    save_npz_slide(slide_path, [slide.level_array(i)
+                                for i in range(slide.level_count)])
+    argv = ["--predict_slide", slide_path, "--multiscale", "--levels",
+            ",".join(map(str, MS_LEVELS)), "--ms_components", "--stride",
+            str(STRIDE), "--batch_size", str(MS_BATCH), "--models_dir",
+            models_dir, "--device", "cuda"]
+    reset_counts()
+    rc, wall = run_cli(argv)
+    cli_launches = fused_normalize.launches
+    csvs = {c: os.path.join(models_dir, f"model_predictions_csv{c}",
+                            "smoke_slide.csv")
+            for c in [""] + [f"_{c}" for c in COMPONENT_EXPORTS]}
+    rows = {c: np.loadtxt(p, delimiter=",", ndmin=2) for c, p in csvs.items()
+            if os.path.exists(p)}
+    log(f"[multiscale] {' '.join(argv[:2])} --multiscale --ms_components … "
+        f"exit {rc} in {wall:.2f} s; fused_normalize launches {cli_launches}; "
+        f"detections {[len(r) for r in rows.values()]} in {len(rows)} CSVs")
+    if (rc != 0 or len(rows) != len(csvs) or cli_launches != s * batches
+            or any(r.size == 0 or not ((r[:, 0] > 0) & (r[:, 0] < 1)).all()
+                   for r in rows.values())):
+        raise AssertionError("--predict_slide --multiscale --ms_components "
+                             "failed or wrote no valid detections")
+    data_dir = os.path.join(tmp, "ms_froc_data")
+    img_dir = os.path.join(data_dir, "test", "img")
+    os.makedirs(img_dir)
+    os.link(slide_path, os.path.join(img_dir, "smoke_slide.wsi.npz"))
+    write_mask_npy(os.path.join(data_dir, "test", "mask"), "smoke_slide", spec)
+    froc_models = os.path.join(tmp, "ms_froc_models")
+    save_model(os.path.join(froc_models, "hierarchical_classifier"), state)
+    with _Messages("evaluation.froc") as records:
+        rc, wall = run_cli(["--predict_slide", img_dir, "--multiscale",
+                            "--run_evaluation", "--data_dir", data_dir,
+                            "--stride", str(STRIDE), "--batch_size",
+                            str(MS_BATCH), "--models_dir", froc_models,
+                            "--device", "cuda"])
+    scores = [r.args[0] for r in records if r.msg.startswith("FROC score")]
+    log(f"[multiscale] --predict_slide <dir> --multiscale --run_evaluation: "
+        f"exit {rc} in {wall:.2f} s; FROC score {scores}")
+    if rc != 0 or len(scores) != 1 or not 0.0 <= scores[0] <= 1.0:
+        raise AssertionError("--predict_slide <dir> --multiscale "
+                             "--run_evaluation gave no FROC score in [0, 1]")
+
+    # the cascade: a floor at the median screen score, no probe; then a
+    # keep-everything floor with the probe, which bails out
+    tissue_base = comps["aux_base"][~white]
+    floor = float(np.median(sigmoid(tissue_base)))
+    reset_counts()
+    with _Messages("torch.infer.multiscale") as records:
+        casc, _, ccomps = predict_slide_multiscale(
+            slide, model, cal, cascade=floor, cascade_bailout=1.0, **kw)
+    casc_launches = fused_normalize.launches
+    survived = ccomps["fusion"] != NON_TISSUE_MARGIN
+    screened = ~white & ~survived
+    n_surv = int(survived.sum())
+    want_launches = batches + s * -(-n_surv // MS_BATCH)
+    d_surv = np.abs(ccomps["fusion"][survived] - comps["fusion"][survived]).max()
+    below = ccomps["aux_base"][screened]
+    log(f"[multiscale] cascade floor p={floor:.4f} (margin "
+        f"{prob_to_margin(floor):.4f}), bailout 1.0: {n_surv} of {n_tissue} "
+        f"tissue cells survive; fused_normalize launches {casc_launches} "
+        f"(screen {batches} + {s} × {-(-n_surv // MS_BATCH)}); survivors' "
+        f"fusion against the full pass max|Δ| {d_surv:.4g}; screened-out "
+        f"aux_base max {below.max() if below.size else float('nan'):.4f}")
+    if (not 0 < n_surv < n_tissue or casc_launches != want_launches
+            or survived[white].any()
+            or (below >= prob_to_margin(floor)).any()
+            or not np.array_equal(casc[screened], below)
+            or d_surv > MODES_ATOL):
+        raise AssertionError("the cascade's survivors, fill or launches are "
+                             "wrong")
+    with _Messages("torch.infer.multiscale") as records:
+        bail, _, bcomps = predict_slide_multiscale(
+            slide, model, cal, cascade=1e-9, cascade_bailout=0.6, **kw)
+    text = "\n".join(r.getMessage() for r in records)
+    d_bail = max(np.abs(bcomps[c][~white] - comps[c][~white]).max()
+                 for c in COMBINE_COLUMNS)
+    log(f"[multiscale] cascade floor p=1e-9, bailout 0.6: bailed out "
+        f"{'mid-flight' if 'probe never armed' not in text else 'at the end'}"
+        f" ({'cascade: bailout' in text}); every column against the full "
+        f"pass max|Δ| {d_bail:.4g}")
+    if "cascade: bailout" not in text or d_bail > MODES_ATOL:
+        raise AssertionError("the keep-everything cascade did not bail out to "
+                             "the full pass")
+
+    # --quantize --multiscale: the function behind the flag on a packed store
+    # of the calibration cells at both levels (crop mode: no cv2 on the card)
+    store = os.path.join(tmp, "ms_patches")
+    manifests = {}
+    for lvl in MS_LEVELS:
+        ratio = 2 ** (LEVEL - lvl)  # base-level px → level px
+        writer = PackedPatchWriter(store, lvl, "smoke_slide",
+                                   calib_u8[lvl].shape[1])
+        coords = np.stack([calib[:, 1], calib[:, 0]], 1) * STRIDE * ratio
+        manifests[lvl] = PatchManifest(writer.write_batch(
+            calib_u8[lvl], coords, np.zeros(len(calib), np.int64)))
+        writer.close()
+    ds = MultiscaleDataset(manifests, resize_to=224, input_mode="crop")
+    cfg = Config(data=DataConfig(data_dir=os.path.join(tmp, "ms_data")),
+                 models_dir=models_dir)
+    reset_counts()
+    t0 = time.perf_counter()
+    path = quantize_trunk_to_artifact(cfg, levels=MS_LEVELS, dataset=ds,
+                                      device="cuda")
+    wall = time.perf_counter() - t0
+    tree = load_quantized(path)
+    log(f"[multiscale] --quantize --multiscale: {len(ds)} aligned cells, 4 "
+        f"batches of 64 stacked to 128 images → {os.path.basename(path)} "
+        f"({os.path.getsize(path) / 1e6:.1f} MB, stem "
+        f"{tuple(tree['qkernels']['stem'].shape)}, input "
+        f"{artifact_input_hw(tree)}) in {wall:.2f} s")
+    if (os.path.basename(path) != TRUNK_ARTIFACT or len(ds) != len(calib)
+            or artifact_input_hw(tree) != (224, 224) or tree["fc"] is not None):
+        raise AssertionError("--quantize --multiscale did not write the trunk "
+                             "artifact of a 224² input")
+    m32 = hierarchical_from_state_dict(module_state, MS_LEVELS).for_inference(
+        dev, torch.float32)
+    stage1, conv, pool = int8_launchers()
+    reset_counts()  # counts from here on are the int8 multiscale path's
+    q_out, _, qcomps = predict_slide_multiscale(
+        slide, m32, cal, int8=True, qtree=tree, **kw)
+    torch.cuda.synchronize()
+    q_launches = (stage1.launches, conv.launches, pool.launches)
+    log(f"[multiscale] predict_slide_multiscale(int8=True, qtree=artifact): "
+        f"launches fused_stage1_int8 {q_launches[0]}, int8_conv_requant "
+        f"{q_launches[1]}, int8_maxpool {q_launches[2]} over {batches} "
+        f"stacked batches of ≤ {s * MS_BATCH} images")
+    if q_launches != (batches, 16 * batches, batches):
+        raise AssertionError(f"expected {batches}, {16 * batches} and "
+                             f"{batches} launches on the int8 multiscale path, "
+                             f"counted {q_launches}")
+    if not np.array_equal(qcomps["fusion"] == NON_TISSUE_MARGIN, white):
+        raise AssertionError("the int8 multiscale tissue partition differs")
+    qt = quantized_to(tree, dev)
+    x_ref = torch.cat([torch.from_numpy(_center(ref_u8[MS_LEVELS[0]]).copy()),
+                       torch.from_numpy(ref_u8[MS_LEVELS[1]])]).to(dev)
+    from ss25_hierarchical_multiscale_image_classification_tpu_torch.data.augment import (
+        normalize,
+    )
+
+    with torch.inference_mode():
+        f8 = quant_forward(qt, x_ref, with_fc=False).reshape(s, len(ref), -1)
+        f32 = m32.trunk(normalize(x_ref)).reshape(s, len(ref), -1)
+        l8 = m32.fuse(f8.transpose(0, 1))
+        l32 = m32.fuse(f32.transpose(0, 1))
+    cos = F.cosine_similarity(l8.flatten(), l32.flatten(), dim=0).item()
+    m8 = ((l8[:, 1] - l8[:, 0]) / cal["temperature"]).cpu().numpy()
+    d_slide = np.abs(qcomps["fusion"][iy, ix] - m8).max()
+    log(f"[multiscale] {len(ref)} reference cells: int8 fused logits against "
+        f"float32 cosine {cos:.5f} (bound {INT8_COSINE_MIN}); the slide run's "
+        f"fusion scores against a direct quant_forward max|Δ| {d_slide:.3g}")
+    if cos < INT8_COSINE_MIN or d_slide > 1e-4 * np.abs(m8).max():
+        raise AssertionError("int8 multiscale logits outside their bound of "
+                             "float32, or the slide run unlike a direct forward")
+    with _Messages("models.quant_artifact") as records:
+        rc, wall = run_cli(["--predict_slide", slide_path, "--multiscale",
+                            "--int8", "--stride", str(STRIDE), "--batch_size",
+                            str(MS_BATCH), "--models_dir", models_dir,
+                            "--device", "cuda"])
+    used = any("using persisted" in r.getMessage() for r in records)
+    log(f"[multiscale] --predict_slide --multiscale --int8 … exit {rc} in "
+        f"{wall:.2f} s; artifact picked up: {used}")
+    if rc != 0 or not used:
+        raise AssertionError("--predict_slide --multiscale --int8 did not run "
+                             "from the trunk artifact")
+    del m32, qt
+
+    # walls in turns with the single-level host-filter slice (bf16, B=512)
+    single = resnet18_from_state_dict(sd).to(device=dev, dtype=torch.bfloat16,
+                                             memory_format=torch.channels_last)
+    one = lambda: predict_slide(slide, single, level=LEVEL, stride=STRIDE,  # noqa: E731
+                                batch_size=BATCH, output="margin",
+                                tissue_filter="host", device=dev)
+    multi = lambda: predict_slide_multiscale(slide, model, cal, **kw)  # noqa: E731
+    walls = {"single": [], "multi": []}
+
+    def timed(name, fn):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        fn()
+        torch.cuda.synchronize()
+        walls[name].append(time.perf_counter() - t0)
+
+    one()
+    for _ in range(MS_WALL_RUNS):
+        for name, fn in (("single", one), ("multi", multi), ("multi", multi),
+                         ("single", one)):
+            timed(name, fn)
+    torch.cuda.reset_peak_memory_stats()
+    multi()
+    peak = torch.cuda.max_memory_allocated() / 2**30
+    med = {k: statistics.median(v) for k, v in walls.items()}
+    log(f"[multiscale] warm walls in turns ({2 * MS_WALL_RUNS} runs each): "
+        f"multiscale {med['multi']:.4f} s median ({min(walls['multi']):.4f}–"
+        f"{max(walls['multi']):.4f}) = {grid.num_patches / med['multi']:.1f} "
+        f"cells/s; single-level host filter {med['single']:.4f} s "
+        f"({min(walls['single']):.4f}–{max(walls['single']):.4f}) = "
+        f"{grid.num_patches / med['single']:.1f} cells/s; ratio "
+        f"{med['multi'] / med['single']:.2f}; multiscale peak device memory "
+        f"{peak:.2f} GiB")
+    return {"launches": ms_launches, "int8_launches": q_launches,
+            "model": model, "cal": cal, "walls": walls, "peak_gib": peak}
+
+
+def phase_multiscale_profile(dev, slide, model, cal) -> None:
+    """One warm multiscale run under the profiler: device-busy time and the
+    idle share of the wall (last in the run: host walls taken after a
+    profiler session come out longer)."""
+    import torch
+
+    from ss25_hierarchical_multiscale_image_classification_tpu_torch.infer.multiscale import (
+        predict_slide_multiscale,
+    )
+
+    kw = dict(levels=MS_LEVELS, stride=STRIDE, batch_size=MS_BATCH,
+              output="margin", device=dev)
+    predict_slide_multiscale(slide, model, cal, **kw)
+    acts = [torch.profiler.ProfilerActivity.CPU,
+            torch.profiler.ProfilerActivity.CUDA]
+    with torch.profiler.profile(activities=acts) as prof:
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        predict_slide_multiscale(slide, model, cal, **kw)
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+    busy = busy_us(prof) / 1e3
+
+    def device_ms(e):
+        return (getattr(e, "self_device_time_total", None)
+                or getattr(e, "self_cuda_time_total", 0)) / 1e3
+
+    kernels = [e for e in prof.key_averages()
+               if e.device_type == torch.autograd.DeviceType.CUDA]
+    top = sorted(kernels, key=device_ms, reverse=True)[:12]
+    log(f"[multiscale] one warm run under the profiler: wall {wall * 1e3:.1f} "
+        f"ms, device busy {busy:.1f} ms → idle {1 - busy / (wall * 1e3):.3f}; "
+        f"device time by kernel (ms, launches): "
+        + "; ".join(f"{e.key[:50]} {device_ms(e):.2f} ({e.count})"
+                    for e in top))
+    if busy <= 0:
+        raise AssertionError("the profiler saw no device time")
+
+
 def phase_features(dev, ds, sd, tmp) -> dict:
     """``extract_features`` on the card over the packed store of the slide's
     tissue cells, the stem kernels' launches counted around each route."""
@@ -3008,16 +3586,26 @@ def main() -> int:
         train = phase_train(dev, ds, slide, spec, os.path.join(tmp, "models"),
                             tmp)
         torch.cuda.empty_cache()
+        ms = phase_multiscale(dev, sd, slide, spec, grid, host_margins, calib,
+                              ref, tmp)
+        torch.cuda.empty_cache()
         # last: they end under torch.profiler, and host-clock walls taken in
         # this process after a profiler session come out longer
         feature_launches = phase_features(dev, ds, sd, tmp)
         phase_train_profile(train.pop("trainer"), len(ds))
+        phase_multiscale_profile(dev, slide, ms.pop("model"), ms["cal"])
     del ds
 
     jax_pkg = "ss25_hierarchical_multiscale_image_classification_tpu"
     ops = f"{jax_pkg}/ops/pallas"
     log(f"[paths] fused_normalize launches: slide path {kernel['launches']}, "
-        f"FROC path {froc_launches}")
+        f"FROC path {froc_launches}, multiscale path {ms['launches']}; int8 "
+        f"multiscale path (fused_stage1_int8, int8_conv_requant, int8_maxpool) "
+        f"{ms['int8_launches']}")
+    kernel["multiscale_launches"] = ms["launches"]
+    stage1["multiscale_launches"] = ms["int8_launches"][0]
+    int8_conv["multiscale_launches"] = ms["int8_launches"][1]
+    int8_pool["multiscale_launches"] = ms["int8_launches"][2]
     rows = [("fused_normalize", "fused_normalize.cu", f"{ops}/preprocess.py:35",
              kernel)]
     for name, line in (("nt_xent_fwd", 63), ("nt_xent_bwd", 157)):
@@ -3057,7 +3645,8 @@ def main() -> int:
         "bound_by": k["bound_by"],
         "library_ms": k["library_ms"],
         **{key: k[key] for key in ("bound_fp32_ms", "back_to_back_ms",
-                                   "kernel_ms", "kernel_back_to_back_ms")
+                                   "kernel_ms", "kernel_back_to_back_ms",
+                                   "multiscale_launches")
            if key in k},
     } for name, source, replaces, k in rows]}
     log(smi)  # the card's name and power limit, as nvidia-smi prints them

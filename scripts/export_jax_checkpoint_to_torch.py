@@ -1,4 +1,4 @@
-"""Export a JAX-package ResNet18, SimCLR or MIL artifact (Orbax) to the PyTorch port's ``.pt``.
+"""Export a JAX-package ResNet18, SimCLR, MIL or multiscale artifact (Orbax) to the PyTorch port's ``.pt``.
 
 Reads the artifact with the JAX package's ``train/checkpoints.py::load_model``
 and writes the state dict that the port loads: torchvision layout for a
@@ -6,17 +6,23 @@ ResNet18 (what ``models.convert.load_state_dict_file`` and the port's CLI
 read), the port's ``SimCLRModel`` layout (``encoder.*``, ``projector.*``)
 for a ``simclr_encoder`` artifact, the port's ``MILClassifier`` layout
 (``attention.*``, ``dense_0.*``, ``dense_1.*``) for a ``mil_classifier``
-artifact. Needs JAX, so it runs where the JAX
-package runs; the port's machine only reads the ``.pt``.
+artifact, and the port's ``HierarchicalPatchClassifier`` layout (``trunk.*``,
+``scale_embed``, the heads, and the calibration as ``calibration.<key>``
+0-d float64 tensors) for a ``hierarchical_classifier`` artifact. Needs JAX,
+so it runs where the JAX package runs; the port's machine only reads the
+``.pt``.
 
     python scripts/export_jax_checkpoint_to_torch.py \\
         models_out/resnet18_patch_classifier [models_out/resnet18_patch_classifier.pt]
+    python scripts/export_jax_checkpoint_to_torch.py \\
+        models_out/hierarchical_classifier   # for --predict_slide --multiscale
 
 The output defaults to the artifact path plus ``.pt``: the name the port's
 CLI looks for under ``--models_dir`` with the same ``--model_name``.
 
-An int8 artifact (``quantized_resnet18.npz``, written by ``--quantize`` of
-either package) needs no export: it is a plain ``.npz`` with the same keys
+An int8 artifact (``quantized_resnet18.npz`` or
+``quantized_hierarchical_trunk.npz``, written by ``--quantize`` of either
+package) needs no export: it is a plain ``.npz`` with the same keys
 and HWIO kernels on both sides, and the port's
 ``models/quant_artifact.py::load_quantized`` reads it as it is.
 """
@@ -33,6 +39,7 @@ from ss25_hierarchical_multiscale_image_classification_tpu.train.checkpoints imp
     load_model,
 )
 from ss25_hierarchical_multiscale_image_classification_tpu_torch.models.convert import (
+    hierarchical_state_dict_from_flax,
     mil_state_dict_from_flax,
     simclr_state_dict_from_flax,
     state_dict_from_flax,
@@ -49,7 +56,9 @@ def main(argv=None) -> int:
     dst = args.output or f"{src}.pt"
     variables = load_model(src)
     params = variables["params"]
-    if "projector" in params:
+    if "scale_embed" in params:  # the multiscale classifier
+        convert = hierarchical_state_dict_from_flax
+    elif "projector" in params:
         convert = simclr_state_dict_from_flax
     elif "Dense_1" in params:  # the MIL classifier's head
         convert = mil_state_dict_from_flax

@@ -17,10 +17,26 @@ torchvision-layout ResNet18 state dict, written by ``--train`` or by
 ``scripts/export_jax_checkpoint_to_torch.py``) once and writes one
 detection CSV a slide to ``<models_dir>/model_predictions_csv/<slide>.csv``,
 where the JAX CLI writes it; given a directory, it runs every ``.tif``,
-``.tiff`` and ``.wsi.npz`` slide in it, sorted. ``--run_evaluation`` then
-scores those CSVs against the masks under ``<data_dir>/test/mask``
-(``{case}_mask.npy`` and the other forms ``evaluation/froc.py`` reads) with
-the official CAMELYON16 FROC.
+``.tiff`` and ``.wsi.npz`` slide in it, sorted, under the JAX fleet's error
+contract: a slide that fails is logged, the others go on and write their
+CSVs, and one ``RuntimeError`` at the end names the count and the first
+failing path. Unlike the JAX fleet, which always filters tissue on the
+host, the directory mode honours ``--tissue_filter device`` per slide (the
+partitions are equal). ``--run_evaluation`` then scores those CSVs against
+the masks under ``<data_dir>/test/mask`` (``{case}_mask.npy`` and the other
+forms ``evaluation/froc.py`` reads) with the official CAMELYON16 FROC.
+
+``--predict_slide --multiscale`` classifies every cell of the base level
+(the largest of ``--levels``, default ``2,3``) from all the levels at once
+with ``<models_dir>/hierarchical_classifier.pt`` (exported from a JAX
+artifact by ``scripts/export_jax_checkpoint_to_torch.py``; its calibration
+picks the reported surface under ``--ms_combine auto`` and its input mode);
+``--ms_components`` also writes the fusion, aux, aux_base and ensemble_base
+surfaces' CSVs into ``model_predictions_csv_<surface>/``; ``--cascade
+[auto|p]`` screens the tissue with the base level's aux head first (with
+``--cascade_bailout``). With ``--int8`` the shared trunk runs the int8
+forward, from ``<models_dir>/quantized_hierarchical_trunk.npz`` when
+``--quantize --multiscale`` wrote it.
 
 ``--train`` trains the ResNet18 patch classifier on the level's patches
 (weighted loss, ``--epochs``, default 30) and writes
@@ -66,10 +82,14 @@ else with scales calibrated lazily on the run's first batches.
         --quantize --data_dir data/camelyon16 --patch_level 3
     python -m ss25_hierarchical_multiscale_image_classification_tpu_torch.cli.main \\
         --predict_slide slide.wsi.npz --int8
+    python -m ss25_hierarchical_multiscale_image_classification_tpu_torch.cli.main \\
+        --predict_slide slide.wsi.npz --multiscale --levels 2,3 --ms_components
 
-Tiled TIFF slides, multi-card fleets, ``--overlay``, ``--qat`` and
-``--multiscale`` come with later slices. On the card the float model runs
-in bfloat16, on the CPU in float32.
+Flags the JAX CLI ignores in a combination (``--int8`` or
+``--simclr_features`` without their action, no action at all) are ignored
+here too. Tiled TIFF slides, multi-card fleets, ``--overlay``, ``--qat``
+and ``--train_multiscale`` come with later slices. On the card the float
+model runs in bfloat16, on the CPU in float32.
 """
 
 from __future__ import annotations
@@ -102,22 +122,34 @@ from ss25_hierarchical_multiscale_image_classification_tpu_torch.infer.features 
     extract_features,
     extract_features_with_simclr,
 )
+from ss25_hierarchical_multiscale_image_classification_tpu_torch.infer.multiscale import (
+    predict_and_export_multiscale,
+)
 from ss25_hierarchical_multiscale_image_classification_tpu_torch.infer.sliding_window import (
     SLIDE_EXTENSIONS,
     predict_and_export,
+    slide_name,
 )
 from ss25_hierarchical_multiscale_image_classification_tpu_torch.io.download import (
     images_downloaded,
 )
 from ss25_hierarchical_multiscale_image_classification_tpu_torch.logging_utils import get_logger
 from ss25_hierarchical_multiscale_image_classification_tpu_torch.models.convert import (
+    hierarchical_from_state_dict,
     load_state_dict_file,
     resnet18_from_state_dict,
+    split_calibration,
 )
 from ss25_hierarchical_multiscale_image_classification_tpu_torch.models.quant_artifact import (
     CLASSIFIER_ARTIFACT,
+    TRUNK_ARTIFACT,
     maybe_load_artifact,
     quantize_classifier_to_artifact,
+    quantize_trunk_to_artifact,
+)
+from ss25_hierarchical_multiscale_image_classification_tpu_torch.train.checkpoints import (
+    load_model,
+    model_artifact_path,
 )
 from ss25_hierarchical_multiscale_image_classification_tpu_torch.train.mil_trainer import (
     train_mil_classifier,
@@ -133,15 +165,52 @@ log = get_logger("torch.cli")
 def build_parser() -> argparse.ArgumentParser:
     parser = argparse.ArgumentParser(
         prog="hipac-torch",
-        description="Sliding-window tumor detection and its FROC "
-                    "evaluation, patch-classifier training, attention-MIL "
-                    "slide classification, patch feature extraction and "
-                    "int8 quantization (PyTorch/CUDA)",
+        description="Sliding-window tumor detection (single-level and "
+                    "hierarchical multiscale) and its FROC evaluation, "
+                    "patch-classifier training, attention-MIL slide "
+                    "classification, patch feature extraction and int8 "
+                    "quantization (PyTorch/CUDA)",
     )
     parser.add_argument("--predict_slide", type=str, default=None,
                         help="Sliding-window inference on one slide, or on "
                              "every slide of a directory: writes the "
                              "detection CSVs (FROC producer)")
+    parser.add_argument("--multiscale", action="store_true",
+                        help="With --predict_slide: classify every grid "
+                             "cell from all --levels magnifications at once "
+                             "with the hierarchical fusion classifier "
+                             "(<models_dir>/hierarchical_classifier.pt); "
+                             "with --quantize: write the int8 artifact of "
+                             "its shared trunk")
+    parser.add_argument("--levels", type=str, default="2,3",
+                        help="Comma-separated pyramid levels of "
+                             "--multiscale")
+    parser.add_argument("--ms_combine", type=str, default="auto",
+                        choices=["auto", "ensemble", "fusion", "aux",
+                                 "aux_base", "ensemble_base"],
+                        help="With --predict_slide --multiscale: which "
+                             "surface to report (auto = the one the "
+                             "artifact's calibration selected; aux = the "
+                             "per-level mean; aux_base = the base level's "
+                             "aux head; ensemble_base = fusion x aux_base "
+                             "mix)")
+    parser.add_argument("--ms_components", action="store_true",
+                        help="With --predict_slide --multiscale: also write "
+                             "the detection CSVs of the fusion, aux, "
+                             "aux_base and ensemble_base surfaces (one pass; "
+                             "dirs model_predictions_csv_<surface>)")
+    parser.add_argument("--cascade", type=_cascade_value, nargs="?",
+                        const="auto", default=None,
+                        help="With --predict_slide --multiscale: screen "
+                             "every tissue cell with the base level's aux "
+                             "head and run the fused model on the survivors "
+                             "only. Without a value the artifact's fitted "
+                             "operating point; a probability overrides it")
+    parser.add_argument("--cascade_bailout", type=float, default=None,
+                        help="With --cascade: abandon the screen and run the "
+                             "full fused pass when more than this fraction "
+                             "of the probed tissue survives (default 0.6; "
+                             ">= 1 disables the probe)")
     parser.add_argument("--run_evaluation", action="store_true",
                         help="Run the official CAMELYON16 FROC evaluation")
     parser.add_argument("-train", "--train", action="store_true",
@@ -166,8 +235,9 @@ def build_parser() -> argparse.ArgumentParser:
     parser.add_argument("--quantize", action="store_true",
                         help="Calibrate int8 scales ONCE on training tissue "
                              "and persist the quantized model artifact "
-                             "(quantized_resnet18.npz) for deterministic "
-                             "--int8 inference")
+                             "(quantized_resnet18.npz; with --multiscale: "
+                             "quantized_hierarchical_trunk.npz) for "
+                             "deterministic --int8 inference")
     parser.add_argument("--int8", action="store_true",
                         help="Post-training int8 (w8a8) inference for "
                              "--extract_features / --predict_slide: BN-fold "
@@ -213,6 +283,21 @@ def build_parser() -> argparse.ArgumentParser:
                         help="Where the model runs (default cuda; no "
                              "fallback when no card is visible)")
     return parser
+
+
+def _cascade_value(v: str):
+    """``--cascade``'s value: ``auto`` or a probability in [0, 1)."""
+    if v == "auto":
+        return v
+    try:
+        f = float(v)
+    except ValueError:
+        raise argparse.ArgumentTypeError(
+            f"--cascade expects 'auto' or a probability in [0, 1), got {v!r}")
+    if not 0.0 <= f < 1.0:
+        raise argparse.ArgumentTypeError(
+            f"--cascade probability must be in [0, 1), got {f}")
+    return f
 
 
 def _reject_unknown_args(parser: argparse.ArgumentParser, argv) -> None:
@@ -272,11 +357,44 @@ def _slide_paths(target: str) -> list[str]:
                   if f.endswith(SLIDE_EXTENSIONS))
 
 
+def _predict_each(target: str, paths: list[str], predict_one) -> None:
+    """``predict_one(path)`` for every slide. For a directory, the JAX
+    fleet's contract (``infer/fleet.py``): a slide's exception is logged and
+    the other slides go on and write their CSVs; at the end one
+    ``RuntimeError`` names the count and the first failing path, chained
+    from its exception. A single slide's exception propagates as it is."""
+    if not os.path.isdir(target):
+        predict_one(paths[0])
+        return
+    errors: list[tuple[str, Exception]] = []
+    for path in paths:
+        try:
+            predict_one(path)
+        except Exception as e:  # surface at the end, don't stop the others
+            errors.append((path, e))
+            log.error("%s failed: %s", slide_name(os.path.basename(path)), e,
+                      exc_info=True)
+    if errors:
+        path, e = errors[0]
+        raise RuntimeError(f"{len(errors)} slide(s) failed; first: {path}") from e
+
+
+def _predict_kw(args) -> dict:
+    kw = {}
+    if args.batch_size:
+        kw["batch_size"] = args.batch_size
+    if args.stride:
+        kw["stride"] = args.stride
+    return kw
+
+
 def _predict_slide(args, cfg: Config, level: int, device) -> int:
     paths = _slide_paths(args.predict_slide)
     if not paths:
         log.error("No slides in %s", args.predict_slide)
         return 1
+    if args.multiscale:
+        return _predict_slide_multiscale(args, cfg, device, paths)
     weights = os.path.join(cfg.models_dir, f"{args.model_name}.pt")
     model = resnet18_from_state_dict(load_state_dict_file(weights))
     # the int8 path reads the model only to calibrate lazily: float32 then
@@ -286,11 +404,7 @@ def _predict_slide(args, cfg: Config, level: int, device) -> int:
                      memory_format=torch.channels_last)
     threshold = (args.detect_threshold if args.detect_threshold is not None
                  else DETECTION_PROB_THRESHOLD)
-    predict_kw = {}
-    if args.batch_size:
-        predict_kw["batch_size"] = args.batch_size
-    if args.stride:
-        predict_kw["stride"] = args.stride
+    predict_kw = _predict_kw(args)
     tissue_filter = args.tissue_filter
     if args.int8:
         if tissue_filter == "device":
@@ -300,7 +414,8 @@ def _predict_slide(args, cfg: Config, level: int, device) -> int:
         predict_kw["int8"] = True
         predict_kw["qtree"] = maybe_load_artifact(cfg.models_dir,
                                                   CLASSIFIER_ARTIFACT)
-    for path in paths:
+
+    def predict_one(path: str) -> None:
         _, csv_path = predict_and_export(
             path, model,
             os.path.join(cfg.models_dir, "model_predictions_csv"),
@@ -308,6 +423,42 @@ def _predict_slide(args, cfg: Config, level: int, device) -> int:
             device=device, **predict_kw,
         )
         log.info("Detections written: %s", csv_path)
+
+    _predict_each(args.predict_slide, paths, predict_one)
+    return 0
+
+
+def _predict_slide_multiscale(args, cfg: Config, device, paths) -> int:
+    """``--predict_slide --multiscale``: the JAX CLI's multiscale branch on
+    one card (``--tissue_filter`` and ``--model_name`` do not apply)."""
+    levels = tuple(int(v) for v in args.levels.split(","))
+    state, calibration = split_calibration(load_model(model_artifact_path(
+        cfg.models_dir, "hierarchical_classifier")))
+    model = hierarchical_from_state_dict(state, levels)
+    # the int8 path calibrates lazily from the trunk's weights: float32 then
+    dtype = (torch.bfloat16 if device.type == "cuda" and not args.int8
+             else torch.float32)
+    model.for_inference(device, dtype)
+    threshold = (args.detect_threshold if args.detect_threshold is not None
+                 else DETECTION_PROB_THRESHOLD)
+    ms_kw = _predict_kw(args)
+    if args.cascade is not None:
+        ms_kw["cascade"] = args.cascade
+        if args.cascade_bailout is not None:
+            ms_kw["cascade_bailout"] = args.cascade_bailout
+    if args.int8:
+        ms_kw["qtree"] = maybe_load_artifact(cfg.models_dir, TRUNK_ARTIFACT)
+    csv_dir = os.path.join(cfg.models_dir, "model_predictions_csv")
+
+    def predict_one(path: str) -> None:
+        _, csv_path = predict_and_export_multiscale(
+            path, model, csv_dir, levels=levels, threshold=threshold,
+            export_components=args.ms_components, calibration=calibration,
+            combine=args.ms_combine, int8=args.int8, device=device, **ms_kw,
+        )
+        log.info("Detections written: %s", csv_path)
+
+    _predict_each(args.predict_slide, paths, predict_one)
     return 0
 
 
@@ -343,17 +494,9 @@ def main(argv=None) -> int:
     parser = build_parser()
     _reject_unknown_args(parser, argv)
     args = parser.parse_args(argv)
-    if not (args.predict_slide is not None or args.run_evaluation
-            or args.train or args.train_strategy or args.evaluate
-            or args.train_mil or args.extract_features or args.quantize):
-        parser.error("give at least one of --predict_slide, --train_mil, "
-                     "--extract_features, --quantize, --run_evaluation, "
-                     "--train, --train_strategy and --evaluate")
-    if args.simclr_features and not args.extract_features:
-        parser.error("--simclr_features goes with --extract_features")
-    if args.int8 and not (args.predict_slide is not None
-                          or args.extract_features):
-        parser.error("--int8 goes with --predict_slide or --extract_features")
+    if args.cascade_bailout is not None and args.cascade is None:
+        parser.error("--cascade_bailout requires --cascade (the bailout probe "
+                     "configures the cascade's screen pass)")
     cfg = _config_from_args(args)
     level = 3 if args.patch_level == "all" else int(args.patch_level)
     device = resolve_device(args.device)
@@ -385,7 +528,13 @@ def main(argv=None) -> int:
         train_mil_classifier(cfg, level=level, epochs=args.epochs,
                              device=device)
     if args.quantize:
-        path = quantize_classifier_to_artifact(cfg, level=level, device=device)
+        if args.multiscale:
+            path = quantize_trunk_to_artifact(
+                cfg, levels=tuple(int(v) for v in args.levels.split(",")),
+                device=device)
+        else:
+            path = quantize_classifier_to_artifact(cfg, level=level,
+                                                   device=device)
         log.info("Quantized artifact written: %s", path)
     if args.predict_slide is not None:
         rc = _predict_slide(args, cfg, level, device)

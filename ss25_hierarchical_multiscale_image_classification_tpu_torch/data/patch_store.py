@@ -1,7 +1,7 @@
 """Packed patch store: writer and random-access reader.
 
 Copy of the JAX package's ``data/patch_store.py`` (``PackedPatchWriter``,
-``PatchReader``), held to it by exact tests. A packed store appends raw
+``PatchReader``, ``resize_batch``), held to it by exact tests. A packed store appends raw
 (N, P, P, 3) uint8 patches to ``patches/level_{L}/{slide}.pack`` with the
 shape in a ``.shape`` sidecar, and is read back through a memmap with no
 decoding.
@@ -154,3 +154,12 @@ def _resize(img: np.ndarray, edge: int) -> np.ndarray:
     import cv2
 
     return cv2.resize(img, (edge, edge), interpolation=cv2.INTER_AREA)
+
+
+def resize_batch(batch: np.ndarray, edge: int) -> np.ndarray:
+    """Resize an already-read (B, H, W, 3) uint8 batch in memory, for
+    callers that only learn the stored size after the gather (no second
+    read just to change resolution)."""
+    if batch.shape[1] == edge and batch.shape[2] == edge:
+        return batch
+    return np.stack([_resize(img, edge) for img in batch])

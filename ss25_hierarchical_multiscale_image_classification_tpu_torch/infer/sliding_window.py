@@ -233,61 +233,90 @@ def make_prob_step_int8(input_size: int = 224):
 
 
 class _BatchPipeline:
-    """A depth-4 window of in-flight batches, as in the JAX module.
+    """A window of ``depth`` in-flight batches (4, as in the JAX module).
 
     The host fills :attr:`host` (a numpy view of a pinned uint8 buffer on a
     CUDA device), :meth:`dispatch` copies it to the device without
     blocking, runs the step, and starts the result's copy back into a
     pinned buffer; a result is read only once it falls off the window. A
-    ring of ``DEPTH + 1`` buffers means the one being filled is never one a
+    ring of ``depth + 1`` buffers means the one being filled is never one a
     pending batch still reads. On the CPU everything runs synchronously.
+
+    ``patch_size`` is one edge, or ``{level: edge}`` for a multiscale step,
+    which then takes a dict of per-level batches and :attr:`host` is a dict
+    of per-level buffers. ``columns`` gives each cell a row of that many
+    results. ``out`` is the array the results land in at their positions,
+    or a function ``out(positions, values)`` that takes them.
     """
 
     DEPTH = 4
 
     def __init__(self, step, device: torch.device, batch_size: int,
-                 patch_size: int, out: np.ndarray):
+                 patch_size: int | dict, out, columns: int | None = None,
+                 depth: int = DEPTH):
         pin = device.type == "cuda"
-        ring = self.DEPTH + 1
+        ring = depth + 1
+        self._single = not isinstance(patch_size, dict)
+        sizes = {None: patch_size} if self._single else dict(patch_size)
         # rows are written whole before they are sent: no fill needed
         self._bufs = [
-            torch.empty((batch_size, patch_size, patch_size, 3),
-                        dtype=torch.uint8, pin_memory=pin)
+            {key: torch.empty((batch_size, ps, ps, 3), dtype=torch.uint8,
+                              pin_memory=pin) for key, ps in sizes.items()}
             for _ in range(ring)
         ]
-        self._results = [torch.empty(batch_size, dtype=torch.float32,
+        shape = (batch_size,) if columns is None else (batch_size, columns)
+        self._results = [torch.empty(shape, dtype=torch.float32,
                                      pin_memory=pin) for _ in range(ring)]
         self._step = step
         self._device = device
         self._out = out
+        self._depth = depth
         self._slot = 0
         self._pending: deque = deque()  # (result view, positions, event)
-        self.host = self._bufs[0].numpy()
+        self.host = self._host_views()
 
-    def dispatch(self, positions: list[int]) -> None:
+    def _host_views(self):
+        bufs = self._bufs[self._slot]
+        if self._single:
+            return bufs[None].numpy()
+        return {key: b.numpy() for key, b in bufs.items()}
+
+    def dispatch(self, positions: list) -> None:
         k = len(positions)
-        imgs = self._bufs[self._slot][:k].to(self._device, non_blocking=True)
+        imgs = {key: b[:k].to(self._device, non_blocking=True)
+                for key, b in self._bufs[self._slot].items()}
         res = self._results[self._slot][:k]
-        res.copy_(self._step(imgs), non_blocking=True)
+        res.copy_(self._step(imgs[None] if self._single else imgs),
+                  non_blocking=True)
         event = None
         if self._device.type == "cuda":
             event = torch.cuda.Event()
             event.record()
         self._pending.append((res, np.asarray(positions), event))
-        if len(self._pending) > self.DEPTH:
+        if len(self._pending) > self._depth:
             self._drain_one()
         self._slot = (self._slot + 1) % len(self._bufs)
-        self.host = self._bufs[self._slot].numpy()
+        self.host = self._host_views()
 
     def _drain_one(self) -> None:
         res, positions, event = self._pending.popleft()
         if event is not None:
             event.synchronize()
-        self._out[positions] = res.numpy()
+        if callable(self._out):
+            self._out(positions, res.numpy())
+        else:
+            self._out[positions] = res.numpy()
 
     def finish(self) -> None:
         while self._pending:
             self._drain_one()
+
+    def discard(self) -> None:
+        """Wait for the batches in flight and drop their results."""
+        while self._pending:
+            _, _, event = self._pending.popleft()
+            if event is not None:
+                event.synchronize()
 
 
 def predict_slide(

@@ -13,7 +13,9 @@ Conv kernels HWIO → OIHW, the Dense kernel (in, out) → (out, in), and
 BatchNorm ``scale/bias`` (params) and ``mean/var`` (batch_stats) →
 ``weight/bias/running_mean/running_var``. :func:`folded_from_jax` and
 :func:`quantized_from_jax` carry the inference-folded and the int8 trees
-across. Numpy in (anything ``np.asarray`` takes), tensors out; nothing here
+across; :func:`hierarchical_state_dict_from_flax` the multiscale classifier
+with its calibration, which :func:`split_calibration` and
+:func:`hierarchical_from_state_dict` take apart again. Numpy in (anything ``np.asarray`` takes), tensors out; nothing here
 imports jax.
 """
 
@@ -25,6 +27,9 @@ from typing import Any, Mapping
 import numpy as np
 import torch
 
+from ss25_hierarchical_multiscale_image_classification_tpu_torch.models.hierarchical import (
+    HierarchicalPatchClassifier,
+)
 from ss25_hierarchical_multiscale_image_classification_tpu_torch.models.resnet import (
     ResNet,
 )
@@ -113,6 +118,80 @@ def mil_state_dict_from_flax(variables: Mapping[str, Any]
         sd[f"{dst}.weight"] = _tensor(np.asarray(params[src]["kernel"]).T)
         sd[f"{dst}.bias"] = _tensor(params[src]["bias"])
     return sd
+
+
+#: State-dict prefix of the multiscale classifier's calibration entries.
+CALIBRATION_PREFIX = "calibration."
+
+
+def hierarchical_state_dict_from_flax(variables: Mapping[str, Any]
+                                      ) -> dict[str, torch.Tensor]:
+    """A JAX ``hierarchical_classifier`` artifact (``params``,
+    ``batch_stats``, optional ``calibration``) → the port's
+    :class:`~.hierarchical.HierarchicalPatchClassifier` state dict, with the
+    calibration beside it: the trunk through :func:`state_dict_from_flax`
+    under ``trunk.``, ``scale_embed`` as it is, every Dense kernel (in, out)
+    transposed, and each calibration entry as a 0-d float64 tensor under
+    ``calibration.<key>``, so that one ``torch.load(weights_only=True)``
+    reads the whole artifact. A legacy string ``combine`` is stored as its
+    code (:func:`..evaluation.calibration.encode_combine`)."""
+    from ss25_hierarchical_multiscale_image_classification_tpu_torch.evaluation.calibration import (
+        decode_combine,
+        encode_combine,
+    )
+
+    params = variables["params"]
+    trunk = state_dict_from_flax({
+        "params": params["trunk"],
+        "batch_stats": variables.get("batch_stats", {}).get("trunk", {}),
+    })
+    sd = {f"trunk.{k}": v for k, v in trunk.items()}
+    sd["scale_embed"] = _tensor(params["scale_embed"])
+    for name in ("head_hidden", "head_out", "aux_head", "attn_v", "attn_w"):
+        if name not in params:
+            continue
+        sd[f"{name}.weight"] = _tensor(np.asarray(params[name]["kernel"]).T)
+        if "bias" in params[name]:
+            sd[f"{name}.bias"] = _tensor(params[name]["bias"])
+    for key, value in (variables.get("calibration") or {}).items():
+        if isinstance(value, str):
+            value = encode_combine(decode_combine(value))
+        sd[f"{CALIBRATION_PREFIX}{key}"] = torch.tensor(
+            float(np.asarray(value)), dtype=torch.float64)
+    return sd
+
+
+def split_calibration(sd: Mapping[str, torch.Tensor]
+                      ) -> tuple[dict[str, torch.Tensor], dict[str, float]]:
+    """A multiscale artifact's state dict → (the module's entries, the
+    calibration as ``{key: float}``)."""
+    state = {k: v for k, v in sd.items()
+             if not k.startswith(CALIBRATION_PREFIX)}
+    calibration = {k[len(CALIBRATION_PREFIX):]: float(v)
+                   for k, v in sd.items() if k.startswith(CALIBRATION_PREFIX)}
+    return state, calibration
+
+
+def hierarchical_from_state_dict(sd: Mapping[str, torch.Tensor],
+                                 levels=(2, 3)) -> HierarchicalPatchClassifier:
+    """The multiscale classifier shaped by ``sd`` (calibration entries
+    ignored) for ``levels``, on the CPU in eval mode. The fusion is read off
+    the parameters, as the JAX function detects it: ``attn_v`` means
+    attention; ``aux_head`` missing means an artifact without aux heads."""
+    state, _ = split_calibration(sd)
+    levels = tuple(sorted(levels))
+    if int(state["scale_embed"].shape[0]) != len(levels):
+        raise ValueError(f"the artifact embeds {state['scale_embed'].shape[0]} "
+                         f"scales, not the {len(levels)} of levels {levels}")
+    model = HierarchicalPatchClassifier(
+        levels=levels,
+        num_classes=int(state["head_out.weight"].shape[0]),
+        fusion="attention" if "attn_v.weight" in state else "concat",
+        fusion_hidden_dim=int(state["head_hidden.weight"].shape[0]),
+        aux="aux_head.weight" in state,
+    )
+    model.load_state_dict(state, strict=True)
+    return model.eval()
 
 
 def folded_from_jax(fp: Mapping[str, Any],

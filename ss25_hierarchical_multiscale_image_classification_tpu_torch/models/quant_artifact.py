@@ -3,7 +3,7 @@
 Counterpart of the JAX package's ``models/quant_artifact.py``
 (``save_quantized``, ``load_quantized``, ``artifact_input_hw``,
 ``training_calibration_batches``, ``quantize_classifier_to_artifact``,
-``maybe_load_artifact``). The deployment flow calibrates **once** on
+``quantize_trunk_to_artifact``, ``maybe_load_artifact``). The deployment flow calibrates **once** on
 training tissue and persists the quantized tree (int8 kernels, per-channel
 weight scales, activation scales, the folded stem bias map) as one ``.npz``
 that every int8 consumer (``--extract_features --int8``, ``--predict_slide
@@ -15,8 +15,9 @@ The file is the JAX package's, key for key: ``qkernels/<name>`` int8 **HWIO**,
 ``fc/1``, ``stem_bias_map``. An artifact written by either package loads in
 the other; the port's tree keeps its kernels ``(C_out, C_in, KH, KW)`` in
 channels_last memory (the layout its int8 kernels read), so saving and
-loading transpose. The trunk artifact of the multiscale classifier
-(``quantize_trunk_to_artifact``) comes with the multiscale slice.
+loading transpose. :func:`quantize_trunk_to_artifact` writes the trunk
+artifact of the multiscale classifier (``quantized_hierarchical_trunk.npz``)
+in the same format.
 """
 
 from __future__ import annotations
@@ -34,6 +35,7 @@ from ss25_hierarchical_multiscale_image_classification_tpu_torch.logging_utils i
 log = get_logger("models.quant_artifact")
 
 CLASSIFIER_ARTIFACT = "quantized_resnet18.npz"
+TRUNK_ARTIFACT = "quantized_hierarchical_trunk.npz"
 
 _DICT_FIELDS = ("qkernels", "wscales", "biases", "ascales")
 
@@ -170,6 +172,62 @@ def quantize_classifier_to_artifact(
     )
     q = quantize_resnet18(state, batches, device=device)
     return save_quantized(os.path.join(cfg.models_dir, CLASSIFIER_ARTIFACT),
+                          q.tree())
+
+
+def quantize_trunk_to_artifact(
+    cfg, levels=(2, 3), n_batches: int = 4, batch_size: int = 64,
+    dataset=None, device: str | torch.device = "cuda",
+) -> str:
+    """Calibrate the multiscale classifier's SHARED trunk
+    (``<models_dir>/hierarchical_classifier.pt``) on co-located training
+    cells, all scales stacked as the multiscale int8 step feeds it, on
+    ``device``, and persist ``<models_dir>/quantized_hierarchical_trunk.npz``.
+    ``dataset=None`` joins the levels' manifests in the artifact's input
+    mode (0 = resize, 1 = crop); a given ``MultiscaleDataset`` serves
+    installations without pyarrow (and, in ``"crop"`` mode or at the stored
+    size, without cv2)."""
+    from ss25_hierarchical_multiscale_image_classification_tpu_torch.config import (
+        INPUT_SIZE,
+    )
+    from ss25_hierarchical_multiscale_image_classification_tpu_torch.data.multiscale import (
+        MultiscaleDataset,
+    )
+    from ss25_hierarchical_multiscale_image_classification_tpu_torch.models.convert import (
+        split_calibration,
+    )
+    from ss25_hierarchical_multiscale_image_classification_tpu_torch.models.quantized import (
+        quantize_resnet18,
+    )
+    from ss25_hierarchical_multiscale_image_classification_tpu_torch.train.checkpoints import (
+        load_model,
+        model_artifact_path,
+    )
+
+    state, calibration = split_calibration(load_model(model_artifact_path(
+        cfg.models_dir, "hierarchical_classifier")))
+    trunk = {k.removeprefix("trunk."): v for k, v in state.items()
+             if k.startswith("trunk.")}
+    if dataset is None:
+        # calibration batches must reach the trunk the way inference feeds
+        # it: the artifact's fine-stream input mode
+        input_mode = ("crop" if int(calibration.get("input_mode", 0)) == 1
+                      else "resize")
+        dataset = MultiscaleDataset.from_patches_dir(
+            cfg.data.patches_dir, levels=levels, resize_to=INPUT_SIZE,
+            input_mode=input_mode)
+    if len(dataset) == 0:
+        raise FileNotFoundError(
+            f"no aligned multiscale cells at levels {tuple(levels)} to "
+            f"calibrate on")
+    order = np.random.default_rng(0).permutation(len(dataset))
+    batches = []
+    for start in range(0, min(len(dataset), n_batches * batch_size),
+                       batch_size):
+        imgs, _labels = dataset.read_batch(order[start : start + batch_size])
+        batches.append(np.concatenate([imgs[lvl] for lvl in dataset.levels]))
+    q = quantize_resnet18(trunk, batches, device=device)
+    return save_quantized(os.path.join(cfg.models_dir, TRUNK_ARTIFACT),
                           q.tree())
 
 

@@ -90,20 +90,22 @@ def augment_batch_kernel(params: dict, imgs_u8: torch.Tensor) -> torch.Tensor:
     augmentation of ``params`` (see ``data/augment.py::augment_batch``),
     in bfloat16 colour arithmetic.
 
-    S ≤ :data:`MAX_SIZE` (the kernel's band of rows must fit a block's
-    shared memory). A CUDA tensor must be contiguous, B ≤ 65535; the kernel
-    launches on the current stream.
+    A CPU tensor takes the plain ``augment_batch`` at any S. A CUDA tensor
+    must be contiguous, S ≤ :data:`MAX_SIZE` (the kernel's band of rows must
+    fit a block's shared memory) and B ≤ 65535; the kernel launches on the
+    current stream.
     """
     _check(params, imgs_u8)
     s = imgs_u8.shape[1]
-    if s > MAX_SIZE:
-        raise ValueError(f"augment_batch_kernel takes images of at most "
-                         f"{MAX_SIZE}×{MAX_SIZE} pixels, got {s}×{s}")
     dev = imgs_u8.device
     if dev.type == "cpu":
         return augment_batch(params, imgs_u8)
     if dev.type != "cuda":
         raise ValueError(f"augment_batch_kernel runs on cuda or cpu, not {dev}")
+    if s > MAX_SIZE:
+        raise ValueError(f"augment_batch_kernel takes images of at most "
+                         f"{MAX_SIZE}×{MAX_SIZE} pixels on the card, got "
+                         f"{s}×{s}")
     if not imgs_u8.is_contiguous():
         raise ValueError("augment_batch_kernel needs a contiguous CUDA tensor")
     from ss25_hierarchical_multiscale_image_classification_tpu_torch.ops.build import (

@@ -10,7 +10,9 @@ intermediate plane zero-padded as the reference pads it.
 
 :func:`fused_stage1_int8` sends CUDA tensors to the kernel
 (``ops/csrc/int8_block.cu``; ``fused_stage1_int8_kernel.launches`` counts
-the launches) and CPU tensors to the plain version
+the launches) when a cluster of blocks holds the plane, else to the four
+exact convolutions of ``ops/int8_conv.py`` (:func:`stage1_route`), and CPU
+tensors to the plain version
 (:func:`fused_stage1_int8_reference`: the stage-1 loop of ``quant_forward``
 over the plain convolution of ``ops/int8_conv.py``). The sums are integers
 and the kernel's epilogue rounds where the eager ops round, so the two are
@@ -27,6 +29,7 @@ import torch
 
 from ss25_hierarchical_multiscale_image_classification_tpu_torch.ops.int8_conv import (
     int8_conv_reference,
+    int8_conv_requant,
     requant_reference,
     wgmma_weight_image,
 )
@@ -99,28 +102,74 @@ def pack_stage1_kernels(kernels: torch.Tensor) -> torch.Tensor:
     return torch.stack([wgmma_weight_image(k, _C).reshape(-1) for k in ohwi])
 
 
+def _slab_bytes(rows: int, width: int) -> int:
+    """Shared memory of a block's three slabs of ``rows + 2`` rows and its
+    table of ``rows · width`` pixel offsets."""
+    return 3 * (rows + 2) * (width + 2) * _PIXEL_BYTES + 4 * rows * width
+
+
+def _smallest_cluster(height: int, width: int) -> tuple[int, int]:
+    """The smallest power of two of blocks, at most :data:`MAX_CLUSTER`, that
+    leaves a block at most :data:`SLAB_ROWS` rows whose slabs fit, and the
+    rows each owns (the slabs of the largest cluster may still not fit)."""
+    cluster = 1
+    while cluster < MAX_CLUSTER and (
+            -(-height // cluster) > SLAB_ROWS
+            or _slab_bytes(-(-height // cluster), width) > _SLAB_BUDGET):
+        cluster *= 2
+    return cluster, -(-height // cluster)
+
+
 def cluster_plan(height: int, width: int) -> tuple[int, int]:
     """``(cluster, rows)`` for a plane: the blocks of the cluster that holds
     an image and the rows each owns. The smallest power of two of blocks that
     leaves a block at most :data:`SLAB_ROWS` rows and fits three slabs of
     ``rows + 2`` rows into its shared memory beside two weight images, at
-    most :data:`MAX_CLUSTER`."""
-    def slabs(rows: int) -> int:
-        return 3 * (rows + 2) * (width + 2) * _PIXEL_BYTES + 4 * rows * width
-
-    cluster = 1
-    while cluster < MAX_CLUSTER and (
-            -(-height // cluster) > SLAB_ROWS
-            or slabs(-(-height // cluster)) > _SLAB_BUDGET):
-        cluster *= 2
-    rows = -(-height // cluster)
-    if slabs(rows) > _SLAB_BUDGET:
+    most :data:`MAX_CLUSTER`. Raises for a plane no such cluster holds
+    (:func:`stage1_route` sends those to the convolutions)."""
+    cluster, rows = _smallest_cluster(height, width)
+    if _slab_bytes(rows, width) > _SLAB_BUDGET:
         raise ValueError(
             f"the fused stage-1 kernel holds an image in the shared memory "
             f"of {MAX_CLUSTER} blocks: planes up to {MAX_WIDTH} wide with 3 · "
             f"(R + 2) · (W + 2) · {_PIXEL_BYTES} + 4 · R · W ≤ {_SLAB_BUDGET} "
             f"bytes for R = ceil(H / {MAX_CLUSTER}), got {height} × {width}")
     return cluster, rows
+
+
+def stage1_route(height: int, width: int) -> str:
+    """How a CUDA plane of ``height`` × ``width`` runs stage 1, decided by
+    its shape alone: ``"block"``, the fused kernel, when a cluster of at most
+    :data:`MAX_CLUSTER` blocks holds the image (:func:`cluster_plan`; planes
+    up to 63 × 63, inputs up to 252²); else ``"convs"``, the four
+    convolutions one ``int8_conv_requant`` launch each
+    (:func:`fused_stage1_int8_convs`; 64 × 64, a 256² input, and up). Both
+    routes are exact, so both give the plain version's bits."""
+    cluster, rows = _smallest_cluster(height, width)
+    return "block" if _slab_bytes(rows, width) <= _SLAB_BUDGET else "convs"
+
+
+def fused_stage1_int8_convs(xq: torch.Tensor, kernels: torch.Tensor,
+                            mscales: torch.Tensor, biases: torch.Tensor,
+                            scalars: torch.Tensor) -> torch.Tensor:
+    """Stage 1 as four :func:`~.int8_conv.int8_conv_requant` calls, the
+    plain version's loop with each convolution and its epilogue on the int8
+    conv kernel (CUDA tensors) or its plain version (CPU tensors): the
+    second convolution of a block takes the block's int8 input as its
+    residual at scale ``s_x``. The weights are packed for the kernel per
+    call."""
+    _check(xq, kernels, mscales, biases, scalars)
+    x = xq
+    for blk in range(2):
+        c1, c2 = 2 * blk, 2 * blk + 1
+        s_x, s_y1, s_o = scalars[2 * blk], scalars[1 + 2 * blk], scalars[2 + 2 * blk]
+        # HWIO → OIHW
+        y1 = int8_conv_requant(x, kernels[c1].permute(3, 2, 0, 1), mscales[c1],
+                               biases[c1], s_y1, 1, 1)
+        x = int8_conv_requant(y1, kernels[c2].permute(3, 2, 0, 1), mscales[c2],
+                              biases[c2], s_o, 1, 1, residual=x,
+                              residual_scale=s_x)
+    return x
 
 
 def fused_stage1_int8_kernel(xq: torch.Tensor, kernels: torch.Tensor,
@@ -204,12 +253,19 @@ def fused_stage1_int8(xq: torch.Tensor, kernels: torch.Tensor,
         scalars: (5,) float32, [s_x, s_y1_b0, s_o_b0, s_y1_b1, s_o_b1].
         packed: :func:`pack_stage1_kernels` of ``kernels``, for the kernel.
 
-    Returns (B, H, W, 64) int8 at activation scale ``scalars[4]``: the
-    kernel's result for CUDA tensors, the plain version's for CPU tensors.
+    Returns (B, H, W, 64) int8 at activation scale ``scalars[4]``: for CUDA
+    tensors the fused kernel's result, or for a plane no cluster holds
+    (:func:`stage1_route`) that of four ``int8_conv_requant`` launches; the
+    plain version's for CPU tensors.
     """
     if xq.device.type == "cpu":
         return fused_stage1_int8_reference(xq, kernels, mscales, biases,
                                            scalars)
+    if stage1_route(xq.shape[1], xq.shape[2]) == "convs":
+        return fused_stage1_int8_convs(xq.contiguous(), kernels,
+                                       mscales.contiguous(),
+                                       biases.contiguous(),
+                                       scalars.contiguous())
     return fused_stage1_int8_kernel(xq.contiguous(), kernels,
                                     mscales.contiguous(), biases.contiguous(),
                                     scalars.contiguous(), packed)

@@ -30,9 +30,9 @@ import torch
 #: Mask of the self and dead scores, as the Pallas kernel's: exp(−1e30 − m)
 #: is 0 for every finite row maximum.
 NEG_INF = -1e30
-#: Widest rows the wrapper passes to the kernels. They stage z in chunks of
-#: 128 columns and write dz in slices of 128, so any width works; the card's
-#: tests reach 512 (the projection width is 128).
+#: Widest rows the wrapper passes to the kernels (the plain version takes
+#: any width). They stage z in chunks of 128 columns and write dz in slices
+#: of 128; the card's tests reach 512 (the projection width is 128).
 MAX_D = 4096
 
 
@@ -40,8 +40,6 @@ def _check(z: torch.Tensor, pos_idx: torch.Tensor) -> None:
     if z.dtype != torch.float32 or z.dim() != 2 or z.shape[0] < 1:
         raise ValueError(f"expected (n, d) float32 rows with n >= 1, got "
                          f"{tuple(z.shape)} {z.dtype}")
-    if not 1 <= z.shape[1] <= MAX_D:
-        raise ValueError(f"row width {z.shape[1]} outside 1..{MAX_D}")
     if pos_idx.dtype != torch.int32 or pos_idx.shape != z.shape[:1]:
         raise ValueError(f"expected ({z.shape[0]},) int32 pos_idx, got "
                          f"{tuple(pos_idx.shape)} {pos_idx.dtype}")
@@ -75,6 +73,9 @@ def nt_xent_rows_reference(z: torch.Tensor, pos_idx: torch.Tensor,
 
 
 def _check_kernel_args(z: torch.Tensor, pos_idx: torch.Tensor) -> None:
+    if not 1 <= z.shape[1] <= MAX_D:
+        raise ValueError(f"the NT-Xent kernels take rows of width 1..{MAX_D}, "
+                         f"got {z.shape[1]}")
     if z.device.type != "cuda":
         raise ValueError(f"the NT-Xent kernels run on CUDA tensors, not {z.device}")
     if not (z.is_contiguous() and pos_idx.is_contiguous()):

@@ -304,6 +304,13 @@ def test_augment_cuda_size_limit_matches(cuda_device):
     )
 
     assert load_library().hipac_augment_max_size() == MAX_SIZE
+    s = MAX_SIZE + 1
+    p = {k: v.to(cuda_device) for k, v in _torch_params(_params(1, 13)).items()}
+    imgs = torch.zeros((1, s, s, 3), dtype=torch.uint8, device=cuda_device)
+    before = augment_batch_kernel.launches
+    with pytest.raises(ValueError, match=str(MAX_SIZE)):
+        augment_batch_kernel(p, imgs)
+    assert augment_batch_kernel.launches == before
 
 
 # ---- the affine split into the matrix and the in-kernel bias ----
@@ -475,16 +482,18 @@ def test_kernel_division_is_the_ieee_quotient():
 
 def test_augment_kernel_band_fits_and_size_limit():
     """The band plan's shared memory: the pitch holds a row in an odd
-    number of 16-byte units; S = MAX_SIZE fits, S = MAX_SIZE + 1 does not
-    and the wrapper names the limit, on every route."""
+    number of 16-byte units; S = MAX_SIZE fits the card's kernel. The limit
+    is the kernel's: a CPU tensor above it takes the plain version, as the
+    JAX function computes any S (the card's route refuses it, see
+    ``test_augment_cuda_size_limit_matches``)."""
     for s in (7, 37, 224, 448, MAX_SIZE):
         pitch = band_pitch(s)
         assert pitch >= 3 * s and pitch % 16 == 0 and (pitch // 16) % 2 == 1
-    assert 448 < MAX_SIZE < 800
+    assert MAX_SIZE == 773
     s = MAX_SIZE + 1
     p = _torch_params(_params(1, 13))
-    imgs = torch.zeros((1, s, s, 3), dtype=torch.uint8)
+    imgs = torch.from_numpy(_imgs(14, (1, s, s, 3)))
     before = augment_batch_kernel.launches
-    with pytest.raises(ValueError, match=str(MAX_SIZE)):
-        augment_batch_kernel(p, imgs)
+    assert torch.equal(augment_batch_kernel(p, imgs),
+                       augment.augment_batch(p, imgs))
     assert augment_batch_kernel.launches == before

@@ -294,3 +294,306 @@ def test_quantize_then_extract_int8_in_one_call(jx, tmp_path):
     assert feats.shape == (len(recs), 8 * WIDTH)
     assert (os.path.getmtime(models_dir / qa.CLASSIFIER_ARTIFACT)
             >= os.path.getmtime(data_dir / "features" / "patch_features_3.npy"))
+
+
+# ---------------------------------------------------------------------------
+# flags the JAX CLI ignores (no action, --int8 or --simclr_features without
+# their action), and the cascade flags' checks
+# ---------------------------------------------------------------------------
+
+
+@pytest.mark.parametrize("argv", [[], ["--int8"], ["--simclr_features"],
+                                  ["--multiscale", "--levels", "1,3"]])
+def test_ignored_flags_return_0_in_both(jx, argv, tmp_path, monkeypatch,
+                                        capsys):
+    # the JAX CLI leaves its compile cache where the environment points
+    monkeypatch.setenv("JAX_COMPILATION_CACHE_DIR", str(tmp_path / "cache"))
+    common = ["--data_dir", str(tmp_path / "none"), "--models_dir",
+              str(tmp_path / "models")]
+    assert jx.cli.main(argv + common) == 0
+    assert cli.main(argv + common + ["--device", "cpu"]) == 0
+    assert "usage:" not in capsys.readouterr().err
+    assert not os.path.exists(tmp_path / "models")
+
+
+@pytest.mark.parametrize("argv,message", [
+    (["--cascade_bailout", "0.5"], "--cascade_bailout requires --cascade"),
+    (["--cascade", "1.5"], "must be in [0, 1)"),
+    (["--cascade", "often"], "expects 'auto' or a probability"),
+    (["--ms_combine", "max"], "invalid choice"),
+])
+def test_cascade_flag_checks_exit_2_in_both(jx, argv, message, capsys):
+    for main in (jx.cli.main, cli.main):
+        with pytest.raises(SystemExit) as exc:
+            main(["--predict_slide", "s.wsi.npz", "--multiscale"] + argv)
+        assert exc.value.code == 2
+        assert message in capsys.readouterr().err
+
+
+def test_cascade_value_parses_like_jax(jx):
+    p, jp = cli.build_parser(), jx.cli.build_parser()
+    for argv in (["--cascade"], ["--cascade", "auto"], ["--cascade", "0.25"],
+                 ["--cascade", "0"], []):
+        a, ja = p.parse_args(argv), jp.parse_args(argv)
+        assert a.cascade == ja.cascade
+        assert a.levels == ja.levels == "2,3"
+        assert a.ms_combine == ja.ms_combine == "auto"
+    # what belongs to multiscale training stays unknown until that slice
+    for flag in ("--ms_fusion", "--ms_input", "--train_multiscale"):
+        with pytest.raises(SystemExit) as exc:
+            cli.main([flag, "--device", "cpu"])
+        assert exc.value.code == 1
+
+
+# ---------------------------------------------------------------------------
+# --predict_slide <dir>: the fleet's error contract
+# ---------------------------------------------------------------------------
+
+
+def _slide_dir(synthetic_case, target):
+    """Two good slides with a corrupt one between them, sorted."""
+    import shutil
+
+    os.makedirs(target)
+    img = os.path.join(synthetic_case, "train", "img")
+    shutil.copy(os.path.join(img, "tumor_001.wsi.npz"),
+                os.path.join(target, "a_good.wsi.npz"))
+    with open(os.path.join(target, "b_corrupt.wsi.npz"), "wb") as f:
+        f.write(b"not a slide")
+    shutil.copy(os.path.join(img, "normal_001.wsi.npz"),
+                os.path.join(target, "c_good.wsi.npz"))
+    return str(target)
+
+
+def test_predict_slide_dir_goes_past_a_failing_slide_in_both(
+        jx, synthetic_case, tmp_path, monkeypatch):
+    """A directory with a corrupt ``.wsi.npz`` between two good ones: each
+    CLI logs the failure, writes both good CSVs and then raises one
+    ``RuntimeError`` naming the count and the first failing path, chained
+    from the slide's own error (the JAX ``infer/fleet.py`` contract)."""
+    import jax.numpy as jnp
+
+    from ss25_hierarchical_multiscale_image_classification_tpu.models.resnet import (
+        ResNet18Classifier as JaxResNet18Classifier,
+    )
+    from ss25_hierarchical_multiscale_image_classification_tpu.train.checkpoints import (
+        save_model as jax_save_model,
+    )
+    from ss25_hierarchical_multiscale_image_classification_tpu_torch.models.convert import (
+        state_dict_from_flax,
+    )
+    from test_torch_port_models import randomized_variables
+
+    monkeypatch.setenv("JAX_COMPILATION_CACHE_DIR", str(tmp_path / "cache"))
+    slides = _slide_dir(synthetic_case, tmp_path / "slides")
+    variables = randomized_variables(JaxResNet18Classifier(dtype=jnp.float32),
+                                     seed=80)
+    jdir, pdir = tmp_path / "jax_models", tmp_path / "port_models"
+    jax_save_model(str(jdir / "resnet18_patch_classifier"), variables)
+    save_model(str(pdir / "resnet18_patch_classifier"),
+               state_dict_from_flax(variables))
+    argv = ["--predict_slide", slides, "--stride", "112", "--batch_size", "4"]
+    errors = []
+    for main, models_dir, extra in ((jx.cli.main, jdir, []),
+                                    (cli.main, pdir, ["--device", "cpu"])):
+        with pytest.raises(RuntimeError) as err:
+            main(argv + ["--models_dir", str(models_dir)] + extra)
+        errors.append(err.value)
+        csv_dir = models_dir / "model_predictions_csv"
+        assert sorted(os.listdir(csv_dir)) == ["a_good.csv", "c_good.csv"]
+    corrupt = os.path.join(slides, "b_corrupt.wsi.npz")
+    assert str(errors[0]) == str(errors[1]) == f"1 slide(s) failed; first: {corrupt}"
+    assert errors[1].__cause__ is not None
+    # a single slide raises its own error
+    with pytest.raises(Exception) as single:
+        cli.main(["--predict_slide", corrupt, "--models_dir", str(pdir),
+                  "--device", "cpu"])
+    assert "slide(s) failed" not in str(single.value)
+
+
+# ---------------------------------------------------------------------------
+# --predict_slide --multiscale, --quantize --multiscale
+# ---------------------------------------------------------------------------
+
+
+def _hierarchical_artifacts(tmp_path, calibration, seed=81):
+    """One seeded multiscale classifier, as the JAX package's Orbax artifact
+    and as the port's ``.pt`` (through the export's conversion)."""
+    import jax
+
+    from ss25_hierarchical_multiscale_image_classification_tpu.train.checkpoints import (
+        save_model as jax_save_model,
+    )
+    from ss25_hierarchical_multiscale_image_classification_tpu_torch.models.convert import (
+        hierarchical_state_dict_from_flax,
+    )
+    from test_torch_port_multiscale_data import randomized_hierarchical
+
+    _, variables = randomized_hierarchical(jax, "concat", True, seed=seed)
+    variables["calibration"] = dict(calibration)
+    jdir, pdir = tmp_path / "jax_models", tmp_path / "port_models"
+    jax_save_model(str(jdir / "hierarchical_classifier"), variables)
+    save_model(str(pdir / "hierarchical_classifier"),
+               hierarchical_state_dict_from_flax(variables))
+    return jdir, pdir
+
+
+def _rows(path):
+    """A detection CSV's rows as (n, 3), n = 0 for an empty file."""
+    with open(path) as f:
+        text = f.read()
+    if not text.strip():
+        return np.empty((0, 3))
+    return np.loadtxt(path, delimiter=",", ndmin=2)
+
+
+def _csvs(models_dir):
+    return {(d, f): _rows(os.path.join(models_dir, d, f))
+            for d in sorted(os.listdir(models_dir))
+            if d.startswith("model_predictions_csv")
+            for f in sorted(os.listdir(os.path.join(models_dir, d)))}
+
+
+@pytest.mark.parametrize("extra", [
+    ["--ms_components"],
+    ["--ms_components", "--cascade", "0.5", "--cascade_bailout", "1.0",
+     "--ms_combine", "fusion"],
+], ids=["components", "cascade"])
+def test_predict_slide_multiscale_cli_in_both(jx, synthetic_case, tmp_path,
+                                              monkeypatch, extra):
+    """``--predict_slide <slide> --multiscale`` on the same arguments: both
+    CLIs write the main CSV and the four component CSVs under the same
+    names. The JAX CLI runs its model in bfloat16, the port's CPU run in
+    float32, so the rows are held to the port's in-process
+    ``predict_and_export_multiscale`` (equal) and to the JAX rows' count."""
+    from ss25_hierarchical_multiscale_image_classification_tpu_torch.infer.multiscale import (
+        predict_and_export_multiscale,
+    )
+    from ss25_hierarchical_multiscale_image_classification_tpu_torch.models.convert import (
+        hierarchical_from_state_dict,
+        split_calibration,
+    )
+
+    monkeypatch.setenv("JAX_COMPILATION_CACHE_DIR", str(tmp_path / "cache"))
+    cal = {"temperature": 1.5, "aux_temperature": 1.2, "combine": 2,
+           "input_mode": 1}
+    jdir, pdir = _hierarchical_artifacts(tmp_path, cal)
+    slide = os.path.join(synthetic_case, "train", "img", "tumor_001.wsi.npz")
+    argv = ["--predict_slide", slide, "--multiscale", "--levels", "2,3",
+            "--stride", "112", "--batch_size", "4", "--detect_threshold",
+            "1e-9"] + extra
+    assert jx.cli.main(argv + ["--models_dir", str(jdir)]) == 0
+    assert cli.main(argv + ["--models_dir", str(pdir), "--device", "cpu"]) == 0
+    got, want = _csvs(pdir), _csvs(jdir)
+    suffixes = ["", "_fusion", "_aux", "_aux_base", "_ensemble_base"]
+    assert sorted(got) == sorted(want) == sorted(
+        (f"model_predictions_csv{s}", "tumor_001.csv") for s in suffixes)
+    for key, rows in got.items():
+        assert rows.shape[1] == 3 and len(rows) == len(want[key]), key
+    # the main surface is dense (under the cascade too: screened-out cells
+    # carry their screen margin there)
+    assert len(got[("model_predictions_csv", "tumor_001.csv")]) >= 1
+    state, calibration = split_calibration(load_model(
+        str(pdir / "hierarchical_classifier")))
+    kw = {}
+    if "--cascade" in extra:
+        kw = dict(cascade=0.5, cascade_bailout=1.0, combine="fusion")
+    predict_and_export_multiscale(
+        slide, hierarchical_from_state_dict(state), str(tmp_path / "ref" / "csv"),
+        threshold=1e-9, export_components=True, calibration=calibration,
+        stride=112, batch_size=4, device="cpu", **kw)
+    for s in suffixes:
+        np.testing.assert_array_equal(
+            got[(f"model_predictions_csv{s}", "tumor_001.csv")],
+            _rows(str(tmp_path / "ref" / f"csv{s}" / "tumor_001.csv")))
+
+
+def _multiscale_store(jx, data_dir, cells=4, seed=0):
+    """Packed stores of one slide at levels 2 (448-px patches) and 3 (224-px)
+    on aligned cells, with their parquet manifests."""
+    rng = np.random.default_rng(seed)
+    patches_dir = config.DataConfig(data_dir=str(data_dir)).patches_dir
+    for lvl, edge in ((2, 448), (3, 224)):
+        w = patch_store.PackedPatchWriter(patches_dir, lvl, "tumor_001", edge)
+        coords = np.stack([np.arange(cells), np.zeros(cells, int)], 1) * edge
+        recs = w.write_batch(
+            rng.integers(0, 256, (cells, edge, edge, 3), dtype=np.uint8),
+            coords, np.arange(cells) % 2)
+        w.close()
+        jx.manifest.PatchManifest(recs).save(
+            manifest.manifest_path(patches_dir, lvl))
+
+
+def test_quantize_multiscale_in_both_then_int8_prediction(
+        jx, synthetic_case, tmp_path, monkeypatch):
+    """``--quantize --multiscale`` on the same data and artifact (crop input
+    mode: the card has no cv2) writes ``quantized_hierarchical_trunk.npz``
+    in both CLIs with the same int8 kernels and activation scales within
+    1e-5; ``--predict_slide --multiscale --int8`` then picks the port's up."""
+    from ss25_hierarchical_multiscale_image_classification_tpu_torch.infer.multiscale import (
+        predict_slide_multiscale,
+    )
+    from ss25_hierarchical_multiscale_image_classification_tpu_torch.models import (
+        quant_artifact as qa,
+    )
+    from ss25_hierarchical_multiscale_image_classification_tpu_torch.models.convert import (
+        hierarchical_from_state_dict,
+        split_calibration,
+    )
+
+    monkeypatch.setenv("JAX_COMPILATION_CACHE_DIR", str(tmp_path / "cache"))
+    data_dir = tmp_path / "data"
+    _multiscale_store(jx, data_dir)
+    jdir, pdir = _hierarchical_artifacts(tmp_path, {"input_mode": 1}, seed=82)
+    argv = ["--quantize", "--multiscale", "--levels", "2,3", "--data_dir",
+            str(data_dir)]
+    assert jx.cli.main(argv + ["--models_dir", str(jdir)]) == 0
+    assert cli.main(argv + ["--models_dir", str(pdir), "--device", "cpu"]) == 0
+    assert not os.path.exists(pdir / qa.CLASSIFIER_ARTIFACT)
+    jz = np.load(str(jdir / qa.TRUNK_ARTIFACT))
+    pz = np.load(str(pdir / qa.TRUNK_ARTIFACT))
+    assert sorted(jz.files) == sorted(pz.files)
+    assert "fc/0" not in pz.files and "stem_bias_map" in pz.files
+    for key in pz.files:
+        if key.startswith("qkernels/"):
+            np.testing.assert_array_equal(pz[key], jz[key])
+        else:
+            np.testing.assert_allclose(pz[key], jz[key], rtol=1e-5,
+                                       atol=1e-5 * np.abs(jz[key]).max())
+    # --predict_slide --multiscale --int8 uses the artifact
+    slide = os.path.join(synthetic_case, "train", "img", "tumor_001.wsi.npz")
+    assert cli.main(["--predict_slide", slide, "--multiscale", "--int8",
+                     "--stride", "112", "--batch_size", "4",
+                     "--detect_threshold", "1e-9", "--models_dir", str(pdir),
+                     "--device", "cpu"]) == 0
+    state, calibration = split_calibration(load_model(
+        str(pdir / "hierarchical_classifier")))
+    margins, grid = predict_slide_multiscale(
+        slide, hierarchical_from_state_dict(state), calibration, int8=True,
+        qtree=qa.load_quantized(str(pdir / qa.TRUNK_ARTIFACT)), stride=112,
+        batch_size=4, output="margin", device="cpu")
+    rows = np.loadtxt(str(pdir / "model_predictions_csv" / "tumor_001.csv"),
+                      delimiter=",", ndmin=2)
+    from ss25_hierarchical_multiscale_image_classification_tpu_torch.infer.sliding_window import (
+        margin_detections,
+    )
+
+    want = np.array(margin_detections(margins, grid, 1e-9))
+    np.testing.assert_array_equal(rows, want)
+
+
+def test_predict_slide_multiscale_dir_goes_past_a_failing_slide(
+        synthetic_case, tmp_path):
+    """The multiscale directory mode keeps the same contract, component
+    CSVs included."""
+    pytest.importorskip("jax")
+    slides = _slide_dir(synthetic_case, tmp_path / "slides")
+    _, pdir = _hierarchical_artifacts(tmp_path, {}, seed=83)
+    with pytest.raises(RuntimeError, match=r"^1 slide\(s\) failed; first: "):
+        cli.main(["--predict_slide", slides, "--multiscale", "--ms_components",
+                  "--stride", "112", "--batch_size", "4", "--models_dir",
+                  str(pdir), "--device", "cpu"])
+    for d in ("model_predictions_csv", "model_predictions_csv_fusion",
+              "model_predictions_csv_aux", "model_predictions_csv_aux_base",
+              "model_predictions_csv_ensemble_base"):
+        assert sorted(os.listdir(pdir / d)) == ["a_good.csv", "c_good.csv"], d

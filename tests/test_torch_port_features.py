@@ -377,17 +377,18 @@ def test_cli_extract_features_without_patches_fails(tmp_path):
 def test_cli_takes_one_action_with_extract_features(argv, capsys, tmp_path):
     """Several actions run in the JAX CLI's order, ``--extract_features``
     first: without patches its gate ends the call with 1 before the next
-    action starts. ``--simclr_features`` alone is still refused."""
+    action starts. ``--simclr_features`` without ``--extract_features`` is
+    ignored, as the JAX CLI ignores it: ``--train_mil`` runs and misses its
+    features."""
     argv = argv + ["--device", "cpu", "--data_dir", str(tmp_path / "none"),
                    "--models_dir", str(tmp_path / "models")]
     if "--extract_features" in argv:
         assert cli.main(argv) == 1
         assert not os.path.exists(tmp_path / "none" / "features")
         return
-    with pytest.raises(SystemExit) as exc:
+    with pytest.raises(FileNotFoundError, match="patch_features_3.npy"):
         cli.main(argv)
-    assert exc.value.code == 2
-    assert "goes with --extract_features" in capsys.readouterr().err
+    assert "usage:" not in capsys.readouterr().err
 
 
 # ---------------------------------------------------------------------------

@@ -27,6 +27,7 @@ from ss25_hierarchical_multiscale_image_classification_tpu_torch.models.simclr i
 from ss25_hierarchical_multiscale_image_classification_tpu_torch.ops.nt_xent import (
     MAX_D,
     NEG_INF,
+    _check_kernel_args,
     bwd_splits,
     fwd_splits,
     fwd_tile,
@@ -163,11 +164,16 @@ def test_nt_xent_wrapper_rejects_bad_input_and_counts_no_cpu_launch():
         (z, pos.long()),  # index dtype
         (z, pos[:5]),  # index length
         (z[:0], pos[:0]),  # empty
-        (torch.zeros(6, MAX_D + 1), pos),  # wider than the kernels take
     ]
     for args in bad:
         with pytest.raises(ValueError):
             nt_xent_rows(*args, 0.5)
+    # wider rows than the kernels take: the plain version computes them on
+    # the CPU, and the kernels' check names the limit
+    wide = torch.nn.functional.normalize(torch.randn(6, MAX_D + 1), dim=1)
+    assert torch.isfinite(nt_xent_rows(wide, pos, 0.5)[0]).all()
+    with pytest.raises(ValueError, match=str(MAX_D)):
+        _check_kernel_args(wide, pos)
     # the launchers take only contiguous CUDA tensors; a CPU tensor raises
     with pytest.raises(ValueError):
         nt_xent_fwd(z, pos, 2.0)

@@ -31,7 +31,9 @@ bad = sorted(m for m in sys.modules if m.split(".")[0] in
 new = (".data.prefetch", ".models.quantized", ".ops.fused_stem", ".infer.features",
        ".ops.augment", ".train.trainer", ".evaluation.froc",
        ".evaluation.metrics", ".evaluation.classifier_eval", ".grid.rasterize",
-       ".grid.labeling", ".io.download", ".models.torch_import")
+       ".grid.labeling", ".io.download", ".models.torch_import",
+       ".infer.multiscale", ".models.hierarchical", ".data.multiscale",
+       ".evaluation.calibration")
 assert set(pkg.__name__ + m for m in new) <= set(names)
 print(len(names), bad)
 """
@@ -56,8 +58,9 @@ def _import_all(jax_platforms):
     # every module of the slices was imported: 40 with data.prefetch,
     # models.quantized and ops.fused_stem of the feature-extraction slice,
     # 44 with models.quant_artifact, ops.int8_conv, ops.int8_block and
-    # ops.int8_pool of the int8 slice, 53 with the trainer's and FROC's nine
-    assert int(count) >= 53
+    # ops.int8_pool of the int8 slice, 53 with the trainer's and FROC's nine,
+    # 57 with the multiscale slice's four
+    assert int(count) >= 57
     assert bad == "[]"
 
 

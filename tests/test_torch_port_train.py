@@ -774,5 +774,6 @@ def test_cli_trains_evaluates_and_predicts_in_order(tmp_path):
 
 
 def test_cli_needs_an_action():
-    with pytest.raises(SystemExit):
-        cli.main(["--device", "cpu"])
+    """No action is no error: the call does nothing and returns 0, as the JAX
+    ``main`` does (``tests/test_torch_port_cli.py`` drives both)."""
+    assert cli.main(["--device", "cpu"]) == 0
