@@ -14,10 +14,12 @@ slide's tissue cells at batch 512, and the int8 (w8a8) path (``--quantize``,
 ``--predict_slide --int8``, ``run_feature_extraction(int8=True)``) on the
 same slide and cells, patch-classifier training (``--train``, the
 ``self_supervised`` strategy, ``--evaluate``) on the slide's labelled tissue
-cells, and hierarchical multiscale slide inference (``--predict_slide
+cells, hierarchical multiscale slide inference (``--predict_slide
 --multiscale`` at levels (2, 3): float, cascade and int8 on the stacked
-trunk batch) on the same slide. It checks every hand-written kernel of
-those paths against its plain PyTorch version on the card. Phases:
+trunk batch) on the same slide, and multiscale training with calibration
+(``--train_multiscale``), quantization-aware fine-tuning (``--qat``) and
+the serving paths of what they write. It checks every hand-written kernel
+of those paths against its plain PyTorch version on the card. Phases:
 
 1. card and software: ``nvidia-smi`` name and power limit, torch, CUDA, nvcc;
 2. build: the kernels from ``ops/csrc/`` of this checkout;
@@ -142,6 +144,22 @@ those paths against its plain PyTorch version on the card. Phases:
    and ``--predict_slide --multiscale --int8`` picking the artifact up; warm
    walls in turns with the single-level host-filter slice, peak memory, and
    (last in the run) one run's idle share under the profiler;
+12. multiscale training (run before phase 8): a level-2 store (448², 1.05 GB)
+   of the 1,752 tissue cells beside phase 10's level-3 store, with their
+   tumor labels; ``--train_multiscale --levels 2,3 --epochs 2 --batch_size
+   512`` through the CLI's ``main`` in the default resize mode (the numpy
+   box mean: no cv2 on the card), warm-started from phase 10's classifier,
+   the augment kernel's launches counted (2 a step), losses finite, every
+   calibration key present, ``input_mode`` 0; once more with ``--ms_input
+   crop`` (``input_mode`` 1); ``--predict_slide <dir> --multiscale
+   --run_evaluation`` from the trained artifact (2a launches, 2 a batch;
+   FROC in [0, 1]) and ``--cascade`` when a margin shipped; one bf16 card
+   step against a float32 CPU step; ``--qat --epochs 1`` from phase 10's
+   classifier, then ``--predict_slide --int8`` from its artifact (1 + 16 + 1
+   launches a batch) and the QAT graph against the artifact's int8 forward
+   on the reference cells (logit cosine); warm step times of both trainers,
+   peak memory, and (last in the run) one multiscale epoch's idle share
+   under the profiler;
 8. feature extraction: the packed store of the slide's 1,752 tissue cells,
    the slice's ResNet18 saved as ``resnet18_patch_classifier.pt``,
    ``extract_features(cfg, level=3, dataset=ds, device="cuda")`` at batch 512
@@ -413,6 +431,14 @@ MS_CAL = {"temperature": 1.3, "aux_temperature": 0.9, "ensemble_weight": 0.6,
 # the bound is the slice's
 MS_BF16_ATOL = BF16_ATOL
 MS_WALL_RUNS = 3  # warm runs of each path, in turns
+# multiscale training (phase 12): --train_multiscale at levels (2, 3), B = 512
+# cells (S·B = 1,024 images a trunk call), cut from strategy_epochs = 5
+MS_TRAIN_EPOCHS = 2
+MS_TRAIN_TIMED_STEPS = 6
+QAT_TIMED_STEPS = 4
+# the QAT graph against the int8 forward of the artifact it wrote: the bound
+# of the JAX package's tests/test_qat.py (logit cosine)
+QAT_COSINE_MIN = 0.995
 # The card's published peaks (H100 SXM): device memory and dense rates.
 HBM_BYTES_S = 3.35e12
 FP32_FLOP_S = 67e12
@@ -2370,7 +2396,8 @@ def phase_train(dev, ds, slide, spec, simclr_models, tmp) -> dict:
         f"({epoch['steps']} steps, packed-store reads included): "
         f"{epoch_ms:.1f} ms = {epoch_ms / epoch['steps']:.2f} ms/step = "
         f"{len(ds) / epoch_ms * 1e3:.0f} patches/s")
-    return {"launches": launches, "trainer": trainer}
+    return {"launches": launches, "trainer": trainer, "data_dir": data_dir,
+            "models_dir": models_dir}
 
 
 def phase_train_profile(trainer, n: int) -> None:
@@ -3117,6 +3144,442 @@ def phase_multiscale_profile(dev, slide, model, cal) -> None:
         raise AssertionError("the profiler saw no device time")
 
 
+def ms_level2_store(slide, grid, cells, labels, patches_dir):
+    """The tissue cells at level 2 (448², the level-0 origins of the level-3
+    cells), with their labels, in a packed store under ``patches_dir`` and a
+    numpy manifest beside it; written in chunks (1.05 GB in all)."""
+    import numpy as np
+
+    from ss25_hierarchical_multiscale_image_classification_tpu_torch.data.manifest import (
+        PatchManifest,
+        manifest_npz_path,
+    )
+    from ss25_hierarchical_multiscale_image_classification_tpu_torch.data.patch_store import (
+        PackedPatchWriter,
+    )
+    from ss25_hierarchical_multiscale_image_classification_tpu_torch.grid.pyramid import (
+        patch_size_for_level,
+    )
+
+    lvl = MS_LEVELS[0]
+    ps = patch_size_for_level(lvl)
+    ratio = 2 ** (LEVEL - lvl)  # level-3 px → level-2 px
+    writer = PackedPatchWriter(patches_dir, lvl, "smoke_slide", ps)
+    coords = np.stack([cells[:, 1], cells[:, 0]], 1) * grid.stride * ratio
+    recs = []
+    for i in range(0, len(cells), MS_BATCH):
+        part = cells[i:i + MS_BATCH]
+        patches = np.stack([slide.read_region(
+            grid.level0_origin(ix * grid.stride, iy * grid.stride), lvl,
+            (ps, ps)) for iy, ix in part])
+        recs += writer.write_batch(patches, coords[i:i + MS_BATCH],
+                                   labels[i:i + MS_BATCH].astype(np.int64))
+    writer.close()
+    manifest = PatchManifest(recs)
+    manifest.save(manifest_npz_path(patches_dir, lvl))
+    return manifest
+
+
+def phase_ms_train(dev, ds, slide, grid, tissue, labels, ref_u8, train) -> dict:
+    """Multiscale training, QAT and their serving paths on the card, through
+    the command line: a level-2 store beside phase 10's level-3 store;
+    ``--train_multiscale --levels 2,3`` warm-started from phase 10's
+    classifier in the default resize mode (augment launches counted, 2 a
+    step), then once in crop mode; ``--predict_slide <dir> --multiscale
+    --run_evaluation`` from the trained artifact (2a launches counted) and
+    ``--cascade`` when a margin shipped; one bf16 card step against a
+    float32 CPU step; ``--qat --epochs 1`` and ``--predict_slide --int8``
+    from its artifact (int8 launches counted), the QAT graph against the
+    artifact's int8 forward; warm step times and peak memory."""
+    import shutil
+
+    import numpy as np
+    import torch
+
+    from ss25_hierarchical_multiscale_image_classification_tpu_torch.cli import (
+        main as cli_module,
+    )
+    from ss25_hierarchical_multiscale_image_classification_tpu_torch.config import (
+        DataConfig,
+    )
+    from ss25_hierarchical_multiscale_image_classification_tpu_torch.data.augment import (
+        augment_batch,
+        sample_augment_params,
+    )
+    from ss25_hierarchical_multiscale_image_classification_tpu_torch.data.datasets import (
+        BatchIterator,
+    )
+    from ss25_hierarchical_multiscale_image_classification_tpu_torch.data.multiscale import (
+        MultiscaleDataset,
+    )
+    from ss25_hierarchical_multiscale_image_classification_tpu_torch.evaluation.calibration import (
+        COMBINE_MODES,
+        decode_combine,
+    )
+    from ss25_hierarchical_multiscale_image_classification_tpu_torch.models.convert import (
+        hierarchical_from_state_dict,
+        split_calibration,
+    )
+    from ss25_hierarchical_multiscale_image_classification_tpu_torch.models.quant_artifact import (
+        CLASSIFIER_ARTIFACT,
+        load_quantized,
+    )
+    from ss25_hierarchical_multiscale_image_classification_tpu_torch.models.quantized import (
+        quant_forward,
+        quantized_to,
+    )
+    from ss25_hierarchical_multiscale_image_classification_tpu_torch.ops.augment import (
+        augment_batch_kernel,
+    )
+    from ss25_hierarchical_multiscale_image_classification_tpu_torch.ops.preprocess import (
+        fused_normalize,
+    )
+    from ss25_hierarchical_multiscale_image_classification_tpu_torch.train.checkpoints import (
+        load_model,
+    )
+    from ss25_hierarchical_multiscale_image_classification_tpu_torch.train.losses import (
+        class_weights_inv_min,
+        weighted_cross_entropy,
+    )
+    from ss25_hierarchical_multiscale_image_classification_tpu_torch.train.multiscale_trainer import (
+        make_multiscale_train_step,
+        multiscale_loss,
+        train_epoch,
+    )
+    from ss25_hierarchical_multiscale_image_classification_tpu_torch.train.qat import (
+        qat_forward,
+        trainable_folded,
+    )
+    from ss25_hierarchical_multiscale_image_classification_tpu_torch.train.simclr_trainer import (
+        to_device,
+    )
+    from ss25_hierarchical_multiscale_image_classification_tpu_torch.train.state import (
+        create_train_state,
+    )
+
+    data_dir, models_dir = train["data_dir"], train["models_dir"]
+    data = DataConfig(data_dir=data_dir)
+    t0 = time.perf_counter()
+    m2 = ms_level2_store(slide, grid, tissue, labels, data.patches_dir)
+    msds = MultiscaleDataset({MS_LEVELS[0]: m2, LEVEL: ds.manifest},
+                             resize_to=224, input_mode="resize")
+    train_idx, val_idx = msds.split_by_slide(data.val_fraction,
+                                             data.split_seed)
+    steps = MS_TRAIN_EPOCHS * -(-len(train_idx) // BATCH)
+    s = len(MS_LEVELS)
+    log(f"[ms-train] level-2 store of {len(m2)} cells at 448² "
+        f"({os.path.getsize(m2[0].path) / 1e9:.2f} GB) beside phase 10's "
+        f"level-3 store in {time.perf_counter() - t0:.1f} s; {len(msds)} "
+        f"aligned cells ({int(msds.labels.sum())} tumor), {len(train_idx)} "
+        f"train / {len(val_idx)} val (one slide: an 80/20 cell split)")
+    if len(msds) != len(tissue):
+        raise AssertionError("the two levels' stores do not align")
+
+    # --train_multiscale, resize mode, warm-started from phase 10's classifier
+    common = ["--data_dir", data_dir, "--device", "cuda"]
+    argv = ["--train_multiscale", "--levels", ",".join(map(str, MS_LEVELS)),
+            "--epochs", str(MS_TRAIN_EPOCHS), "--batch_size", str(BATCH),
+            "--models_dir", models_dir, *common]
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    reset_counts()  # counts from here on are the multiscale training path's
+    with _Messages("train.multiscale") as records:
+        rc, wall = run_cli(argv)
+    aug_launches = augment_batch_kernel.launches
+    peak = torch.cuda.max_memory_allocated() / 2**30
+    losses = [r.args[2] for r in records
+              if r.msg.startswith("multiscale epoch")]
+    warm = [r for r in records if r.msg.startswith("warm-started")]
+    sd_ms = load_model(os.path.join(models_dir, "hierarchical_classifier"))
+    state_ms, cal = split_calibration(sd_ms)
+    log(f"[ms-train] --train_multiscale --epochs {MS_TRAIN_EPOCHS} --batch_size "
+        f"{BATCH}: exit {rc} in {wall:.2f} s (cold); {steps} steps, augment "
+        f"launches {aug_launches}; warm-started {len(warm) == 1}; epoch losses "
+        f"{losses}; peak device memory {peak:.2f} GiB; calibration {cal}")
+    if rc != 0:
+        raise AssertionError(f"--train_multiscale failed with exit code {rc}")
+    if aug_launches != s * steps:
+        raise AssertionError(f"expected {s * steps} augment launches on the "
+                             f"multiscale training path, counted "
+                             f"{aug_launches}")
+    want = {"temperature", "aux_temperature", "ensemble_weight",
+            "ensemble_base_weight", "combine", "input_mode"}
+    if (len(losses) != MS_TRAIN_EPOCHS or not np.isfinite(losses).all()
+            or len(warm) != 1 or not want <= set(cal)
+            or decode_combine(cal["combine"]) not in COMBINE_MODES
+            or cal["input_mode"] != 0.0
+            or not all(np.isfinite(v) for v in cal.values())):
+        raise AssertionError("--train_multiscale: losses, warm start or the "
+                             "artifact's calibration are wrong")
+    hierarchical_from_state_dict(state_ms, MS_LEVELS)  # strict: every tensor
+
+    # once more in crop mode, into its own models dir (same warm start)
+    crop_models = os.path.join(os.path.dirname(models_dir), "ms_crop_models")
+    os.makedirs(crop_models)
+    shutil.copy(os.path.join(models_dir, "resnet18_patch_classifier.pt"),
+                crop_models)
+    rc, crop_wall = run_cli(["--train_multiscale", "--ms_input", "crop",
+                             "--epochs", "1", "--batch_size", str(BATCH),
+                             "--models_dir", crop_models, *common])
+    _, crop_cal = split_calibration(load_model(os.path.join(
+        crop_models, "hierarchical_classifier")))
+    log(f"[ms-train] --train_multiscale --ms_input crop --epochs 1: exit {rc} "
+        f"in {crop_wall:.2f} s; input_mode {crop_cal.get('input_mode')}")
+    if rc != 0 or crop_cal.get("input_mode") != 1.0:
+        raise AssertionError("--ms_input crop did not record input_mode 1")
+
+    # the trained artifact serves --predict_slide <dir> --multiscale
+    img_dir = os.path.join(data_dir, "train", "img")
+    n_batches = -(-len(tissue) // MS_BATCH)
+    predict = ["--predict_slide", img_dir, "--multiscale", "--stride",
+               str(STRIDE), "--batch_size", str(MS_BATCH), "--models_dir",
+               models_dir, *common]
+    reset_counts()  # counts from here on are the trained artifact's path
+    with _Messages("evaluation.froc") as records:
+        rc, pred_wall = run_cli([*predict, "--run_evaluation"])
+    ms_launches = fused_normalize.launches
+    scores = [r.args[0] for r in records if r.msg.startswith("FROC score")]
+    log(f"[ms-train] --predict_slide <dir> --multiscale --run_evaluation from "
+        f"the trained artifact (combine {decode_combine(cal['combine'])}): "
+        f"exit {rc} in {pred_wall:.2f} s; fused_normalize launches "
+        f"{ms_launches}; FROC score {scores}")
+    if (rc != 0 or ms_launches != s * n_batches or len(scores) != 1
+            or not 0.0 <= scores[0] <= 1.0):
+        raise AssertionError("--predict_slide --multiscale from the trained "
+                             "artifact failed, launched 2a other than 2 a "
+                             "batch, or gave no FROC score in [0, 1]")
+    if "cascade_margin" in cal:
+        with _Messages("torch.infer.multiscale") as records:
+            rc, casc_wall = run_cli([*predict, "--cascade"])
+        text = [r.getMessage() for r in records
+                if r.getMessage().startswith("cascade")]
+        log(f"[ms-train] --cascade (auto, margin {cal['cascade_margin']:.4f}, "
+            f"val screen rate {cal.get('cascade_val_screen_rate')}): exit {rc} "
+            f"in {casc_wall:.2f} s; {text}")
+        if rc != 0 or not text:
+            raise AssertionError("--cascade from the trained artifact failed")
+    else:
+        log("[ms-train] no cascade_margin shipped (the base-level screen was "
+            "uninformative on validation): --cascade auto would run the full "
+            "fused pass")
+
+    # one bf16 card step against a float32 CPU step: same weights, cells,
+    # augmentation draws and class weights
+    imgs, lab = msds.read_batch(range(REF_BATCH))
+    cw = class_weights_inv_min(msds.labels[train_idx], 2)
+    params = sample_augment_params(torch.Generator().manual_seed(SEED),
+                                   REF_BATCH)
+    out = {}
+    for where in ("cuda", "cpu"):
+        d = torch.device(where)
+        model = hierarchical_from_state_dict(state_ms, MS_LEVELS).to(
+            d, memory_format=torch.channels_last).train()
+        p = {k: v.to(d) for k, v in params.items()}
+        batch = {lvl: (augment_batch_kernel(p, torch.from_numpy(x).to(d))
+                       if where == "cuda"
+                       else augment_batch(p, torch.from_numpy(x)))
+                 for lvl, x in imgs.items()}
+        loss, _ = multiscale_loss(model, batch, torch.from_numpy(lab).long().to(d),
+                                  torch.from_numpy(cw).to(d),
+                                  torch.ones(REF_BATCH, device=d), 0.5)
+        loss.backward()
+        out[where] = (loss.item(), {k: q.grad.detach().float().cpu()
+                                    for k, q in model.named_parameters()})
+    d_loss = abs(out["cuda"][0] - out["cpu"][0])
+    d_grad = {k: (out["cuda"][1][k] - g).abs().max().item() / g.abs().max().item()
+              for k, g in out["cpu"][1].items() if g.abs().max() > 0}
+    head = max(d_grad[k] for k in ("head_out.weight", "head_out.bias",
+                                   "aux_head.weight", "aux_head.bias"))
+    log(f"[ms-train-check] {REF_BATCH} cells × {s} levels: bf16 card loss "
+        f"{out['cuda'][0]:.6f}, float32 CPU loss {out['cpu'][0]:.6f} (|Δ| "
+        f"{d_loss:.3g}, bound {TRAIN_LOSS_ATOL}); head grads max|Δ|/max|g| "
+        f"{head:.3g} (bound {TRAIN_GRAD_RTOL}); all tensors: median "
+        f"{np.median(list(d_grad.values())):.3g}, max {max(d_grad.values()):.3g}")
+    if not (np.isfinite(out["cuda"][0]) and np.isfinite(out["cpu"][0])):
+        raise AssertionError("non-finite multiscale loss")
+    if d_loss > TRAIN_LOSS_ATOL or head > TRAIN_GRAD_RTOL:
+        raise AssertionError("bf16 multiscale card step outside its bound of "
+                             "the float32 CPU step")
+
+    # warm steps of the path's step function on the path's batches
+    state = create_train_state(hierarchical_from_state_dict(state_ms,
+                                                            MS_LEVELS),
+                               1e-4, dev)
+    step = make_multiscale_train_step(cw)
+    gen = torch.Generator(device=dev).manual_seed(SEED)
+    batches = []
+    for i, (x, t, v) in enumerate(msds.batches(BATCH, seed=SEED,
+                                               indices=train_idx)):
+        if i == 2:
+            break
+        batches.append(({lvl: to_device(a, dev) for lvl, a in x.items()},
+                        to_device(t.astype(np.int64), dev), to_device(v, dev)))
+    step_ms = []
+    torch.cuda.reset_peak_memory_stats()
+    for k in range(MS_TRAIN_TIMED_STEPS + 1):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        state, metrics = step(state, gen, *batches[k % len(batches)])
+        torch.cuda.synchronize()
+        if k:  # the first is a warm-up
+            step_ms.append((time.perf_counter() - t0) * 1e3)
+    step_peak = torch.cuda.max_memory_allocated() / 2**30
+    q1, med, q3 = quartiles(step_ms)
+    log(f"[ms-train] warm step (batch on the card, synchronized): median "
+        f"{med:.2f} ms (quartiles {q1:.2f}–{q3:.2f}, {len(step_ms)} steps) = "
+        f"{BATCH / med * 1e3:.0f} cells/s ({s * BATCH} images a trunk call); "
+        f"peak device memory {step_peak:.2f} GiB")
+    del batches
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    ep = train_epoch(state, step, gen, msds, BATCH, SEED, train_idx, dev)
+    torch.cuda.synchronize()
+    epoch_ms = (time.perf_counter() - t0) * 1e3
+    log(f"[ms-train] one warm epoch as train_epoch runs it ({ep['steps']} "
+        f"steps, store reads and the 448² box mean included): {epoch_ms:.1f} "
+        f"ms = {epoch_ms / ep['steps']:.1f} ms/step = "
+        f"{len(train_idx) / epoch_ms * 1e3:.0f} cells/s")
+
+    # --qat --epochs 1 from phase 10's classifier, its result kept
+    captured = {}
+    real_qat = cli_module.qat_finetune
+
+    def keep(*a, **kw):
+        captured["out"] = real_qat(*a, **kw)
+        return captured["out"]
+
+    cli_module.qat_finetune = keep
+    torch.cuda.reset_peak_memory_stats()
+    try:
+        with _Messages("train.qat") as records:
+            rc, qat_wall = run_cli(["--qat", "--epochs", "1", "--patch_level",
+                                    str(LEVEL), "--batch_size", str(BATCH),
+                                    "--models_dir", models_dir, *common])
+    finally:
+        cli_module.qat_finetune = real_qat
+    qat_peak = torch.cuda.max_memory_allocated() / 2**30
+    qat_path = os.path.join(models_dir, CLASSIFIER_ARTIFACT)
+    history = captured.get("out", {}).get("history")
+    log(f"[qat] --qat --epochs 1 --batch_size {BATCH}: exit {rc} in "
+        f"{qat_wall:.2f} s (cold); history {history}; peak device memory "
+        f"{qat_peak:.2f} GiB; artifact {os.path.basename(qat_path)} "
+        f"{os.path.exists(qat_path)}")
+    if (rc != 0 or not os.path.exists(qat_path) or not history
+            or not np.isfinite(history[0]["loss"])):
+        raise AssertionError("--qat failed or wrote no artifact")
+    int8_batches = -(-len(tissue) // BATCH)
+    stage1, conv, pool = int8_launchers()
+    reset_counts()  # counts from here on are the QAT artifact's int8 path
+    with _Messages("models.quant_artifact") as records:
+        rc, int8_wall = run_cli(["--predict_slide",
+                                 os.path.join(img_dir, "smoke_slide.wsi.npz"),
+                                 "--int8", "--stride", str(STRIDE),
+                                 "--batch_size", str(BATCH), "--models_dir",
+                                 models_dir, *common])
+    qat_launches = (stage1.launches, conv.launches, pool.launches)
+    used = any("using persisted" in r.getMessage() for r in records)
+    log(f"[qat] --predict_slide --int8 from the QAT artifact: exit {rc} in "
+        f"{int8_wall:.2f} s; artifact picked up {used}; launches "
+        f"fused_stage1_int8 {qat_launches[0]}, int8_conv_requant "
+        f"{qat_launches[1]}, int8_maxpool {qat_launches[2]} over "
+        f"{int8_batches} batches")
+    if rc != 0 or not used:
+        raise AssertionError("--predict_slide --int8 did not run from the QAT "
+                             "artifact")
+    if qat_launches != (int8_batches, 16 * int8_batches, int8_batches):
+        raise AssertionError(f"expected {int8_batches}, {16 * int8_batches} "
+                             f"and {int8_batches} int8 launches, counted "
+                             f"{qat_launches}")
+    # the QAT graph (float32, TF32 off) against the artifact's int8 forward
+    tree = quantized_to(load_quantized(qat_path), dev)
+    fp = trainable_folded(captured["out"]["folded"], dev)
+    x_ref = torch.from_numpy(ref_u8).to(dev)
+    with torch.no_grad(), torch.backends.cudnn.flags(enabled=True,
+                                                     allow_tf32=False):
+        l8 = quant_forward(tree, x_ref, with_fc=True).float()
+        lq = qat_forward(fp, tree["ascales"], x_ref)
+    cos = torch.nn.functional.cosine_similarity(l8.flatten(), lq.flatten(),
+                                                dim=0).item()
+    rel = ((l8 - lq).abs().max() / l8.abs().max()).item()
+    log(f"[qat] {len(ref_u8)} reference cells: qat_forward against the "
+        f"artifact's quant_forward, logit cosine {cos:.5f} (bound "
+        f"{QAT_COSINE_MIN}), max|Δ|/max|logit| {rel:.4f}")
+    if not cos > QAT_COSINE_MIN:
+        raise AssertionError("the QAT graph strays from the int8 forward of "
+                             "its artifact")
+    # warm QAT steps (float32, TF32 off) at the path's batch
+    asc = {k: v.to(dev) for k, v in captured["out"]["ascales"].items()}
+    opt = torch.optim.Adam([t for v in fp.values() for t in v.values()],
+                           lr=1e-5, fused=True)
+    cw3 = torch.as_tensor(class_weights_inv_min(ds.labels, 2)).to(dev)
+    qb = []
+    for i, (x, t, v) in enumerate(BatchIterator(ds, BATCH, seed=SEED)):
+        if i == 2:
+            break
+        qb.append((to_device(x, dev), to_device(t.astype(np.int64), dev),
+                   to_device(v, dev)))
+    qat_ms = []
+    with torch.backends.cudnn.flags(enabled=True, allow_tf32=False):
+        for k in range(QAT_TIMED_STEPS + 1):
+            x, t, v = qb[k % len(qb)]
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            opt.zero_grad(set_to_none=True)
+            loss = weighted_cross_entropy(qat_forward(fp, asc, x), t, cw3, v)
+            loss.backward()
+            opt.step()
+            torch.cuda.synchronize()
+            if k:
+                qat_ms.append((time.perf_counter() - t0) * 1e3)
+    q1, qmed, q3 = quartiles(qat_ms)
+    log(f"[qat] warm QAT step (float32, TF32 off, batch on the card): median "
+        f"{qmed:.2f} ms (quartiles {q1:.2f}–{q3:.2f}, {len(qat_ms)} steps) = "
+        f"{BATCH / qmed * 1e3:.0f} patches/s")
+    del qb, fp, opt, tree
+    return {"aug_launches": aug_launches, "ms_launches": ms_launches,
+            "qat_launches": qat_launches,
+            "profile": (state, step, gen, msds, train_idx)}
+
+
+def phase_ms_train_profile(dev, state, step, gen, msds, train_idx) -> None:
+    """One warm multiscale epoch under the profiler: the device's idle
+    share (last in the run: walls taken after a profiler session run
+    long)."""
+    import torch
+    from torch.profiler import ProfilerActivity, profile
+
+    from ss25_hierarchical_multiscale_image_classification_tpu_torch.train.multiscale_trainer import (
+        train_epoch,
+    )
+
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        t0 = time.perf_counter()
+        ep = train_epoch(state, step, gen, msds, BATCH, SEED + 1, train_idx,
+                         dev)
+        torch.cuda.synchronize()
+        wall_ms = (time.perf_counter() - t0) * 1e3
+    busy = busy_us(prof) / 1e3
+
+    def device_ms(e):
+        return (getattr(e, "self_device_time_total", None)
+                or getattr(e, "self_cuda_time_total", 0)) / 1e3
+
+    kernels = [e for e in prof.key_averages()
+               if e.device_type == torch.autograd.DeviceType.CUDA]
+    top = sorted(kernels, key=device_ms, reverse=True)[:12]
+    log(f"[ms-train] warm epoch under the profiler ({ep['steps']} steps, "
+        f"store reads and the box mean included): {wall_ms:.1f} ms = "
+        f"{len(train_idx) / wall_ms * 1e3:.0f} cells/s; device busy "
+        f"{busy:.1f} ms, idle share {1 - busy / wall_ms:.3f}; device time by "
+        f"kernel (ms, launches): "
+        + "; ".join(f"{e.key[:50]} {device_ms(e):.2f} ({e.count})"
+                    for e in top))
+    if busy <= 0:
+        raise AssertionError("the profiler saw no device time")
+
+
 def phase_features(dev, ds, sd, tmp) -> dict:
     """``extract_features`` on the card over the packed store of the slide's
     tissue cells, the stem kernels' launches counted around each route."""
@@ -3589,11 +4052,15 @@ def main() -> int:
         ms = phase_multiscale(dev, sd, slide, spec, grid, host_margins, calib,
                               ref, tmp)
         torch.cuda.empty_cache()
+        ms_train = phase_ms_train(dev, ds, slide, grid, tissue, labels, ref_u8,
+                                  train)
+        torch.cuda.empty_cache()
         # last: they end under torch.profiler, and host-clock walls taken in
         # this process after a profiler session come out longer
         feature_launches = phase_features(dev, ds, sd, tmp)
         phase_train_profile(train.pop("trainer"), len(ds))
         phase_multiscale_profile(dev, slide, ms.pop("model"), ms["cal"])
+        phase_ms_train_profile(dev, *ms_train.pop("profile"))
     del ds
 
     jax_pkg = "ss25_hierarchical_multiscale_image_classification_tpu"
@@ -3602,10 +4069,19 @@ def main() -> int:
         f"FROC path {froc_launches}, multiscale path {ms['launches']}; int8 "
         f"multiscale path (fused_stage1_int8, int8_conv_requant, int8_maxpool) "
         f"{ms['int8_launches']}")
+    log(f"[paths] multiscale training: augment launches "
+        f"{ms_train['aug_launches']}; fused_normalize launches from the "
+        f"trained artifact {ms_train['ms_launches']}; int8 from the QAT "
+        f"artifact (fused_stage1_int8, int8_conv_requant, int8_maxpool) "
+        f"{ms_train['qat_launches']}")
     kernel["multiscale_launches"] = ms["launches"]
+    kernel["trained_multiscale_launches"] = ms_train["ms_launches"]
     stage1["multiscale_launches"] = ms["int8_launches"][0]
     int8_conv["multiscale_launches"] = ms["int8_launches"][1]
     int8_pool["multiscale_launches"] = ms["int8_launches"][2]
+    for k, row in zip(ms_train["qat_launches"], (stage1, int8_conv, int8_pool)):
+        row["qat_launches"] = k
+    aug["multiscale_train_launches"] = ms_train["aug_launches"]
     rows = [("fused_normalize", "fused_normalize.cu", f"{ops}/preprocess.py:35",
              kernel)]
     for name, line in (("nt_xent_fwd", 63), ("nt_xent_bwd", 157)):
@@ -3646,7 +4122,9 @@ def main() -> int:
         "library_ms": k["library_ms"],
         **{key: k[key] for key in ("bound_fp32_ms", "back_to_back_ms",
                                    "kernel_ms", "kernel_back_to_back_ms",
-                                   "multiscale_launches")
+                                   "multiscale_launches",
+                                   "trained_multiscale_launches",
+                                   "qat_launches", "multiscale_train_launches")
            if key in k},
     } for name, source, replaces, k in rows]}
     log(smi)  # the card's name and power limit, as nvidia-smi prints them

@@ -8,9 +8,13 @@ for a ``simclr_encoder`` artifact, the port's ``MILClassifier`` layout
 (``attention.*``, ``dense_0.*``, ``dense_1.*``) for a ``mil_classifier``
 artifact, and the port's ``HierarchicalPatchClassifier`` layout (``trunk.*``,
 ``scale_embed``, the heads, and the calibration as ``calibration.<key>``
-0-d float64 tensors) for a ``hierarchical_classifier`` artifact. Needs JAX,
-so it runs where the JAX package runs; the port's machine only reads the
-``.pt``.
+0-d float64 tensors) for a ``hierarchical_classifier`` artifact. The
+multiscale artifact is written in ``models/convert.py::hierarchical_artifact``'s
+format, the one the port's ``--train_multiscale`` writes, and checked
+against it: the converted weights, loaded into the port's module and put
+through that function with the same calibration, must give the same keys,
+dtypes and values. Needs JAX, so it runs where the JAX package runs; the
+port's machine only reads the ``.pt``.
 
     python scripts/export_jax_checkpoint_to_torch.py \\
         models_out/resnet18_patch_classifier [models_out/resnet18_patch_classifier.pt]
@@ -39,11 +43,32 @@ from ss25_hierarchical_multiscale_image_classification_tpu.train.checkpoints imp
     load_model,
 )
 from ss25_hierarchical_multiscale_image_classification_tpu_torch.models.convert import (
+    hierarchical_artifact,
+    hierarchical_from_state_dict,
     hierarchical_state_dict_from_flax,
     mil_state_dict_from_flax,
     simclr_state_dict_from_flax,
+    split_calibration,
     state_dict_from_flax,
 )
+
+
+def check_hierarchical_format(sd: dict) -> None:
+    """Raise unless ``sd`` is what the port's multiscale trainer writes for
+    the same weights and calibration: the same keys, dtypes and shapes,
+    equal values."""
+    state, calibration = split_calibration(sd)
+    levels = tuple(range(int(state["scale_embed"].shape[0])))
+    model = hierarchical_from_state_dict(state, levels)
+    want = hierarchical_artifact(model.state_dict(), calibration)
+    if set(want) != set(sd):
+        raise ValueError(f"keys differ from the trainer's artifact: "
+                         f"{sorted(set(want) ^ set(sd))}")
+    for key, value in want.items():
+        got = sd[key]
+        if (got.dtype != value.dtype or got.shape != value.shape
+                or not torch.equal(got, value)):
+            raise ValueError(f"{key} differs from the trainer's artifact")
 
 
 def main(argv=None) -> int:
@@ -65,6 +90,8 @@ def main(argv=None) -> int:
     else:
         convert = state_dict_from_flax
     sd = convert(variables)
+    if convert is hierarchical_state_dict_from_flax:
+        check_hierarchical_format(sd)
     torch.save(sd, dst)
     print(f"{src} → {dst} ({len(sd)} tensors)")
     return 0

@@ -1,12 +1,14 @@
 """Command line of the port: ``--predict_slide`` (one slide or a
 directory), ``--run_evaluation``, ``--train``, ``--train_strategy``,
-``--evaluate``, ``--train_mil``, ``--extract_features`` and ``--quantize``.
+``--evaluate``, ``--train_mil``, ``--train_multiscale``, ``--qat``,
+``--extract_features`` and ``--quantize``.
 
 Counterpart of the JAX CLI (``cli/main.py`` of the JAX package) for these
 actions, with their flags under the same names and defaults, plus
 ``--device``. As there, one call runs every action given, in a fixed order
 (``--extract_features``, ``--train``, ``--train_strategy``, ``--evaluate``,
-``--train_mil``, ``--quantize``, ``--predict_slide``, ``--run_evaluation``),
+``--train_mil``, ``--train_multiscale``, ``--qat``, ``--quantize``,
+``--predict_slide``, ``--run_evaluation``),
 and stops with exit code 1 at a stage whose inputs are missing;
 ``--config`` reads a JSON config (nested sections as in ``config.py``),
 ``--base_dir`` stands for ``--data_dir``, ``--store`` sets the patch store
@@ -28,9 +30,10 @@ forms ``evaluation/froc.py`` reads) with the official CAMELYON16 FROC.
 
 ``--predict_slide --multiscale`` classifies every cell of the base level
 (the largest of ``--levels``, default ``2,3``) from all the levels at once
-with ``<models_dir>/hierarchical_classifier.pt`` (exported from a JAX
-artifact by ``scripts/export_jax_checkpoint_to_torch.py``; its calibration
-picks the reported surface under ``--ms_combine auto`` and its input mode);
+with ``<models_dir>/hierarchical_classifier.pt`` (written by
+``--train_multiscale`` or exported from a JAX artifact by
+``scripts/export_jax_checkpoint_to_torch.py``; its calibration picks the
+reported surface under ``--ms_combine auto`` and its input mode);
 ``--ms_components`` also writes the fusion, aux, aux_base and ensemble_base
 surfaces' CSVs into ``model_predictions_csv_<surface>/``; ``--cascade
 [auto|p]`` screens the tissue with the base level's aux head first (with
@@ -51,6 +54,16 @@ saved classifier on the validation split. Training needs a slide under
 ``--train_mil`` trains the attention-MIL slide classifier on the feature
 triplet under ``<data_dir>/features`` at ``--patch_level`` and writes
 ``<models_dir>/mil_classifier.pt``.
+
+``--train_multiscale`` trains the hierarchical fusion classifier on the
+co-located patches of ``--levels`` under ``<data_dir>/patches``
+(``--ms_fusion``, ``--ms_input``, ``--epochs``, ``--batch_size``),
+warm-started from ``<models_dir>/resnet18_patch_classifier.pt`` when it
+exists, calibrates it on the validation cells and writes
+``<models_dir>/hierarchical_classifier.pt``. ``--qat`` fine-tunes the
+trained classifier under fake int8 quantization on ``--patch_level``'s
+patches and writes ``<models_dir>/quantized_resnet18.npz``, which
+``--int8`` serves.
 
     python -m ss25_hierarchical_multiscale_image_classification_tpu_torch.cli.main \\
         --predict_slide slide.wsi.npz --tissue_filter device --device cuda
@@ -87,9 +100,9 @@ else with scales calibrated lazily on the run's first batches.
 
 Flags the JAX CLI ignores in a combination (``--int8`` or
 ``--simclr_features`` without their action, no action at all) are ignored
-here too. Tiled TIFF slides, multi-card fleets, ``--overlay``, ``--qat``
-and ``--train_multiscale`` come with later slices. On the card the float
-model runs in bfloat16, on the CPU in float32.
+here too. Tiled TIFF slides, multi-card fleets and ``--overlay`` come
+with later slices. On the card the float model runs in bfloat16, on the CPU
+in float32.
 """
 
 from __future__ import annotations
@@ -154,6 +167,12 @@ from ss25_hierarchical_multiscale_image_classification_tpu_torch.train.checkpoin
 from ss25_hierarchical_multiscale_image_classification_tpu_torch.train.mil_trainer import (
     train_mil_classifier,
 )
+from ss25_hierarchical_multiscale_image_classification_tpu_torch.train.multiscale_trainer import (
+    train_multiscale_classifier,
+)
+from ss25_hierarchical_multiscale_image_classification_tpu_torch.train.qat import (
+    qat_finetune,
+)
 from ss25_hierarchical_multiscale_image_classification_tpu_torch.train.trainer import (
     train_resnet_classifier,
     train_resnet_classifier_strategic,
@@ -167,9 +186,9 @@ def build_parser() -> argparse.ArgumentParser:
         prog="hipac-torch",
         description="Sliding-window tumor detection (single-level and "
                     "hierarchical multiscale) and its FROC evaluation, "
-                    "patch-classifier training, attention-MIL slide "
-                    "classification, patch feature extraction and int8 "
-                    "quantization (PyTorch/CUDA)",
+                    "patch-classifier and multiscale training, "
+                    "attention-MIL slide classification, patch feature "
+                    "extraction, int8 quantization and QAT (PyTorch/CUDA)",
     )
     parser.add_argument("--predict_slide", type=str, default=None,
                         help="Sliding-window inference on one slide, or on "
@@ -184,7 +203,24 @@ def build_parser() -> argparse.ArgumentParser:
                              "its shared trunk")
     parser.add_argument("--levels", type=str, default="2,3",
                         help="Comma-separated pyramid levels of "
-                             "--multiscale")
+                             "--multiscale and --train_multiscale")
+    parser.add_argument("--train_multiscale", action="store_true",
+                        help="Train the hierarchical multiscale fusion "
+                             "classifier on co-located cross-level patches "
+                             "(writes <models_dir>/hierarchical_classifier.pt "
+                             "with its calibration)")
+    parser.add_argument("--ms_fusion", type=str, default="concat",
+                        choices=["concat", "attention"],
+                        help="With --train_multiscale: how the fused head "
+                             "combines the per-scale trunk features. "
+                             "Prediction detects the artifact's mode")
+    parser.add_argument("--ms_input", type=str, default="resize",
+                        choices=["resize", "crop"],
+                        help="With --train_multiscale: how a finer level's "
+                             "larger patch reaches the trunk input size "
+                             "(resize: box mean; crop: the center at native "
+                             "magnification). Prediction follows the "
+                             "artifact")
     parser.add_argument("--ms_combine", type=str, default="auto",
                         choices=["auto", "ensemble", "fusion", "aux",
                                  "aux_base", "ensemble_base"],
@@ -232,6 +268,11 @@ def build_parser() -> argparse.ArgumentParser:
                         help="Extract features from patches")
     parser.add_argument("--simclr_features", action="store_true",
                         help="With --extract_features: use the SimCLR encoder")
+    parser.add_argument("--qat", action="store_true",
+                        help="Quantization-aware fine-tune of the trained "
+                             "classifier (fake-quant int8 graph, "
+                             "straight-through gradients); writes the int8 "
+                             "artifact quantized_resnet18.npz for --int8")
     parser.add_argument("--quantize", action="store_true",
                         help="Calibrate int8 scales ONCE on training tissue "
                              "and persist the quantized model artifact "
@@ -527,6 +568,14 @@ def main(argv=None) -> int:
     if args.train_mil:
         train_mil_classifier(cfg, level=level, epochs=args.epochs,
                              device=device)
+    if args.train_multiscale:
+        train_multiscale_classifier(
+            cfg, levels=tuple(int(v) for v in args.levels.split(",")),
+            epochs=args.epochs, fusion=args.ms_fusion,
+            input_mode=args.ms_input, device=device)
+    if args.qat:
+        qat_finetune(cfg, level=level, epochs=args.epochs,
+                     batch_size=args.batch_size, device=device)
     if args.quantize:
         if args.multiscale:
             path = quantize_trunk_to_artifact(

@@ -8,9 +8,9 @@ fused SimCLR view path (``sample_simclr_view_params``,
 ``_apply_color_affine``, ``simclr_view_batch``, ``simclr_two_views``), and
 the training augmentation (``_d4_tables``, ``sample_augment_params``,
 ``augment_batch``, its per-example oracle ``_augment_one_with_params``,
-``preprocess_batch``). :func:`augment_batch` is the plain version of the
-hand-written kernel of ``ops/augment.py``, which the trainer runs on the
-card; the multiscale batch comes with the multiscale slice.
+``preprocess_batch``, ``preprocess_multiscale_batch``). :func:`augment_batch`
+is the plain version of the hand-written kernel of ``ops/augment.py``,
+which the trainers run on the card.
 
 Random draws come from a ``torch.Generator`` on the device and are kept
 apart from the arithmetic: :func:`sample_crop_boxes`,
@@ -484,3 +484,25 @@ def preprocess_batch(generator: torch.Generator | None, imgs_u8: torch.Tensor,
 
     params = sample_augment_params(generator, imgs_u8.shape[0])
     return augment_batch_kernel(params, imgs_u8)
+
+
+def preprocess_multiscale_batch(generator: torch.Generator | None,
+                                imgs_by_level: dict,
+                                training: bool = True) -> dict:
+    """``{level: uint8 (B, S, S, 3)}`` → ``{level: normalized float32}``,
+    levels in sorted order. Training: ONE draw of
+    :func:`sample_augment_params` for the batch, applied to every level (on
+    a card the kernel of ``ops/augment.py``, once per level), so that the
+    co-located patches of a cell keep one flip, rotation and colour jitter:
+    they cover the same level-0 field of view. Evaluation: ``normalize``
+    per level."""
+    levels = sorted(imgs_by_level)
+    if not training:
+        return {lvl: normalize(imgs_by_level[lvl]) for lvl in levels}
+    from ss25_hierarchical_multiscale_image_classification_tpu_torch.ops.augment import (
+        augment_batch_kernel,
+    )
+
+    params = sample_augment_params(generator, imgs_by_level[levels[0]].shape[0])
+    return {lvl: augment_batch_kernel(params, imgs_by_level[lvl])
+            for lvl in levels}

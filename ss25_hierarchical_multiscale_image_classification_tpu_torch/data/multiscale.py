@@ -10,9 +10,10 @@ square at every level. This module joins the per-level manifests on (slide,
 level-0 origin), so a model sees all magnifications of one location at once.
 
 The ``"resize"`` input mode reads through ``PatchReader.read_batch(…,
-resize_to=…)``, which resizes with cv2 (``INTER_AREA``); on a machine
-without cv2 only ``"crop"`` datasets, or patches stored at the input size,
-can be read.
+resize_to=…)``, which downscales by the integer factors 2, 3, 4 and 8
+(448², 672², 896² and 1792² patches at 224) with a numpy box mean equal
+to cv2's ``INTER_AREA``, so that the standard pyramid reads without cv2;
+other sizes resize with cv2.
 """
 
 from __future__ import annotations

@@ -10,8 +10,12 @@ Differences from the JAX module, none in the bytes read:
 
 - the packed gather is numpy fancy indexing (the JAX package calls its
   native OpenMP ``gather_rows``, which copies the same rows);
-- PNG records (Pillow) and resizing (``cv2``) import their library when
-  they are read, and raise where it is missing;
+- PNG records (Pillow) import their library when they are read, and
+  raise where it is missing;
+- a downscale by an integer factor f ∈ {2, 3, 4, 8} (both sides of the
+  stored patch f × the edge) is a numpy box mean, equal bit for bit to cv2's
+  ``INTER_AREA`` (:func:`area_downscale`); any other resize imports cv2
+  when it is read, and raises where cv2 is missing;
 - the int8 path's space-to-depth layout (``s2d=True``) is a numpy
   reshape/transpose of the gathered batch (the JAX package's native
   ``gather_rows_s2d`` writes the same bytes during the gather).
@@ -131,7 +135,9 @@ class PatchReader:
                         imgs[p] = gathered[j]
         else:
             imgs = [self.read(i) for i in indices]
-        if resize_to is not None and any(
+        if resize_to is not None and isinstance(imgs, np.ndarray):
+            imgs = resize_batch(imgs, resize_to)
+        elif resize_to is not None and any(
                 img.shape[:2] != (resize_to, resize_to) for img in imgs):
             imgs = [_resize(img, resize_to) for img in imgs]
         batch = imgs if isinstance(imgs, np.ndarray) else np.stack(imgs)
@@ -148,9 +154,52 @@ def space_to_depth_u8(batch: np.ndarray) -> np.ndarray:
     return np.ascontiguousarray(cells).reshape(b, h // 2, w // 2, 4 * c)
 
 
+#: integer downscale factors that :func:`area_downscale` takes without cv2
+AREA_FACTORS = (2, 3, 4, 8)
+
+
+def area_factor(h: int, w: int, edge: int) -> int | None:
+    """The factor f of an (h, w) → (edge, edge) resize when it is one of
+    :data:`AREA_FACTORS` on both sides, else None."""
+    for f in AREA_FACTORS:
+        if h == w == f * edge:
+            return f
+    return None
+
+
+def area_downscale(batch: np.ndarray, f: int) -> np.ndarray:
+    """(B, f·e, f·e, C) uint8 → (B, e, e, C): the mean of each f × f block,
+    rounded as cv2's ``INTER_AREA`` rounds it, so that the bytes equal
+    ``cv2.resize(img, (e, e), interpolation=cv2.INTER_AREA)``.
+
+    With ``s`` the block's integer sum, cv2 rounds half up at f = 2 (its
+    integer fast path, ``(s + 2) >> 2``) and half to even at 4 and 8 (its
+    float path, exact there: 1/16 and 1/64 are powers of two); s/9 is never
+    a tie. The sums run in uint16 (64 · 255 fits), rows first as whole
+    contiguous rows, then columns; s / f² is exact in float32."""
+    b, h, w, c = batch.shape
+    if f not in AREA_FACTORS or h % f or w % f:
+        raise ValueError(f"no box mean of {h}×{w} by {f}")
+    eh, ew = h // f, w // f
+    rows = batch.reshape(b, eh, f, w * c)
+    s = rows[:, :, 0].astype(np.uint16)
+    for i in range(1, f):
+        s += rows[:, :, i]
+    cols = s.reshape(b, eh, ew, f * c)
+    s = cols[..., :c].copy()
+    for j in range(1, f):
+        s += cols[..., j * c:(j + 1) * c]
+    if f == 2:
+        return ((s + 2) >> 2).astype(np.uint8)
+    return np.rint(s / np.float32(f * f)).astype(np.uint8)
+
+
 def _resize(img: np.ndarray, edge: int) -> np.ndarray:
     if img.shape[0] == edge and img.shape[1] == edge:
         return img
+    f = area_factor(img.shape[0], img.shape[1], edge)
+    if f is not None:
+        return area_downscale(img[None], f)[0]
     import cv2
 
     return cv2.resize(img, (edge, edge), interpolation=cv2.INTER_AREA)
@@ -162,4 +211,7 @@ def resize_batch(batch: np.ndarray, edge: int) -> np.ndarray:
     read just to change resolution)."""
     if batch.shape[1] == edge and batch.shape[2] == edge:
         return batch
+    f = area_factor(batch.shape[1], batch.shape[2], edge)
+    if f is not None:
+        return area_downscale(batch, f)
     return np.stack([_resize(img, edge) for img in batch])

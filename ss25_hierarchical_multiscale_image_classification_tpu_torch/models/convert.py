@@ -14,8 +14,9 @@ BatchNorm ``scale/bias`` (params) and ``mean/var`` (batch_stats) →
 ``weight/bias/running_mean/running_var``. :func:`folded_from_jax` and
 :func:`quantized_from_jax` carry the inference-folded and the int8 trees
 across; :func:`hierarchical_state_dict_from_flax` the multiscale classifier
-with its calibration, which :func:`split_calibration` and
-:func:`hierarchical_from_state_dict` take apart again. Numpy in (anything ``np.asarray`` takes), tensors out; nothing here
+with its calibration, in :func:`hierarchical_artifact`'s format (which the
+port's multiscale trainer writes too), and :func:`split_calibration` and
+:func:`hierarchical_from_state_dict` take it apart again. Numpy in (anything ``np.asarray`` takes), tensors out; nothing here
 imports jax.
 """
 
@@ -134,12 +135,8 @@ def hierarchical_state_dict_from_flax(variables: Mapping[str, Any]
     transposed, and each calibration entry as a 0-d float64 tensor under
     ``calibration.<key>``, so that one ``torch.load(weights_only=True)``
     reads the whole artifact. A legacy string ``combine`` is stored as its
-    code (:func:`..evaluation.calibration.encode_combine`)."""
-    from ss25_hierarchical_multiscale_image_classification_tpu_torch.evaluation.calibration import (
-        decode_combine,
-        encode_combine,
-    )
-
+    code (:func:`..evaluation.calibration.encode_combine`), through
+    :func:`hierarchical_artifact`."""
     params = variables["params"]
     trunk = state_dict_from_flax({
         "params": params["trunk"],
@@ -153,7 +150,26 @@ def hierarchical_state_dict_from_flax(variables: Mapping[str, Any]
         sd[f"{name}.weight"] = _tensor(np.asarray(params[name]["kernel"]).T)
         if "bias" in params[name]:
             sd[f"{name}.bias"] = _tensor(params[name]["bias"])
-    for key, value in (variables.get("calibration") or {}).items():
+    return hierarchical_artifact(sd, variables.get("calibration") or {})
+
+
+def hierarchical_artifact(state: Mapping[str, torch.Tensor],
+                          calibration: Mapping[str, Any]
+                          ) -> dict[str, torch.Tensor]:
+    """The one format of ``hierarchical_classifier.pt``, whether exported
+    from JAX or written by the port's trainer: the module's entries as
+    contiguous CPU tensors (BN's ``num_batches_tracked`` left out), then
+    each calibration entry as a 0-d float64 tensor under
+    ``calibration.<key>``, a string ``combine`` as its code
+    (:func:`..evaluation.calibration.encode_combine`)."""
+    from ss25_hierarchical_multiscale_image_classification_tpu_torch.evaluation.calibration import (
+        decode_combine,
+        encode_combine,
+    )
+
+    sd = {k: v.detach().cpu().contiguous() for k, v in state.items()
+          if not k.endswith("num_batches_tracked")}
+    for key, value in calibration.items():
         if isinstance(value, str):
             value = encode_combine(decode_combine(value))
         sd[f"{CALIBRATION_PREFIX}{key}"] = torch.tensor(

@@ -185,8 +185,7 @@ def quantize_trunk_to_artifact(
     ``device``, and persist ``<models_dir>/quantized_hierarchical_trunk.npz``.
     ``dataset=None`` joins the levels' manifests in the artifact's input
     mode (0 = resize, 1 = crop); a given ``MultiscaleDataset`` serves
-    installations without pyarrow (and, in ``"crop"`` mode or at the stored
-    size, without cv2)."""
+    installations without pyarrow."""
     from ss25_hierarchical_multiscale_image_classification_tpu_torch.config import (
         INPUT_SIZE,
     )

@@ -405,7 +405,8 @@ def calibrate(folded: dict, calib_batches: Iterable,
     on ``device``."""
     dev = resolve_device(device)
     maxes: dict[str, float] | None = None
-    with torch.inference_mode(), torch.backends.cudnn.flags(allow_tf32=False):
+    with torch.inference_mode(), torch.backends.cudnn.flags(
+            enabled=True, allow_tf32=False):
         for batch in calib_batches:
             if not isinstance(batch, torch.Tensor):
                 batch = torch.as_tensor(np.asarray(batch))

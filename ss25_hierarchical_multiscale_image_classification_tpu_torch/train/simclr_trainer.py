@@ -85,6 +85,7 @@ def make_simclr_train_step(temperature: float, out_size: int = 224,
         loss = simclr_loss(state.model, v1, v2, temperature, valid, loss_impl)
         loss.backward()
         state.optimizer.step()
+        state.step += 1
         return state, loss.detach()
 
     return train_step

@@ -1,10 +1,11 @@
 """Train state: a model on its device and its Adam optimizer.
 
 Counterpart of the JAX package's ``train/state.py::create_train_state``.
-flax keeps parameters, batch statistics and optimizer state in one
-immutable ``TrainState``; here the model holds its parameters and BN
-running statistics (updated in place by training-mode forwards) and the
-optimizer its moments. optax's ``adam`` defaults (b1 0.9, b2 0.999, eps 1e-8
+flax keeps parameters, batch statistics, optimizer state and the update
+count ``step`` in one immutable ``TrainState``; here the model holds its
+parameters and BN running statistics (updated in place by training-mode
+forwards), the optimizer its moments, and ``step`` counts the updates that
+the train steps applied (what a train-state checkpoint restores). optax's ``adam`` defaults (b1 0.9, b2 0.999, eps 1e-8
 outside the square root) are ``torch.optim.Adam``'s. On the card the update
 is Adam's ``fused=True`` step, one library kernel over all parameters.
 """
@@ -21,6 +22,7 @@ from torch import nn
 class TrainState:
     model: nn.Module
     optimizer: torch.optim.Optimizer
+    step: int = 0
 
 
 def create_train_state(model: nn.Module, learning_rate: float,

@@ -20,8 +20,10 @@ mask of a wrap-padded last batch (whose padded rows still enter BN's batch
 statistics, as in the JAX step), the backward and one Adam update.
 ``frozen_bn`` keeps every BatchNorm on its running statistics, which stay
 as they are, while γ and β train. Metrics stay on the card until the epoch
-ends. Resuming from a full train-state checkpoint is not ported (the JAX
-package's streaming trainer is its only caller).
+ends. :meth:`Trainer.save_checkpoint` and :meth:`Trainer.restore_checkpoint`
+write and read the full train state (weights, BN statistics, Adam's
+moments, the update count) through ``train/checkpoints.py``'s
+``CheckpointManager``.
 """
 
 from __future__ import annotations
@@ -132,6 +134,7 @@ def make_train_step(class_weights=None, frozen_bn: bool = False) -> Callable:
         loss, logits = classifier_loss(model, imgs, labels, cw.get(dev), valid)
         loss.backward()
         state.optimizer.step()
+        state.step += 1
         with torch.no_grad():
             metrics = {
                 "loss": loss.detach(),
@@ -295,6 +298,20 @@ class Trainer:
         os.makedirs(os.path.dirname(path) or ".", exist_ok=True)
         with open(path, "w") as f:
             json.dump(self.history, f, indent=2)
+
+    def save_checkpoint(self, manager, epoch: int) -> None:
+        """Persist the full train state under ``epoch`` through a
+        ``checkpoints.CheckpointManager``."""
+        manager.save(epoch, self.state)
+
+    def restore_checkpoint(self, manager) -> int | None:
+        """Restore the latest full train state in place; the epoch it was
+        saved under, or None when there is no checkpoint."""
+        step = manager.latest_step()
+        if step is None:
+            return None
+        manager.restore(self.state, step)
+        return step
 
     def variables(self) -> dict[str, torch.Tensor]:
         """The model's state dict, on the CPU."""

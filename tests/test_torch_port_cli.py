@@ -338,11 +338,14 @@ def test_cascade_value_parses_like_jax(jx):
         assert a.cascade == ja.cascade
         assert a.levels == ja.levels == "2,3"
         assert a.ms_combine == ja.ms_combine == "auto"
-    # what belongs to multiscale training stays unknown until that slice
-    for flag in ("--ms_fusion", "--ms_input", "--train_multiscale"):
-        with pytest.raises(SystemExit) as exc:
-            cli.main([flag, "--device", "cpu"])
-        assert exc.value.code == 1
+    # the multiscale training and QAT flags parse as the JAX CLI's
+    for argv in (["--train_multiscale"], ["--qat", "--epochs", "2"],
+                 ["--train_multiscale", "--ms_fusion", "attention",
+                  "--ms_input", "crop", "--levels", "1,3"]):
+        a, ja = p.parse_args(argv), jp.parse_args(argv)
+        for key in ("train_multiscale", "ms_fusion", "ms_input", "levels",
+                    "qat", "epochs"):
+            assert getattr(a, key) == getattr(ja, key), key
 
 
 # ---------------------------------------------------------------------------

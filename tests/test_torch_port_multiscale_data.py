@@ -4,6 +4,10 @@
   in both input modes, ``labels``, ``batches``, ``split_by_slide``), the
   patch store's ``resize_batch`` and ``evaluation/calibration.py``'s combine
   codes are copies: equal results, exactly.
+- the patch store's numpy ``INTER_AREA`` at the factors 2, 3, 4 and 8
+  (``area_downscale``) equals ``cv2.resize(…, INTER_AREA)`` bit for bit, on
+  random blocks and on blocks that sum to rounding ties, and the resize
+  mode reads 448², 896² and 1792² stores with cv2 made unimportable.
 - ``HierarchicalPatchClassifier`` in float32 on the CPU against the flax
   module with the same converted weights, both fusions, with and without
   aux heads: logits within 1e-4 of max|logit|, a bound that allows for the
@@ -545,6 +549,131 @@ def test_nt_xent_on_the_cpu_takes_any_width():
                                atol=1e-7)
     np.testing.assert_allclose(tj.grad.numpy(), np.asarray(gj), rtol=1e-4,
                                atol=1e-7)
+
+
+# ---------------------------------------------------------------------------
+# F8: the host INTER_AREA without cv2 (the card's machine has none)
+# ---------------------------------------------------------------------------
+
+
+def _area_input(f, edge, b, ties, seed):
+    """(b, f·edge, f·edge, 3) uint8; with ``ties`` every f × f block sums to
+    a rounding tie (s ≡ f²/2 mod f²; at f = 3, where none exists, to s ≡ 4
+    mod 9, the nearest), else uniform random."""
+    rng = np.random.default_rng(seed)
+    if not ties:
+        return rng.integers(0, 256, (b, f * edge, f * edge, 3), dtype=np.uint8)
+    a = f * f
+    x = rng.integers(0, 256 - a, (b, edge, f, edge, f, 3)).astype(np.int64)
+    target = a // 2 if f % 2 == 0 else 4
+    x[:, :, f - 1, :, f - 1] += (target - x.sum(axis=(2, 4))) % a
+    x = x.astype(np.uint8).reshape(b, f * edge, f * edge, 3)
+    assert (area_sums(x, f) % a == target).all()
+    return x
+
+
+def area_sums(x, f):
+    b, h, w, c = x.shape
+    return x.reshape(b, h // f, f, w // f, f, c).sum(axis=(2, 4), dtype=np.int64)
+
+
+def _cv2_area(x, edge):
+    import cv2
+
+    return np.stack([cv2.resize(img, (edge, edge), interpolation=cv2.INTER_AREA)
+                     for img in x])
+
+
+@pytest.mark.parametrize("ties", [False, True], ids=["random", "ties"])
+@pytest.mark.parametrize("f", [2, 3, 4, 8])
+def test_area_downscale_equals_cv2_inter_area(f, ties):
+    """Bit for bit, tie blocks included: cv2 rounds half up at f = 2 and
+    half to even at 4 and 8; a wrong rule changes thousands of pixels."""
+    pytest.importorskip("cv2")
+    edge = 28 if f == 8 else 56
+    x = _area_input(f, edge, 3, ties, seed=10 * f + ties)
+    want = _cv2_area(x, edge)
+    got = patch_store.area_downscale(x, f)
+    np.testing.assert_array_equal(got, want)
+    np.testing.assert_array_equal(patch_store.resize_batch(x, edge), want)
+    np.testing.assert_array_equal(patch_store._resize(x[1], edge), want[1])
+    if ties and f in (2, 4, 8):  # the other rule would differ here
+        s = area_sums(x, f)
+        other = (np.rint(s / (f * f)) if f == 2
+                 else (s + f * f // 2) // (f * f)).astype(np.uint8)
+        assert (other != want).mean() > 0.2
+
+
+def _two_level_store(tmp_path, fine_level, edge_fine, seed):
+    """Two cells at ``fine_level`` (patches ``edge_fine``²) and at level 3
+    (224²), aligned on level-0 origins, as port manifests."""
+    rng = np.random.default_rng(seed)
+    patches_dir = str(tmp_path / "patches")
+    m = {}
+    for lvl, edge in ((fine_level, edge_fine), (3, 224)):
+        w = patch_store.PackedPatchWriter(patches_dir, lvl, "slide", edge)
+        coords = np.array([[0, 0], [edge, 0]])
+        m[lvl] = manifest.PatchManifest(w.write_batch(
+            rng.integers(0, 256, (2, edge, edge, 3), dtype=np.uint8), coords,
+            np.array([0, 1])))
+        w.close()
+    return m
+
+
+@pytest.mark.parametrize("fine_level,edge", [(2, 448), (1, 896), (0, 1792)])
+def test_resize_mode_reads_pyramid_stores_without_cv2(tmp_path, monkeypatch,
+                                                      fine_level, edge):
+    """``MultiscaleDataset("resize")`` and ``resize_batch`` read 448², 896²
+    and 1792² stores at 224 on a machine without cv2, equal to cv2's
+    ``INTER_AREA`` of the same patches."""
+    pytest.importorskip("cv2")
+    m = _two_level_store(tmp_path, fine_level, edge, seed=edge)
+    raw = patch_store.PatchReader(m[fine_level]).read_batch([0, 1])
+    want = _cv2_area(raw, 224)
+    monkeypatch.setitem(__import__("sys").modules, "cv2", None)
+    with pytest.raises(ImportError):
+        import cv2  # noqa: F401
+    ds = multiscale.MultiscaleDataset(m, resize_to=224, input_mode="resize")
+    got, labels = ds.read_batch([1, 0])
+    np.testing.assert_array_equal(got[fine_level], want[::-1])
+    np.testing.assert_array_equal(labels, [1, 0])
+    np.testing.assert_array_equal(patch_store.resize_batch(raw, 224), want)
+    # a size that is no integer factor still needs cv2
+    with pytest.raises(ImportError):
+        patch_store.resize_batch(raw, 200)
+
+
+def test_quantize_multiscale_reads_a_resize_store_without_cv2(tmp_path,
+                                                              monkeypatch):
+    """``--quantize --multiscale`` of a resize-mode artifact calibrates on a
+    448²/224² store on a machine without cv2."""
+    from ss25_hierarchical_multiscale_image_classification_tpu_torch.config import (
+        Config,
+        DataConfig,
+    )
+    from ss25_hierarchical_multiscale_image_classification_tpu_torch.models import (
+        quant_artifact as qa,
+    )
+    from ss25_hierarchical_multiscale_image_classification_tpu_torch.models.convert import (
+        hierarchical_artifact,
+    )
+
+    m = _two_level_store(tmp_path, 2, 448, seed=7)
+    data = DataConfig(data_dir=str(tmp_path))
+    for lvl, man in m.items():
+        man.save(manifest.manifest_npz_path(data.patches_dir, lvl))
+    models = tmp_path / "models"
+    model = HierarchicalPatchClassifier(
+        generator=torch.Generator().manual_seed(3))
+    save_model(str(models / "hierarchical_classifier"),
+               hierarchical_artifact(model.state_dict(), {"input_mode": 0}))
+    monkeypatch.setitem(__import__("sys").modules, "cv2", None)
+    path = qa.quantize_trunk_to_artifact(
+        Config(data=data, models_dir=str(models)), levels=(2, 3),
+        device="cpu")
+    tree = qa.load_quantized(path)
+    assert qa.artifact_input_hw(tree) == (224, 224)
+    assert set(tree["ascales"]) >= {"in", "p0", "s4b1o"}
 
 
 # ---------------------------------------------------------------------------
