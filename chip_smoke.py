@@ -18,8 +18,11 @@ cells, hierarchical multiscale slide inference (``--predict_slide
 --multiscale`` at levels (2, 3): float, cascade and int8 on the stacked
 trunk batch) on the same slide, and multiscale training with calibration
 (``--train_multiscale``), quantization-aware fine-tuning (``--qat``) and
-the serving paths of what they write. It checks every hand-written kernel
-of those paths against its plain PyTorch version on the card. Phases:
+the serving paths of what they write, and patch extraction from slides
+(``--patch``, host and device routes, ``--stain_norm``) with the two
+trainers that read it (``--patch --train``, ``--mine_hard_negatives``). It
+checks every hand-written kernel of those paths against its plain PyTorch
+version on the card. Phases:
 
 1. card and software: ``nvidia-smi`` name and power limit, torch, CUDA, nvcc;
 2. build: the kernels from ``ops/csrc/`` of this checkout;
@@ -160,6 +163,30 @@ of those paths against its plain PyTorch version on the card. Phases:
    on the reference cells (logit cosine); warm step times of both trainers,
    peak memory, and (last in the run) one multiscale epoch's idle share
    under the profiler;
+13. patch extraction (run before phase 8): a data root written by the
+   port's ``write_synthetic_case``: ``tumor_001``, the smoke slide, whose
+   XML carries the spec's tumor polygon and a seeded 1,024-vertex outline,
+   and the annotation-free 3584×2688 ``normal_001``; through the CLI's
+   ``main``: ``--patch --patch_level all`` with ``--extract_impl host`` and
+   with ``device`` into two roots, the device extractions counted (8: every
+   level of both slides, level 0 a 154-megapixel mask, none falls back),
+   the stores' rows and bytes equal, labels equal except on cells where the
+   host route's numpy rasterizer and the device route's copy of the
+   reference's device rasterizer disagree (each checked against both
+   masks, counted and printed), per-level walls and cells/s of both routes,
+   the device program's pieces (upload, means, rasterize, labels, gather)
+   by CUDA events and its peak memory; ``--patch_level 3 --stride 28`` on
+   the host route: the kept cells are the smoke's 1,752-cell partition and
+   the labels the XML's host mask's; ``--stain_norm`` at level 3: Macenko on
+   the card against the port's CPU Macenko on the same patches (the CPU
+   tests' tolerance), near-white patches byte-equal, ms a batch;
+   ``--patch --train --patch_level 3 --stride 28 --epochs 2``: epoch 0 saw
+   exactly the training split's patches, the store equals the stride-28
+   store, ``augment`` launches counted; ``--mine_hard_negatives`` from that
+   artifact: mined cells at probability ≥ 0.5 of the port's own
+   ``predict_slide`` grid in descending order, bytes equal to region reads,
+   a second call mines nothing; the phase's wall; and (last in the run) the
+   streamed epoch's idle share under the profiler;
 8. feature extraction: the packed store of the slide's 1,752 tissue cells,
    the slice's ResNet18 saved as ``resnet18_patch_classifier.pt``,
    ``extract_features(cfg, level=3, dataset=ds, device="cuda")`` at batch 512
@@ -1802,9 +1829,10 @@ def phase_cli(sd, slide) -> None:
         f"{os.path.basename(csv_path)}")
 
 
-def tumor_labels(spec, slide, grid, cells):
-    """Each cell's label from the slide's tumor polygons: tumor iff a mask
-    pixel lies in its window (the level's mask, padded to the grid)."""
+def tumor_labels(spec, slide, grid, cells, polygons=None):
+    """Each cell's label from the slide's tumor polygons (or ``polygons``):
+    tumor iff a mask pixel lies in its window (the level's mask, padded to
+    the grid)."""
     import numpy as np
 
     from ss25_hierarchical_multiscale_image_classification_tpu_torch.grid.labeling import (
@@ -1817,7 +1845,8 @@ def tumor_labels(spec, slide, grid, cells):
         polygons_level0,
     )
 
-    mask = polygons_to_mask(polygons_level0(spec), slide.level_dimensions[LEVEL],
+    polys = polygons_level0(spec) if polygons is None else polygons
+    mask = polygons_to_mask(polys, slide.level_dimensions[LEVEL],
                             slide.level_dimensions[0])
     padded = np.zeros((grid.padded_height, grid.padded_width), np.uint8)
     padded[:mask.shape[0], :mask.shape[1]] = mask
@@ -3580,6 +3609,527 @@ def phase_ms_train_profile(dev, state, step, gen, msds, train_idx) -> None:
         raise AssertionError("the profiler saw no device time")
 
 
+# ---------------------------------------------------------------------------
+# phase 13: patch extraction on the card
+# ---------------------------------------------------------------------------
+
+NORMAL_W, NORMAL_H = 3584, 2688  # the annotation-free slide that is mined
+ANNOTATION_VERTICES = 1024  # CAMELYON16 outlines run to hundreds or thousands
+EXTRACT_LEVELS = (0, 1, 2, 3)
+# Macenko on the card against the port's CPU Macenko on the same patches:
+# the tolerance of tests/test_torch_port_stain.py (every byte within 1, at
+# most 10 % of the bytes differing)
+STAIN_MAX_DIFF, STAIN_MAX_SHARE = 1, 0.10
+
+
+def annotation_polygon(seed: int, n: int = ANNOTATION_VERTICES):
+    """A seeded smooth outline of ``n`` vertices as fractions of the slide:
+    a circle of radius 0.12 (of the height) around (0.32, 0.6), its radius
+    modulated by five low harmonics, as traced annotations are smooth."""
+    import numpy as np
+
+    rng = np.random.default_rng(seed)
+    t = np.arange(n) * 2 * np.pi / n
+    r = np.ones(n)
+    for k in range(2, 7):
+        r += rng.uniform(0.03, 0.12) / (k / 2) * np.cos(
+            k * t + rng.uniform(0, 2 * np.pi))
+    xs = 0.32 + 0.12 * r * np.cos(t) * SLIDE_H / SLIDE_W
+    ys = 0.6 + 0.12 * r * np.sin(t)
+    return np.stack([xs * SLIDE_W, ys * SLIDE_H], axis=1)
+
+
+def extract_root(spec, tmp):
+    """The data root of phase 13, written by the port: ``tumor_001`` (the
+    smoke slide; its XML carries the spec's tumor polygon and a seeded
+    1,024-vertex one) and the annotation-free ``normal_001``. Returns the
+    root and the XML's polygons."""
+    from ss25_hierarchical_multiscale_image_classification_tpu_torch.io.annotations import (
+        parse_annotation_xml,
+        write_annotation_xml,
+    )
+    from ss25_hierarchical_multiscale_image_classification_tpu_torch.io.synthetic import (
+        SyntheticSlideSpec,
+        polygons_level0,
+        write_synthetic_case,
+    )
+
+    root = os.path.join(tmp, "extract_src")
+    write_synthetic_case(root, "tumor_001", spec)
+    write_synthetic_case(root, "normal_001", SyntheticSlideSpec(
+        width=NORMAL_W, height=NORMAL_H, tissue_radii=(0.45, 0.45), seed=2))
+    xml = os.path.join(root, "annotations", "tumor_001.xml")
+    write_annotation_xml(xml, polygons_level0(spec) + [annotation_polygon(SEED)])
+    polys = parse_annotation_xml(xml)
+    if [len(p) for p in polys] != [len(spec.tumor_polygons[0]),
+                                   ANNOTATION_VERTICES]:
+        raise AssertionError("the annotation XML does not read back")
+    return root, polys
+
+
+def grid_cells(width: int, height: int, level: int) -> int:
+    """Cells of a level's grid at stride = patch size."""
+    from ss25_hierarchical_multiscale_image_classification_tpu_torch.config import (
+        PATCH_SIZES,
+    )
+
+    ps = PATCH_SIZES[level]
+    return -(-width // ps) * -(-height // ps)
+
+
+def fresh_root(src, dst):
+    """A data root with ``src``'s slides (hard links) and annotations, and
+    no patches."""
+    import shutil
+
+    shutil.copytree(os.path.join(src, "train"), os.path.join(dst, "train"),
+                    copy_function=os.link)
+    shutil.copytree(os.path.join(src, "annotations"),
+                    os.path.join(dst, "annotations"))
+    return dst
+
+
+def store_rows(root, level):
+    """(rows (slide, x, y, label) in order, the records) of a level's
+    manifest: numpy on the card (no pyarrow), else parquet."""
+    from ss25_hierarchical_multiscale_image_classification_tpu_torch.data.manifest import (
+        load_level_manifest,
+    )
+
+    m = load_level_manifest(os.path.join(root, "patches"), level)
+    return [(r.slide, r.x, r.y, r.label) for r in m], m
+
+
+def pack_bytes(records) -> dict:
+    return {r.slide: open(r.path, "rb").read() for r in records}
+
+
+def level_walls(records) -> dict:
+    """{(slide, level): s} from the extractor's per-slide timer lines."""
+    import re
+
+    out = {}
+    for r in records:
+        m = re.match(r"extract\[(\S+) L(\d)\] took ([0-9.]+)s", r.getMessage())
+        if m:
+            out[(m.group(1), int(m.group(2)))] = float(m.group(3))
+    return out
+
+
+def label_disagreements(root, polys, base_dims, level, host_rows, dev_rows,
+                        dev) -> list:
+    """Rows whose host and device labels differ, each checked to be a cell
+    where the two rasterizers' masks disagree: the host route's numpy fill
+    (the PIL stand-in of ``grid/rasterize.py``) and the device route's copy
+    of the reference's device rasterizer, which marks no pixel on a row no
+    edge crosses (a polygon's bottom tip, for one)."""
+    from ss25_hierarchical_multiscale_image_classification_tpu_torch.grid.pyramid import (
+        PatchGrid,
+    )
+    from ss25_hierarchical_multiscale_image_classification_tpu_torch.grid.rasterize import (
+        pad_polygons,
+        polygons_to_mask_band,
+        polygons_to_mask_device,
+    )
+    from ss25_hierarchical_multiscale_image_classification_tpu_torch.io.slide import (
+        open_slide,
+    )
+
+    differ = [(h, d) for h, d in zip(host_rows, dev_rows) if h != d]
+    if not differ:
+        return []
+    slide = open_slide(os.path.join(root, "train", "img", "tumor_001.wsi.npz"))
+    dims = slide.level_dimensions[level]
+    grid = PatchGrid.for_slide_level(level, dims, slide.level_downsamples[level])
+    slide.close()
+    ps = grid.patch_size
+    verts, valid = pad_polygons(polys)
+    device_mask = polygons_to_mask_device(verts, valid, dims, base_dims,
+                                          device=dev).cpu().numpy()
+    out = []
+    for (slide_name, x, y, host_label), (_, _, _, dev_label) in differ:
+        if slide_name != "tumor_001":
+            raise AssertionError(f"labels differ on {slide_name}, which has "
+                                 "no annotation")
+        band = polygons_to_mask_band(polys, dims, base_dims, x0=0, y0=y,
+                                     band_w=dims[0], band_h=min(ps, dims[1] - y))
+        host_px = int((band[:, x:x + ps] > 0).sum())
+        dev_px = int((device_mask[y:y + ps, x:x + ps] > 0).sum())
+        if (host_px > 0) != bool(host_label) or (dev_px > 0) != bool(dev_label):
+            raise AssertionError(f"level {level} cell ({x}, {y}): labels "
+                                 f"{host_label}/{dev_label} do not follow the "
+                                 f"masks ({host_px}/{dev_px} pixels)")
+        out.append((x, y, host_label, dev_label, host_px, dev_px))
+    return out
+
+
+def device_pieces(root, polys, dev) -> dict:
+    """Per level of ``tumor_001``: the device program's pieces timed apart
+    by CUDA events (median of 3: upload, means, rasterize, labels, gather)
+    and the peak device memory of one extraction."""
+    import torch
+
+    from ss25_hierarchical_multiscale_image_classification_tpu_torch.data.streamed import (
+        cell_view,
+        extract_patches_on_device,
+        tissue_keep,
+        upload_padded_plane,
+    )
+    from ss25_hierarchical_multiscale_image_classification_tpu_torch.grid.labeling import (
+        patch_labels_from_mask,
+    )
+    from ss25_hierarchical_multiscale_image_classification_tpu_torch.grid.pyramid import (
+        PatchGrid,
+    )
+    from ss25_hierarchical_multiscale_image_classification_tpu_torch.grid.rasterize import (
+        pad_polygons,
+        polygons_to_mask_device,
+    )
+    from ss25_hierarchical_multiscale_image_classification_tpu_torch.io.slide import (
+        open_slide,
+    )
+
+    slide = open_slide(os.path.join(root, "train", "img", "tumor_001.wsi.npz"))
+    base = slide.level_dimensions[0]
+    verts, valid = pad_polygons(polys)
+    out = {}
+    for level in EXTRACT_LEVELS:
+        plane_np = slide.level_array(level)
+        grid = PatchGrid.for_slide_level(level, slide.level_dimensions[level],
+                                         slide.level_downsamples[level])
+        ps = grid.patch_size
+        gh, gw = grid.padded_height // ps, grid.padded_width // ps
+        plane = upload_padded_plane(plane_np, grid, dev)
+        mask = torch.zeros((grid.padded_height, grid.padded_width),
+                           dtype=torch.uint8, device=dev)
+        holder = {}
+
+        def rasterize():
+            holder["m"] = polygons_to_mask_device(
+                verts, valid, (grid.width, grid.height), base, device=dev)
+
+        def labels():
+            mask[:grid.height, :grid.width] = holder["m"]
+            holder["l"] = patch_labels_from_mask(mask, ps).T.reshape(-1)
+
+        keep = tissue_keep(plane, ps, 240.0)
+        sel = torch.nonzero(keep).flatten()
+        ix, iy = sel // gh, sel % gh
+        pieces = {
+            "upload": lambda: upload_padded_plane(plane_np, grid, dev),
+            "means": lambda: tissue_keep(plane, ps, 240.0),
+            "rasterize": rasterize,
+            "labels": labels,
+            "gather": lambda: cell_view(plane, ps)[iy, :, ix],
+        }
+        ms = {k: statistics.median(cuda_ms(fn, 3)) for k, fn in pieces.items()}
+        del plane, mask, holder
+        torch.cuda.empty_cache()
+        torch.cuda.reset_peak_memory_stats()
+        before = torch.cuda.memory_allocated()
+        extract_patches_on_device(plane_np, grid, polys, base, device=dev)
+        torch.cuda.synchronize()
+        ms["peak_gib"] = (torch.cuda.max_memory_allocated() - before) / 2**30
+        ms["cells"] = gh * gw
+        ms["kept"] = int(sel.numel())
+        ms["mask_mpx"] = grid.width * grid.height / 1e6
+        out[level] = ms
+    slide.close()
+    return out
+
+
+def phase_extract(dev, spec, slide, grid3, tissue, tmp) -> dict:
+    """Phase 13: ``--patch`` on the card through the CLI's ``main`` in this
+    process (see the module docstring)."""
+    import numpy as np
+    import torch
+
+    from ss25_hierarchical_multiscale_image_classification_tpu_torch.data.manifest import (
+        load_level_manifest,
+    )
+    from ss25_hierarchical_multiscale_image_classification_tpu_torch.data.patch_store import (
+        PatchReader,
+    )
+    from ss25_hierarchical_multiscale_image_classification_tpu_torch.data.stain import (
+        macenko_normalize_batch,
+    )
+    from ss25_hierarchical_multiscale_image_classification_tpu_torch.data.streamed import (
+        extract_patches_on_device,
+    )
+    from ss25_hierarchical_multiscale_image_classification_tpu_torch.ops.augment import (
+        augment_batch_kernel,
+    )
+
+    t_phase = time.perf_counter()
+    t0 = time.perf_counter()
+    src, polys = extract_root(spec, tmp)
+    base = (SLIDE_W, SLIDE_H)
+    log(f"[extract] data root: tumor_001 {SLIDE_W}×{SLIDE_H} (XML: "
+        f"{len(polys[0])} + {len(polys[1])} vertices), normal_001 "
+        f"{NORMAL_W}×{NORMAL_H}, written in {time.perf_counter() - t0:.1f} s")
+
+    # 1. --patch --patch_level all, host route, then the device route
+    roots, walls, calls = {}, {}, {}
+    for route in ("host", "device"):
+        roots[route] = fresh_root(src, os.path.join(tmp, f"extract_{route}"))
+        torch.cuda.reset_peak_memory_stats()
+        before = extract_patches_on_device.calls
+        with _Messages("data.extract") as records:
+            rc, wall = run_cli(["--patch", "--patch_level", "all",
+                                "--extract_impl", route, "--data_dir",
+                                roots[route], "--device", "cuda"])
+        if rc != 0:
+            raise AssertionError(f"--patch --extract_impl {route}: exit {rc}")
+        calls[route] = extract_patches_on_device.calls - before
+        walls[route] = level_walls(records)
+        fell_back = [r.getMessage() for r in records
+                     if "exceeds the device budget" in r.getMessage()]
+        log(f"[extract] --patch --patch_level all --extract_impl {route}: "
+            f"exit 0 in {wall:.2f} s; device extractions {calls[route]}; "
+            f"peak device memory "
+            f"{torch.cuda.max_memory_allocated() / 2**30:.2f} GiB")
+        if fell_back:
+            raise AssertionError(f"a level fell back to the host: {fell_back}")
+    want_calls = 2 * len(EXTRACT_LEVELS)
+    if calls["device"] != want_calls or calls["host"] != 0:
+        raise AssertionError(f"device extractions {calls}, expected "
+                             f"{want_calls} on the device route, 0 on host")
+    disagree = {}
+    for level in EXTRACT_LEVELS:
+        host_rows, host_recs = store_rows(roots["host"], level)
+        dev_rows, dev_recs = store_rows(roots["device"], level)
+        if [r[:3] for r in host_rows] != [r[:3] for r in dev_rows]:
+            raise AssertionError(f"level {level}: host and device kept other "
+                                 "cells")
+        if pack_bytes(host_recs) != pack_bytes(dev_recs):
+            raise AssertionError(f"level {level}: stored bytes differ")
+        disagree[level] = label_disagreements(roots["host"], polys, base, level,
+                                              host_rows, dev_rows, dev)
+        tumor = sum(r[3] for r in host_rows)
+        cells = sum(grid_cells(w >> level, h >> level, level)
+                    for w, h in ((SLIDE_W, SLIDE_H), (NORMAL_W, NORMAL_H)))
+        per_route = []
+        for route in ("host", "device"):
+            w = sum(v for (_s, lv), v in walls[route].items() if lv == level)
+            per_route.append(f"{route} {w:.3f} s = {cells / w:.1f} cells/s")
+        log(f"[extract] level {level}: {len(host_rows)} rows ({tumor} tumor "
+            f"on the host route) equal in both stores, bytes equal; labels "
+            f"differ on {len(disagree[level])} cell(s) where the rasterizers "
+            f"disagree {disagree[level]}; walls (both slides) "
+            + ", ".join(per_route))
+    pieces = device_pieces(src, polys, dev)
+    for level, p in pieces.items():
+        log(f"[extract] device program, tumor_001 level {level} ({p['cells']} "
+            f"cells, {p['kept']} kept, a {p['mask_mpx']:.1f}-megapixel mask): "
+            f"upload {p['upload']:.2f} ms, means {p['means']:.3f} ms, "
+            f"rasterize {p['rasterize']:.2f} ms, labels {p['labels']:.3f} ms, "
+            f"gather {p['gather']:.2f} ms; peak {p['peak_gib']:.3f} GiB")
+
+    # 2. level 3 at stride 28 on the host route: the smoke's grid
+    root28 = fresh_root(src, os.path.join(tmp, "extract_28"))
+    rc, wall = run_cli(["--patch", "--patch_level", "3", "--stride",
+                        str(STRIDE), "--data_dir", root28, "--device", "cuda"])
+    rows28, recs28 = store_rows(root28, LEVEL)
+    tumor28 = [(x, y) for s, x, y, _ in rows28 if s == "tumor_001"]
+    want_xy = [(int(ix) * STRIDE, int(iy) * STRIDE) for iy, ix in tissue]
+    labels28 = np.array([lab for s, _, _, lab in rows28 if s == "tumor_001"])
+    want_labels = tumor_labels(spec, slide, grid3, tissue, polygons=polys)
+    if rc != 0 or tumor28 != want_xy:
+        raise AssertionError(f"--stride {STRIDE}: exit {rc}, {len(tumor28)} "
+                             f"kept cells against the smoke's {len(want_xy)}")
+    if not np.array_equal(labels28, want_labels):
+        raise AssertionError("--stride 28 labels differ from the host mask's")
+    reader = PatchReader(load_level_manifest(os.path.join(root28, "patches"),
+                                             LEVEL))
+    idx = [i for i, r in enumerate(reader.manifest) if r.slide == "tumor_001"]
+    pick = np.random.default_rng(SEED).choice(len(idx), 64, replace=False)
+    from ss25_hierarchical_multiscale_image_classification_tpu_torch.io.slide import (
+        open_slide,
+    )
+
+    stored = open_slide(os.path.join(root28, "train", "img",
+                                     "tumor_001.wsi.npz"))
+    for k in pick:
+        iy, ix = tissue[k]
+        if not np.array_equal(reader.read(idx[k]),
+                              read_cell(stored, grid3, iy, ix)):
+            raise AssertionError("a stored patch differs from its region read")
+    stored.close()
+    log(f"[extract] --patch_level 3 --stride {STRIDE}: exit 0 in {wall:.2f} s "
+        f"({grid3.num_patches / wall:.0f} cells/s of tumor_001's grid); "
+        f"{len(tumor28)} kept cells = the smoke's partition, "
+        f"{int(labels28.sum())} tumor = the XML's host mask; 64 sampled "
+        f"patches equal their region reads")
+
+    # 3. --stain_norm at level 3 against the port's CPU Macenko
+    root_sn = fresh_root(src, os.path.join(tmp, "extract_stain"))
+    rc, wall = run_cli(["--patch", "--patch_level", "3", "--stain_norm",
+                        "--data_dir", root_sn, "--device", "cuda"])
+    sn_rows, sn_recs = store_rows(root_sn, LEVEL)
+    plain_rows, plain_recs = store_rows(roots["host"], LEVEL)
+    if rc != 0 or sn_rows != plain_rows:
+        raise AssertionError(f"--stain_norm: exit {rc}, rows unlike --patch's")
+    stored = PatchReader(sn_recs).read_batch(range(len(sn_recs)))
+    plain = PatchReader(plain_recs).read_batch(range(len(plain_recs)))
+    # near-white cells beside them: a light one with a 40² tissue corner
+    # (under 5 % tissue: kept by the filter, passed through) and a white one
+    light = np.stack([np.full_like(plain[0], v) for v in (232, 255)])
+    light[0, :40, :40] = plain[0, :40, :40]
+    probe = np.concatenate([plain, light])
+    batch = torch.from_numpy(probe).to(dev)
+    card = macenko_normalize_batch(batch).cpu().numpy()
+    cpu = macenko_normalize_batch(torch.from_numpy(probe)).numpy()
+    diff = np.abs(card.astype(np.int16) - cpu)
+    share = float((diff > 0).mean())
+    sn_ms = statistics.median(cuda_ms(lambda: macenko_normalize_batch(batch),
+                                      5))
+    log(f"[extract] --stain_norm level 3: exit 0 in {wall:.2f} s; "
+        f"{len(stored)} stored patches equal to one card call on them; card "
+        f"against the CPU on those and 2 near-white ones: max |Δ| "
+        f"{int(diff.max())}, {share:.2e} of bytes differ; Macenko on the card "
+        f"{sn_ms:.2f} ms a batch of {len(probe)} ({sn_ms / len(probe):.3f} ms "
+        f"a patch)")
+    if not np.array_equal(stored, card[:len(stored)]):
+        raise AssertionError("the stored patches differ from a card call")
+    if diff.max() > STAIN_MAX_DIFF or share > STAIN_MAX_SHARE:
+        raise AssertionError("Macenko on the card outside the CPU tolerance")
+    if not (np.array_equal(card[-2:], light) and np.array_equal(cpu[-2:], light)):
+        raise AssertionError("near-white patches were not passed through")
+
+    # 4. --patch --train (streamed) at level 3, stride 28
+    root_tr = fresh_root(src, os.path.join(tmp, "extract_train"))
+    models = os.path.join(tmp, "extract_models")
+    reset_counts()
+    with _Messages("train.streaming") as records:
+        rc, wall = run_cli(["--patch", "--train", "--patch_level", "3",
+                            "--stride", str(STRIDE), "--epochs", "2",
+                            "--data_dir", root_tr, "--models_dir", models,
+                            "--device", "cuda"])
+    aug_launches = augment_batch_kernel.launches
+    tr_rows, _ = store_rows(root_tr, LEVEL)
+    epoch0 = [r.args for r in records if r.msg.startswith("streamed epoch 0")]
+    timer = [r.getMessage() for r in records
+             if r.getMessage().startswith("streamed epoch 0 (")]
+    from ss25_hierarchical_multiscale_image_classification_tpu_torch.data.datasets import (
+        slide_level_split,
+    )
+
+    train_slides, _val = slide_level_split(["normal_001", "tumor_001"], 0.2, 42)
+    n_train = sum(r[0] in train_slides for r in tr_rows)
+    want_launches = 2 * -(-n_train // BATCH)
+    if rc != 0 or tr_rows != rows28 or not epoch0:
+        raise AssertionError(f"--patch --train: exit {rc}, store rows equal "
+                             f"to --stride 28's: {tr_rows == rows28}")
+    if epoch0[0][2] != n_train or aug_launches != want_launches:
+        raise AssertionError(f"streamed epoch saw {epoch0[0][2]} patches of "
+                             f"{n_train}; augment launches {aug_launches}, "
+                             f"expected {want_launches}")
+    log(f"[extract] --patch --train --patch_level 3 --stride {STRIDE} "
+        f"--epochs 2: exit 0 in {wall:.2f} s; {timer[0] if timer else ''}; "
+        f"epoch 0 saw {epoch0[0][2]} patches = the training split "
+        f"{train_slides}, loss {epoch0[0][0]:.4f}; store equal to --stride "
+        f"{STRIDE}'s; augment launches {aug_launches}")
+
+    # 5. --mine_hard_negatives from step 4's artifact
+    mined = phase_mine(dev, root_tr, models)
+    log(f"[extract] phase 13 wall {time.perf_counter() - t_phase:.1f} s")
+    return {"aug_launches": aug_launches, "root": src, "mined": mined}
+
+
+def phase_mine(dev, root, models) -> int:
+    """``--mine_hard_negatives`` through the CLI's ``main``: the mined cells
+    against the port's own ``predict_slide`` grid and region reads; a second
+    call mines nothing."""
+    import numpy as np
+    import torch
+
+    from ss25_hierarchical_multiscale_image_classification_tpu_torch.data.manifest import (
+        load_level_manifest,
+    )
+    from ss25_hierarchical_multiscale_image_classification_tpu_torch.data.patch_store import (
+        PatchReader,
+    )
+    from ss25_hierarchical_multiscale_image_classification_tpu_torch.infer.sliding_window import (
+        predict_slide,
+    )
+    from ss25_hierarchical_multiscale_image_classification_tpu_torch.io.slide import (
+        open_slide,
+    )
+    from ss25_hierarchical_multiscale_image_classification_tpu_torch.models.convert import (
+        resnet18_from_state_dict,
+    )
+    from ss25_hierarchical_multiscale_image_classification_tpu_torch.train.checkpoints import (
+        load_model,
+    )
+
+    patches = os.path.join(root, "patches")
+    before = len(load_level_manifest(patches, LEVEL))
+    argv = ["--mine_hard_negatives", "--data_dir", root, "--models_dir",
+            models, "--device", "cuda"]
+    rc, wall = run_cli(argv)
+    after = load_level_manifest(patches, LEVEL)
+    mined = [i for i, r in enumerate(after) if r.slide.endswith("__hardneg")]
+    if rc != 0 or len(after) != before + len(mined):
+        raise AssertionError(f"--mine_hard_negatives: exit {rc}")
+    # the CLI's model: bfloat16 on the card
+    model = resnet18_from_state_dict(load_model(os.path.join(
+        models, "resnet18_patch_classifier"))).to(
+        device=dev, dtype=torch.bfloat16 if dev.type == "cuda" else torch.float32,
+        memory_format=torch.channels_last)
+    slide = open_slide(os.path.join(root, "train", "img", "normal_001.wsi.npz"))
+    prob, grid = predict_slide(slide, model, level=LEVEL, device=dev)
+    probs = [float(prob[after[i].y // grid.stride, after[i].x // grid.stride])
+             for i in mined]
+    want_n = min(256, int((prob >= 0.5).sum()))
+    reader = PatchReader(after)
+    for i in mined:
+        r = after[i]
+        if r.slide != "normal_001__hardneg" or r.label != 0:
+            raise AssertionError(f"mined {r.slide} label {r.label}")
+        ps = grid.patch_size
+        region = slide.read_region(grid.level0_origin(r.x, r.y), LEVEL,
+                                   (ps, ps))
+        if not np.array_equal(reader.read(i), region):
+            raise AssertionError("a mined patch differs from its region read")
+    slide.close()
+    if (len(mined) != want_n or any(p < 0.5 for p in probs)
+            or probs != sorted(probs, reverse=True)):
+        raise AssertionError(f"mined {len(mined)} cells (probabilities "
+                             f"{probs}), the grid has {want_n} at 0.5 or more")
+    rc2, wall2 = run_cli(argv)
+    again = load_level_manifest(patches, LEVEL)
+    if rc2 != 0 or len(again) != len(after):
+        raise AssertionError("a second --mine_hard_negatives mined again")
+    log(f"[extract] --mine_hard_negatives: exit 0 in {wall:.2f} s; mined "
+        f"{len(mined)} cells of normal_001 (grid {prob.shape}, max probability "
+        f"{float(prob.max()):.4f}; {want_n} at 0.5 or more), probabilities "
+        f"{[round(p, 4) for p in probs]}, bytes equal to region reads; a "
+        f"second call mined nothing ({wall2:.2f} s)")
+    return len(mined)
+
+
+def phase_extract_profile(dev, src, tmp) -> None:
+    """The streamed epoch (``--patch --train --epochs 1`` at level 3, stride
+    28, extraction included) under the profiler: the device's idle share.
+    Last in the run: walls taken after a profiler session run long."""
+    from torch.profiler import ProfilerActivity, profile
+
+    root = fresh_root(src, os.path.join(tmp, "extract_profile"))
+    argv = ["--patch", "--train", "--patch_level", "3", "--stride",
+            str(STRIDE), "--epochs", "1", "--data_dir", root, "--models_dir",
+            os.path.join(tmp, "extract_profile_models"), "--device", "cuda"]
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        rc, wall = run_cli(argv)
+    busy = busy_us(prof) / 1e3
+    if rc != 0 or busy <= 0:
+        raise AssertionError(f"profiled --patch --train: exit {rc}, device "
+                             f"busy {busy} ms")
+    log(f"[extract] --patch --train --epochs 1 under the profiler "
+        f"(extraction of both slides and epoch 0): {wall * 1e3:.1f} ms, "
+        f"device busy {busy:.1f} ms, idle share {1 - busy / (wall * 1e3):.3f}")
+
+
 def phase_features(dev, ds, sd, tmp) -> dict:
     """``extract_features`` on the card over the packed store of the slide's
     tissue cells, the stem kernels' launches counted around each route."""
@@ -4055,12 +4605,15 @@ def main() -> int:
         ms_train = phase_ms_train(dev, ds, slide, grid, tissue, labels, ref_u8,
                                   train)
         torch.cuda.empty_cache()
+        ext = phase_extract(dev, spec, slide, grid, tissue, tmp)
+        torch.cuda.empty_cache()
         # last: they end under torch.profiler, and host-clock walls taken in
         # this process after a profiler session come out longer
         feature_launches = phase_features(dev, ds, sd, tmp)
         phase_train_profile(train.pop("trainer"), len(ds))
         phase_multiscale_profile(dev, slide, ms.pop("model"), ms["cal"])
         phase_ms_train_profile(dev, *ms_train.pop("profile"))
+        phase_extract_profile(dev, ext["root"], tmp)
     del ds
 
     jax_pkg = "ss25_hierarchical_multiscale_image_classification_tpu"
@@ -4069,6 +4622,8 @@ def main() -> int:
         f"FROC path {froc_launches}, multiscale path {ms['launches']}; int8 "
         f"multiscale path (fused_stage1_int8, int8_conv_requant, int8_maxpool) "
         f"{ms['int8_launches']}")
+    log(f"[paths] --patch --train (streamed): augment launches "
+        f"{ext['aug_launches']}; hard negatives mined {ext['mined']}")
     log(f"[paths] multiscale training: augment launches "
         f"{ms_train['aug_launches']}; fused_normalize launches from the "
         f"trained artifact {ms_train['ms_launches']}; int8 from the QAT "
@@ -4082,6 +4637,7 @@ def main() -> int:
     for k, row in zip(ms_train["qat_launches"], (stage1, int8_conv, int8_pool)):
         row["qat_launches"] = k
     aug["multiscale_train_launches"] = ms_train["aug_launches"]
+    aug["patch_train_launches"] = ext["aug_launches"]
     rows = [("fused_normalize", "fused_normalize.cu", f"{ops}/preprocess.py:35",
              kernel)]
     for name, line in (("nt_xent_fwd", 63), ("nt_xent_bwd", 157)):
@@ -4124,7 +4680,8 @@ def main() -> int:
                                    "kernel_ms", "kernel_back_to_back_ms",
                                    "multiscale_launches",
                                    "trained_multiscale_launches",
-                                   "qat_launches", "multiscale_train_launches")
+                                   "qat_launches", "multiscale_train_launches",
+                                   "patch_train_launches")
            if key in k},
     } for name, source, replaces, k in rows]}
     log(smi)  # the card's name and power limit, as nvidia-smi prints them

@@ -1,18 +1,33 @@
-"""Command line of the port: ``--predict_slide`` (one slide or a
-directory), ``--run_evaluation``, ``--train``, ``--train_strategy``,
-``--evaluate``, ``--train_mil``, ``--train_multiscale``, ``--qat``,
-``--extract_features`` and ``--quantize``.
+"""Command line of the port: ``--patch`` (``-p``), ``--patch_one_slide``,
+``--predict_slide`` (one slide or a directory), ``--run_evaluation``,
+``--train``, ``--train_strategy``, ``--evaluate``, ``--train_mil``,
+``--train_multiscale``, ``--qat``, ``--extract_features``, ``--quantize``
+and ``--mine_hard_negatives``.
 
 Counterpart of the JAX CLI (``cli/main.py`` of the JAX package) for these
 actions, with their flags under the same names and defaults, plus
 ``--device``. As there, one call runs every action given, in a fixed order
-(``--extract_features``, ``--train``, ``--train_strategy``, ``--evaluate``,
-``--train_mil``, ``--train_multiscale``, ``--qat``, ``--quantize``,
-``--predict_slide``, ``--run_evaluation``),
+(``--patch``, ``--extract_features``, ``--train``, ``--train_strategy``,
+``--evaluate``, ``--patch_one_slide``, ``--train_mil``,
+``--train_multiscale``, ``--qat``, ``--quantize``,
+``--mine_hard_negatives``, ``--predict_slide``, ``--run_evaluation``),
 and stops with exit code 1 at a stage whose inputs are missing;
 ``--config`` reads a JSON config (nested sections as in ``config.py``),
 ``--base_dir`` stands for ``--data_dir``, ``--store`` sets the patch store
 format; an argument it does not know is logged and exits 1.
+
+``--patch`` extracts the patches of every training slide at
+``--patch_level`` (``all``: levels 0-3) into the packed store under
+``<data_dir>/patches`` (``data/extract.py``): ``--extract_impl device``
+rasterizes, labels and filters a level on the card when its plane fits the
+budget, ``--stain_norm`` Macenko-normalizes the stored patches on the card,
+``--stride`` sets the grid's stride; the manifest is ``manifest.parquet``
+where pyarrow imports, else ``manifest.npz``. ``--patch --train`` streams
+the extraction of the training level (3 for ``all``) into the first epoch
+(``train/streaming.py``) after extracting the other levels.
+``--patch_one_slide NAME`` extracts one slide. ``--mine_hard_negatives``
+mines false positives of ``<models_dir>/resnet18_patch_classifier.pt`` on
+the annotation-free training slides into the level's store.
 
 ``--predict_slide`` loads ``<models_dir>/<model_name>.pt`` (a
 torchvision-layout ResNet18 state dict, written by ``--train`` or by
@@ -100,8 +115,10 @@ else with scales calibrated lazily on the run's first batches.
 
 Flags the JAX CLI ignores in a combination (``--int8`` or
 ``--simclr_features`` without their action, no action at all) are ignored
-here too. Tiled TIFF slides, multi-card fleets and ``--overlay`` come
-with later slices. On the card the float model runs in bfloat16, on the CPU
+here too. Tiled TIFF slides, multi-card fleets, ``--overlay`` and the
+download flags come with later slices. Unlike the JAX CLI, which rebuilds
+the data section and so drops it, ``--config``'s ``data.stain_norm`` is
+kept. On the card the float model runs in bfloat16, on the CPU
 in float32.
 """
 
@@ -118,6 +135,9 @@ from ss25_hierarchical_multiscale_image_classification_tpu_torch.config import (
     DETECTION_PROB_THRESHOLD,
     Config,
     DataConfig,
+)
+from ss25_hierarchical_multiscale_image_classification_tpu_torch.data.extract import (
+    extract_patches,
 )
 from ss25_hierarchical_multiscale_image_classification_tpu_torch.data.manifest import (
     patches_extracted,
@@ -164,6 +184,9 @@ from ss25_hierarchical_multiscale_image_classification_tpu_torch.train.checkpoin
     load_model,
     model_artifact_path,
 )
+from ss25_hierarchical_multiscale_image_classification_tpu_torch.train.hard_negatives import (
+    mine_hard_negatives,
+)
 from ss25_hierarchical_multiscale_image_classification_tpu_torch.train.mil_trainer import (
     train_mil_classifier,
 )
@@ -172,6 +195,9 @@ from ss25_hierarchical_multiscale_image_classification_tpu_torch.train.multiscal
 )
 from ss25_hierarchical_multiscale_image_classification_tpu_torch.train.qat import (
     qat_finetune,
+)
+from ss25_hierarchical_multiscale_image_classification_tpu_torch.train.streaming import (
+    train_resnet_classifier_streaming,
 )
 from ss25_hierarchical_multiscale_image_classification_tpu_torch.train.trainer import (
     train_resnet_classifier,
@@ -184,12 +210,29 @@ log = get_logger("torch.cli")
 def build_parser() -> argparse.ArgumentParser:
     parser = argparse.ArgumentParser(
         prog="hipac-torch",
-        description="Sliding-window tumor detection (single-level and "
-                    "hierarchical multiscale) and its FROC evaluation, "
-                    "patch-classifier and multiscale training, "
+        description="Patch extraction, sliding-window tumor detection "
+                    "(single-level and hierarchical multiscale) and its "
+                    "FROC evaluation, patch-classifier and multiscale "
+                    "training, hard-negative mining, "
                     "attention-MIL slide classification, patch feature "
                     "extraction, int8 quantization and QAT (PyTorch/CUDA)",
     )
+    parser.add_argument("-p", "--patch", action="store_true",
+                        help="Extract patches")
+    parser.add_argument("--patch_one_slide", type=str, default=None,
+                        help="Extract patches from a single slide (e.g. tumor_109)")
+    parser.add_argument("--stain_norm", action="store_true",
+                        help="Macenko H&E stain normalization of stored"
+                             " patches during --patch (on-device)")
+    parser.add_argument("--extract_impl", type=str, default="host",
+                        choices=["host", "device"],
+                        help="Patch extraction implementation: bounded-memory"
+                             " host band streaming, or the on-device program"
+                             " (levels whose plane fits the budget)")
+    parser.add_argument("--mine_hard_negatives", action="store_true",
+                        help="Harvest high-probability false positives from "
+                             "annotation-free slides into the patch store "
+                             "(retrain afterwards with --train)")
     parser.add_argument("--predict_slide", type=str, default=None,
                         help="Sliding-window inference on one slide, or on "
                              "every slide of a directory: writes the "
@@ -287,9 +330,10 @@ def build_parser() -> argparse.ArgumentParser:
                              "the persisted --quantize artifact when "
                              "present; falls back to lazy calibration")
     parser.add_argument("--patch_level", type=str, default="3",
-                        help="WSI level to grid, or of the features (0-3; "
-                             "'all': --extract_features needs the patches "
-                             "of every level, and every action runs at 3)")
+                        help="WSI level for patch extraction (0-3 or 'all': "
+                             "--patch extracts every level, "
+                             "--extract_features needs the patches of every "
+                             "level, and every other action runs at 3)")
     parser.add_argument("--epochs", type=int, default=None,
                         help="Override epoch count")
     parser.add_argument("--data_dir", type=str, default=None,
@@ -302,7 +346,9 @@ def build_parser() -> argparse.ArgumentParser:
                         choices=["png", "packed"], help="Patch store format")
     parser.add_argument("--stride", type=int, default=None,
                         help="Patch-grid stride in level pixels (default: "
-                             "patch size, i.e. non-overlapping)")
+                             "patch size, i.e. non-overlapping). Applies to "
+                             "--patch extraction and --predict_slide "
+                             "inference")
     parser.add_argument("--batch_size", type=int, default=None,
                         help="Cells or patches per device batch (default "
                              "512)")
@@ -361,7 +407,8 @@ def _reject_unknown_args(parser: argparse.ArgumentParser, argv) -> None:
 def _config_from_args(args) -> Config:
     """The run's config by the JAX CLI's rules: ``--config`` JSON first; the
     data root from ``--data_dir``, else ``--base_dir``, else the JSON's, else
-    ``./data/camelyon16`` (the data section is then rebuilt around it);
+    ``./data/camelyon16`` (the data section is then rebuilt around it,
+    keeping the JSON's ``stain_norm``, which the JAX CLI drops);
     ``--store``, ``--models_dir``, ``--batch_size`` (trainer and SimCLR)
     and ``--freeze_bn`` over it."""
     if args.config:
@@ -372,7 +419,8 @@ def _config_from_args(args) -> Config:
     data_dir = args.data_dir or args.base_dir or (
         cfg.data.data_dir if args.config
         else os.path.join(os.getcwd(), "data", "camelyon16"))
-    cfg = cfg.replace(data=DataConfig(data_dir=data_dir))
+    cfg = cfg.replace(data=DataConfig(data_dir=data_dir,
+                                      stain_norm=cfg.data.stain_norm))
     if args.store:
         cfg.data.patch_store_format = args.store
     if args.models_dir:
@@ -518,6 +566,18 @@ def _run_evaluation(cfg: Config) -> int:
     return 0
 
 
+def _mine_hard_negatives(cfg: Config, level: int, device) -> None:
+    """``--mine_hard_negatives`` with ``<models_dir>/
+    resnet18_patch_classifier.pt`` (``load_model`` adds the suffix), in
+    bfloat16 on the card as ``--predict_slide`` runs it."""
+    model = resnet18_from_state_dict(load_model(model_artifact_path(
+        cfg.models_dir, "resnet18_patch_classifier")))
+    dtype = torch.bfloat16 if device.type == "cuda" else torch.float32
+    model = model.to(device=device, dtype=dtype,
+                     memory_format=torch.channels_last)
+    mine_hard_negatives(cfg, model, level=level, device=device)
+
+
 def _training_inputs(cfg: Config, level: int) -> bool:
     """The training actions' gates: slides downloaded, the level's patches
     extracted (each failure logged as the JAX CLI logs it)."""
@@ -542,6 +602,30 @@ def main(argv=None) -> int:
     level = 3 if args.patch_level == "all" else int(args.patch_level)
     device = resolve_device(args.device)
 
+    stain_norm = args.stain_norm or cfg.data.stain_norm
+    streamed_train = False
+    if args.patch:
+        if not images_downloaded(cfg.data):
+            log.error("Images must be downloaded before extracting patches.")
+            return 1
+        # --patch --train: extraction of the training level streams into
+        # the first epoch (train/streaming.py), after the other levels
+        train_level = level if args.train else None
+        for lvl in _levels(args.patch_level):
+            if lvl != train_level:
+                extract_patches(cfg.data, level=lvl,
+                                store_format=cfg.data.patch_store_format,
+                                impl=args.extract_impl, stain_norm=stain_norm,
+                                stride=args.stride, device=device)
+        if args.train:
+            log.info("--patch --train: streaming extraction into training")
+            train_resnet_classifier_streaming(
+                cfg, level=level, epochs=args.epochs, stride=args.stride,
+                batch_size=args.batch_size,
+                store_format=cfg.data.patch_store_format,
+                extract_impl=args.extract_impl, stain_norm=stain_norm,
+                device=device)
+            streamed_train = True
     if args.extract_features:
         for lvl in _levels(args.patch_level):
             if not patches_extracted(cfg.data, lvl):
@@ -552,7 +636,7 @@ def main(argv=None) -> int:
                    else extract_features)
         extract(cfg, level=level, batch_size=args.batch_size, device=device,
                 int8=args.int8)
-    if args.train:
+    if args.train and not streamed_train:
         if not _training_inputs(cfg, level):
             return 1
         train_resnet_classifier(cfg, level=level, epochs=args.epochs,
@@ -565,6 +649,9 @@ def main(argv=None) -> int:
                                           epochs=args.epochs, device=device)
     if args.evaluate:
         evaluate_resnet_classifier(cfg, level=level, device=device)
+    if args.patch_one_slide:
+        extract_patches(cfg.data, level=level,
+                        slide_filter=[args.patch_one_slide], device=device)
     if args.train_mil:
         train_mil_classifier(cfg, level=level, epochs=args.epochs,
                              device=device)
@@ -585,6 +672,8 @@ def main(argv=None) -> int:
             path = quantize_classifier_to_artifact(cfg, level=level,
                                                    device=device)
         log.info("Quantized artifact written: %s", path)
+    if args.mine_hard_negatives:
+        _mine_hard_negatives(cfg, level, device)
     if args.predict_slide is not None:
         rc = _predict_slide(args, cfg, level, device)
         if rc:

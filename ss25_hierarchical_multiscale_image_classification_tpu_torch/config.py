@@ -19,6 +19,9 @@ PATCH_SIZES: dict[int, int] = {0: 1792, 1: 896, 2: 448, 3: 224}
 #: Patches are skipped as background when their mean RGB exceeds this.
 TISSUE_MEAN_RGB_THRESHOLD: float = 240.0
 
+#: Pad-to-grid fill value: white.
+PAD_FILL_VALUE: int = 255
+
 #: Default emission floor (probability space) for the detection CSV. The
 #: FROC consumer sweeps thresholds itself, so a low floor only adds
 #: operating points at the high-FP end of the curve.
@@ -52,11 +55,15 @@ class DataConfig:
     data_dir: str = "data"
     train_img_subdir: str = os.path.join("train", "img")
     test_img_subdir: str = os.path.join("test", "img")
+    annotations_subdir: str = "annotations"
     patches_subdir: str = "patches"
     features_subdir: str = "features"
     #: "png" = one PNG per patch; "packed" = memmapped uint8 store + manifest
     #: (the CLI's ``--store``)
     patch_store_format: str = "packed"
+    #: Macenko stain normalization of the stored patches at extraction
+    #: (``--stain_norm``; ``data/stain.py``)
+    stain_norm: bool = False
     #: slide-level train/val split: sklearn's ``test_size`` and
     #: ``random_state``; the seed of the validation set's class balancing
     val_fraction: float = 0.2
@@ -72,12 +79,19 @@ class DataConfig:
         return os.path.join(self.data_dir, self.test_img_subdir)
 
     @property
+    def annotations_dir(self) -> str:
+        return os.path.join(self.data_dir, self.annotations_subdir)
+
+    @property
     def patches_dir(self) -> str:
         return os.path.join(self.data_dir, self.patches_subdir)
 
     @property
     def features_dir(self) -> str:
         return os.path.join(self.data_dir, self.features_subdir)
+
+    def patch_level_dir(self, level: int) -> str:
+        return os.path.join(self.patches_dir, f"level_{level}")
 
 
 @dataclasses.dataclass

@@ -12,7 +12,11 @@ as in the JAX package; ``pyarrow`` is imported only when a parquet manifest
 is loaded or saved. Where pyarrow is missing (the card's machine), a
 manifest saved to a ``.npz`` path persists as numpy columns instead, and
 :func:`load_or_scan_manifest` reads ``manifest.npz`` when a level has no
-``manifest.parquet``; the JAX package reads parquet only.
+``manifest.parquet``; the JAX package reads parquet only. The stages that
+write a level's manifest (extraction, hard-negative mining) save it to
+:func:`level_manifest_path`: ``manifest.parquet`` where pyarrow imports,
+``manifest.npz`` elsewhere, and read it back with
+:func:`load_level_manifest`.
 Reference-layout PNG directories (``{slide}_x{x}_y{y}_{label}.png``) are
 scanned as well.
 """
@@ -58,6 +62,13 @@ class PatchManifest:
 
     def __init__(self, records: Sequence[PatchRecord] | None = None):
         self._records: list[PatchRecord] = list(records or [])
+
+    # -- construction ---------------------------------------------------
+    def append(self, rec: PatchRecord) -> None:
+        self._records.append(rec)
+
+    def extend(self, recs: Iterable[PatchRecord]) -> None:
+        self._records.extend(recs)
 
     # -- access ---------------------------------------------------------
     def __len__(self) -> int:
@@ -172,6 +183,34 @@ def manifest_path(patches_dir: str, level: int) -> str:
 def manifest_npz_path(patches_dir: str, level: int) -> str:
     """The numpy manifest of a level, for machines without pyarrow."""
     return os.path.join(patches_dir, f"level_{level}", "manifest.npz")
+
+
+def pyarrow_available() -> bool:
+    """Whether pyarrow imports here (the card's machine has none)."""
+    try:
+        import pyarrow.parquet  # noqa: F401
+    except ImportError:
+        return False
+    return True
+
+
+def level_manifest_path(patches_dir: str, level: int) -> str:
+    """Where a stage saves the level's manifest: parquet
+    (the JAX package's file) where pyarrow imports, else numpy."""
+    if pyarrow_available():
+        return manifest_path(patches_dir, level)
+    return manifest_npz_path(patches_dir, level)
+
+
+def load_level_manifest(patches_dir: str, level: int) -> PatchManifest:
+    """The level's saved manifest, parquet or numpy, whichever exists
+    (parquet first), else an empty one. Unlike :func:`load_or_scan_manifest`
+    it does not scan a PNG tree, as the JAX extractor does not."""
+    for mpath in (manifest_path(patches_dir, level),
+                  manifest_npz_path(patches_dir, level)):
+        if os.path.exists(mpath):
+            return PatchManifest.load(mpath)
+    return PatchManifest()
 
 
 def load_or_scan_manifest(patches_dir: str, level: int) -> PatchManifest:

@@ -1,10 +1,14 @@
-"""Packed patch store: writer and random-access reader.
+"""Patch stores: the packed store's writer, the reference's PNG writer and
+a random-access reader.
 
-Copy of the JAX package's ``data/patch_store.py`` (``PackedPatchWriter``,
-``PatchReader``, ``resize_batch``), held to it by exact tests. A packed store appends raw
+Copy of the JAX package's ``data/patch_store.py`` (``PngPatchWriter``,
+``PackedPatchWriter``, ``PatchReader``, ``resize_batch``), held to it by
+exact tests. A packed store appends raw
 (N, P, P, 3) uint8 patches to ``patches/level_{L}/{slide}.pack`` with the
 shape in a ``.shape`` sidecar, and is read back through a memmap with no
-decoding.
+decoding. The PNG store (``--store png``) writes one file per patch with
+Pillow, which the card's machine lacks: there the writer raises at once
+(:func:`require_pillow`).
 
 Differences from the JAX module, none in the bytes read:
 
@@ -29,9 +33,48 @@ from typing import Sequence
 import numpy as np
 
 from ss25_hierarchical_multiscale_image_classification_tpu_torch.data.manifest import (
+    LABEL_NAMES,
     PatchManifest,
     PatchRecord,
 )
+
+
+def require_pillow() -> None:
+    """Raise a clear error where Pillow, which writes the PNG store, is
+    missing."""
+    try:
+        import PIL.Image  # noqa: F401
+    except ImportError as e:
+        raise RuntimeError(
+            "--store png writes one PNG a patch with Pillow, which is not "
+            "installed here; use --store packed") from e
+
+
+class PngPatchWriter:
+    """Writes the reference's one-PNG-per-patch layout
+    (``patches/level_{L}/{slide}/{slide}_x{x}_y{y}_{label}.png``)."""
+
+    def __init__(self, patches_dir: str, level: int, slide: str):
+        require_pillow()
+        self.level = level
+        self.slide = slide
+        self.dir = os.path.join(patches_dir, f"level_{level}", slide)
+        os.makedirs(self.dir, exist_ok=True)
+
+    def write(self, patch: np.ndarray, x: int, y: int, label: int) -> PatchRecord:
+        from PIL import Image
+
+        name = f"{self.slide}_x{x}_y{y}_{LABEL_NAMES[label]}.png"
+        path = os.path.join(self.dir, name)
+        if not os.path.exists(path):  # idempotent
+            Image.fromarray(patch).save(path)
+        return PatchRecord(
+            slide=self.slide, level=self.level, x=x, y=y,
+            label=label, store="png", path=path,
+        )
+
+    def close(self) -> None:
+        pass
 
 
 class PackedPatchWriter:
@@ -47,6 +90,19 @@ class PackedPatchWriter:
         self.path = os.path.join(level_dir, f"{slide}.pack")
         self._f = open(self.path, "wb")
         self._count = 0
+
+    def write(self, patch: np.ndarray, x: int, y: int, label: int) -> PatchRecord:
+        patch = np.ascontiguousarray(patch, dtype=np.uint8)
+        expected = (self.patch_size, self.patch_size, 3)
+        if patch.shape != expected:
+            raise ValueError(f"patch shape {patch.shape} != {expected}")
+        self._f.write(patch.tobytes())
+        rec = PatchRecord(
+            slide=self.slide, level=self.level, x=x, y=y,
+            label=label, store="packed", path=self.path, row=self._count,
+        )
+        self._count += 1
+        return rec
 
     def write_batch(
         self, patches: np.ndarray, coords: np.ndarray, labels: np.ndarray

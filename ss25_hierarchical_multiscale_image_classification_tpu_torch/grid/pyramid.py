@@ -1,8 +1,9 @@
 """Patch-grid arithmetic of one slide level.
 
 Copy of the part of the JAX package's ``grid/pyramid.py`` that slide
-inference uses, held to the original by exact-equality tests: per-level
-patch sizes, stride, pad-to-grid, and level → level-0 coordinates.
+inference and extraction use, held to the original by exact-equality tests:
+per-level patch sizes, stride, pad-to-grid, level → level-0 coordinates and
+a border patch's in-bounds extent.
 """
 
 from __future__ import annotations
@@ -103,3 +104,10 @@ class PatchGrid:
         """Map a level-space corner to the level-0 pixel origin of a region
         read."""
         return int(x * self.downsample), int(y * self.downsample)
+
+    def valid_patch_extent(self, x: int, y: int) -> tuple[int, int]:
+        """(w, h) of the in-bounds part of the patch at (x, y)."""
+        return (
+            min(self.patch_size, self.width - x),
+            min(self.patch_size, self.height - y),
+        )

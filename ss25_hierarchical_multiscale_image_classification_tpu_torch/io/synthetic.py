@@ -10,7 +10,9 @@ with PIL, which the card's machine lacks; here the numpy fill of
 renders differ only in pixels within a pixel and a half of a polygon edge
 (the tests count them).
 
-:func:`write_mask_npy` writes a tumor case's ground truth where the FROC
+:func:`write_synthetic_case` writes a slide and its annotation XML into the
+reference layout (``.wsi.npz`` only: tiled TIFF slides come with the TIFF
+slice). :func:`write_mask_npy` writes a tumor case's ground truth where the FROC
 evaluation reads it: ``<mask_dir>/<case>_mask.npy``, the polygons
 rasterized at the evaluation level.
 """
@@ -29,8 +31,12 @@ from ss25_hierarchical_multiscale_image_classification_tpu_torch.grid.rasterize 
     fill_polygons,
     polygons_to_mask,
 )
+from ss25_hierarchical_multiscale_image_classification_tpu_torch.io.annotations import (
+    write_annotation_xml,
+)
 from ss25_hierarchical_multiscale_image_classification_tpu_torch.io.slide import (
     ArraySlide,
+    save_npz_slide,
 )
 
 
@@ -127,6 +133,36 @@ def make_synthetic_slide(spec: SyntheticSlideSpec | None = None) -> ArraySlide:
     spec = spec or SyntheticSlideSpec()
     level0, _ = make_level0(spec)
     return ArraySlide(build_pyramid(level0, spec.num_levels))
+
+
+def write_synthetic_case(
+    data_dir: str,
+    name: str,
+    spec: SyntheticSlideSpec | None = None,
+    split: str = "train",
+    container: str = "npz",
+) -> str:
+    """Write a synthetic slide (and the annotation XML of its tumor
+    polygons, if it has any) into the reference layout:
+    ``{data_dir}/{split}/img/{name}.wsi.npz`` and
+    ``{data_dir}/annotations/{name}.xml``. Returns the slide path;
+    ``container="npz"`` only."""
+    if container == "tiff":
+        raise NotImplementedError(
+            "container 'tiff': the port writes .wsi.npz slides only; tiled "
+            "TIFF slides are ROADMAP.md queue 1 item 10")
+    if container != "npz":
+        raise ValueError(f"unknown container {container}")
+    spec = spec or SyntheticSlideSpec()
+    level0, polys = make_level0(spec)
+    img_dir = os.path.join(data_dir, split, "img")
+    os.makedirs(img_dir, exist_ok=True)
+    slide_path = os.path.join(img_dir, f"{name}.wsi.npz")
+    save_npz_slide(slide_path, build_pyramid(level0, spec.num_levels))
+    if polys:
+        write_annotation_xml(os.path.join(data_dir, "annotations", f"{name}.xml"),
+                             polys)
+    return slide_path
 
 
 def write_mask_npy(mask_dir: str, case: str, spec: SyntheticSlideSpec,

@@ -600,3 +600,204 @@ def test_predict_slide_multiscale_dir_goes_past_a_failing_slide(
               "model_predictions_csv_aux", "model_predictions_csv_aux_base",
               "model_predictions_csv_ensemble_base"):
         assert sorted(os.listdir(pdir / d)) == ["a_good.csv", "c_good.csv"], d
+
+
+# ---------------------------------------------------------------------------
+# --patch, --patch_one_slide, --stain_norm, --extract_impl,
+# --mine_hard_negatives
+# ---------------------------------------------------------------------------
+
+
+def _fresh(synthetic_case, target):
+    """A copy of the JAX-written data root without patches."""
+    import shutil
+
+    shutil.copytree(synthetic_case, target,
+                    ignore=shutil.ignore_patterns("patches"))
+    return str(target)
+
+
+def _level_rows(data_dir, level):
+    m = manifest.load_or_scan_manifest(
+        config.DataConfig(data_dir=data_dir).patches_dir, level)
+    return [(r.slide, r.x, r.y, r.label, r.store, r.row) for r in m]
+
+
+@pytest.mark.parametrize("extra", [
+    [],
+    ["--patch_level", "all"],
+    ["--patch_level", "2", "--stride", "112"],
+    ["--extract_impl", "device", "--patch_level", "all"],
+    ["-p", "--store", "png", "--patch_level", "3", "--stride", "56"],
+])
+def test_patch_writes_the_jax_clis_store(jx, synthetic_case, tmp_path, extra):
+    if "png" in extra:
+        pytest.importorskip("PIL")
+    proot = _fresh(synthetic_case, tmp_path / "p")
+    jroot = _fresh(synthetic_case, tmp_path / "j")
+    argv = (["--patch"] if "-p" not in extra else []) + extra
+    assert cli.main(argv + ["--data_dir", proot, "--device", "cpu"]) == 0
+    assert jx.cli.main(argv + ["--data_dir", jroot]) == 0
+    levels = cli._levels(extra[extra.index("--patch_level") + 1]
+                         if "--patch_level" in extra else "3")
+    for level in levels:
+        got, want = _level_rows(proot, level), _level_rows(jroot, level)
+        assert len(got) > 0
+        assert [r[:5] for r in got] == [r[:5] for r in want]
+        for g, w in zip(manifest.load_or_scan_manifest(os.path.join(
+                proot, "patches"), level), manifest.load_or_scan_manifest(
+                os.path.join(jroot, "patches"), level)):
+            assert (open(g.path, "rb").read() == open(w.path, "rb").read())
+
+
+def test_patch_gate_returns_1_in_both(jx, tmp_path, caplog):
+    for main, extra in ((cli.main, ["--device", "cpu"]), (jx.cli.main, [])):
+        assert main(["--patch", "--data_dir", str(tmp_path / "none"),
+                     *extra]) == 1
+        assert main(["--patch", "--train", "--data_dir",
+                     str(tmp_path / "none"), *extra]) == 1
+    assert not os.path.exists(tmp_path / "none")
+
+
+def test_patch_one_slide_extracts_one_slide_in_both(jx, synthetic_case,
+                                                    tmp_path):
+    proot = _fresh(synthetic_case, tmp_path / "p")
+    jroot = _fresh(synthetic_case, tmp_path / "j")
+    argv = ["--patch_one_slide", "normal_001", "--patch_level", "2"]
+    assert cli.main(argv + ["--data_dir", proot, "--device", "cpu"]) == 0
+    assert jx.cli.main(argv + ["--data_dir", jroot]) == 0
+    got = _level_rows(proot, 2)
+    assert got == [r[:4] + (r[4], r[5]) for r in _level_rows(jroot, 2)]
+    assert {r[0] for r in got} == {"normal_001"}
+
+
+def test_png_store_without_pillow_fails_clearly(synthetic_case, tmp_path,
+                                                monkeypatch):
+    import sys
+
+    root = _fresh(synthetic_case, tmp_path / "p")
+    monkeypatch.setitem(sys.modules, "PIL", None)
+    monkeypatch.setitem(sys.modules, "PIL.Image", None)
+    with pytest.raises(RuntimeError, match="Pillow"):
+        cli.main(["--patch", "--store", "png", "--data_dir", root,
+                  "--device", "cpu"])
+
+
+class _Calls:
+    """Records the CLI's calls of the stages it dispatches to."""
+
+    STAGES = ("extract_patches", "train_resnet_classifier_streaming",
+              "train_resnet_classifier", "_mine_hard_negatives",
+              "quantize_classifier_to_artifact", "train_mil_classifier")
+
+    def __init__(self, monkeypatch, stages=STAGES):
+        self.calls = []
+        for name in stages:
+            monkeypatch.setattr(cli, name, self._recorder(name))
+
+    def _recorder(self, name):
+        def record(*args, **kw):
+            self.calls.append((name, kw))
+            return "artifact" if name.startswith("quantize") else None
+        return record
+
+    def names(self):
+        return [n for n, _ in self.calls]
+
+
+def _slide_root(tmp_path):
+    img = tmp_path / "data" / "train" / "img"
+    img.mkdir(parents=True)
+    (img / "tumor_001.wsi.npz").write_bytes(b"")
+    return str(tmp_path / "data")
+
+
+def test_patch_train_streams_the_training_level_last(jx, tmp_path,
+                                                     monkeypatch):
+    """``--patch --train --patch_level all``: levels 0-2 extract, then level
+    3 streams into training (the JAX CLI's order, ``cli/main.py`` of the JAX
+    package); the store-based trainer does not run again."""
+    calls = _Calls(monkeypatch)
+    root = _slide_root(tmp_path)
+    assert cli.main(["--patch", "--train", "--patch_level", "all",
+                     "--stride", "112", "--epochs", "3", "--stain_norm",
+                     "--extract_impl", "device", "--batch_size", "8",
+                     "--data_dir", root, "--device", "cpu"]) == 0
+    assert calls.names() == ["extract_patches"] * 3 + [
+        "train_resnet_classifier_streaming"]
+    assert [kw["level"] for _, kw in calls.calls[:3]] == [0, 1, 2]
+    for _, kw in calls.calls[:3]:
+        assert kw["stride"] == 112 and kw["stain_norm"] is True
+        assert kw["impl"] == "device" and kw["store_format"] == "packed"
+    stream = calls.calls[3][1]
+    assert stream["level"] == 3 and stream["epochs"] == 3
+    assert stream["stride"] == 112 and stream["batch_size"] == 8
+    assert stream["extract_impl"] == "device" and stream["stain_norm"] is True
+    # level 2 only: nothing else extracts before the stream
+    calls.calls.clear()
+    assert cli.main(["--patch", "--train", "--patch_level", "2",
+                     "--data_dir", root, "--device", "cpu"]) == 0
+    assert calls.names() == ["train_resnet_classifier_streaming"]
+    assert calls.calls[0][1]["level"] == 2
+
+
+def test_actions_run_in_the_jax_clis_order(tmp_path, monkeypatch):
+    calls = _Calls(monkeypatch)
+    root = _slide_root(tmp_path)
+    assert cli.main(["--mine_hard_negatives", "--quantize",
+                     "--patch_one_slide", "tumor_001", "--train_mil",
+                     "--patch", "--data_dir", root, "--device", "cpu"]) == 0
+    assert calls.names() == ["extract_patches", "extract_patches",
+                             "train_mil_classifier",
+                             "quantize_classifier_to_artifact",
+                             "_mine_hard_negatives"]
+    assert calls.calls[1][1]["slide_filter"] == ["tumor_001"]
+    assert "impl" not in calls.calls[1][1]  # as in JAX: the host route
+
+
+def test_mine_hard_negatives_loads_the_classifier_artifact(tmp_path,
+                                                           monkeypatch):
+    """``--mine_hard_negatives`` reads ``<models_dir>/
+    resnet18_patch_classifier.pt`` (the suffix added by ``load_model``)."""
+    calls = _Calls(monkeypatch, stages=())
+    models = tmp_path / "models"
+    sd = _randomized_state(71)
+    save_model(str(models / "resnet18_patch_classifier"), sd)
+    monkeypatch.setattr(cli, "mine_hard_negatives",
+                        lambda cfg, model, level, device: calls.calls.append(
+                            ("mine", dict(model=model, level=level))))
+    assert cli.main(["--mine_hard_negatives", "--patch_level", "2",
+                     "--models_dir", str(models), "--device", "cpu"]) == 0
+    (name, kw), = calls.calls
+    assert kw["level"] == 2
+    got = kw["model"].state_dict()
+    assert all(torch.equal(got[k], v) for k, v in sd.items()
+               if k in got and not k.endswith("num_batches_tracked"))
+    assert next(kw["model"].parameters()).dtype == torch.float32
+    os.remove(models / "resnet18_patch_classifier.pt")
+    with pytest.raises(FileNotFoundError):
+        cli.main(["--mine_hard_negatives", "--models_dir", str(models),
+                  "--device", "cpu"])
+
+
+def test_config_json_sets_stain_norm(jx, tmp_path, monkeypatch):
+    """``data.stain_norm`` in ``--config`` reaches ``--patch`` in the port;
+    the JAX CLI rebuilds the data section and drops it (a documented
+    difference)."""
+    path = tmp_path / "cfg.json"
+    path.write_text(json.dumps({"data": {"stain_norm": True}}))
+    cfg, jcfg = _both_configs(jx, ["--config", str(path)])
+    assert cfg.data.stain_norm is True and jcfg.data.stain_norm is False
+    assert config.Config.from_dict({"data": {"stain_norm": True}}).data.stain_norm
+    assert jx.config.Config.from_dict(
+        {"data": {"stain_norm": True}}).data.stain_norm
+    calls = _Calls(monkeypatch)
+    root = _slide_root(tmp_path)
+    assert cli.main(["--patch", "--config", str(path), "--data_dir", root,
+                     "--device", "cpu"]) == 0
+    assert calls.calls[0][1]["stain_norm"] is True
+    # the new flags pass the unknown-argument check in both
+    argv = ["-p", "--stain_norm", "--extract_impl", "device",
+            "--patch_one_slide", "x", "--mine_hard_negatives"]
+    jx.cli._reject_unknown_args(jx.cli.build_parser(), argv)
+    cli._reject_unknown_args(cli.build_parser(), argv)
