@@ -18,9 +18,12 @@ cells, hierarchical multiscale slide inference (``--predict_slide
 --multiscale`` at levels (2, 3): float, cascade and int8 on the stacked
 trunk batch) on the same slide, and multiscale training with calibration
 (``--train_multiscale``), quantization-aware fine-tuning (``--qat``) and
-the serving paths of what they write, and patch extraction from slides
+the serving paths of what they write, patch extraction from slides
 (``--patch``, host and device routes, ``--stain_norm``) with the two
-trainers that read it (``--patch --train``, ``--mine_hard_negatives``). It
+trainers that read it (``--patch --train``, ``--mine_hard_negatives``), and
+data-parallel training over a process group with the slide fleet
+(``Trainer(group=)``, the SimCLR step over ranks, ``--predict_slide <dir>
+--group_size``). It
 checks every hand-written kernel of those paths against its plain PyTorch
 version on the card. Phases:
 
@@ -98,8 +101,8 @@ version on the card. Phases:
    step, and the bf16 card step against a float32 CPU step on 32 cells,
    whose loss must sit far from the blind-model value ln(2N − 1);
 7. MIL: a feature triplet of 24 synthetic slides (2,000–12,000 instances of
-   width 512 each, half tumor), ``--train_mil --epochs 5 --device cuda`` as
-   a subprocess of the CLI, then ``mil_predict`` with 100 MC-dropout samples
+   width 512 each, half tumor), ``--train_mil --epochs 5 --device cuda``
+   through the CLI's ``main`` in this process, then ``mil_predict`` with 100 MC-dropout samples
    on every bag on the card, launch counts read around it (one per call),
    and without MC dropout (bags of 4096+ instances launch once, shorter
    ones not at all); the kernel route against the module route, the card
@@ -114,7 +117,8 @@ version on the card. Phases:
    ``int8_maxpool``), the tissue partition equal to the float path's, margins
    and features against the float32 ``folded_forward`` on the reference
    cells, margins independent of batch size and run; ``--predict_slide
-   --int8`` through the CLI picking the artifact up;
+   --int8`` through the CLI's ``main`` in this process picking the
+   artifact up;
    ``run_feature_extraction(int8=True, qtree=artifact)`` with its launches,
    features identical at two batch sizes; the forward's time at B = 512; the
    card's ``quant_forward`` against the CPU's plain one on 64 cells;
@@ -163,10 +167,10 @@ version on the card. Phases:
    on the reference cells (logit cosine); warm step times of both trainers,
    peak memory, and (last in the run) one multiscale epoch's idle share
    under the profiler;
-13. patch extraction (run before phase 8): a data root written by the
-   port's ``write_synthetic_case``: ``tumor_001``, the smoke slide, whose
-   XML carries the spec's tumor polygon and a seeded 1,024-vertex outline,
-   and the annotation-free 3584×2688 ``normal_001``; through the CLI's
+13. patch extraction (run before phase 8): a data root of ``tumor_001``,
+   the smoke slide's pyramid, whose XML carries the spec's tumor polygon
+   and a seeded 1,024-vertex outline, and the annotation-free 3584×2688
+   ``normal_001`` of the port's ``write_synthetic_case``; through the CLI's
    ``main``: ``--patch --patch_level all`` with ``--extract_impl host`` and
    with ``device`` into two roots, the device extractions counted (8: every
    level of both slides, level 0 a 154-megapixel mask, none falls back),
@@ -187,6 +191,24 @@ version on the card. Phases:
    ``predict_slide`` grid in descending order, bytes equal to region reads,
    a second call mines nothing; the phase's wall; and (last in the run) the
    streamed epoch's idle share under the profiler;
+14. data parallelism and the fleet (run before phase 8): on the first 512
+   tissue cells of phase 10's store, the classifier ``Trainer`` (one global
+   batch of 512, one step) and one SimCLR step with the NT-Xent kernels
+   (``loss_impl="pallas"``, the gathered (1024, 128) matrix on each rank),
+   from seeded weights: (a) in this process over a world-1 NCCL group,
+   held to the single process (loss within 5e-3, the head's gradients
+   within 5e-2 of max|g|: phase 10's bf16 bound) with warm step times
+   beside it; (b), (c) in 2 spawned ranks on the one card over gloo (NCCL
+   refuses two ranks on one card): weights bit-identical across ranks,
+   ``augment``, ``nt_xent_fwd`` and ``nt_xent_bwd`` launched once a rank,
+   loss and gradients within the same bound of (a), the group's NT-Xent
+   equal to the kernels on the gathered projections within 1e-5; (f) with
+   two cards or more, one rank a card over NCCL; (d) ``--predict_slide
+   <dir> --group_size 1 --tissue_filter device`` through the CLI's
+   ``main`` over the smoke slide and a second seeded slide: CSVs byte-equal
+   to the slides run one after another, the same 2a launches; (e)
+   ``predict_slide_fleet`` with two groups sharing the card (two threads,
+   a stream each): grids and CSVs equal; walls of each;
 8. feature extraction: the packed store of the slide's 1,752 tissue cells,
    the slice's ResNet18 saved as ``resnet18_patch_classifier.pt``,
    ``extract_features(cfg, level=3, dataset=ds, device="cuda")`` at batch 512
@@ -2551,21 +2573,18 @@ def phase_mil(dev, tmp) -> dict:
         f"{time.perf_counter() - t0:.1f} s")
 
     cfg = Config(models_dir=models_dir)
-    cmd = [sys.executable, "-m", f"{PKG}.cli.main", "--train_mil",
-           "--data_dir", data_dir, "--patch_level", str(LEVEL), "--epochs",
-           str(MIL_EPOCHS), "--models_dir", models_dir, "--device", "cuda"]
-    t0 = time.perf_counter()
-    proc = subprocess.run(cmd, cwd=ROOT, env=dict(os.environ),
-                          capture_output=True, text=True, timeout=600)
-    wall = time.perf_counter() - t0
-    if proc.returncode != 0:
-        raise AssertionError(f"--train_mil failed ({proc.returncode}):\n"
-                             f"{proc.stderr[-4000:]}")
-    epochs = re.findall(r"MIL epoch (\d+)/\d+: loss (\S+) acc (\S+)",
-                        proc.stderr)
-    val = re.search(r"MIL validation accuracy: (\S+)", proc.stderr)
-    log(f"[mil] {' '.join(cmd[3:])} … exit 0 in {wall:.1f} s (process start "
-        f"and the triplet's load included); epochs (loss, acc): "
+    argv = ["--train_mil", "--data_dir", data_dir, "--patch_level",
+            str(LEVEL), "--epochs", str(MIL_EPOCHS), "--models_dir",
+            models_dir, "--device", "cuda"]
+    with _Messages("train.mil") as records:
+        rc, wall = run_cli(argv)
+    if rc != 0:
+        raise AssertionError(f"--train_mil failed ({rc})")
+    text = "\n".join(r.getMessage() for r in records)
+    epochs = re.findall(r"MIL epoch (\d+)/\d+: loss (\S+) acc (\S+)", text)
+    val = re.search(r"MIL validation accuracy: (\S+)", text)
+    log(f"[mil] {' '.join(argv)} … exit 0 in {wall:.1f} s (the CLI's main "
+        f"in this process, the triplet's load included); epochs (loss, acc): "
         f"{[(float(l), float(a)) for _, l, a in epochs]}; validation "
         f"accuracy {val.group(1) if val else '?'}")
     if len(epochs) != MIL_EPOCHS:
@@ -2927,6 +2946,9 @@ def phase_multiscale(dev, sd, slide, spec, grid, host_margins, calib, ref,
                      - full["resize"][1]["fusion"][~white]).max()
     log(f"[multiscale] crop against resize: fusion max|Δ| {d_modes:.4g}")
     out, comps, ms_launches = full["crop"]
+    split_check("[multiscale]", lambda devs: predict_slide_multiscale(
+        slide, model, cal, input_mode="crop", devices=devs, **kw)[2],
+        comps, int((~white).sum()), MS_BATCH, s, dev)
 
     # the CLI: --ms_components, then <dir> --run_evaluation
     slide_path = os.path.join(tmp, "ms_slide", "smoke_slide.wsi.npz")
@@ -3639,14 +3661,19 @@ def annotation_polygon(seed: int, n: int = ANNOTATION_VERTICES):
     return np.stack([xs * SLIDE_W, ys * SLIDE_H], axis=1)
 
 
-def extract_root(spec, tmp):
+def extract_root(spec, slide, tmp):
     """The data root of phase 13, written by the port: ``tumor_001`` (the
     smoke slide; its XML carries the spec's tumor polygon and a seeded
     1,024-vertex one) and the annotation-free ``normal_001``. Returns the
-    root and the XML's polygons."""
+    root and the XML's polygons. ``tumor_001``'s pyramid is the rendered
+    smoke slide's (what ``write_synthetic_case`` of the spec writes, without
+    rendering it again)."""
     from ss25_hierarchical_multiscale_image_classification_tpu_torch.io.annotations import (
         parse_annotation_xml,
         write_annotation_xml,
+    )
+    from ss25_hierarchical_multiscale_image_classification_tpu_torch.io.slide import (
+        save_npz_slide,
     )
     from ss25_hierarchical_multiscale_image_classification_tpu_torch.io.synthetic import (
         SyntheticSlideSpec,
@@ -3655,7 +3682,10 @@ def extract_root(spec, tmp):
     )
 
     root = os.path.join(tmp, "extract_src")
-    write_synthetic_case(root, "tumor_001", spec)
+    img_dir = os.path.join(root, "train", "img")
+    os.makedirs(img_dir)
+    save_npz_slide(os.path.join(img_dir, "tumor_001.wsi.npz"),
+                   [slide.level_array(i) for i in range(slide.level_count)])
     write_synthetic_case(root, "normal_001", SyntheticSlideSpec(
         width=NORMAL_W, height=NORMAL_H, tissue_radii=(0.45, 0.45), seed=2))
     xml = os.path.join(root, "annotations", "tumor_001.xml")
@@ -3862,7 +3892,7 @@ def phase_extract(dev, spec, slide, grid3, tissue, tmp) -> dict:
 
     t_phase = time.perf_counter()
     t0 = time.perf_counter()
-    src, polys = extract_root(spec, tmp)
+    src, polys = extract_root(spec, slide, tmp)
     base = (SLIDE_W, SLIDE_H)
     log(f"[extract] data root: tumor_001 {SLIDE_W}×{SLIDE_H} (XML: "
         f"{len(polys[0])} + {len(polys[1])} vertices), normal_001 "
@@ -4431,25 +4461,22 @@ def phase_int8(dev, ds, sd, slide, host_margins, ref_cells, ref_u8, tmp) -> dict
     slide_path = os.path.join(tmp, "smoke_slide.wsi.npz")
     save_npz_slide(slide_path, [slide.level_array(i)
                                 for i in range(slide.level_count)])
-    cmd = [sys.executable, "-m", f"{PKG}.cli.main", "--predict_slide",
-           slide_path, "--int8", "--device", "cuda", "--stride", str(STRIDE),
-           "--models_dir", models_dir]
-    t0 = time.perf_counter()
-    proc = subprocess.run(cmd, cwd=ROOT, env=dict(os.environ),
-                          capture_output=True, text=True, timeout=600)
-    wall = time.perf_counter() - t0
-    if proc.returncode != 0:
-        raise AssertionError(f"CLI --int8 failed ({proc.returncode}):\n"
-                             f"{proc.stderr[-4000:]}")
+    argv = ["--predict_slide", slide_path, "--int8", "--device", "cuda",
+            "--stride", str(STRIDE), "--models_dir", models_dir]
+    with _Messages("models.quant_artifact") as records:
+        rc, wall = run_cli(argv)
+    if rc != 0:
+        raise AssertionError(f"CLI --int8 failed ({rc})")
     rows = np.loadtxt(os.path.join(models_dir, "model_predictions_csv",
                                    "smoke_slide.csv"), delimiter=",", ndmin=2)
-    if ("using persisted quantization artifact" not in proc.stderr
+    if (not any(r.getMessage().startswith("using persisted quantization "
+                                          "artifact") for r in records)
             or rows.size == 0
             or not ((rows[:, 0] > 0) & (rows[:, 0] < 1)).all()):
         raise AssertionError("CLI --int8 did not use the artifact or wrote no "
                              "valid detections")
-    log(f"[int8] {' '.join(cmd[3:6])} … exit 0 in {wall:.1f} s (process start "
-        f"and the kernels' build cache included); {len(rows)} detections")
+    log(f"[int8] {' '.join(argv[:3])} … exit 0 in {wall:.1f} s (the CLI's "
+        f"main in this process); {len(rows)} detections")
 
     # run_feature_extraction(int8=True, qtree=artifact)
     trunk = strip_head(sd)
@@ -4528,6 +4555,586 @@ def phase_int8(dev, ds, sd, slide, host_margins, ref_cells, ref_u8, tmp) -> dict
             "int8_maxpool": slide_counts[2]}
 
 
+DP_TIMED_STEPS = 5  # warm synchronized steps timed on each side
+
+
+def sync(dev) -> None:
+    """Wait for ``dev``'s work (nothing to wait for on the CPU)."""
+    import torch
+
+    if dev.type == "cuda":
+        torch.cuda.synchronize(dev)
+DP_RANKS_ON_ONE_CARD = 2
+
+
+def classifier_dp(dev, group, records, sd, timed: int) -> dict:
+    """The classifier ``Trainer`` over ``records`` (one global batch, one
+    step an epoch) on this rank: the augment launches counted around the
+    epoch, loss, gradients, weights, then ``timed`` warm synchronized steps
+    on one batch of this rank's rows."""
+    from ss25_hierarchical_multiscale_image_classification_tpu_torch.models.convert import (
+        resnet18_from_state_dict,
+    )
+    from ss25_hierarchical_multiscale_image_classification_tpu_torch.ops.augment import (
+        augment_batch_kernel,
+    )
+    from ss25_hierarchical_multiscale_image_classification_tpu_torch.data.datasets import (
+        PatchDataset,
+    )
+    from ss25_hierarchical_multiscale_image_classification_tpu_torch.data.manifest import (
+        PatchManifest,
+    )
+    from ss25_hierarchical_multiscale_image_classification_tpu_torch.train.losses import (
+        class_weights_inv_min,
+    )
+    from ss25_hierarchical_multiscale_image_classification_tpu_torch.train.trainer import (
+        Trainer,
+    )
+
+    ds = PatchDataset(PatchManifest(records))
+    trainer = Trainer(resnet18_from_state_dict(sd), ds, None,
+                      batch_size=len(records), learning_rate=1e-4,
+                      class_weights=class_weights_inv_min(ds.labels, 2),
+                      seed=SEED, device=dev, group=group)
+    sync(dev)
+    reset_counts()  # counts from here on are the classifier path's
+    stats = trainer.train_epoch(0)
+    sync(dev)
+    out = {"aug_launches": augment_batch_kernel.launches,
+           "loss": stats["train_loss"],
+           "grads": {k: p.grad.float().cpu()
+                     for k, p in trainer.state.model.named_parameters()},
+           "sd": trainer.variables()}
+    local = next(iter(trainer._batches(trainer.batch_iter)))
+    walls = []
+    for _ in range(timed + 1):
+        sync(dev)
+        t0 = time.perf_counter()
+        trainer.train_step(trainer.state, trainer.generator, *local)
+        sync(dev)
+        walls.append((time.perf_counter() - t0) * 1e3)
+    out["step_ms"] = walls[1:]  # the first is a warm-up
+    return out
+
+
+def dp_steps(dev, group, records, sd, simclr_sd, timed: int) -> dict:
+    """One rank of phase 14 (or the single process, ``group`` None): the
+    classifier step (:func:`classifier_dp`), then one SimCLR step with the
+    NT-Xent kernels on the same images, its launches counted around it."""
+    import torch
+
+    from ss25_hierarchical_multiscale_image_classification_tpu_torch.data.augment import (
+        simclr_two_views,
+    )
+    from ss25_hierarchical_multiscale_image_classification_tpu_torch.data.datasets import (
+        BatchIterator,
+        PatchDataset,
+    )
+    from ss25_hierarchical_multiscale_image_classification_tpu_torch.data.manifest import (
+        PatchManifest,
+    )
+    from ss25_hierarchical_multiscale_image_classification_tpu_torch.models.resnet import (
+        set_process_group,
+    )
+    from ss25_hierarchical_multiscale_image_classification_tpu_torch.models.simclr import (
+        SimCLRModel,
+    )
+    from ss25_hierarchical_multiscale_image_classification_tpu_torch.ops.nt_xent import (
+        nt_xent_loss_kernel,
+    )
+    from ss25_hierarchical_multiscale_image_classification_tpu_torch.parallel.feed import (
+        process_batch_slice,
+        to_device,
+    )
+    from ss25_hierarchical_multiscale_image_classification_tpu_torch.parallel.mesh import (
+        rank_and_size,
+        replicate,
+    )
+    from ss25_hierarchical_multiscale_image_classification_tpu_torch.train.simclr_trainer import (
+        make_simclr_train_step,
+    )
+    from ss25_hierarchical_multiscale_image_classification_tpu_torch.train.state import (
+        create_train_state,
+    )
+
+    rank, world = rank_and_size(group)
+    batch = len(records)  # one global batch
+    out = classifier_dp(dev, group, records, sd, timed)
+    ds = PatchDataset(PatchManifest(records))
+
+    # SimCLR: this rank's rows of the first global batch, views of the
+    # global draw, the NT-Xent kernels on the gathered (1024, 128) matrix
+    model = SimCLRModel()
+    model.load_state_dict(simclr_sd)
+    set_process_group(model, group)
+    state = create_train_state(model, 1e-3, dev)
+    replicate(model, group)
+    rows = process_batch_slice(batch, rank, world)
+    imgs, _, valid = next(iter(BatchIterator(ds, batch, seed=SEED, rows=rows)))
+    imgs, valid = to_device(imgs, dev), to_device(valid, dev).bool()
+    step = make_simclr_train_step(TAU, 224, "pallas", group)
+    sync(dev)
+    reset_counts()  # counts from here on are the SimCLR step's
+    state, loss = step(state, torch.Generator(device=dev).manual_seed(SEED),
+                       imgs, valid)
+    sync(dev)
+    fwd, bwd = ntxent_launchers()
+    out["simclr"] = {"loss": float(loss), "fwd": fwd.launches,
+                     "bwd": bwd.launches}
+    # the projections of this rank's views after the step, and the kernels'
+    # loss over the group: the parent holds it to the kernels on the
+    # gathered projections
+    v1, v2 = simclr_two_views(torch.Generator(device=dev).manual_seed(SEED + 1),
+                              imgs, 224, rows=(rows.start, batch))
+    with torch.no_grad(), torch.autocast("cuda", torch.bfloat16):
+        z1, z2 = model(v1), model(v2)
+    with torch.no_grad():
+        out["simclr"]["group_loss"] = float(nt_xent_loss_kernel(
+            z1, z2, TAU, valid=valid, group=group))
+    out["simclr"]["z"] = (z1.float().cpu(), z2.float().cpu())
+    out["simclr"]["valid"] = valid.cpu()
+    return out
+
+
+def _dp_rank(rank: int, world: int, port: int, backend: str, records, sd,
+             simclr_sd, out_dir: str) -> None:
+    """A spawned rank of phase 14: ``backend`` gloo puts every rank on
+    ``cuda:0``, NCCL rank r on ``cuda:r``."""
+    import datetime
+
+    import torch
+    import torch.distributed as dist
+
+    dev = torch.device("cuda", rank if backend == "nccl" else 0)
+    if not torch.cuda.is_available():  # a rehearsal on the CPU
+        dev = torch.device("cpu")
+    else:
+        torch.cuda.set_device(dev)
+    dist.init_process_group(backend, init_method=f"tcp://localhost:{port}",
+                            rank=rank, world_size=world,
+                            timeout=datetime.timedelta(minutes=5))
+    try:
+        res = dp_steps(dev, dist.group.WORLD, records, sd, simclr_sd,
+                       DP_TIMED_STEPS)
+        torch.save(res, os.path.join(out_dir, f"rank{rank}.pt"))
+    finally:
+        dist.destroy_process_group()
+
+
+def _free_port() -> int:
+    import socket
+
+    with socket.socket() as s:
+        s.bind(("localhost", 0))
+        return s.getsockname()[1]
+
+
+def run_ranks(world: int, backend: str, records, sd, simclr_sd, tmp) -> list:
+    """Phase 14's steps in ``world`` spawned ranks; their results."""
+    import torch
+    import torch.multiprocessing as mp
+
+    out_dir = tempfile.mkdtemp(dir=tmp)
+    t0 = time.perf_counter()
+    mp.start_processes(_dp_rank, args=(world, _free_port(), backend, records,
+                                       sd, simclr_sd, out_dir),
+                       nprocs=world, join=True, start_method="spawn")
+    log(f"[dp] {world} ranks over {backend} spawned, ran and joined in "
+        f"{time.perf_counter() - t0:.1f} s")
+    return [torch.load(os.path.join(out_dir, f"rank{r}.pt"),
+                       weights_only=False) for r in range(world)]
+
+
+def _head_close(got: dict, want: dict, what: str) -> float:
+    """The bf16 step bound of phase 10: the head's gradients within
+    TRAIN_GRAD_RTOL of their max|g|; returns the largest share."""
+    worst = 0.0
+    for k in ("fc.weight", "fc.bias"):
+        scale = want[k].abs().max().item()
+        share = (got[k] - want[k]).abs().max().item() / scale
+        worst = max(worst, share)
+        if share > TRAIN_GRAD_RTOL:
+            raise AssertionError(f"{what}: {k} gradient {share:.3g} of max|g| "
+                                 f"from the reference (bound "
+                                 f"{TRAIN_GRAD_RTOL})")
+    return worst
+
+
+def check_ranks(name: str, res: list, ref: dict) -> None:
+    """Phase 14 (b), (c), (f): every rank's weights bit-identical, the
+    launches one per rank a step, loss and head gradients within the bf16
+    bound of ``ref``, and the group's NT-Xent loss equal to the kernels' on
+    the gathered projections within their 1e-5."""
+    import torch
+
+    from ss25_hierarchical_multiscale_image_classification_tpu_torch.ops.nt_xent import (
+        nt_xent_loss_kernel,
+    )
+
+    for r, out in enumerate(res[1:], 1):
+        for k, v in res[0]["sd"].items():
+            if not torch.equal(out["sd"][k], v):
+                raise AssertionError(f"{name}: rank {r}'s {k} differs from "
+                                     "rank 0's after the step")
+    for r, out in enumerate(res):
+        s = out["simclr"]
+        if out["aug_launches"] != 1 or (s["fwd"], s["bwd"]) != (1, 1):
+            raise AssertionError(
+                f"{name}: rank {r} launched augment {out['aug_launches']}, "
+                f"nt_xent_fwd/bwd {s['fwd']}/{s['bwd']} times (want 1 each)")
+        if abs(out["loss"] - ref["loss"]) > TRAIN_LOSS_ATOL:
+            raise AssertionError(f"{name}: rank {r} classifier loss "
+                                 f"{out['loss']} vs {ref['loss']}")
+        if abs(s["loss"] - ref["simclr"]["loss"]) > TRAIN_LOSS_ATOL:
+            raise AssertionError(f"{name}: rank {r} SimCLR loss {s['loss']} "
+                                 f"vs {ref['simclr']['loss']}")
+    grad = max(_head_close(out["grads"], ref["grads"], name) for out in res)
+    dev = torch.device("cuda", 0)
+    z1 = torch.cat([o["simclr"]["z"][0] for o in res]).to(dev)
+    z2 = torch.cat([o["simclr"]["z"][1] for o in res]).to(dev)
+    valid = torch.cat([o["simclr"]["valid"] for o in res]).to(dev)
+    with torch.no_grad():
+        gathered = float(nt_xent_loss_kernel(z1, z2, TAU, valid=valid))
+    worst = max(abs(o["simclr"]["group_loss"] - gathered) / abs(gathered)
+                for o in res)
+    steps = [statistics.median(o["step_ms"]) for o in res]
+    log(f"[dp] {name}: weights bit-identical over {len(res)} ranks; augment "
+        f"1, nt_xent_fwd 1, nt_xent_bwd 1 a rank; classifier loss "
+        f"{res[0]['loss']!r} vs {ref['loss']!r}, head gradients within "
+        f"{grad:.3g} of max|g|; SimCLR loss {res[0]['simclr']['loss']!r} vs "
+        f"{ref['simclr']['loss']!r}; group NT-Xent {res[0]['simclr']['group_loss']!r} "
+        f"vs the kernels on the gathered (1024, 128) projections {gathered!r} "
+        f"(relative {worst:.3g}); classifier step per rank "
+        f"{', '.join(f'{s:.2f}' for s in steps)} ms (median of "
+        f"{DP_TIMED_STEPS} synchronized)")
+    if worst > NTX_RTOL:
+        raise AssertionError(f"{name}: group NT-Xent {worst:.3g} from the "
+                             f"kernels on the gathered projections")
+
+
+GLOBAL_BN_RTOL = 1e-4  # of max|value|: float32, Welford against two passes
+
+
+def plain_bn_step_ms(dev, group, records, sd) -> list[float]:
+    """The world-1 classifier step timed with the global BatchNorm on its
+    plain float32 route instead of the synchronized-BN kernels: the A/B
+    behind the CUDA route (a measurement only; the route is restored)."""
+    from ss25_hierarchical_multiscale_image_classification_tpu_torch.parallel import (
+        collectives,
+    )
+
+    def plain(x, weight, bias, eps, group):
+        import types
+
+        from ss25_hierarchical_multiscale_image_classification_tpu_torch.models.resnet import (
+            BatchNorm2d,
+        )
+
+        # the route reads only these four attributes of its module
+        bn = types.SimpleNamespace(weight=weight, bias=bias, eps=eps,
+                                   group=group)
+        return BatchNorm2d._global_forward_plain(bn, x)
+
+    kernels = collectives.global_batch_norm
+    collectives.global_batch_norm = plain
+    try:
+        return classifier_dp(dev, group, records, sd, DP_TIMED_STEPS)["step_ms"]
+    finally:
+        collectives.global_batch_norm = kernels
+
+
+def check_global_bn(dev, group) -> float:
+    """The CUDA route of the global BatchNorm (PyTorch's synchronized-BN
+    kernels) against its plain float32 route on the same (64, 64, 56, 56)
+    channels_last batch: output, statistics and the three gradients; the
+    largest error as a share of each tensor's max|value|."""
+    import torch
+
+    from ss25_hierarchical_multiscale_image_classification_tpu_torch.models.resnet import (
+        BatchNorm2d,
+    )
+    from ss25_hierarchical_multiscale_image_classification_tpu_torch.parallel.collectives import (
+        global_batch_norm,
+    )
+
+    g = torch.Generator(device=dev).manual_seed(SEED)
+    x = (torch.randn(64, 64, 56, 56, device=dev, generator=g) * 2 + 1).to(
+        memory_format=torch.channels_last)
+    coef = torch.randn(x.shape, device=dev, generator=g)
+    bn = BatchNorm2d(64).to(dev).train()
+    with torch.no_grad():
+        bn.weight.uniform_(0.5, 1.5, generator=g)
+        bn.bias.uniform_(-0.5, 0.5, generator=g)
+    bn.group = group
+    out = []
+    for route in ("cuda", "plain"):
+        xi = x.clone().requires_grad_(True)
+        bn.zero_grad()
+        if route == "cuda":
+            y, mean, var = global_batch_norm(xi, bn.weight, bn.bias, bn.eps,
+                                             group)
+        else:
+            y, mean, var = bn._global_forward_plain(xi)
+        (y * coef).sum().backward()
+        out.append([y.detach(), mean, var, xi.grad, bn.weight.grad.clone(),
+                    bn.bias.grad.clone()])
+    worst = max(((a - b).abs().max() / b.abs().max()).item()
+                for a, b in zip(*out))
+    log(f"[dp] global BatchNorm on the card, synchronized-BN kernels against "
+        f"the plain route at (64, 64, 56, 56) float32: output, mean, "
+        f"variance and gradients within {worst:.3g} of max|value| (bound "
+        f"{GLOBAL_BN_RTOL})")
+    if worst > GLOBAL_BN_RTOL:
+        raise AssertionError("the global BatchNorm's CUDA route differs from "
+                             "its plain route")
+    return worst
+
+
+def phase_dp(dev, ds, smi, tmp) -> dict:
+    """Phase 14 (a)-(c), (f): the data-parallel classifier and SimCLR steps
+    on the first 512 tissue cells, against one process."""
+    import datetime
+
+    import torch
+    import torch.distributed as dist
+
+    from ss25_hierarchical_multiscale_image_classification_tpu_torch.models.resnet import (
+        ResNet18Classifier,
+    )
+    from ss25_hierarchical_multiscale_image_classification_tpu_torch.models.simclr import (
+        SimCLRModel,
+    )
+
+    t0 = time.perf_counter()
+    records = ds.manifest.records[:BATCH]
+    sd = ResNet18Classifier(generator=torch.Generator().manual_seed(SEED)
+                            ).state_dict()
+    simclr_sd = SimCLRModel(generator=torch.Generator().manual_seed(SEED)
+                            ).state_dict()
+    one = dp_steps(dev, None, records, sd, simclr_sd, DP_TIMED_STEPS)
+    # (a) world 1 over a real NCCL communicator, in this process
+    dist.init_process_group("nccl", init_method=f"tcp://localhost:{_free_port()}",
+                            rank=0, world_size=1,
+                            timeout=datetime.timedelta(minutes=5))
+    try:
+        bn_err = check_global_bn(dev, dist.group.WORLD)
+        nccl1 = dp_steps(dev, dist.group.WORLD, records, sd, simclr_sd,
+                         DP_TIMED_STEPS)
+        plain_ms = statistics.median(plain_bn_step_ms(
+            dev, dist.group.WORLD, records, sd))
+    finally:
+        dist.destroy_process_group()
+    check_ranks("(a) world 1 over NCCL", [nccl1], one)
+    single, dp1 = (statistics.median(one["step_ms"]),
+                   statistics.median(nccl1["step_ms"]))
+    log(f"[dp] (a) classifier step B={BATCH}: single process {single:.2f} ms, "
+        f"world 1 over NCCL {dp1:.2f} ms (the group's BatchNorm, loss and "
+        f"gradient collectives: {dp1 - single:+.2f} ms); with the global "
+        f"BatchNorm's plain float32 route {plain_ms:.2f} ms [{smi}]")
+    # (b), (c): two ranks share the card; NCCL refuses two ranks on one GPU
+    gloo = run_ranks(DP_RANKS_ON_ONE_CARD, "gloo", records, sd, simclr_sd, tmp)
+    check_ranks(f"(b)/(c) {DP_RANKS_ON_ONE_CARD} ranks on 1 card, gloo", gloo,
+                nccl1)
+    out = {"one": one, "nccl1": nccl1, "gloo": gloo, "bn_err": bn_err,
+           "plain_bn_ms": plain_ms,
+           "aug_launches": sum(o["aug_launches"] for o in gloo),
+           "ntx_launches": sum(o["simclr"]["fwd"] for o in gloo)}
+    # (f): one rank a card over NCCL, where the machine has several
+    cards = torch.cuda.device_count()
+    if cards >= 2:
+        nccl = run_ranks(cards, "nccl", records, sd, simclr_sd, tmp)
+        check_ranks(f"(f) {cards} ranks on {cards} cards, NCCL", nccl, nccl1)
+    else:
+        log("[dp] (f) skipped: one card visible (NCCL takes one rank a card)")
+    log(f"[dp] phase 14 (a)-(c) in {time.perf_counter() - t0:.1f} s")
+    return out
+
+
+def split_check(tag: str, run, want: dict, cells: int, batch: int,
+                levels: int, dev) -> None:
+    """The split path (``devices=``) on the one card: ``run([dev, dev])``
+    (two replicas, each batch in two contiguous halves) against the
+    one-device run ``want`` (score grids by name): the same tissue
+    partition, every grid within the bf16 bound (cuDNN may take other
+    algorithms for the halves), and 2a once per half a level."""
+    import numpy as np
+
+    from ss25_hierarchical_multiscale_image_classification_tpu_torch.infer.sliding_window import (
+        NON_TISSUE_MARGIN,
+    )
+    from ss25_hierarchical_multiscale_image_classification_tpu_torch.ops.preprocess import (
+        fused_normalize,
+    )
+
+    reset_counts()
+    got = run([dev, dev])
+    launches = fused_normalize.launches
+    sizes = [batch] * (cells // batch) + ([cells % batch] if cells % batch
+                                          else [])
+    halves = sum(1 if k <= batch // 2 else 2 for k in sizes)
+    err = 0.0
+    for name, w in want.items():
+        white = w == NON_TISSUE_MARGIN
+        if not np.array_equal(got[name] == NON_TISSUE_MARGIN, white):
+            raise AssertionError(f"{tag} split path: the {name} partition "
+                                 "differs")
+        err = max(err, float(np.abs(got[name] - w)[~white].max()))
+    log(f"{tag} split over two replicas on the card: partitions equal, "
+        f"max|Δ| {err:.4g} (bound {MODES_ATOL}); fused_normalize launches "
+        f"{launches} = {halves} halves × {levels}")
+    if err > MODES_ATOL or launches != halves * levels:
+        raise AssertionError(f"{tag} split path differs from one device")
+
+
+def phase_fleet(dev, sd, slide_path: str, smi, tmp) -> dict:
+    """Phase 14 (d), (e): ``--predict_slide <dir> --group_size 1
+    --tissue_filter device`` through the CLI's ``main`` over the smoke slide
+    and a second seeded slide, against the slides run one after another
+    (CSV bytes, 2a launches, walls); then ``predict_slide_fleet`` with two
+    groups sharing the card (two threads), grids equal."""
+    import numpy as np
+    import torch
+
+    from ss25_hierarchical_multiscale_image_classification_tpu_torch.infer.fleet import (
+        predict_slide_fleet,
+    )
+    from ss25_hierarchical_multiscale_image_classification_tpu_torch.infer.sliding_window import (
+        predict_and_export,
+        predict_slide,
+    )
+    from ss25_hierarchical_multiscale_image_classification_tpu_torch.io.slide import (
+        save_npz_slide,
+    )
+    from ss25_hierarchical_multiscale_image_classification_tpu_torch.io.synthetic import (
+        make_synthetic_slide,
+        normal_spec,
+    )
+    from ss25_hierarchical_multiscale_image_classification_tpu_torch.models.convert import (
+        resnet18_from_state_dict,
+    )
+    from ss25_hierarchical_multiscale_image_classification_tpu_torch.ops.preprocess import (
+        fused_normalize,
+    )
+
+    slide_dir = os.path.join(tmp, "fleet_slides")
+    models_dir = os.path.join(tmp, "fleet_models")
+    os.makedirs(slide_dir)
+    os.makedirs(models_dir)
+    os.link(slide_path, os.path.join(slide_dir, "smoke_slide.wsi.npz"))
+    second = make_synthetic_slide(normal_spec(width=3584, height=2688,
+                                              seed=SEED + 2))
+    save_npz_slide(os.path.join(slide_dir, "second_slide.wsi.npz"),
+                   [second.level_array(i) for i in range(second.level_count)])
+    torch.save(sd, os.path.join(models_dir, "resnet18_patch_classifier.pt"))
+    paths = sorted(os.path.join(slide_dir, f) for f in os.listdir(slide_dir))
+    kw = dict(level=LEVEL, stride=STRIDE, tissue_filter="device")
+
+    # the slides one after another, as the directory mode ran them before
+    model = resnet18_from_state_dict(sd).to(
+        device=dev, dtype=torch.bfloat16, memory_format=torch.channels_last)
+    seq_dir = os.path.join(tmp, "fleet_sequential")
+    torch.cuda.synchronize()
+    reset_counts()
+    t0 = time.perf_counter()
+    seq = {p: predict_and_export(p, model, seq_dir, device=dev, **kw)[0]
+           for p in paths}
+    torch.cuda.synchronize()
+    seq_wall = time.perf_counter() - t0
+    seq_launches = fused_normalize.launches
+
+    # (d) the CLI's directory mode, through the fleet
+    argv = ["--predict_slide", slide_dir, "--group_size", "1",
+            "--tissue_filter", "device", "--stride", str(STRIDE),
+            "--models_dir", models_dir, "--device", "cuda"]
+    reset_counts()  # counts from here on are the fleet path's
+    rc, cli_wall = run_cli(argv)
+    launches = fused_normalize.launches
+    csv_dir = os.path.join(models_dir, "model_predictions_csv")
+    read = lambda d: {f: open(os.path.join(d, f), "rb").read()  # noqa: E731
+                      for f in sorted(os.listdir(d))}
+    if rc != 0 or read(csv_dir) != read(seq_dir) or launches != seq_launches:
+        raise AssertionError(
+            f"(d) fleet CLI: exit {rc}, CSVs equal {read(csv_dir) == read(seq_dir)}"
+            f", fused_normalize launches {launches} vs {seq_launches}")
+    # (e) two groups, two threads, one card: a stream each
+    reset_counts()
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    grids = predict_slide_fleet(paths, model, os.path.join(tmp, "fleet_e"),
+                                group_size=1, devices=[dev, dev], **kw)
+    torch.cuda.synchronize()
+    two_wall = time.perf_counter() - t0
+    two_launches = fused_normalize.launches
+    same = all(np.array_equal(grids[p], seq[p]) for p in paths)
+    if not same or two_launches != seq_launches or read(
+            os.path.join(tmp, "fleet_e")) != read(seq_dir):
+        raise AssertionError(f"(e) two groups on one card: grids equal {same}, "
+                             f"fused_normalize launches {two_launches} vs "
+                             f"{seq_launches}")
+    log(f"[fleet] (d) {' '.join(argv[:4])} … over {len(paths)} slides: exit 0, "
+        f"CSVs byte-equal to the slides run in turn, fused_normalize launches "
+        f"{launches} = {seq_launches}; walls: in turn {seq_wall:.3f} s, CLI "
+        f"(load included) {cli_wall:.3f} s; (e) two groups sharing the card "
+        f"(two threads, a stream each) {two_wall:.3f} s, grids and CSVs equal, "
+        f"launches {two_launches} [{smi}]")
+    # the smoke slide split over two replicas on the card; every cell
+    # uploads under the device filter
+    one = {"margin": predict_slide(paths[-1], model, device=dev,
+                                   output="margin", **kw)[0]}
+    split_check("[fleet]", lambda devs: {"margin": predict_slide(
+        paths[-1], model, device=dev, devices=devs, output="margin",
+        **kw)[0]}, one, one["margin"].size, BATCH, 1, dev)
+    if torch.cuda.device_count() >= 2:
+        fleet_split_check(dev, model, paths, kw)
+    return {"launches": launches, "seq_wall": seq_wall, "cli_wall": cli_wall,
+            "two_wall": two_wall}
+
+
+def fleet_split_check(dev, model, paths, kw) -> None:
+    """With two cards or more: each slide with every batch split over all
+    the cards (``predict_slide(devices=...)``, a replica a card) against one
+    card: the same tissue partition, margins within the bf16 bound (cuDNN
+    may take other algorithms for the smaller batches), and the walls."""
+    import numpy as np
+    import torch
+
+    from ss25_hierarchical_multiscale_image_classification_tpu_torch.device import (
+        cuda_devices,
+    )
+    from ss25_hierarchical_multiscale_image_classification_tpu_torch.infer.sliding_window import (
+        NON_TISSUE_MARGIN,
+        predict_slide,
+        replicate_model,
+    )
+
+    cards = cuda_devices()
+    models = replicate_model(model, cards)
+    for path in paths:
+        walls = {}
+        for name, devs, m in (("one card", [dev], model),
+                              (f"{len(cards)} cards", cards, models)):
+            predict_slide(path, m, device=dev, devices=devs, output="margin",
+                          **kw)  # warm
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            walls[name] = predict_slide(path, m, device=dev, devices=devs,
+                                        output="margin", **kw)[0]
+            torch.cuda.synchronize()
+            walls[name + " s"] = time.perf_counter() - t0
+        one, split = walls["one card"], walls[f"{len(cards)} cards"]
+        white = one == NON_TISSUE_MARGIN
+        err = float(np.abs(split - one)[~white].max()) if (~white).any() else 0.0
+        log(f"[fleet] {os.path.basename(path)} split over {len(cards)} cards: "
+            f"partition equal {np.array_equal(split == NON_TISSUE_MARGIN, white)}, "
+            f"max|Δ margin| {err:.4g} (bound {MODES_ATOL}); walls one card "
+            f"{walls['one card s']:.3f} s, {len(cards)} cards "
+            f"{walls[f'{len(cards)} cards s']:.3f} s")
+        if not np.array_equal(split == NON_TISSUE_MARGIN, white) or \
+                err > MODES_ATOL:
+            raise AssertionError("a slide split over the cards differs from "
+                                 "one card")
+
+
 def main() -> int:
     if not os.path.isdir(os.path.join(ROOT, PKG)):
         print(f"{PKG}/ not found beside {__file__}: run from a checkout",
@@ -4599,6 +5206,10 @@ def main() -> int:
         train = phase_train(dev, ds, slide, spec, os.path.join(tmp, "models"),
                             tmp)
         torch.cuda.empty_cache()
+        dp = phase_dp(dev, ds, smi, tmp)
+        fleet = phase_fleet(dev, sd, os.path.join(
+            tmp, "train_data", "train", "img", "smoke_slide.wsi.npz"), smi, tmp)
+        torch.cuda.empty_cache()
         ms = phase_multiscale(dev, sd, slide, spec, grid, host_margins, calib,
                               ref, tmp)
         torch.cuda.empty_cache()
@@ -4638,11 +5249,19 @@ def main() -> int:
         row["qat_launches"] = k
     aug["multiscale_train_launches"] = ms_train["aug_launches"]
     aug["patch_train_launches"] = ext["aug_launches"]
+    # phase 14: the data-parallel steps' launches (both ranks) and the fleet's
+    aug["dp_launches"] = dp["aug_launches"]
+    kernel["fleet_launches"] = fleet["launches"]
+    log(f"[paths] data-parallel steps, {DP_RANKS_ON_ONE_CARD} ranks: augment "
+        f"launches {dp['aug_launches']}, nt_xent_fwd and nt_xent_bwd "
+        f"{dp['ntx_launches']} each; fleet: fused_normalize launches "
+        f"{fleet['launches']}")
     rows = [("fused_normalize", "fused_normalize.cu", f"{ops}/preprocess.py:35",
              kernel)]
     for name, line in (("nt_xent_fwd", 63), ("nt_xent_bwd", 157)):
         rows.append((name, "nt_xent.cu", f"{ops}/nt_xent.py:{line}",
-                     {"launches": simclr_launches[name], **ntxent[name]}))
+                     {"launches": simclr_launches[name], **ntxent[name],
+                      "dp_launches": dp["ntx_launches"]}))
     rows.append(("mil_attention_pool", "mil_pool.cu", f"{ops}/mil_pool.py:33",
                  milpool))
     rows.append(("bias_relu_pool", "bias_relu_pool.cu",
@@ -4681,7 +5300,8 @@ def main() -> int:
                                    "multiscale_launches",
                                    "trained_multiscale_launches",
                                    "qat_launches", "multiscale_train_launches",
-                                   "patch_train_launches")
+                                   "patch_train_launches", "dp_launches",
+                                   "fleet_launches")
            if key in k},
     } for name, source, replaces, k in rows]}
     log(smi)  # the card's name and power limit, as nvidia-smi prints them

@@ -34,12 +34,17 @@ torchvision-layout ResNet18 state dict, written by ``--train`` or by
 ``scripts/export_jax_checkpoint_to_torch.py``) once and writes one
 detection CSV a slide to ``<models_dir>/model_predictions_csv/<slide>.csv``,
 where the JAX CLI writes it; given a directory, it runs every ``.tif``,
-``.tiff`` and ``.wsi.npz`` slide in it, sorted, under the JAX fleet's error
-contract: a slide that fails is logged, the others go on and write their
-CSVs, and one ``RuntimeError`` at the end names the count and the first
-failing path. Unlike the JAX fleet, which always filters tissue on the
-host, the directory mode honours ``--tissue_filter device`` per slide (the
-partitions are equal). ``--run_evaluation`` then scores those CSVs against
+``.tiff`` and ``.wsi.npz`` slide in it, sorted, through the slide fleet
+(``infer/fleet.py``): the visible cards split into groups of
+``--group_size`` (default: one group of all; a size that does not divide
+them is warned about and gives one group), one slide per group at a time,
+each batch split over the group's cards. A slide that fails is logged, the
+others go on and write their CSVs, and one ``RuntimeError`` at the end names
+the count and the first failing path. A single slide uses every visible
+card. Unlike the JAX fleet, which always filters tissue on the host, the
+directory mode honours ``--tissue_filter device`` per slide (the partitions
+are equal); ``--multiscale`` takes the same groups. ``--run_evaluation``
+then scores those CSVs against
 the masks under ``<data_dir>/test/mask`` (``{case}_mask.npy`` and the other
 forms ``evaluation/froc.py`` reads) with the official CAMELYON16 FROC.
 
@@ -64,7 +69,13 @@ writes ``resnet18_patch_classifier_<strategy>.pt`` (``self_supervised``
 pretrains SimCLR first when ``simclr_encoder.pt`` is missing);
 ``--freeze_bn`` keeps BatchNorm's statistics; ``--evaluate`` reports the
 saved classifier on the validation split. Training needs a slide under
-``<data_dir>/train/img`` and the level's patch manifest.
+``<data_dir>/train/img`` and the level's patch manifest. Under ``torchrun``
+(``WORLD_SIZE`` set) ``--train`` and ``--train_strategy`` (SimCLR
+pretraining included) train data-parallel, one process a card
+(``parallel/``): ``--batch_size`` is the global batch, each rank loads its
+rows, BatchNorm and NT-Xent see the global batch, the gradients are summed
+over the ranks, and rank 0 writes the artifacts; only these two actions
+and ``--evaluate`` (on rank 0) are taken under ``torchrun``.
 
 ``--train_mil`` trains the attention-MIL slide classifier on the feature
 triplet under ``<data_dir>/features`` at ``--patch_level`` and writes
@@ -87,6 +98,11 @@ patches and writes ``<models_dir>/quantized_resnet18.npz``, which
         --data_dir data/camelyon16
     python -m ss25_hierarchical_multiscale_image_classification_tpu_torch.cli.main \\
         --train --data_dir data/camelyon16 --patch_level 3 --epochs 30
+    torchrun --nproc_per_node=4 \\
+        -m ss25_hierarchical_multiscale_image_classification_tpu_torch.cli.main \\
+        --train --data_dir data/camelyon16 --batch_size 512
+    python -m ss25_hierarchical_multiscale_image_classification_tpu_torch.cli.main \\
+        --predict_slide data/camelyon16/test/img --group_size 1
     python -m ss25_hierarchical_multiscale_image_classification_tpu_torch.cli.main \\
         --train_mil --data_dir data/camelyon16 --epochs 20 --device cuda
     python -m ss25_hierarchical_multiscale_image_classification_tpu_torch.cli.main \\
@@ -115,8 +131,8 @@ else with scales calibrated lazily on the run's first batches.
 
 Flags the JAX CLI ignores in a combination (``--int8`` or
 ``--simclr_features`` without their action, no action at all) are ignored
-here too. Tiled TIFF slides, multi-card fleets, ``--overlay`` and the
-download flags come with later slices. Unlike the JAX CLI, which rebuilds
+here too. Tiled TIFF slides, ``--overlay`` and the download flags come with
+later slices. Unlike the JAX CLI, which rebuilds
 the data section and so drops it, ``--config``'s ``data.stain_norm`` is
 kept. On the card the float model runs in bfloat16, on the CPU
 in float32.
@@ -143,6 +159,8 @@ from ss25_hierarchical_multiscale_image_classification_tpu_torch.data.manifest i
     patches_extracted,
 )
 from ss25_hierarchical_multiscale_image_classification_tpu_torch.device import (
+    cuda_devices,
+    local_device,
     resolve_device,
 )
 from ss25_hierarchical_multiscale_image_classification_tpu_torch.evaluation.classifier_eval import (
@@ -155,13 +173,20 @@ from ss25_hierarchical_multiscale_image_classification_tpu_torch.infer.features 
     extract_features,
     extract_features_with_simclr,
 )
+from ss25_hierarchical_multiscale_image_classification_tpu_torch.infer.fleet import (
+    predict_slide_fleet,
+)
 from ss25_hierarchical_multiscale_image_classification_tpu_torch.infer.multiscale import (
+    COMPONENT_EXPORTS,
     predict_and_export_multiscale,
+    predict_slide_multiscale,
 )
 from ss25_hierarchical_multiscale_image_classification_tpu_torch.infer.sliding_window import (
     SLIDE_EXTENSIONS,
+    margin_detections,
     predict_and_export,
     slide_name,
+    write_detection_csv,
 )
 from ss25_hierarchical_multiscale_image_classification_tpu_torch.io.download import (
     images_downloaded,
@@ -366,6 +391,10 @@ def build_parser() -> argparse.ArgumentParser:
     parser.add_argument("--detect_threshold", type=float, default=None,
                         help="Emission floor for detections, in probability "
                              f"space (default {DETECTION_PROB_THRESHOLD})")
+    parser.add_argument("--group_size", type=int, default=None,
+                        help="With --predict_slide <dir>: devices per slide"
+                             " group (fleet inference, one slide per group;"
+                             " default all devices on one slide at a time)")
     parser.add_argument("--device", choices=["cuda", "cpu"], default="cuda",
                         help="Where the model runs (default cuda; no "
                              "fallback when no card is visible)")
@@ -446,28 +475,6 @@ def _slide_paths(target: str) -> list[str]:
                   if f.endswith(SLIDE_EXTENSIONS))
 
 
-def _predict_each(target: str, paths: list[str], predict_one) -> None:
-    """``predict_one(path)`` for every slide. For a directory, the JAX
-    fleet's contract (``infer/fleet.py``): a slide's exception is logged and
-    the other slides go on and write their CSVs; at the end one
-    ``RuntimeError`` names the count and the first failing path, chained
-    from its exception. A single slide's exception propagates as it is."""
-    if not os.path.isdir(target):
-        predict_one(paths[0])
-        return
-    errors: list[tuple[str, Exception]] = []
-    for path in paths:
-        try:
-            predict_one(path)
-        except Exception as e:  # surface at the end, don't stop the others
-            errors.append((path, e))
-            log.error("%s failed: %s", slide_name(os.path.basename(path)), e,
-                      exc_info=True)
-    if errors:
-        path, e = errors[0]
-        raise RuntimeError(f"{len(errors)} slide(s) failed; first: {path}") from e
-
-
 def _predict_kw(args) -> dict:
     kw = {}
     if args.batch_size:
@@ -475,6 +482,23 @@ def _predict_kw(args) -> dict:
     if args.stride:
         kw["stride"] = args.stride
     return kw
+
+
+def _visible_devices(device) -> list:
+    """Every visible card for a CUDA run (the JAX CLI's full mesh), else
+    ``[device]``."""
+    return cuda_devices() if device.type == "cuda" else [device]
+
+
+def _checked_group_size(args, n_dev: int) -> int | None:
+    """``--group_size``, or None (one group) with a warning when it does not
+    divide the devices, as the JAX CLI does."""
+    group_size = args.group_size
+    if group_size is not None and (group_size < 1 or n_dev % group_size):
+        log.warning("--group_size %d does not divide the %d devices; "
+                    "using one group", group_size, n_dev)
+        group_size = None
+    return group_size
 
 
 def _predict_slide(args, cfg: Config, level: int, device) -> int:
@@ -494,32 +518,37 @@ def _predict_slide(args, cfg: Config, level: int, device) -> int:
     threshold = (args.detect_threshold if args.detect_threshold is not None
                  else DETECTION_PROB_THRESHOLD)
     predict_kw = _predict_kw(args)
-    tissue_filter = args.tissue_filter
+    predict_kw["tissue_filter"] = args.tissue_filter
+    devices = _visible_devices(device)
     if args.int8:
-        if tissue_filter == "device":
+        if args.tissue_filter == "device":
             log.warning("--tissue_filter device is the float path (int8 folds "
                         "normalize into the stem): using host filtering")
-            tissue_filter = "host"
+            predict_kw["tissue_filter"] = "host"
         predict_kw["int8"] = True
         predict_kw["qtree"] = maybe_load_artifact(cfg.models_dir,
                                                   CLASSIFIER_ARTIFACT)
-
-    def predict_one(path: str) -> None:
-        _, csv_path = predict_and_export(
-            path, model,
-            os.path.join(cfg.models_dir, "model_predictions_csv"),
-            level=level, threshold=threshold, tissue_filter=tissue_filter,
-            device=device, **predict_kw,
-        )
-        log.info("Detections written: %s", csv_path)
-
-    _predict_each(args.predict_slide, paths, predict_one)
+        if predict_kw["qtree"] is None:
+            # lazy calibration runs on one device
+            devices = [device]
+    csv_dir = os.path.join(cfg.models_dir, "model_predictions_csv")
+    if os.path.isdir(args.predict_slide):
+        predict_slide_fleet(
+            paths, model, csv_dir, level=level,
+            group_size=_checked_group_size(args, len(devices)),
+            threshold=threshold, devices=devices, **predict_kw)
+        return 0
+    _, csv_path = predict_and_export(
+        paths[0], model, csv_dir, level=level, threshold=threshold,
+        device=devices[0], devices=devices, **predict_kw)
+    log.info("Detections written: %s", csv_path)
     return 0
 
 
 def _predict_slide_multiscale(args, cfg: Config, device, paths) -> int:
-    """``--predict_slide --multiscale``: the JAX CLI's multiscale branch on
-    one card (``--tissue_filter`` and ``--model_name`` do not apply)."""
+    """``--predict_slide --multiscale``: the JAX CLI's multiscale branch
+    (``--tissue_filter`` and ``--model_name`` do not apply): a slide on
+    every visible card, a directory through the fleet."""
     levels = tuple(int(v) for v in args.levels.split(","))
     state, calibration = split_calibration(load_model(model_artifact_path(
         cfg.models_dir, "hierarchical_classifier")))
@@ -535,19 +564,43 @@ def _predict_slide_multiscale(args, cfg: Config, device, paths) -> int:
         ms_kw["cascade"] = args.cascade
         if args.cascade_bailout is not None:
             ms_kw["cascade_bailout"] = args.cascade_bailout
+    devices = _visible_devices(device)
     if args.int8:
         ms_kw["qtree"] = maybe_load_artifact(cfg.models_dir, TRUNK_ARTIFACT)
+        if ms_kw["qtree"] is None:
+            # lazy calibration runs on one device
+            devices = [device]
     csv_dir = os.path.join(cfg.models_dir, "model_predictions_csv")
-
-    def predict_one(path: str) -> None:
+    ms_kw.update(levels=levels, calibration=calibration,
+                 combine=args.ms_combine, int8=args.int8)
+    if not os.path.isdir(args.predict_slide):
         _, csv_path = predict_and_export_multiscale(
-            path, model, csv_dir, levels=levels, threshold=threshold,
-            export_components=args.ms_components, calibration=calibration,
-            combine=args.ms_combine, int8=args.int8, device=device, **ms_kw,
-        )
+            paths[0], model, csv_dir, threshold=threshold,
+            export_components=args.ms_components, device=devices[0],
+            devices=devices, **ms_kw)
         log.info("Detections written: %s", csv_path)
+        return 0
 
-    _predict_each(args.predict_slide, paths, predict_one)
+    def ms_predict(path, models, *, devices, **kw):
+        # the fleet asks for margins; the component surfaces come back in
+        # the same space
+        out = predict_slide_multiscale(
+            path, models, device=devices[0], devices=devices,
+            return_components=args.ms_components, **kw)
+        if args.ms_components:
+            margins, grid, comps = out
+            name = slide_name(os.path.basename(path))
+            for comp in COMPONENT_EXPORTS:
+                write_detection_csv(
+                    os.path.join(f"{csv_dir}_{comp}", f"{name}.csv"),
+                    margin_detections(comps[comp], grid, threshold))
+            return margins, grid
+        return out
+
+    predict_slide_fleet(paths, model, csv_dir,
+                        group_size=_checked_group_size(args, len(devices)),
+                        threshold=threshold, devices=devices,
+                        predict_fn=ms_predict, **ms_kw)
     return 0
 
 
@@ -590,6 +643,25 @@ def _training_inputs(cfg: Config, level: int) -> bool:
     return True
 
 
+#: The actions without a data-parallel path, which ``torchrun`` refuses
+#: (``--train``, ``--train_strategy`` and ``--evaluate`` have one).
+_SINGLE_PROCESS_ACTIONS = ("patch", "patch_one_slide", "extract_features",
+                           "train_mil", "train_multiscale", "qat", "quantize",
+                           "mine_hard_negatives", "predict_slide",
+                           "run_evaluation")
+
+
+def _group_actions_only(args) -> bool:
+    """Under ``torchrun``, whether no action without a data-parallel path
+    was asked for (each one that was is logged)."""
+    others = [name for name in _SINGLE_PROCESS_ACTIONS
+              if getattr(args, name) not in (None, False)]
+    for name in others:
+        log.error("--%s has no data-parallel path: run it without torchrun",
+                  name)
+    return not others
+
+
 def main(argv=None) -> int:
     argv = list(sys.argv[1:] if argv is None else argv)
     parser = build_parser()
@@ -600,6 +672,8 @@ def main(argv=None) -> int:
                      "configures the cascade's screen pass)")
     cfg = _config_from_args(args)
     level = 3 if args.patch_level == "all" else int(args.patch_level)
+    if "WORLD_SIZE" in os.environ and (args.train or args.train_strategy):
+        return _main_in_group(args, cfg, level)
     device = resolve_device(args.device)
 
     stain_norm = args.stain_norm or cfg.data.stain_norm
@@ -681,6 +755,43 @@ def main(argv=None) -> int:
     if args.run_evaluation:
         return _run_evaluation(cfg)
     return 0
+
+
+def _main_in_group(args, cfg: Config, level: int) -> int:
+    """``--train`` / ``--train_strategy`` (``--evaluate``) as one rank of the
+    process group that ``torchrun`` describes: NCCL on ``cuda:LOCAL_RANK``,
+    gloo with ``--device cpu``; rank 0 writes the artifacts and evaluates."""
+    import torch.distributed as dist
+
+    from ss25_hierarchical_multiscale_image_classification_tpu_torch.parallel.mesh import (
+        barrier,
+        init_from_env,
+        is_main,
+    )
+
+    if not _group_actions_only(args):
+        return 2
+    device = local_device(args.device)
+    owned = not dist.is_initialized()
+    group = init_from_env(device)
+    try:
+        if not _training_inputs(cfg, level):
+            return 1
+        if args.train:
+            train_resnet_classifier(cfg, level=level, epochs=args.epochs,
+                                    device=device, group=group)
+        if args.train_strategy:
+            train_resnet_classifier_strategic(cfg, level=level,
+                                              strategy=args.strategy,
+                                              epochs=args.epochs,
+                                              device=device, group=group)
+        if args.evaluate and is_main(group):
+            evaluate_resnet_classifier(cfg, level=level, device=device)
+        barrier(group)
+        return 0
+    finally:
+        if owned:
+            dist.destroy_process_group()
 
 
 if __name__ == "__main__":

@@ -253,16 +253,45 @@ def simclr_view_batch(boxes: tuple[torch.Tensor, ...], params: dict,
     return _apply_color_affine(m2, e, x, dtype=torch.float32).to(bf16)
 
 
+def take_rows(draws, rows: tuple[int, int] | None, b: int):
+    """``draws`` (a dict or tuple of per-example tensors of a global batch)
+    cut to rows [start, start + b) for ``rows = (start, total)``; as they
+    are without ``rows``."""
+    if rows is None:
+        return draws
+    start = rows[0]
+    if isinstance(draws, dict):
+        return {k: v[start:start + b] for k, v in draws.items()}
+    return tuple(v[start:start + b] for v in draws)
+
+
+def _draw_size(rows: tuple[int, int] | None, b: int) -> int:
+    if rows is None:
+        return b
+    start, total = rows
+    if not 0 <= start <= total - b:
+        raise ValueError(f"rows [{start}, {start + b}) outside a global "
+                         f"batch of {total}")
+    return total
+
+
 def simclr_two_views(generator: torch.Generator, imgs_u8: torch.Tensor,
-                     out_size: int = 224) -> tuple[torch.Tensor, torch.Tensor]:
+                     out_size: int = 224, rows: tuple[int, int] | None = None
+                     ) -> tuple[torch.Tensor, torch.Tensor]:
     """uint8 (B,H,W,3) → two independently augmented normalized views
     (bfloat16 (B,out,out,3) each) of every example, drawn from
-    ``generator`` (on the images' device)."""
+    ``generator`` (on the images' device).
+
+    ``rows = (start, total)``: the batch is rows [start, start + B) of a
+    global batch of ``total`` (this rank's share under data parallelism);
+    the draws are made for the whole global batch and these rows taken, so
+    that every world size augments each example alike."""
     b, H, W = imgs_u8.shape[0], imgs_u8.shape[1], imgs_u8.shape[2]
+    n = _draw_size(rows, b)
     views = []
     for _ in range(2):
-        boxes = sample_crop_boxes(generator, b, H, W)
-        params = sample_simclr_view_params(generator, b)
+        boxes = take_rows(sample_crop_boxes(generator, n, H, W), rows, b)
+        params = take_rows(sample_simclr_view_params(generator, n), rows, b)
         views.append(simclr_view_batch(boxes, params, imgs_u8, out_size))
     return views[0], views[1]
 
@@ -471,18 +500,24 @@ def _augment_one_with_params(img_u8: torch.Tensor, h, v, k, fb, fc, fs, fh
 
 
 def preprocess_batch(generator: torch.Generator | None, imgs_u8: torch.Tensor,
-                     training: bool = True) -> torch.Tensor:
+                     training: bool = True,
+                     rows: tuple[int, int] | None = None) -> torch.Tensor:
     """uint8 (B, S, S, 3) → normalized float32 (B, S, S, 3). Training: one
     draw of :func:`sample_augment_params` from ``generator`` and the
     augmentation (on a card through the kernel of ``ops/augment.py``);
-    evaluation: ``normalize`` only."""
+    evaluation: ``normalize`` only. ``rows = (start, total)``: the batch is
+    rows [start, start + B) of a global batch of ``total``, and the draw is
+    the global batch's (see :func:`simclr_two_views`); the kernel runs on
+    these rows only."""
     if not training:
         return normalize(imgs_u8)
     from ss25_hierarchical_multiscale_image_classification_tpu_torch.ops.augment import (
         augment_batch_kernel,
     )
 
-    params = sample_augment_params(generator, imgs_u8.shape[0])
+    b = imgs_u8.shape[0]
+    params = take_rows(sample_augment_params(generator, _draw_size(rows, b)),
+                       rows, b)
     return augment_batch_kernel(params, imgs_u8)
 
 

@@ -180,7 +180,10 @@ class BatchIterator:
     ``sampler`` or shuffles anew (``shuffle=False`` walks the manifest in
     order, as feature extraction does); the final short batch is padded by
     wrapping, with ``valid`` marking its real rows, or dropped
-    (``drop_remainder``). ``set_epoch`` sets the next epoch's number."""
+    (``drop_remainder``). ``set_epoch`` sets the next epoch's number.
+    ``rows`` (a slice of the batch, this rank's under data parallelism)
+    reads and yields only those rows of every batch, the order being the
+    same on every rank."""
 
     def __init__(
         self,
@@ -190,6 +193,7 @@ class BatchIterator:
         seed: int = 0,
         sampler: "Sampler | None" = None,
         drop_remainder: bool = False,
+        rows: slice | None = None,
     ):
         self.dataset = dataset
         self.batch_size = batch_size
@@ -197,6 +201,7 @@ class BatchIterator:
         self.seed = seed
         self.sampler = sampler
         self.drop_remainder = drop_remainder
+        self.rows = rows
         self._epoch = 0
 
     def set_epoch(self, epoch: int) -> None:
@@ -227,6 +232,8 @@ class BatchIterator:
                 # wrap-pad (tiling as needed for datasets smaller than a batch)
                 pad = np.resize(order, bs - len(idx))
                 idx = np.concatenate([idx, pad])
+            if self.rows is not None:
+                idx, valid = idx[self.rows], valid[self.rows]
             imgs, labels = self.dataset.read_batch(idx)
             yield imgs, labels.astype(np.int32), valid
 

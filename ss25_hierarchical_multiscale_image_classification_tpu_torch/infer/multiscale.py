@@ -21,14 +21,18 @@ model's dtype when no resize follows and in float32 before one. With
 ``cascade`` screens every tissue cell with the base level's aux head first
 and runs the fused model on the survivors only.
 
-Single device; the mesh argument of the JAX function comes with the
-multi-GPU slice and is not accepted. The model and its calibration travel
+One device, or several (``devices``, the JAX function's ``mesh``): each
+batch of co-located cells is then split in contiguous rows over the
+devices, one model replica each, and each replica runs its rows' stacked
+S·B trunk batch (the slide fleet, ``infer/fleet.py``, passes a group's
+devices). The model and its calibration travel
 as two arguments (the JAX function reads both from one ``variables`` tree;
 :func:`..models.convert.split_calibration` takes an artifact apart).
 """
 
 from __future__ import annotations
 
+import functools
 import os
 from typing import Mapping
 
@@ -56,6 +60,7 @@ from ss25_hierarchical_multiscale_image_classification_tpu_torch.infer.sliding_w
     NON_TISSUE_MARGIN,
     BandProducer,
     _BatchPipeline,
+    replicate_model,
     _resize_u8,
     margin_detections,
     prob_to_margin,
@@ -311,6 +316,7 @@ def predict_slide_multiscale(
     input_mode: str | None = None,
     *,
     device: str | torch.device,
+    devices=None,
 ):
     """Multiscale tumor probability per co-located grid cell.
 
@@ -322,6 +328,12 @@ def predict_slide_multiscale(
     for_inference`); ``calibration`` is the artifact's (temperatures,
     weights, ``combine``, ``input_mode``, ``cascade_margin``; missing keys
     take the JAX function's defaults).
+
+    ``devices`` (``device`` first among them): each batch is split in
+    contiguous rows over the devices, with a replica of ``model`` on each
+    (``model`` may also be the list of replicas), and ``batch_size`` is
+    rounded up to a multiple of their number; int8 on several devices needs
+    a ``qtree``.
 
     ``combine`` selects the reported surface: ``"auto"`` (the one the
     calibration selected; fusion-only for artifacts without aux heads),
@@ -365,12 +377,30 @@ def predict_slide_multiscale(
     levels = tuple(sorted(levels))
     base = max(levels)
     dev = resolve_device(device)
-    model_dev = next(model.parameters()).device
-    if model_dev != dev:
-        raise ValueError(
-            f"model lies on {model_dev}, not {dev}: move it with "
-            "model.for_inference(device, dtype) first"
-        )
+    devs = [dev] if devices is None else [resolve_device(d) for d in devices]
+    if devs[0] != dev:
+        raise ValueError(f"device {dev} must be the first of devices {devs}")
+    models = (list(model) if isinstance(model, (list, tuple))
+              else [model] + replicate_model(model, devs[1:]))
+    if len(models) != len(devs):
+        raise ValueError(f"{len(models)} model replicas for {len(devs)} "
+                         "devices")
+    for m, d in zip(models, devs):
+        model_dev = next(m.parameters()).device
+        if model_dev != d:
+            raise ValueError(
+                f"model lies on {model_dev}, not {d}: move it with "
+                "model.for_inference(device, dtype) first"
+            )
+    if int8 and qtree is None and len(devs) > 1:
+        raise ValueError("int8 on several devices needs a persisted qtree "
+                         "(--quantize --multiscale): lazy calibration runs "
+                         "on one device")
+    if batch_size % len(devs):
+        batch_size = -(-batch_size // len(devs)) * len(devs)
+        log.info("batch_size rounded up to %d (multiple of the %d-device "
+                 "mesh)", batch_size, len(devs))
+    model = models[0]
     own = isinstance(slide_or_path, str)
     slide = open_slide(slide_or_path) if own else slide_or_path
     try:
@@ -416,14 +446,15 @@ def predict_slide_multiscale(
                 quantized_to,
             )
 
-            qstep = make_prob_step_multiscale_int8(model, levels, input_size,
-                                                   **step_kw)
+            qsteps = [make_prob_step_multiscale_int8(m, levels, input_size,
+                                                     **step_kw)
+                      for m in models]
             if qtree is not None:
                 # persisted trunk artifact: deterministic scales
-                qstate["tree"] = quantized_to(qtree, dev)
+                qstate["trees"] = [quantized_to(qtree, d) for d in devs]
         else:
-            fstep = make_prob_step_multiscale(model, levels, input_size,
-                                              **step_kw)
+            fsteps = [make_prob_step_multiscale(m, levels, input_size,
+                                                **step_kw) for m in models]
 
         ps = {lvl: patch_size_for_level(lvl) for lvl in levels}
         ds = {lvl: slide.level_downsamples[lvl] for lvl in levels}
@@ -488,23 +519,25 @@ def predict_slide_multiscale(
                          "screen was uninformative on validation); running "
                          "the full fused pass")
             else:
-                if int8 and "tree" in qstate:
+                if int8 and "trees" in qstate:
                     # persisted artifact: the screen runs the quantized
                     # trunk too. Lazy int8 calibrates on the first FUSED
                     # batch, which does not exist yet: that path screens
                     # float
-                    qscreen = make_screen_step_base_int8(
-                        model, input_size, aux_temperature=aux_temperature)
-                    screen = lambda x: qscreen(qstate["tree"], x)  # noqa: E731
+                    screen = [functools.partial(
+                        make_screen_step_base_int8(
+                            m, input_size, aux_temperature=aux_temperature),
+                        tree) for m, tree in zip(models, qstate["trees"])]
                 else:
-                    screen = make_screen_step_base(
-                        model, input_size, aux_temperature=aux_temperature)
+                    screen = [make_screen_step_base(
+                        m, input_size, aux_temperature=aux_temperature)
+                        for m in models]
                 floor = (float(calibration["cascade_margin"])
                          if cascade == "auto" else prob_to_margin(float(cascade)))
                 screen_margins = _cascade_screen(
                     screen, lambda iy: read_bands(iy, (base,))[0][base], grid,
                     ps[base], batch_size, tissue_threshold, floor,
-                    cascade_bailout, dev)
+                    cascade_bailout, devs)
                 if screen_margins is not None:
                     cell_filter = screen_margins >= floor
                     log.info("cascade: %d / %d tissue cells survive the "
@@ -528,18 +561,21 @@ def predict_slide_multiscale(
                 xs = np.flatnonzero(cell_filter[rows[k]])
                 return read_bands(rows[k], cells=(int(xs[0]), int(xs[-1])))
 
-        def step(batch_by_level):
-            if not int8:
-                return fstep(batch_by_level)
-            if "tree" not in qstate:
-                qstate["tree"] = _lazy_trunk_tree(
-                    model, batch_by_level, levels, input_size, batch_size, dev)
-            return qstep(qstate["tree"], batch_by_level)
+        def device_step(i: int):
+            def step(batch_by_level):
+                if not int8:
+                    return fsteps[i](batch_by_level)
+                if "trees" not in qstate:  # one device (checked above)
+                    qstate["trees"] = [_lazy_trunk_tree(
+                        model, batch_by_level, levels, input_size, batch_size,
+                        dev)]
+                return qsteps[i](qstate["trees"][i], batch_by_level)
+            return step
 
         # the base level first: the host filter reads it
         order = (base,) + tuple(lvl for lvl in levels if lvl != base)
-        pipeline = _BatchPipeline(step, dev, batch_size, ps, probs,
-                                  columns=ncol)
+        pipeline = _BatchPipeline([device_step(i) for i in range(len(devs))],
+                                  devs, batch_size, ps, probs, columns=ncol)
         producer = BandProducer(len(rows), read_row)
         try:
             with Timer(f"predict_slide_multiscale[{n} cells]", log):
@@ -605,10 +641,10 @@ def predict_slide_multiscale(
 def _cascade_screen(screen, read_band, grid: PatchGrid, ps_base: int,
                     batch_size: int, tissue_threshold: float,
                     cascade_floor: float, cascade_bailout: float,
-                    dev: torch.device) -> np.ndarray | None:
-    """The cascade's first pass: ``screen`` (uint8 base patches → margins)
-    over every tissue cell of the base level, read a row at a time by
-    ``read_band``. Returns the (ny, nx) screen margins, or None after a
+                    dev) -> np.ndarray | None:
+    """The cascade's first pass: ``screen`` (uint8 base patches → margins;
+    one step per device of the list ``dev``) over every tissue cell of the
+    base level, read a row at a time by ``read_band``. Returns the (ny, nx) screen margins, or None after a
     bailout (the full fused pass then scores every cell)."""
     ny, nx, n = grid.ny, grid.nx, grid.num_patches
 

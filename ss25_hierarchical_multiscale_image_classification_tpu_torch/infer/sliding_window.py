@@ -12,18 +12,21 @@ flax at module level; this module carries copies of its host helpers (:class:`Ba
 :func:`write_detection_csv`, and ``slide_name`` from ``data/extract.py``),
 held to the originals by exact-equality tests.
 
-Single device. ``int8=True`` runs the int8 (w8a8) forward of
-``models/quantized.py`` (every convolution on the port's int8 kernels) from
-a persisted artifact (``qtree``) or, without one, from scales calibrated on
-the slide's first tissue batch. The mesh argument of the JAX function comes
-with the multi-GPU slice and is not accepted.
+One device, or several (``devices``, the JAX function's ``mesh``): each
+batch is then split in contiguous rows over the devices, one model replica
+each. ``int8=True`` runs the int8 (w8a8) forward of ``models/quantized.py``
+(every convolution on the port's int8 kernels) from a persisted artifact
+(``qtree``) or, without one and on one device, from scales calibrated on
+the slide's first tissue batch.
 """
 
 from __future__ import annotations
 
+import copy
 import csv
 import os
 from collections import deque
+from typing import Sequence
 
 import numpy as np
 import torch
@@ -235,6 +238,11 @@ def make_prob_step_int8(input_size: int = 224):
 class _BatchPipeline:
     """A window of ``depth`` in-flight batches (4, as in the JAX module).
 
+    ``step`` and ``device`` may be lists, one step per device: each batch is
+    then split in contiguous rows of ``ceil(batch_size / devices)``, each
+    part uploaded to its device and run by its step, and the results land
+    in the batch's order.
+
     The host fills :attr:`host` (a numpy view of a pinned uint8 buffer on a
     CUDA device), :meth:`dispatch` copies it to the device without
     blocking, runs the step, and starts the result's copy back into a
@@ -251,10 +259,14 @@ class _BatchPipeline:
 
     DEPTH = 4
 
-    def __init__(self, step, device: torch.device, batch_size: int,
+    def __init__(self, step, device, batch_size: int,
                  patch_size: int | dict, out, columns: int | None = None,
                  depth: int = DEPTH):
-        pin = device.type == "cuda"
+        many = isinstance(device, (list, tuple))
+        self._devices = list(device) if many else [device]
+        self._steps = list(step) if many else [step]
+        self._part = -(-batch_size // len(self._devices))
+        pin = any(d.type == "cuda" for d in self._devices)
         ring = depth + 1
         self._single = not isinstance(patch_size, dict)
         sizes = {None: patch_size} if self._single else dict(patch_size)
@@ -267,8 +279,6 @@ class _BatchPipeline:
         shape = (batch_size,) if columns is None else (batch_size, columns)
         self._results = [torch.empty(shape, dtype=torch.float32,
                                      pin_memory=pin) for _ in range(ring)]
-        self._step = step
-        self._device = device
         self._out = out
         self._depth = depth
         self._slot = 0
@@ -283,24 +293,29 @@ class _BatchPipeline:
 
     def dispatch(self, positions: list) -> None:
         k = len(positions)
-        imgs = {key: b[:k].to(self._device, non_blocking=True)
-                for key, b in self._bufs[self._slot].items()}
         res = self._results[self._slot][:k]
-        res.copy_(self._step(imgs[None] if self._single else imgs),
-                  non_blocking=True)
-        event = None
-        if self._device.type == "cuda":
-            event = torch.cuda.Event()
-            event.record()
-        self._pending.append((res, np.asarray(positions), event))
+        events = []
+        for i, (dev, step) in enumerate(zip(self._devices, self._steps)):
+            lo, hi = i * self._part, min(k, (i + 1) * self._part)
+            if lo >= hi:
+                break
+            imgs = {key: b[lo:hi].to(dev, non_blocking=True)
+                    for key, b in self._bufs[self._slot].items()}
+            res[lo:hi].copy_(step(imgs[None] if self._single else imgs),
+                             non_blocking=True)
+            if dev.type == "cuda":
+                event = torch.cuda.Event()
+                event.record(torch.cuda.current_stream(dev))
+                events.append(event)
+        self._pending.append((res, np.asarray(positions), events))
         if len(self._pending) > self._depth:
             self._drain_one()
         self._slot = (self._slot + 1) % len(self._bufs)
         self.host = self._host_views()
 
     def _drain_one(self) -> None:
-        res, positions, event = self._pending.popleft()
-        if event is not None:
+        res, positions, events = self._pending.popleft()
+        for event in events:
             event.synchronize()
         if callable(self._out):
             self._out(positions, res.numpy())
@@ -314,14 +329,24 @@ class _BatchPipeline:
     def discard(self) -> None:
         """Wait for the batches in flight and drop their results."""
         while self._pending:
-            _, _, event = self._pending.popleft()
-            if event is not None:
+            for event in self._pending.popleft()[2]:
                 event.synchronize()
+
+
+def replicate_model(model: torch.nn.Module, devices: Sequence[torch.device]
+                    ) -> list[torch.nn.Module]:
+    """One copy of an inference ``model`` on each of ``devices`` (the model
+    itself where it already lies; its dtype and memory format kept)."""
+    own = next(model.parameters()).device
+    return [model if dev == own
+            else copy.deepcopy(model).to(device=dev,
+                                         memory_format=torch.channels_last)
+            for dev in devices]
 
 
 def predict_slide(
     slide_or_path: Slide | str,
-    model: torch.nn.Module,
+    model: torch.nn.Module | Sequence[torch.nn.Module],
     level: int = 3,
     stride: int | None = None,
     batch_size: int = 512,
@@ -333,6 +358,7 @@ def predict_slide(
     qtree: dict | None = None,
     *,
     device: str | torch.device,
+    devices: Sequence[str | torch.device] | None = None,
 ) -> tuple[np.ndarray, PatchGrid]:
     """Tumor probability (or margin) per grid cell.
 
@@ -357,6 +383,12 @@ def predict_slide(
     weights are quantized with scales calibrated on this slide's first
     tissue batch (with one white cell beside it when that batch is short:
     the JAX function calibrates on its white-padded batch buffer).
+
+    ``devices`` (``device`` first among them; the JAX function's ``mesh``):
+    each batch is split in contiguous rows over the devices, with a replica
+    of ``model`` on each (``model`` may also be the list of replicas,
+    :func:`replicate_model`), and ``batch_size`` is rounded up to a
+    multiple of their number. int8 on several devices needs a ``qtree``.
     """
     if output not in ("prob", "margin"):
         raise ValueError(f"unknown output mode {output!r}")
@@ -371,12 +403,28 @@ def predict_slide(
     if batch_size < 1:
         raise ValueError(f"batch_size must be >= 1, got {batch_size}")
     dev = resolve_device(device)
-    model_dev = next(model.parameters()).device
-    if model_dev != dev:
-        raise ValueError(
-            f"model lies on {model_dev}, not {dev}: move it with "
-            "model.to(device) first"
-        )
+    devs = [dev] if devices is None else [resolve_device(d) for d in devices]
+    if devs[0] != dev:
+        raise ValueError(f"device {dev} must be the first of devices {devs}")
+    models = (list(model) if isinstance(model, (list, tuple))
+              else [model] + replicate_model(model, devs[1:]))
+    if len(models) != len(devs):
+        raise ValueError(f"{len(models)} model replicas for {len(devs)} "
+                         "devices")
+    for m, d in zip(models, devs):
+        model_dev = next(m.parameters()).device
+        if model_dev != d:
+            raise ValueError(
+                f"model lies on {model_dev}, not {d}: move it with "
+                "model.to(device) first"
+            )
+    if int8 and qtree is None and len(devs) > 1:
+        raise ValueError("int8 on several devices needs a persisted qtree "
+                         "(--quantize): lazy calibration runs on one device")
+    if batch_size % len(devs):
+        batch_size = -(-batch_size // len(devs)) * len(devs)
+        log.info("batch_size rounded up to %d (multiple of the %d-device "
+                 "mesh)", batch_size, len(devs))
     own = isinstance(slide_or_path, str)
     slide = open_slide(slide_or_path) if own else slide_or_path
     try:
@@ -389,13 +437,14 @@ def predict_slide(
         coords = grid.coords_array()
         ps = grid.patch_size
         if int8:
-            step = _int8_step(model, qtree, input_size, batch_size, dev)
+            steps = [_int8_step(m, qtree, input_size, batch_size, d)
+                     for m, d in zip(models, devs)]
         else:
-            step = make_prob_step(
-                model,
+            steps = [make_prob_step(
+                m,
                 input_size,
                 float(tissue_threshold) if tissue_filter == "device" else None,
-            )
+            ) for m in models]
         stride_px = grid.stride
         n = len(coords)
         # margins throughout; converted to probability at return if asked
@@ -416,7 +465,7 @@ def predict_slide(
             return band
 
         ny, nx = grid.ny, grid.nx
-        pipeline = _BatchPipeline(step, dev, batch_size, ps, margins)
+        pipeline = _BatchPipeline(steps, devs, batch_size, ps, margins)
         producer = BandProducer(ny, read_band)
         try:
             with Timer(f"predict_slide[{n} cells]", log):

@@ -8,8 +8,8 @@ with a boolean mask; padded slots get the logit −1e9 before the softmax.
 The functions below take the classifier's state dict (``params``) in place
 of the flax params tree, and a ``torch.Generator`` in place of a JAX key.
 :func:`streaming_attention_pool` pools through the hand-written kernel of
-``ops/mil_pool.py``. The sharded (multi-card) pool comes with the port's
-multi-GPU path.
+``ops/mil_pool.py``; :func:`sharded_attention_pool` pools a bag whose
+instances are spread over the ranks of a process group.
 
 State-dict names: ``attention.V`` and ``attention.w`` (flax
 ``MILAttentionPooling_0/V`` and ``/w``), ``dense_0`` and ``dense_1``
@@ -194,6 +194,44 @@ def streaming_attention_pool(params: Mapping[str, torch.Tensor],
         mask = torch.cat([mask, mask.new_zeros(b, pad)], dim=1)
     v, vb, w = attention_params(params)
     return mil_attention_pool(h, mask, v, w, v_bias=vb)
+
+
+def sharded_attention_pool(h_local: torch.Tensor, mask_local: torch.Tensor,
+                           v: torch.Tensor, w: torch.Tensor,
+                           v_bias: torch.Tensor | None = None,
+                           group=None) -> torch.Tensor:
+    """Attention pooling of a bag whose instances are sharded over the ranks
+    of ``group``: this rank's (K_local, D) instances and (K_local,) mask,
+    V (D, H), w (H,), optional V bias (H,) → the (D,) pooled bag, the same
+    on every rank. The JAX function's two-phase collective: the global
+    maximum of the scores, then the normaliser and the weighted feature sum
+    over the group, in plain PyTorch (as in JAX, not the kernel), so no
+    rank holds the whole bag.
+
+    ``p`` is weighted by the mask, so a bag without a real instance pools to
+    0 here, where the unsharded pool gives the mean of its rows. Without a
+    group the local instances are the bag.
+    """
+    a = torch.tanh(h_local.float() @ v.float()
+                   + (0.0 if v_bias is None else v_bias.float())) @ w.float()
+    a = torch.where(mask_local, a, _NEG_INF)
+    m = a.max()
+    if group is not None:
+        from ss25_hierarchical_multiscale_image_classification_tpu_torch.parallel.collectives import (
+            all_reduce_max,
+        )
+
+        m = all_reduce_max(m, group)
+    p = torch.exp(a - m) * mask_local.float()
+    # the normaliser and the weighted sum in one collective
+    parts = torch.cat([p.sum()[None], p @ h_local.float()])
+    if group is not None:
+        from ss25_hierarchical_multiscale_image_classification_tpu_torch.parallel.collectives import (
+            all_reduce_sum,
+        )
+
+        parts = all_reduce_sum(parts, group)
+    return parts[1:] / torch.clamp_min(parts[0], 1e-30)
 
 
 def pad_bag(features: np.ndarray, max_bag_size: int

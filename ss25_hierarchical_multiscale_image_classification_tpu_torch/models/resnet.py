@@ -53,11 +53,27 @@ class BatchNorm2d(nn.BatchNorm2d):
     temporaries (momentum 1 from zero), and the update uses the variance
     times (n−1)/n. Every row of the batch counts, wrap-padded ones too, as
     in the JAX model. Eval mode is ``nn.BatchNorm2d``'s.
+
+    With a process ``group`` (:func:`set_process_group`), a training batch
+    is normalized with the statistics of the **global** batch, every rank's
+    rows together, as the JAX trainers' SPMD step computes them, with the
+    biased variance over the global n, which the running variance follows
+    too (flax's rule: ``nn.SyncBatchNorm`` moves it toward the unbiased
+    one). On a CUDA tensor the statistics, the normalization and the
+    backward are PyTorch's synchronized-BatchNorm kernels (one pass each,
+    the per-rank mean, inverse deviation and count gathered over the
+    group); elsewhere, :meth:`_global_forward_plain`: per channel the sum,
+    then the sum of squared deviations from the global mean, each summed
+    over the group through autograd in float32.
     """
+
+    group = None  # the process group of the global statistics, if any
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:
         if not self.training:
             return super().forward(x)
+        if self.group is not None:
+            return self._global_forward(x)
         mean = torch.zeros_like(self.running_mean)
         var = torch.zeros_like(self.running_var)
         y = F.batch_norm(x, mean, var, self.weight, self.bias, True, 1.0,
@@ -69,6 +85,50 @@ class BatchNorm2d(nn.BatchNorm2d):
             self.running_var.mul_(1.0 - self.momentum).add_(
                 var, alpha=self.momentum * (n - 1) / n)
         return y
+
+    def _global_forward(self, x: torch.Tensor) -> torch.Tensor:
+        if x.is_cuda:
+            from ss25_hierarchical_multiscale_image_classification_tpu_torch.parallel.collectives import (
+                global_batch_norm,
+            )
+
+            y, mean, var = global_batch_norm(x, self.weight, self.bias,
+                                             self.eps, self.group)
+        else:
+            y, mean, var = self._global_forward_plain(x)
+        with torch.no_grad():
+            self.running_mean.mul_(1.0 - self.momentum).add_(
+                mean, alpha=self.momentum)
+            self.running_var.mul_(1.0 - self.momentum).add_(
+                var, alpha=self.momentum)
+        return y
+
+    def _global_forward_plain(self, x: torch.Tensor):
+        """(y, global mean, global biased variance) in plain float32 ops:
+        the CPU's route, and what the CUDA route is held to."""
+        from ss25_hierarchical_multiscale_image_classification_tpu_torch.parallel.collectives import (
+            all_reduce_sum,
+        )
+        from ss25_hierarchical_multiscale_image_classification_tpu_torch.parallel.mesh import (
+            rank_and_size,
+        )
+
+        n = x.numel() // x.shape[1] * rank_and_size(self.group)[1]
+        x32 = x.float()
+        mean = all_reduce_sum(x32.sum(dim=(0, 2, 3)), self.group) / n
+        d = x32 - mean[None, :, None, None]
+        var = all_reduce_sum((d * d).sum(dim=(0, 2, 3)), self.group) / n
+        scale = torch.rsqrt(var + self.eps) * self.weight
+        y = d * scale[None, :, None, None] + self.bias[None, :, None, None]
+        return y.to(x.dtype), mean.detach(), var.detach()
+
+
+def set_process_group(model: nn.Module, group) -> None:
+    """Every :class:`BatchNorm2d` of ``model`` takes its training statistics
+    over ``group``'s global batch (None: this process's batch)."""
+    for m in model.modules():
+        if isinstance(m, BatchNorm2d):
+            m.group = group
 
 
 class BasicBlock(nn.Module):

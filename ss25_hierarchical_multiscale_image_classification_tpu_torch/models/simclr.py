@@ -2,10 +2,11 @@
 
 Counterpart of the JAX package's ``models/simclr.py``: a ResNet18 encoder
 (fc-stripped, 512 features) and a projector 512 → 512 → ReLU → 128, and the
-NT-Xent loss over the one (2N, 2N) similarity matrix. The loss here has no
-``axis_name``: one card holds the whole batch (the multi-card all-gather
-comes with the port's multi-GPU path). ``loss_impl="pallas"`` swaps in the
-streaming kernels of ``ops/nt_xent.py`` for :func:`nt_xent_loss`.
+NT-Xent loss over the (2N, 2N) similarity matrix. Its ``group`` is the JAX
+loss's ``axis_name``: each rank holds n rows of each view, and scores them
+against the columns of every rank (``parallel/collectives.py::gather_rows``).
+``loss_impl="pallas"`` swaps in the streaming kernels of ``ops/nt_xent.py``
+for :func:`nt_xent_loss`.
 """
 
 from __future__ import annotations
@@ -67,7 +68,8 @@ def _normalize(z: torch.Tensor, eps: float = 1e-12) -> torch.Tensor:
 
 def nt_xent_loss(z_i: torch.Tensor, z_j: torch.Tensor,
                  temperature: float = 0.5,
-                 valid: torch.Tensor | None = None) -> torch.Tensor:
+                 valid: torch.Tensor | None = None,
+                 group=None) -> torch.Tensor:
     """Normalized-temperature cross-entropy of two views' projections
     (n, D): the mean over the valid ones of the 2n rows.
 
@@ -75,6 +77,14 @@ def nt_xent_loss(z_i: torch.Tensor, z_j: torch.Tensor,
     the mean and of every other row's softmax denominator. Scores are
     multiplied by 1/τ (what PyTorch's CUDA division by a host scalar does
     anyway).
+
+    ``group``: the rows are this rank's shard of a global batch of N = n·W
+    (rank r holds rows [r·n, (r+1)·n) of each view), as the JAX loss's
+    ``axis_name``: the local 2n rows are scored against the gathered 2N
+    columns, each local row's global index masking its self score. The
+    value is the global mean on every rank; the gradient is this rank's
+    share (its rows' loss sum over the global valid count), so the
+    gradients summed over the ranks are the global loss's.
     """
     z_i = _normalize(z_i.float())
     z_j = _normalize(z_j.float())
@@ -82,13 +92,40 @@ def nt_xent_loss(z_i: torch.Tensor, z_j: torch.Tensor,
     dev = z_i.device
     if valid is None:
         valid = torch.ones(n, dtype=torch.bool, device=dev)
-    valid2 = torch.cat([valid, valid]).bool()
+    valid = valid.bool()
+    valid2 = torch.cat([valid, valid])
+    if group is None:
+        z_full, valid_full, g, big_n = torch.cat([z_i, z_j]), valid2, 0, n
+    else:
+        from ss25_hierarchical_multiscale_image_classification_tpu_torch.parallel.collectives import (
+            gather_rows,
+        )
+        from ss25_hierarchical_multiscale_image_classification_tpu_torch.parallel.mesh import (
+            rank_and_size,
+        )
+
+        rank, world = rank_and_size(group)
+        big_n, g = n * world, rank * n
+        z_full = torch.cat([gather_rows(z_i, group), gather_rows(z_j, group)])
+        gathered = gather_rows(valid.float(), group).detach() > 0.5
+        valid_full = torch.cat([gathered, gathered])
+    ar = torch.arange(n, device=dev)
+    # global row indices of the local rows, and their positive partners
+    local_rows = torch.cat([g + ar, big_n + g + ar])
+    pos_cols = torch.cat([big_n + g + ar, g + ar])
     z = torch.cat([z_i, z_j])  # (2n, D)
-    rows = torch.arange(2 * n, device=dev)
-    pos_cols = torch.cat([rows[n:], rows[:n]])  # positive partner of each row
-    sim = (z @ z.T) * (1.0 / temperature)
-    dead = (rows[None, :] == rows[:, None]) | ~valid2[None, :]
+    sim = (z @ z_full.T) * (1.0 / temperature)  # (2n, 2N)
+    cols = torch.arange(2 * big_n, device=dev)
+    dead = (cols[None, :] == local_rows[:, None]) | ~valid_full[None, :]
     sim = sim.masked_fill(dead, _NEG_INF)
     pos = sim.gather(1, pos_cols[:, None])[:, 0]
     row_loss = torch.where(valid2, -pos + torch.logsumexp(sim, dim=1), 0.0)
-    return row_loss.sum() / valid2.sum().clamp(min=1)
+    if group is None:
+        return row_loss.sum() / valid2.sum().clamp(min=1)
+    from ss25_hierarchical_multiscale_image_classification_tpu_torch.parallel.collectives import (
+        all_reduce_sum,
+        sum_of_shares,
+    )
+
+    count = all_reduce_sum(valid2.sum().float(), group)
+    return sum_of_shares(row_loss.sum() / count.clamp(min=1), group)

@@ -31,6 +31,9 @@ from ss25_hierarchical_multiscale_image_classification_tpu_torch.data.augment im
     augment_batch,
     augment_matrix,
 )
+from ss25_hierarchical_multiscale_image_classification_tpu_torch.ops.build import (
+    count_launch,
+)
 
 #: bfloat16(1/255) as a float: the kernel's channel scale
 INV_255_BF16 = torch.tensor(1.0 / 255.0, dtype=torch.bfloat16).item()
@@ -137,7 +140,7 @@ def augment_batch_kernel(params: dict, imgs_u8: torch.Tensor) -> torch.Tensor:
             *STD_255, stream)
     if rc != 0:
         raise RuntimeError(f"augment kernel launch failed: cudaError {rc}")
-    augment_batch_kernel.launches += 1
+    count_launch(augment_batch_kernel)
     return out
 
 

@@ -6,7 +6,9 @@ of its own, all compiled at once (one ``nvcc`` process per source), at first
 use, into ``ops/_build/`` (listed in ``.gitignore``), under a name keyed by
 that source, the shared headers and the flags: an edited source builds anew, an unchanged one
 loads the library already there. Nothing is built or imported when this
-module is imported, so CPU-only installations import it freely.
+module is imported, so CPU-only installations import it freely. The build
+and the launch counts take a lock: the slide fleet launches from one
+thread per device group.
 
 No ``--use_fast_math``: the normalize and augment kernels' divisions must
 be the IEEE quotient so that they equal their plain PyTorch versions bit
@@ -27,6 +29,7 @@ import hashlib
 import os
 import shutil
 import subprocess
+import threading
 import types
 from pathlib import Path
 
@@ -189,10 +192,26 @@ def build() -> list[Path]:
     return [library_path(source) for source in SOURCES]
 
 
-@functools.cache
+_LOCK = threading.Lock()
+
+
+def count_launch(wrapper) -> None:
+    """Add one to ``wrapper.launches`` (a kernel wrapper's count), under a
+    lock: ``+= 1`` on an attribute is no atomic step between threads."""
+    with _LOCK:
+        wrapper.launches += 1
+
+
 def load_library() -> types.SimpleNamespace:
     """Every entry point of the built libraries, signatures set, as
-    attributes of one namespace (``load_library().hipac_nt_xent_fwd``)."""
+    attributes of one namespace (``load_library().hipac_nt_xent_fwd``);
+    built and loaded once, by the first thread that asks."""
+    with _LOCK:
+        return _load_library()
+
+
+@functools.cache
+def _load_library() -> types.SimpleNamespace:
     build()
     entry_points = {}
     for source, signatures in SOURCES.items():

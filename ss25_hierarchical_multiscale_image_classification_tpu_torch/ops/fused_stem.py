@@ -45,6 +45,9 @@ from ss25_hierarchical_multiscale_image_classification_tpu_torch.config import (
     IMAGENET_MEAN,
     IMAGENET_STD,
 )
+from ss25_hierarchical_multiscale_image_classification_tpu_torch.ops.build import (
+    count_launch,
+)
 
 _DTYPES = (torch.float32, torch.bfloat16)
 #: Widest conv plane (columns) ``fused_stem.cu`` takes.
@@ -135,7 +138,7 @@ def bias_relu_pool_kernel(conv_out: torch.Tensor, bias: torch.Tensor,
     if rc != 0:
         raise RuntimeError(f"bias_relu_pool kernel launch failed: "
                            f"cudaError {rc}")
-    bias_relu_pool_kernel.launches += 1
+    count_launch(bias_relu_pool_kernel)
     return out
 
 
@@ -365,7 +368,7 @@ def fused_stem_kernel(in2: torch.Tensor, w2: torch.Tensor, bias: torch.Tensor,
                 int(bias_map), out_bf16, stream)
     if rc != 0:
         raise RuntimeError(f"fused_stem kernel launch failed: cudaError {rc}")
-    fused_stem_kernel.launches += 1
+    count_launch(fused_stem_kernel)
     return out
 
 

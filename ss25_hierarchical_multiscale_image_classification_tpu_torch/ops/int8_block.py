@@ -27,6 +27,9 @@ from typing import Any, Mapping
 
 import torch
 
+from ss25_hierarchical_multiscale_image_classification_tpu_torch.ops.build import (
+    count_launch,
+)
 from ss25_hierarchical_multiscale_image_classification_tpu_torch.ops.int8_conv import (
     int8_conv_reference,
     int8_conv_requant,
@@ -213,7 +216,7 @@ def fused_stage1_int8_kernel(xq: torch.Tensor, kernels: torch.Tensor,
     if rc != 0:
         raise RuntimeError(f"fused_stage1_int8 kernel launch failed: "
                            f"cudaError {rc}")
-    fused_stage1_int8_kernel.launches += 1
+    count_launch(fused_stage1_int8_kernel)
     return out
 
 

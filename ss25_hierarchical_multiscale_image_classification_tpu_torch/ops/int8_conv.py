@@ -37,6 +37,10 @@ from __future__ import annotations
 import torch
 import torch.nn.functional as F
 
+from ss25_hierarchical_multiscale_image_classification_tpu_torch.ops.build import (
+    count_launch,
+)
+
 #: Widest output plane (columns) one block of ``int8_conv.cu`` covers.
 MAX_OUT_WIDTH = 128
 
@@ -298,7 +302,7 @@ def int8_conv_requant_kernel(
             ho, wo, torch.cuda.current_stream().cuda_stream)
     if rc != 0:
         raise RuntimeError(f"int8 conv kernel launch failed: cudaError {rc}")
-    int8_conv_requant_kernel.launches += 1
+    count_launch(int8_conv_requant_kernel)
     return out
 
 

@@ -20,6 +20,10 @@ from __future__ import annotations
 import torch
 import torch.nn.functional as F
 
+from ss25_hierarchical_multiscale_image_classification_tpu_torch.ops.build import (
+    count_launch,
+)
+
 
 def _check(x: torch.Tensor) -> None:
     if x.dim() != 4 or x.dtype != torch.int8 or min(x.shape) < 1:
@@ -63,7 +67,7 @@ def int8_maxpool_kernel(x: torch.Tensor) -> torch.Tensor:
             torch.cuda.current_stream().cuda_stream)
     if rc != 0:
         raise RuntimeError(f"int8 maxpool kernel launch failed: cudaError {rc}")
-    int8_maxpool_kernel.launches += 1
+    count_launch(int8_maxpool_kernel)
     return out
 
 

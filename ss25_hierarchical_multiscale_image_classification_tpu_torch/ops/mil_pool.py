@@ -33,6 +33,10 @@ import functools
 
 import torch
 
+from ss25_hierarchical_multiscale_image_classification_tpu_torch.ops.build import (
+    count_launch,
+)
+
 #: Logit of a masked slot, as the Pallas kernel's.
 NEG_INF = -1e30
 #: Widest instances and attention the kernel takes (it splits D over a
@@ -218,7 +222,7 @@ def mil_attention_pool_kernel(h: torch.Tensor, mask: torch.Tensor,
     if rc != 0:
         raise RuntimeError(f"mil_attention_pool kernel launch failed: "
                            f"cudaError {rc}")
-    mil_attention_pool_kernel.launches += 1
+    count_launch(mil_attention_pool_kernel)
     return out if d4 == d else out[:, :d].contiguous()
 
 

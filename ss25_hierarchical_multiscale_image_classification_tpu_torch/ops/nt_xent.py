@@ -27,6 +27,10 @@ from __future__ import annotations
 
 import torch
 
+from ss25_hierarchical_multiscale_image_classification_tpu_torch.ops.build import (
+    count_launch,
+)
+
 #: Mask of the self and dead scores, as the Pallas kernel's: exp(−1e30 − m)
 #: is 0 for every finite row maximum.
 NEG_INF = -1e30
@@ -137,7 +141,7 @@ def nt_xent_fwd(z: torch.Tensor, pos_idx: torch.Tensor, inv_tau: float
             m.data_ptr(), l.data_ptr(), fwd_tile(n, d, sms),
             fwd_splits(n, d, sms), torch.cuda.current_stream().cuda_stream)
     _raise_on(rc, "nt_xent_fwd")
-    nt_xent_fwd.launches += 1
+    count_launch(nt_xent_fwd)
     return loss, m, l
 
 
@@ -186,7 +190,7 @@ def nt_xent_bwd(z: torch.Tensor, pos_idx: torch.Tensor, m: torch.Tensor,
             bwd_splits(n, zp.shape[1], sms),
             torch.cuda.current_stream().cuda_stream)
     _raise_on(rc, "nt_xent_bwd")
-    nt_xent_bwd.launches += 1
+    count_launch(nt_xent_bwd)
     return dz if d % 4 == 0 else dz[:, :d].contiguous()
 
 
@@ -229,14 +233,39 @@ def nt_xent_rows(z: torch.Tensor, pos_idx: torch.Tensor, temperature: float
 
 def nt_xent_loss_kernel(z_i: torch.Tensor, z_j: torch.Tensor,
                         temperature: float = 0.5,
-                        valid: torch.Tensor | None = None) -> torch.Tensor:
+                        valid: torch.Tensor | None = None,
+                        group=None) -> torch.Tensor:
     """Mean NT-Xent over the 2n rows of two views' projections (n, D): the
     counterpart of ``nt_xent_loss_pallas`` and the same function as
     ``models/simclr.py::nt_xent_loss``.
 
     ``valid`` (n,) bool drops rows (and their partners' view) from the mean
     and from every other row's denominator.
+
+    ``group``: the rows are this rank's shard of the global batch, as in
+    ``nt_xent_loss``. Every rank gathers the (2N, D) global matrix and runs
+    the kernels on all of it; the value is the global loss L and the
+    gradient that of L / W, so that the gradients summed over the W ranks
+    (the gather's backward sums them) are L's. A kernel over this rank's
+    rows against the gathered columns is later work.
     """
+    if group is not None:
+        from ss25_hierarchical_multiscale_image_classification_tpu_torch.parallel.collectives import (
+            gather_rows,
+        )
+        from ss25_hierarchical_multiscale_image_classification_tpu_torch.parallel.mesh import (
+            rank_and_size,
+        )
+
+        world = rank_and_size(group)[1]
+        full_valid = None
+        if valid is not None:
+            full_valid = gather_rows(valid.float(), group).detach() > 0.5
+        loss = nt_xent_loss_kernel(gather_rows(z_i.float(), group),
+                                   gather_rows(z_j.float(), group),
+                                   temperature, full_valid)
+        share = loss / world
+        return share + (loss - share).detach()
     n = z_i.shape[0]
     z = torch.cat([z_i, z_j]).float()
     z = z / torch.clamp_min(torch.linalg.vector_norm(z, dim=-1, keepdim=True),

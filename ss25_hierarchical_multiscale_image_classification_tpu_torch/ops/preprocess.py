@@ -22,6 +22,9 @@ from ss25_hierarchical_multiscale_image_classification_tpu_torch.data.augment im
     STD_255,
     normalize,
 )
+from ss25_hierarchical_multiscale_image_classification_tpu_torch.ops.build import (
+    count_launch,
+)
 
 _OUT_DTYPES = (torch.float32, torch.bfloat16)
 
@@ -91,7 +94,7 @@ def fused_normalize(imgs_u8: torch.Tensor, dtype: torch.dtype = torch.bfloat16
         )
     if rc != 0:
         raise RuntimeError(f"fused_normalize kernel launch failed: cudaError {rc}")
-    fused_normalize.launches += 1
+    count_launch(fused_normalize)
     return out, _means(sums, n)
 
 

@@ -1,0 +1,9 @@
+"""Data parallelism over a process group, and device layouts for the fleet.
+
+Counterpart of the JAX package's ``parallel/``. JAX shards the batch over a
+mesh inside one process; here one process runs per card (``torchrun``), each
+loads its rows of every global batch (``feed.py``), and the collectives of
+``collectives.py`` give the global BatchNorm statistics, the gathered NT-Xent
+columns and the summed gradients. ``mesh.py`` joins the process group and
+keeps the JAX mesh's shape rules for ranks and for the fleet's devices.
+"""

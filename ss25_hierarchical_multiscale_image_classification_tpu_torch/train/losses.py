@@ -33,7 +33,8 @@ def class_weights_total_over_count(labels: np.ndarray, num_classes: int = 2
 
 def weighted_cross_entropy(logits: torch.Tensor, labels: torch.Tensor,
                            class_weights=None,
-                           valid: torch.Tensor | None = None) -> torch.Tensor:
+                           valid: torch.Tensor | None = None,
+                           group=None) -> torch.Tensor:
     """Per-class-weighted softmax cross entropy with torch
     ``CrossEntropyLoss(weight=...)`` normalisation: ``Σ w_{y_i} ℓ_i /
     Σ w_{y_i}`` (a weighted mean), with padded batch rows (``valid`` 0)
@@ -44,6 +45,11 @@ def weighted_cross_entropy(logits: torch.Tensor, labels: torch.Tensor,
         labels: (B,) int.
         class_weights: (C,) float or None (plain mean).
         valid: (B,) {0,1} mask for padded batch rows.
+        group: process group whose ranks hold the other rows of the global
+            batch: the value is the global batch's loss on every rank, and
+            the gradient this rank's share, its rows' weighted sum over the
+            **global** weight sum (ranks whose wrap-padded rows leave them
+            fewer valid rows weigh less, as in the global mean).
     Returns:
         scalar loss.
     """
@@ -59,7 +65,15 @@ def weighted_cross_entropy(logits: torch.Tensor, labels: torch.Tensor,
         w = torch.ones_like(nll)
     if valid is not None:
         w = w * valid.float()
-    return (w * nll).sum() / torch.clamp_min(w.sum(), 1e-8)
+    if group is None:
+        return (w * nll).sum() / torch.clamp_min(w.sum(), 1e-8)
+    from ss25_hierarchical_multiscale_image_classification_tpu_torch.parallel.collectives import (
+        all_reduce_sum,
+        sum_of_shares,
+    )
+
+    total = all_reduce_sum(w.sum().detach(), group)
+    return sum_of_shares((w * nll).sum() / torch.clamp_min(total, 1e-8), group)
 
 
 def accuracy(logits: torch.Tensor, labels: torch.Tensor,

@@ -24,6 +24,15 @@ ends. :meth:`Trainer.save_checkpoint` and :meth:`Trainer.restore_checkpoint`
 write and read the full train state (weights, BN statistics, Adam's
 moments, the update count) through ``train/checkpoints.py``'s
 ``CheckpointManager``.
+
+With a process ``group`` (``torchrun``, one process a card: ``parallel/``)
+the step is the JAX trainer's SPMD step over the ranks. Every rank walks
+the same batch order and loads its contiguous rows of each global batch;
+the augmentation is drawn for the global batch and each rank's rows taken;
+BatchNorm normalizes with the global batch's statistics; the loss is the
+global weighted mean, each rank's gradient its share; the gradients are
+summed over the ranks in one flat bucket, so Adam makes the same update
+everywhere. Rank 0 alone writes artifacts, history and checkpoints.
 """
 
 from __future__ import annotations
@@ -68,6 +77,17 @@ from ss25_hierarchical_multiscale_image_classification_tpu_torch.models.convert 
 from ss25_hierarchical_multiscale_image_classification_tpu_torch.models.resnet import (
     ResNet,
     ResNet18Classifier,
+    set_process_group,
+)
+from ss25_hierarchical_multiscale_image_classification_tpu_torch.parallel.feed import (
+    process_batch_slice,
+    to_device,
+)
+from ss25_hierarchical_multiscale_image_classification_tpu_torch.parallel.mesh import (
+    barrier,
+    is_main,
+    rank_and_size,
+    replicate,
 )
 from ss25_hierarchical_multiscale_image_classification_tpu_torch.train.checkpoints import (
     SUFFIX,
@@ -79,9 +99,6 @@ from ss25_hierarchical_multiscale_image_classification_tpu_torch.train.losses im
     class_weights_inv_min,
     class_weights_total_over_count,
     weighted_cross_entropy,
-)
-from ss25_hierarchical_multiscale_image_classification_tpu_torch.train.simclr_trainer import (
-    to_device,
 )
 from ss25_hierarchical_multiscale_image_classification_tpu_torch.train.state import (
     TrainState,
@@ -101,21 +118,34 @@ def set_bn_frozen(model: torch.nn.Module, frozen: bool) -> None:
 
 def classifier_loss(model: torch.nn.Module, imgs: torch.Tensor,
                     labels: torch.Tensor, class_weights=None,
-                    valid: torch.Tensor | None = None):
+                    valid: torch.Tensor | None = None, group=None):
     """The step's loss and logits: the forward of the augmented batch
     (under bf16 autocast on the card), then the weighted cross entropy in
-    float32."""
+    float32 (over ``group``'s global batch, see ``weighted_cross_entropy``)."""
     with torch.autocast("cuda", torch.bfloat16,
                         enabled=imgs.device.type == "cuda"):
         logits = model(imgs)
-    return weighted_cross_entropy(logits, labels, class_weights, valid), logits
+    return (weighted_cross_entropy(logits, labels, class_weights, valid,
+                                   group), logits)
 
 
-def make_train_step(class_weights=None, frozen_bn: bool = False) -> Callable:
+def make_train_step(class_weights=None, frozen_bn: bool = False,
+                    group=None) -> Callable:
     """``train_step(state, generator, imgs_u8, labels, valid) → (state,
     metrics)``: augment (draws from ``generator``) → forward → weighted CE →
     backward → Adam; BN statistics move in training mode unless
-    ``frozen_bn``. ``metrics`` (loss, correct, count) are device scalars."""
+    ``frozen_bn``. ``metrics`` (loss, correct, count) are device scalars.
+
+    With a ``group`` the batch is this rank's rows of the global batch
+    (rank r holds rows [r·b, (r+1)·b)): the draws are the global batch's,
+    ``metrics["loss"]`` is the global loss, correct and count are this
+    rank's, and the gradients are summed over the group before Adam. The
+    model's BatchNorm must take the group (``set_process_group``)."""
+    from ss25_hierarchical_multiscale_image_classification_tpu_torch.parallel.collectives import (
+        all_reduce_grads,
+    )
+
+    rank, world = rank_and_size(group)
     weights = None if class_weights is None else np.asarray(class_weights,
                                                             np.float32)
     cw: dict[torch.device, torch.Tensor] = {}  # on each device, made once
@@ -129,10 +159,16 @@ def make_train_step(class_weights=None, frozen_bn: bool = False) -> Callable:
         model = state.model
         model.train()
         set_bn_frozen(model, frozen_bn)
-        imgs = preprocess_batch(generator, imgs_u8, training=True)
+        b = imgs_u8.shape[0]
+        imgs = preprocess_batch(generator, imgs_u8, training=True,
+                                rows=None if group is None
+                                else (rank * b, world * b))
         state.optimizer.zero_grad(set_to_none=True)
-        loss, logits = classifier_loss(model, imgs, labels, cw.get(dev), valid)
+        loss, logits = classifier_loss(model, imgs, labels, cw.get(dev), valid,
+                                       group)
         loss.backward()
+        if group is not None:
+            all_reduce_grads(model.parameters(), group)
         state.optimizer.step()
         state.step += 1
         with torch.no_grad():
@@ -181,7 +217,9 @@ def load_trunk(model: ResNet, sd: dict[str, torch.Tensor]) -> None:
 
 
 class Trainer:
-    """Epoch-driven trainer around :func:`make_train_step`."""
+    """Epoch-driven trainer around :func:`make_train_step`; with a process
+    ``group``, one rank of the data-parallel trainer (``batch_size`` is the
+    global batch, which the group's size must divide)."""
 
     def __init__(
         self,
@@ -196,21 +234,29 @@ class Trainer:
         pretrained_variables: dict[str, torch.Tensor] | None = None,
         frozen_bn: bool = False,
         device: str | torch.device = "cuda",
+        group=None,
     ):
         self.device = resolve_device(device)
         self.model = model
         self.train_ds = train_ds
         self.val_ds = val_ds
+        self.group = group
+        rows = process_batch_slice(batch_size, *rank_and_size(group))
         self.batch_iter = BatchIterator(
-            train_ds, batch_size, shuffle=True, seed=seed, sampler=sampler
+            train_ds, batch_size, shuffle=True, seed=seed, sampler=sampler,
+            rows=rows,
         )
         self.val_iter = (
-            BatchIterator(val_ds, batch_size, shuffle=False) if val_ds else None
+            BatchIterator(val_ds, batch_size, shuffle=False, rows=rows)
+            if val_ds else None
         )
         if pretrained_variables:
             load_trunk(model, pretrained_variables)
+        set_process_group(model, group)
         self.state = create_train_state(model, learning_rate, self.device)
-        self.train_step = make_train_step(class_weights, frozen_bn=frozen_bn)
+        replicate(model, group)
+        self.train_step = make_train_step(class_weights, frozen_bn=frozen_bn,
+                                          group=group)
         self.generator = torch.Generator(device=self.device).manual_seed(seed + 1)
         self.history: list[dict] = []
 
@@ -231,8 +277,12 @@ class Trainer:
                 self.state, self.generator, imgs, labels, valid)
             step_metrics.append(metrics)
         if step_metrics:
-            totals = {k: float(torch.stack([m[k] for m in step_metrics]).sum())
-                      for k in step_metrics[0]}
+            # each step's loss is the global batch's already
+            totals = {"loss": float(torch.stack(
+                [m["loss"] for m in step_metrics]).sum())}
+            totals["correct"], totals["count"] = self._over_group(torch.stack(
+                [torch.stack([m[k].float() for m in step_metrics]).sum()
+                 for k in ("correct", "count")])).tolist()
         else:
             totals = {"loss": 0.0, "correct": 0.0, "count": 0.0}
         return {
@@ -250,9 +300,20 @@ class Trainer:
                for batch in self._batches(self.val_iter)]
         if not out:
             return float("nan")
-        correct = float(torch.stack([o["correct"] for o in out]).sum())
-        count = float(torch.stack([o["count"] for o in out]).sum())
+        correct, count = self._over_group(torch.stack(
+            [torch.stack([o[k].float() for o in out]).sum()
+             for k in ("correct", "count")])).tolist()
         return correct / max(count, 1.0)
+
+    def _over_group(self, sums: torch.Tensor) -> torch.Tensor:
+        """This rank's sums → the group's."""
+        if self.group is None:
+            return sums
+        from ss25_hierarchical_multiscale_image_classification_tpu_torch.parallel.collectives import (
+            all_reduce_sum,
+        )
+
+        return all_reduce_sum(sums, self.group)
 
     def fit(
         self,
@@ -262,6 +323,9 @@ class Trainer:
         history_path: str | None = None,
         save_best: bool = True,
     ) -> list[dict]:
+        """Train ``num_epochs`` epochs; under a group every rank runs it and
+        rank 0 writes the checkpoints and the history."""
+        main = is_main(self.group)
         best_val = -1.0
         for epoch in range(num_epochs):
             stats = self.train_epoch(epoch)
@@ -274,16 +338,18 @@ class Trainer:
                 and stats["val_acc"] > best_val
             ):
                 best_val = stats["val_acc"]
-                save_model(f"{checkpoint_prefix}_best", self.variables())
+                if main:
+                    save_model(f"{checkpoint_prefix}_best", self.variables())
             log.info(
                 "Epoch %d/%d, Train Loss: %.4f, Train Acc: %.4f, Val Acc: %.4f (%.1fs)",
                 epoch + 1, num_epochs, stats["train_loss"],
                 stats["train_acc"], stats["val_acc"], stats["seconds"],
             )
-            if history_path:
+            if history_path and main:
                 self._write_history(history_path)
             if (
-                checkpoint_every
+                main
+                and checkpoint_every
                 and checkpoint_prefix
                 and (epoch + 1) % checkpoint_every == 0
             ):
@@ -291,6 +357,7 @@ class Trainer:
                     f"{checkpoint_prefix}_epoch{epoch + 1}", self.variables()
                 )
                 log.info("Checkpoint saved: %s_epoch%d", checkpoint_prefix, epoch + 1)
+        barrier(self.group)
         return self.history
 
     def _write_history(self, path: str) -> None:
@@ -301,16 +368,21 @@ class Trainer:
 
     def save_checkpoint(self, manager, epoch: int) -> None:
         """Persist the full train state under ``epoch`` through a
-        ``checkpoints.CheckpointManager``."""
-        manager.save(epoch, self.state)
+        ``checkpoints.CheckpointManager`` (rank 0 writes; every rank waits)."""
+        if is_main(self.group):
+            manager.save(epoch, self.state)
+        barrier(self.group)
 
     def restore_checkpoint(self, manager) -> int | None:
         """Restore the latest full train state in place; the epoch it was
-        saved under, or None when there is no checkpoint."""
+        saved under, or None when there is no checkpoint. Under a group
+        every rank reads it, then takes rank 0's tensors (broadcast)."""
         step = manager.latest_step()
         if step is None:
             return None
         manager.restore(self.state, step)
+        replicate(self.state.model, self.group)
+        replicate(self.state.optimizer, self.group)
         return step
 
     def variables(self) -> dict[str, torch.Tensor]:
@@ -357,11 +429,13 @@ def train_resnet_classifier(
     cfg: Config, level: int = 3, epochs: int | None = None,
     pretrained_variables: dict[str, torch.Tensor] | None = None,
     device: str | torch.device = "cuda",
+    group=None,
 ) -> Trainer:
     """The default weighted-loss trainer on the patches of ``level``; writes ``resnet18_patch_classifier`` (+``_best``,
     periodic) under ``cfg.models_dir`` and the history under
     ``cfg.log_dir``. ``pretrained_variables`` overrides the torchvision
-    ImageNet start."""
+    ImageNet start. ``group``: one rank of the data-parallel trainer (rank 0
+    writes)."""
     log.info("Training ResNet18 classifier...")
     train_ds, val_ds = _load_datasets(cfg, level)
     weights = class_weights_inv_min(train_ds.labels, cfg.model.num_classes)
@@ -391,6 +465,7 @@ def train_resnet_classifier(
         pretrained_variables=pretrained,
         frozen_bn=cfg.train.freeze_bn,
         device=device,
+        group=group,
     )
     prefix = model_artifact_path(cfg.models_dir, "resnet18_patch_classifier")
     trainer.fit(
@@ -399,9 +474,16 @@ def train_resnet_classifier(
         checkpoint_prefix=prefix,
         history_path=os.path.join(cfg.log_dir, "train_history.json"),
     )
-    save_model(prefix, trainer.variables())
-    log.info("Training complete. Model saved %s.", prefix)
+    _save_final(prefix, trainer)
     return trainer
+
+
+def _save_final(prefix: str, trainer: Trainer) -> None:
+    """The final artifact, written by rank 0; every rank waits for it."""
+    if is_main(trainer.group):
+        save_model(prefix, trainer.variables())
+        log.info("Training complete. Model saved %s.", prefix)
+    barrier(trainer.group)
 
 
 def train_resnet_classifier_strategic(
@@ -411,11 +493,14 @@ def train_resnet_classifier_strategic(
     epochs: int | None = None,
     manifest: PatchManifest | None = None,
     device: str | torch.device = "cuda",
+    group=None,
 ) -> Trainer:
     """The strategy trainer on the patches of ``level`` (or on an in-memory
     ``manifest``, for a machine without pyarrow); writes
     ``resnet18_patch_classifier_{strategy}``. ``self_supervised`` pretrains
-    SimCLR only when ``<models_dir>/simclr_encoder.pt`` is missing."""
+    SimCLR only when ``<models_dir>/simclr_encoder.pt`` is missing.
+    ``group``: one rank of the data-parallel trainer (and of the SimCLR
+    pretraining)."""
     if strategy not in ("balanced", "weighted_loss", "self_supervised"):
         raise ValueError(f"unknown strategy {strategy!r}")
     log.info("Training ResNet18 classifier with strategy=%s...", strategy)
@@ -446,7 +531,8 @@ def train_resnet_classifier_strategic(
                      SUFFIX)
             pretrain_simclr(
                 cfg, level=level, device=device,
-                dataset=None if manifest is None else PatchDataset(manifest))
+                dataset=None if manifest is None else PatchDataset(manifest),
+                group=group)
         # the SimCLR trunk lives under "encoder."; lifted to the classifier's
         # names under a fresh head
         pretrained = classifier_trunk_from_simclr(load_model(encoder_path))
@@ -463,6 +549,7 @@ def train_resnet_classifier_strategic(
         pretrained_variables=pretrained,
         frozen_bn=cfg.train.freeze_bn,
         device=device,
+        group=group,
     )
     prefix = model_artifact_path(
         cfg.models_dir, f"resnet18_patch_classifier_{strategy}"
@@ -471,6 +558,5 @@ def train_resnet_classifier_strategic(
         epochs or cfg.train.strategy_epochs,
         history_path=os.path.join(cfg.log_dir, f"train_history_{strategy}.json"),
     )
-    save_model(prefix, trainer.variables())
-    log.info("Training complete. Model saved %s.", prefix)
+    _save_final(prefix, trainer)
     return trainer

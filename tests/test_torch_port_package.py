@@ -35,7 +35,8 @@ new = (".data.prefetch", ".models.quantized", ".ops.fused_stem", ".infer.feature
        ".infer.multiscale", ".models.hierarchical", ".data.multiscale",
        ".evaluation.calibration", ".io.annotations", ".data.streamed",
        ".data.stain", ".data.extract", ".train.streaming",
-       ".train.hard_negatives")
+       ".train.hard_negatives", ".parallel", ".parallel.mesh",
+       ".parallel.feed", ".parallel.collectives", ".infer.fleet")
 assert set(pkg.__name__ + m for m in new) <= set(names)
 print(len(names), bad)
 """
@@ -61,8 +62,9 @@ def _import_all(jax_platforms):
     # models.quantized and ops.fused_stem of the feature-extraction slice,
     # 44 with models.quant_artifact, ops.int8_conv, ops.int8_block and
     # ops.int8_pool of the int8 slice, 53 with the trainer's and FROC's nine,
-    # 57 with the multiscale slice's four, 65 with extraction's six
-    assert int(count) >= 65
+    # 57 with the multiscale slice's four, 65 with extraction's six, 70 with
+    # the parallel package's four and the fleet
+    assert int(count) >= 70
     assert bad == "[]"
 
 
@@ -104,3 +106,29 @@ def test_port_sources_have_no_jax_import():
             source = f.read()
         assert not _JAX_IMPORT.search(source), path
         assert not _HOST_ONLY_IMPORT.search(source), path
+
+
+# torch.distributed (and the collectives over it) at a module's top level:
+# only the collectives themselves may import it there
+_DIST_IMPORT = re.compile(
+    r"^(import|from)\s+(torch\.distributed|"
+    rf"{PKG}\.parallel\.collectives)\b", re.M)
+
+
+def test_single_card_modules_import_torch_distributed_lazily():
+    """Every module that a single card runs imports ``torch.distributed``
+    and ``parallel/collectives.py`` inside the functions that take a process
+    group, never at its top level."""
+    allowed = {os.path.join(PKG, "parallel", "collectives.py")}
+    checked = 0
+    for root, _, names in os.walk(os.path.join(REPO, PKG)):
+        for n in names:
+            if not n.endswith(".py"):
+                continue
+            path = os.path.join(root, n)
+            rel = os.path.relpath(path, REPO)
+            with open(path) as f:
+                found = _DIST_IMPORT.search(f.read())
+            assert (found is not None) == (rel in allowed), rel
+            checked += 1
+    assert checked >= 70
