@@ -23,12 +23,18 @@ the serving paths of what they write, patch extraction from slides
 trainers that read it (``--patch --train``, ``--mine_hard_negatives``), and
 data-parallel training over a process group with the slide fleet
 (``Trainer(group=)``, the SimCLR step over ranks, ``--predict_slide <dir>
---group_size``). It
+--group_size``), and the main path on tiled TIFF slides (the smoke slide as
+deflate and CAMELYON16's JPEG-YCbCr BigTIFFs through ``--predict_slide``,
+``--multiscale``, ``--patch``, the fleet, and ``--run_evaluation`` against
+a ``{case}_Mask.tif``). It
 checks every hand-written kernel of those paths against its plain PyTorch
 version on the card. Phases:
 
 1. card and software: ``nvidia-smi`` name and power limit, torch, CUDA, nvcc;
-2. build: the kernels from ``ops/csrc/`` of this checkout;
+2. build: the kernels from ``ops/csrc/`` of this checkout, and on another
+   thread the two host libraries of ``io/native/`` (the OpenMP chunk
+   processor; the TIFF reader and writer on libtiff, by its headers or the
+   port's ``tiff_abi.h``);
 3. kernel against plain version: ``fused_normalize`` at B=512×224²×3, a
    ragged B=37, an odd 7×13 patch and the multiscale level-2 batch
    (256, 448, 448, 3), f32 and bf16, exactly equal; CUDA-event medians of
@@ -209,6 +215,32 @@ version on the card. Phases:
    to the slides run one after another, the same 2a launches; (e)
    ``predict_slide_fleet`` with two groups sharing the card (two threads,
    a stream each): grids and CSVs equal; walls of each;
+15. TIFF slides (run before phase 8): (a) the libtiff version and build
+   route, the host builds' walls; (b) the smoke slide's rendered pyramid
+   written by ``write_pyramidal_tiff`` (what ``write_synthetic_case(
+   container="tiff")`` writes after rendering) as a deflate and a
+   JPEG-YCbCr BigTIFF (walls, sizes): every deflate level equal to the
+   ``.wsi.npz`` plane by ``read_region`` and by ``read_regions`` (a 512²
+   grid, white past the edges), the JPEG level 3 within
+   :data:`TIFF_JPEG_MEAN_MAX` and :data:`TIFF_JPEG_ABS_MAX` of its source;
+   (c) ``--predict_slide <smoke_slide.tif> --tissue_filter device`` through
+   the CLI's ``main``: the CSV byte-equal to the ``.wsi.npz`` run's, 2a
+   launches equal (6), warm walls in turns with the ``.wsi.npz``, band
+   decode ms cold and warm with the tile cache's counters; (d) the JPEG
+   file: the tissue partition's differences from the ``.wsi.npz``'s, 2a
+   launches, and ``--multiscale --levels 2,3`` (2a twice a batch); (e)
+   ``--patch --patch_level all`` from the deflate TIFF on both routes: every
+   level's rows and bytes equal to phase 13's stores of the same pyramid;
+   (f) ``--predict_slide <dir> --run_evaluation`` from phase 10's classifier
+   with the mask as ``smoke_slide_Mask.tif`` (``write_mask_tiff``): the FROC
+   score equal to the ``.npy`` mask's and phase 10's, the CSV byte-equal;
+   (g) ``--predict_slide <dir> --group_size 1`` over the smoke slide and
+   phase 14's second slide as TIFFs (the second written by
+   ``write_synthetic_case(container="tiff")``): CSVs byte-equal to phase
+   14's, the
+   same 2a launches, walls beside phase 14's, two groups sharing the card
+   with the tile cache's counters; (last in the run) one TIFF run's idle
+   share under the profiler;
 8. feature extraction: the packed store of the slide's 1,752 tissue cells,
    the slice's ResNet18 saved as ``resnet18_patch_classifier.pt``,
    ``extract_features(cfg, level=3, dataset=ds, device="cuda")`` at batch 512
@@ -586,17 +618,29 @@ def phase_card():
     return smi, torch.device("cuda", 0)
 
 
-def phase_build() -> None:
+def phase_build() -> dict:
+    """The CUDA libraries (one nvcc a source, all at once) and, beside them
+    on another thread, the two host libraries of ``io/native``."""
+    from concurrent.futures import ThreadPoolExecutor
+
     from ss25_hierarchical_multiscale_image_classification_tpu_torch.ops.build import (
         build,
         load_library,
     )
 
     t0 = time.perf_counter()
-    paths = build()
-    load_library()
+    with ThreadPoolExecutor(1) as pool:
+        host = pool.submit(host_builds)
+        paths = build()
+        load_library()
+        cuda_wall = time.perf_counter() - t0
+        built = host.result()
     log(f"[build] {', '.join(os.path.relpath(p, ROOT) for p in paths)} in "
+        f"{cuda_wall:.2f} s; host libraries chunk "
+        f"{built['walls']['chunk']:.2f} s, tiff {built['walls']['tiff']:.2f} s "
+        f"(libtiff route: {built['route']}), all in "
         f"{time.perf_counter() - t0:.2f} s")
+    return built
 
 
 def phase_kernels(dev) -> dict:
@@ -2448,7 +2492,7 @@ def phase_train(dev, ds, slide, spec, simclr_models, tmp) -> dict:
         f"{epoch_ms:.1f} ms = {epoch_ms / epoch['steps']:.2f} ms/step = "
         f"{len(ds) / epoch_ms * 1e3:.0f} patches/s")
     return {"launches": launches, "trainer": trainer, "data_dir": data_dir,
-            "models_dir": models_dir}
+            "models_dir": models_dir, "froc": scores[0]}
 
 
 def phase_train_profile(trainer, n: int) -> None:
@@ -5135,6 +5179,457 @@ def fleet_split_check(dev, model, paths, kw) -> None:
                                  "one card")
 
 
+# ---------------------------------------------------------------------------
+# Phase 15: tiled TIFF slides
+# ---------------------------------------------------------------------------
+
+#: the JPEG-YCbCr level 3 against its source pixels: mean and largest |Δ|.
+#: 3584×2688 and 7168×5376 renders of the spec measured 0.52–0.61 and 24–26
+#: on the CPU (libjpeg-turbo, 4:2:0 at quality 90; the largest errors sit
+#: on tissue edges, where chroma is halved); the bounds are about twice that.
+TIFF_JPEG_MEAN_MAX = 1.0
+TIFF_JPEG_ABS_MAX = 48
+TIFF_WALL_RUNS = 4  # warm predict_slide runs of each container, in turns
+SECOND_W, SECOND_H = 3584, 2688  # phase 14's second fleet slide
+
+
+def host_builds() -> dict:
+    """Build the two host libraries (``io/native``) and time each; the
+    libtiff route and version."""
+    from ss25_hierarchical_multiscale_image_classification_tpu_torch.io import (
+        native_lib,
+    )
+    from ss25_hierarchical_multiscale_image_classification_tpu_torch.ops.build import (
+        HOST_SOURCES,
+        host_library,
+        libtiff_route,
+    )
+
+    walls = {}
+    for name in HOST_SOURCES:
+        t0 = time.perf_counter()
+        host_library(name)
+        walls[name] = time.perf_counter() - t0
+    route, flags = libtiff_route()
+    return {"walls": walls, "route": route, "flags": " ".join(flags),
+            "version": native_lib.libtiff_version()}
+
+
+def regions_equal_plane(tiff, plane, level: int, edge: int = 512) -> int:
+    """``read_regions`` of the level's ``edge``-px grid, ragged edge and one
+    region wholly outside included, against the plane padded white; returns
+    the regions read."""
+    import numpy as np
+
+    h, w = plane.shape[:2]
+    xs, ys = np.arange(0, w, edge), np.arange(0, h, edge)
+    coords = np.array([(x, y) for x in xs for y in ys] + [(w, h)], np.int64)
+    padded = np.full((len(ys) * edge + edge, len(xs) * edge + edge, 3), 255,
+                     np.uint8)
+    padded[:h, :w] = plane
+    for i in range(0, len(coords), 256):  # bounded host memory at level 0
+        part = coords[i:i + 256]
+        got = tiff.read_regions(part, level, (edge, edge))
+        for k, (x, y) in enumerate(part):
+            if not np.array_equal(got[k], padded[y:y + edge, x:x + edge]):
+                raise AssertionError(f"read_regions differs at level {level} "
+                                     f"({x}, {y})")
+    return len(coords)
+
+
+def band_decode_ms(slide, grid) -> list[float]:
+    """ms of each full-width band read of ``predict_slide``'s loop."""
+    level_w, level_h = slide.level_dimensions[grid.level]
+    out = []
+    for iy in range(grid.ny):
+        y = iy * grid.stride
+        t0 = time.perf_counter()
+        slide.read_region(grid.level0_origin(0, y), grid.level,
+                          (level_w, min(grid.patch_size, level_h - y)))
+        out.append((time.perf_counter() - t0) * 1e3)
+    return out
+
+
+def phase_tiff(dev, sd, spec, slide, grid, host_margins, npz_path, train,
+               ext_root, fleet, built, smi, tmp) -> dict:
+    """Phase 15: the smoke slide as tiled BigTIFFs through the main path
+    (see the module docstring)."""
+    import shutil
+    import threading
+
+    import numpy as np
+    import torch
+
+    from ss25_hierarchical_multiscale_image_classification_tpu_torch.data.streamed import (
+        extract_patches_on_device,
+    )
+    from ss25_hierarchical_multiscale_image_classification_tpu_torch.evaluation.froc import (
+        compute_evaluation_mask,
+    )
+    from ss25_hierarchical_multiscale_image_classification_tpu_torch.infer.fleet import (
+        predict_slide_fleet,
+    )
+    from ss25_hierarchical_multiscale_image_classification_tpu_torch.infer.sliding_window import (
+        NON_TISSUE_MARGIN,
+        predict_and_export,
+        predict_slide,
+    )
+    from ss25_hierarchical_multiscale_image_classification_tpu_torch.io.slide import (
+        open_slide,
+    )
+    from ss25_hierarchical_multiscale_image_classification_tpu_torch.io.synthetic import (
+        normal_spec,
+        write_mask_tiff,
+        write_synthetic_case,
+    )
+    from ss25_hierarchical_multiscale_image_classification_tpu_torch.io.tiff_slide import (
+        TiffSlide,
+        write_pyramidal_tiff,
+    )
+    from ss25_hierarchical_multiscale_image_classification_tpu_torch.models.convert import (
+        resnet18_from_state_dict,
+    )
+    from ss25_hierarchical_multiscale_image_classification_tpu_torch.ops.preprocess import (
+        fused_normalize,
+    )
+
+    t_phase = time.perf_counter()
+    # (a) the host build
+    log(f"[tiff] (a) libtiff: {built['version']}; route: {built['route']} "
+        f"({built['flags']}); host builds: chunk {built['walls']['chunk']:.2f} s"
+        f" (OpenMP only), tiff {built['walls']['tiff']:.2f} s")
+
+    # (b) the smoke slide written as tiled BigTIFFs: the rendered pyramid
+    # through the writer that write_synthetic_case(container="tiff") calls
+    # (which would first render the 154-megapixel slide again; (g) runs
+    # write_synthetic_case on the second slide)
+    paths, walls = {}, {}
+    levels = [slide.level_array(i) for i in range(slide.level_count)]
+    for comp in ("deflate", "jpeg_ycbcr"):
+        paths[comp] = os.path.join(tmp, f"tiff_{comp}", "smoke_slide.tif")
+        os.makedirs(os.path.dirname(paths[comp]))
+        t0 = time.perf_counter()
+        write_pyramidal_tiff(paths[comp], levels, compression=comp)
+        walls[comp] = time.perf_counter() - t0
+    tiff = TiffSlide(paths["deflate"])
+    regions = 0
+    for level in range(slide.level_count):
+        plane = slide.level_array(level)
+        if not np.array_equal(tiff.read_region((0, 0), level,
+                                               tiff.level_dimensions[level]),
+                              plane):
+            raise AssertionError(f"deflate TIFF level {level} differs from "
+                                 "the .wsi.npz plane")
+        regions += regions_equal_plane(tiff, plane, level)
+    tiff.close()
+    jpeg = TiffSlide(paths["jpeg_ycbcr"])
+    diff = np.abs(jpeg.read_region((0, 0), LEVEL, jpeg.level_dimensions[LEVEL])
+                  .astype(np.int16) - slide.level_array(LEVEL))
+    jpeg.close()
+    mb = {c: os.path.getsize(p) / 1e6 for c, p in paths.items()}
+    log(f"[tiff] (b) write_pyramidal_tiff of the rendered pyramid: deflate "
+        f"{walls['deflate']:.1f} s ({mb['deflate']:.1f} MB), jpeg_ycbcr "
+        f"{walls['jpeg_ycbcr']:.1f} s ({mb['jpeg_ycbcr']:.1f} MB); deflate: "
+        f"{slide.level_count} levels equal to the .wsi.npz "
+        f"planes by read_region and by read_regions ({regions} regions of "
+        f"512², white past the edges); jpeg_ycbcr level {LEVEL} against its "
+        f"source: mean |Δ| {diff.mean():.4f} (bound {TIFF_JPEG_MEAN_MAX}), "
+        f"max |Δ| {int(diff.max())} (bound {TIFF_JPEG_ABS_MAX})")
+    if diff.mean() > TIFF_JPEG_MEAN_MAX or diff.max() > TIFF_JPEG_ABS_MAX:
+        raise AssertionError("the JPEG-YCbCr TIFF is outside its bound")
+
+    # (c) --predict_slide on the deflate TIFF against the .wsi.npz
+    runs = {}
+    for kind, src in (("npz", npz_path), ("tif", paths["deflate"])):
+        img = os.path.join(tmp, f"tiff_c_{kind}")
+        models = os.path.join(tmp, f"tiff_c_models_{kind}")
+        os.makedirs(img)
+        os.makedirs(models)
+        target = os.path.join(img, os.path.basename(src))
+        os.link(src, target)
+        torch.save(sd, os.path.join(models, "resnet18_patch_classifier.pt"))
+        reset_counts()  # counts from here on are this run's
+        rc, wall = run_cli(["--predict_slide", target, "--tissue_filter",
+                            "device", "--stride", str(STRIDE), "--models_dir",
+                            models, "--device", "cuda"])
+        csv = os.path.join(models, "model_predictions_csv", "smoke_slide.csv")
+        runs[kind] = (rc, fused_normalize.launches, open(csv, "rb").read(), wall)
+    batches = -(-grid.num_patches // BATCH)
+    if (runs["tif"][0] or runs["npz"][0] or runs["tif"][2] != runs["npz"][2]
+            or runs["tif"][1] != runs["npz"][1] or runs["tif"][1] != batches):
+        raise AssertionError(
+            f"(c) TIFF against .wsi.npz: exits {runs['tif'][0]}/{runs['npz'][0]},"
+            f" CSVs equal {runs['tif'][2] == runs['npz'][2]}, 2a launches "
+            f"{runs['tif'][1]}/{runs['npz'][1]} (expected {batches})")
+    model = resnet18_from_state_dict(sd).to(
+        device=dev, dtype=torch.bfloat16, memory_format=torch.channels_last)
+    kw = dict(level=LEVEL, stride=STRIDE, tissue_filter="device",
+              output="margin", device=dev)
+    src = {"npz": npz_path, "tif": paths["deflate"]}
+    for kind in src:
+        predict_slide(src[kind], model, **kw)  # warm
+    turns = {"npz": [], "tif": []}
+    for _ in range(TIFF_WALL_RUNS // 2):
+        for kind in ("npz", "tif", "tif", "npz"):
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            predict_slide(src[kind], model, **kw)
+            torch.cuda.synchronize()
+            turns[kind].append(time.perf_counter() - t0)
+    med = {k: statistics.median(v) for k, v in turns.items()}
+    dec = {}
+    for kind in src:
+        s = open_slide(src[kind])
+        cold = band_decode_ms(s, grid)
+        warm = band_decode_ms(s, grid)
+        stats = s.cache_stats() if kind == "tif" else None
+        s.close()
+        dec[kind] = (cold, warm, stats)
+    log(f"[tiff] (c) --predict_slide <smoke_slide.tif> --tissue_filter device "
+        f"through the CLI's main: exit 0 in {runs['tif'][3]:.2f} s (.wsi.npz "
+        f"{runs['npz'][3]:.2f} s, model load included); CSV byte-equal to the "
+        f".wsi.npz run's; fused_normalize launches {runs['tif'][1]} = "
+        f"{runs['npz'][1]}; warm predict_slide in turns ({TIFF_WALL_RUNS} each):"
+        f" TIFF {med['tif']:.4f} s ({min(turns['tif']):.4f}–"
+        f"{max(turns['tif']):.4f}) = {grid.num_patches / med['tif']:.0f} "
+        f"cells/s, .wsi.npz {med['npz']:.4f} s ({min(turns['npz']):.4f}–"
+        f"{max(turns['npz']):.4f}) = {grid.num_patches / med['npz']:.0f} "
+        f"cells/s; a band read ({grid.ny} bands of {grid.patch_size} rows): "
+        f"TIFF cold {statistics.median(dec['tif'][0]):.3f} ms (sum "
+        f"{sum(dec['tif'][0]):.1f}), warm {statistics.median(dec['tif'][1]):.3f}"
+        f" ms, tile cache after both passes {dec['tif'][2]}; .wsi.npz "
+        f"{statistics.median(dec['npz'][0]):.3f} ms (sum "
+        f"{sum(dec['npz'][0]):.1f}) [{smi}]")
+
+    # (d) the JPEG-YCbCr TIFF: single level, then multiscale
+    reset_counts()
+    jm = predict_slide(paths["jpeg_ycbcr"], model, **kw)[0]
+    j_launches = fused_normalize.launches
+    npz_tissue = host_margins != NON_TISSUE_MARGIN
+    j_tissue = jm != NON_TISSUE_MARGIN
+    flips = int((npz_tissue != j_tissue).sum())
+    ms_models = os.path.join(tmp, "tiff_ms_models")
+    os.makedirs(ms_models)
+    os.link(os.path.join(tmp, "ms_models", "hierarchical_classifier.pt"),
+            os.path.join(ms_models, "hierarchical_classifier.pt"))
+    reset_counts()
+    rc, ms_wall = run_cli(["--predict_slide", paths["jpeg_ycbcr"],
+                           "--multiscale", "--levels",
+                           ",".join(map(str, MS_LEVELS)), "--stride",
+                           str(STRIDE), "--batch_size", str(MS_BATCH),
+                           "--models_dir", ms_models, "--device", "cuda"])
+    ms_launches = fused_normalize.launches
+    want_ms = len(MS_LEVELS) * -(-int(j_tissue.sum()) // MS_BATCH)
+    log(f"[tiff] (d) jpeg_ycbcr TIFF: tissue partition {int(j_tissue.sum())} "
+        f"cells, {flips} differ from the .wsi.npz partition's "
+        f"{int(npz_tissue.sum())}; fused_normalize launches {j_launches}; "
+        f"--predict_slide --multiscale --levels 2,3 through the CLI's main: "
+        f"exit {rc} in {ms_wall:.2f} s, fused_normalize launches {ms_launches} "
+        f"({len(MS_LEVELS)} a batch of {MS_BATCH})")
+    if j_launches != batches or rc != 0 or ms_launches != want_ms:
+        raise AssertionError(f"(d) launches {j_launches} (expected {batches}),"
+                             f" multiscale exit {rc}, launches {ms_launches} "
+                             f"(expected {want_ms})")
+
+    # (e) --patch from the deflate TIFF on both routes against phase 13's
+    # stores of the same pyramid as .wsi.npz
+    src_root = os.path.join(tmp, "tiff_extract_src")
+    os.makedirs(os.path.join(src_root, "train", "img"))
+    os.link(paths["deflate"], os.path.join(src_root, "train", "img",
+                                           "tumor_001.tif"))
+    os.makedirs(os.path.join(src_root, "annotations"))
+    shutil.copy(os.path.join(ext_root, "annotations", "tumor_001.xml"),
+                os.path.join(src_root, "annotations"))
+    e_walls = {}
+    for route in ("host", "device"):
+        root = fresh_root(src_root, os.path.join(tmp, f"tiff_extract_{route}"))
+        before = extract_patches_on_device.calls
+        with _Messages("data.extract") as records:
+            rc, e_walls[route] = run_cli(["--patch", "--patch_level", "all",
+                                          "--extract_impl", route,
+                                          "--data_dir", root, "--device",
+                                          "cuda"])
+        calls = extract_patches_on_device.calls - before
+        per_level = level_walls(records)
+        if rc != 0 or calls != (len(EXTRACT_LEVELS) if route == "device" else 0):
+            raise AssertionError(f"(e) --patch {route} from TIFF: exit {rc}, "
+                                 f"device extractions {calls}")
+        for level in EXTRACT_LEVELS:
+            rows, recs = store_rows(root, level)
+            want_rows, want_recs = store_rows(os.path.join(
+                tmp, f"extract_{route}"), level)
+            want_rows = [r for r in want_rows if r[0] == "tumor_001"]
+            want_recs = [r for r in want_recs if r.slide == "tumor_001"]
+            if rows != want_rows or pack_bytes(recs) != pack_bytes(want_recs):
+                raise AssertionError(f"(e) {route} level {level}: the TIFF's "
+                                     "store differs from the .wsi.npz's")
+        log(f"[tiff] (e) --patch --patch_level all --extract_impl {route} from "
+            f"tumor_001.tif: exit 0 in {e_walls[route]:.2f} s (levels: "
+            + ", ".join(f"L{lv} {s:.3f} s" for (_n, lv), s in
+                        sorted(per_level.items(), key=lambda kv: kv[0][1]))
+            + f"); device extractions {calls}; every level's rows and bytes "
+            f"equal to phase 13's .wsi.npz store of tumor_001")
+
+    # (f) FROC with the mask as the port's {case}_Mask.tif
+    data = os.path.join(tmp, "tiff_froc_data")
+    img = os.path.join(data, "test", "img")
+    os.makedirs(img)
+    os.link(paths["deflate"], os.path.join(img, "smoke_slide.tif"))
+    t0 = time.perf_counter()
+    mask_tif = write_mask_tiff(os.path.join(data, "test", "mask"),
+                               "smoke_slide", spec)
+    mask_wall = time.perf_counter() - t0
+    # the same classifier on the .wsi.npz with the .npy mask (phase 10's
+    # data root); phase 10's own CSV has since been overwritten by later
+    # phases' runs in its models directory
+    found = {}
+    for kind, img_dir, data_dir in (
+            ("tif", img, data),
+            ("npz", os.path.join(train["data_dir"], "train", "img"),
+             train["data_dir"])):
+        models = os.path.join(tmp, f"tiff_froc_models_{kind}")
+        os.makedirs(models)
+        shutil.copy(os.path.join(train["models_dir"],
+                                 "resnet18_patch_classifier.pt"), models)
+        with _Messages("evaluation.froc") as records:
+            rc, f_wall = run_cli(["--predict_slide", img_dir, "--run_evaluation",
+                                  "--data_dir", data_dir, "--models_dir",
+                                  models, "--stride", str(STRIDE),
+                                  "--tissue_filter", "device", "--device",
+                                  "cuda"])
+        scores = [r.args[0] for r in records
+                  if r.msg.startswith("FROC score")]
+        csv = open(os.path.join(models, "model_predictions_csv",
+                                "smoke_slide.csv"), "rb").read()
+        found[kind] = (rc, scores, csv, f_wall)
+    npy_dir = os.path.join(train["data_dir"], "test", "mask")
+    same_mask = np.array_equal(
+        compute_evaluation_mask(mask_tif),
+        compute_evaluation_mask(np.load(os.path.join(npy_dir,
+                                                     "smoke_slide_mask.npy"))))
+    log(f"[tiff] (f) --predict_slide <dir of smoke_slide.tif> --run_evaluation"
+        f" from phase 10's classifier, mask smoke_slide_Mask.tif (6 levels, "
+        f"written in {mask_wall:.2f} s): exit {found['tif'][0]} in "
+        f"{found['tif'][3]:.2f} s; FROC score {found['tif'][1]}; the .wsi.npz "
+        f"with the .npy mask {found['npz'][1]} (exit {found['npz'][0]}); phase "
+        f"10's {train['froc']!r}; CSVs byte-equal "
+        f"{found['tif'][2] == found['npz'][2]}; evaluation masks equal "
+        f"{same_mask}")
+    if (found["tif"][0] != 0 or found["npz"][0] != 0
+            or len(found["tif"][1]) != 1 or found["tif"][1] != found["npz"][1]
+            or found["tif"][1][0] != train["froc"]
+            or found["tif"][2] != found["npz"][2] or not same_mask):
+        raise AssertionError("(f) FROC with the TIFF mask differs")
+
+    # (g) the fleet over two TIFF slides
+    fleet_dir = os.path.join(tmp, "tiff_fleet")
+    os.makedirs(fleet_dir)
+    os.link(paths["deflate"], os.path.join(fleet_dir, "smoke_slide.tif"))
+    t0 = time.perf_counter()
+    second = write_synthetic_case(
+        os.path.join(tmp, "tiff_second"), "second_slide",
+        normal_spec(width=SECOND_W, height=SECOND_H, seed=SEED + 2),
+        container="tiff")
+    second_wall = time.perf_counter() - t0
+    os.link(second, os.path.join(fleet_dir, "second_slide.tif"))
+    models = os.path.join(tmp, "tiff_fleet_models")
+    os.makedirs(models)
+    torch.save(sd, os.path.join(models, "resnet18_patch_classifier.pt"))
+    fkw = dict(level=LEVEL, stride=STRIDE, tissue_filter="device")
+    fpaths = sorted(os.path.join(fleet_dir, f) for f in os.listdir(fleet_dir))
+    seq_dir = os.path.join(tmp, "tiff_fleet_seq")
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    seq = {p: predict_and_export(p, model, seq_dir, device=dev, **fkw)[0]
+           for p in fpaths}
+    torch.cuda.synchronize()
+    seq_wall = time.perf_counter() - t0
+    reset_counts()  # counts from here on are the TIFF fleet path's
+    rc, cli_wall = run_cli(["--predict_slide", fleet_dir, "--group_size", "1",
+                            "--tissue_filter", "device", "--stride",
+                            str(STRIDE), "--models_dir", models, "--device",
+                            "cuda"])
+    f_launches = fused_normalize.launches
+    read = lambda d: {f: open(os.path.join(d, f), "rb").read()  # noqa: E731
+                      for f in sorted(os.listdir(d))}
+    fleet_csvs = read(os.path.join(models, "model_predictions_csv"))
+    npz_csvs = read(os.path.join(tmp, "fleet_models", "model_predictions_csv"))
+    stats, lock = {}, threading.Lock()
+
+    def counted(path, models_, *, devices, **kw_):
+        s = TiffSlide(path)
+        try:
+            return predict_slide(s, models_, device=devices[0],
+                                 devices=devices, **kw_)
+        finally:
+            with lock:
+                stats[os.path.basename(path)] = s.cache_stats()
+            s.close()
+
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    grids = predict_slide_fleet(fpaths, model, os.path.join(tmp, "tiff_fleet_e"),
+                                group_size=1, devices=[dev, dev],
+                                predict_fn=counted, **fkw)
+    torch.cuda.synchronize()
+    two_wall = time.perf_counter() - t0
+    same = all(np.array_equal(grids[p], seq[p]) for p in fpaths)
+    log(f"[tiff] (g) write_synthetic_case(container='tiff') of phase 14's "
+        f"second slide ({SECOND_W}×{SECOND_H}, deflate): {second_wall:.2f} s, "
+        f"rendering included; --predict_slide <dir of 2 TIFFs> --group_size 1 "
+        f"through the CLI's main: exit {rc}, CSVs byte-equal to phase 14's "
+        f".wsi.npz "
+        f"fleet {fleet_csvs == npz_csvs} and to the slides in turn "
+        f"{fleet_csvs == read(seq_dir)}; fused_normalize launches {f_launches}"
+        f" (phase 14: {fleet['launches']}); walls TIFF / .wsi.npz (phase 14): "
+        f"in turn {seq_wall:.3f} / {fleet['seq_wall']:.3f} s, CLI "
+        f"{cli_wall:.3f} / {fleet['cli_wall']:.3f} s, two groups sharing the "
+        f"card {two_wall:.3f} / {fleet['two_wall']:.3f} s (two groups / in "
+        f"turn: {two_wall / seq_wall:.3f} / "
+        f"{fleet['two_wall'] / fleet['seq_wall']:.3f}); grids equal {same}; "
+        f"tile cache (two groups) {stats}")
+    if (rc != 0 or fleet_csvs != npz_csvs or fleet_csvs != read(seq_dir)
+            or f_launches != fleet["launches"] or not same):
+        raise AssertionError("(g) the TIFF fleet differs")
+    log(f"[tiff] phase 15 wall {time.perf_counter() - t_phase:.1f} s")
+    return {"launches": runs["tif"][1], "jpeg_launches": j_launches,
+            "multiscale_launches": ms_launches, "fleet_launches": f_launches,
+            "deflate": paths["deflate"]}
+
+
+def phase_tiff_profile(dev, sd, path) -> None:
+    """One warm ``predict_slide`` of the deflate TIFF under the profiler:
+    device busy time and idle share (last in the run: walls taken after a
+    profiler session come out longer)."""
+    import torch
+
+    from ss25_hierarchical_multiscale_image_classification_tpu_torch.infer.sliding_window import (
+        predict_slide,
+    )
+    from ss25_hierarchical_multiscale_image_classification_tpu_torch.models.convert import (
+        resnet18_from_state_dict,
+    )
+
+    model = resnet18_from_state_dict(sd).to(
+        device=dev, dtype=torch.bfloat16, memory_format=torch.channels_last)
+    kw = dict(level=LEVEL, stride=STRIDE, tissue_filter="device", device=dev)
+    predict_slide(path, model, **kw)
+    acts = [torch.profiler.ProfilerActivity.CPU,
+            torch.profiler.ProfilerActivity.CUDA]
+    with torch.profiler.profile(activities=acts) as prof:
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        predict_slide(path, model, **kw)
+        torch.cuda.synchronize()
+        wall = (time.perf_counter() - t0) * 1e3
+    busy = busy_us(prof) / 1e3
+    log(f"[tiff] one warm predict_slide of the deflate TIFF under the "
+        f"profiler: wall {wall:.1f} ms, device busy {busy:.1f} ms, idle share "
+        f"{1 - busy / wall:.3f}")
+    if busy <= 0:
+        raise AssertionError("the profiler saw no device time")
+
+
 def main() -> int:
     if not os.path.isdir(os.path.join(ROOT, PKG)):
         print(f"{PKG}/ not found beside {__file__}: run from a checkout",
@@ -5144,7 +5639,7 @@ def main() -> int:
     import torch
 
     smi, dev = phase_card()
-    phase_build()
+    built = phase_build()
     kernel = phase_kernels(dev)
     ntxent = phase_ntxent(dev)
     milpool = phase_milpool(dev)
@@ -5218,6 +5713,10 @@ def main() -> int:
         torch.cuda.empty_cache()
         ext = phase_extract(dev, spec, slide, grid, tissue, tmp)
         torch.cuda.empty_cache()
+        tiff = phase_tiff(dev, sd, spec, slide, grid, host_margins, os.path.join(
+            tmp, "train_data", "train", "img", "smoke_slide.wsi.npz"), train,
+            ext["root"], fleet, built, smi, tmp)
+        torch.cuda.empty_cache()
         # last: they end under torch.profiler, and host-clock walls taken in
         # this process after a profiler session come out longer
         feature_launches = phase_features(dev, ds, sd, tmp)
@@ -5225,6 +5724,7 @@ def main() -> int:
         phase_multiscale_profile(dev, slide, ms.pop("model"), ms["cal"])
         phase_ms_train_profile(dev, *ms_train.pop("profile"))
         phase_extract_profile(dev, ext["root"], tmp)
+        phase_tiff_profile(dev, sd, tiff["deflate"])
     del ds
 
     jax_pkg = "ss25_hierarchical_multiscale_image_classification_tpu"
@@ -5252,6 +5752,15 @@ def main() -> int:
     # phase 14: the data-parallel steps' launches (both ranks) and the fleet's
     aug["dp_launches"] = dp["aug_launches"]
     kernel["fleet_launches"] = fleet["launches"]
+    # phase 15: the TIFF paths
+    kernel["tiff_launches"] = tiff["launches"]
+    kernel["tiff_jpeg_launches"] = tiff["jpeg_launches"]
+    kernel["tiff_multiscale_launches"] = tiff["multiscale_launches"]
+    kernel["tiff_fleet_launches"] = tiff["fleet_launches"]
+    log(f"[paths] TIFF: fused_normalize launches {tiff['launches']} (deflate "
+        f"slide), {tiff['jpeg_launches']} (JPEG-YCbCr), "
+        f"{tiff['multiscale_launches']} (JPEG-YCbCr multiscale), "
+        f"{tiff['fleet_launches']} (fleet over two TIFFs)")
     log(f"[paths] data-parallel steps, {DP_RANKS_ON_ONE_CARD} ranks: augment "
         f"launches {dp['aug_launches']}, nt_xent_fwd and nt_xent_bwd "
         f"{dp['ntx_launches']} each; fleet: fused_normalize launches "
@@ -5301,7 +5810,10 @@ def main() -> int:
                                    "trained_multiscale_launches",
                                    "qat_launches", "multiscale_train_launches",
                                    "patch_train_launches", "dp_launches",
-                                   "fleet_launches")
+                                   "fleet_launches", "tiff_launches",
+                                   "tiff_jpeg_launches",
+                                   "tiff_multiscale_launches",
+                                   "tiff_fleet_launches")
            if key in k},
     } for name, source, replaces, k in rows]}
     log(smi)  # the card's name and power limit, as nvidia-smi prints them

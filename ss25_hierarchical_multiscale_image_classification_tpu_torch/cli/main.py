@@ -1,17 +1,22 @@
 """Command line of the port: ``--patch`` (``-p``), ``--patch_one_slide``,
-``--predict_slide`` (one slide or a directory), ``--run_evaluation``,
-``--train``, ``--train_strategy``, ``--evaluate``, ``--train_mil``,
-``--train_multiscale``, ``--qat``, ``--extract_features``, ``--quantize``
-and ``--mine_hard_negatives``.
+``--predict_slide`` (one slide or a directory, ``--overlay``),
+``--run_evaluation``, ``--train``, ``--train_strategy``, ``--evaluate``,
+``--train_mil``, ``--train_multiscale``, ``--qat``, ``--extract_features``,
+``--quantize``, ``--mine_hard_negatives``, ``--wsi_viz`` and the data
+tools ``--check_structure``, ``--check_good_downloaded_files``,
+``--move_files`` and ``--count_tumor_patches`` (``--slide`` is parsed, as
+in the JAX CLI).
 
 Counterpart of the JAX CLI (``cli/main.py`` of the JAX package) for these
 actions, with their flags under the same names and defaults, plus
 ``--device``. As there, one call runs every action given, in a fixed order
-(``--patch``, ``--extract_features``, ``--train``, ``--train_strategy``,
-``--evaluate``, ``--patch_one_slide``, ``--train_mil``,
-``--train_multiscale``, ``--qat``, ``--quantize``,
-``--mine_hard_negatives``, ``--predict_slide``, ``--run_evaluation``),
-and stops with exit code 1 at a stage whose inputs are missing;
+(``--move_files``, ``--patch``, ``--extract_features``, ``--train``,
+``--train_strategy``, ``--evaluate``, ``--count_tumor_patches``,
+``--patch_one_slide``, ``--train_mil``, ``--train_multiscale``, ``--qat``,
+``--quantize``, ``--mine_hard_negatives``, ``--predict_slide``,
+``--wsi_viz``, ``--run_evaluation``), and stops with exit code 1 at a stage
+whose inputs are missing; ``--check_good_downloaded_files`` and
+``--check_structure`` run first and alone, and return 0;
 ``--config`` reads a JSON config (nested sections as in ``config.py``),
 ``--base_dir`` stands for ``--data_dir``, ``--store`` sets the patch store
 format; an argument it does not know is logged and exits 1.
@@ -129,10 +134,17 @@ else with scales calibrated lazily on the run's first batches.
     python -m ss25_hierarchical_multiscale_image_classification_tpu_torch.cli.main \\
         --predict_slide slide.wsi.npz --multiscale --levels 2,3 --ms_components
 
+Slides are ``.wsi.npz`` or tiled (Big)TIFF (``.tif``, ``.tiff``: the
+port's libtiff decoder, ``io/tiff_slide.py``). ``--overlay`` writes
+``<models_dir>/overlays/<slide file>.overlay.png`` for every slide
+predicted; it and ``--wsi_viz`` (``<models_dir>/wsi_viz/<slide>/``) need
+Pillow and matplotlib, and raise ``ImportError`` where one is missing. Only
+the actions that use it resolve ``--device``.
+
 Flags the JAX CLI ignores in a combination (``--int8`` or
 ``--simclr_features`` without their action, no action at all) are ignored
-here too. Tiled TIFF slides, ``--overlay`` and the download flags come with
-later slices. Unlike the JAX CLI, which rebuilds
+here too. The download flags are not ported (no network on the card's
+machine). Unlike the JAX CLI, which rebuilds
 the data section and so drops it, ``--config``'s ``data.stain_norm`` is
 kept. On the card the float model runs in bfloat16, on the CPU
 in float32.
@@ -153,6 +165,7 @@ from ss25_hierarchical_multiscale_image_classification_tpu_torch.config import (
     DataConfig,
 )
 from ss25_hierarchical_multiscale_image_classification_tpu_torch.data.extract import (
+    annotation_path_for,
     extract_patches,
 )
 from ss25_hierarchical_multiscale_image_classification_tpu_torch.data.manifest import (
@@ -180,6 +193,9 @@ from ss25_hierarchical_multiscale_image_classification_tpu_torch.infer.multiscal
     COMPONENT_EXPORTS,
     predict_and_export_multiscale,
     predict_slide_multiscale,
+)
+from ss25_hierarchical_multiscale_image_classification_tpu_torch.infer.overlay import (
+    render_overlay,
 )
 from ss25_hierarchical_multiscale_image_classification_tpu_torch.infer.sliding_window import (
     SLIDE_EXTENSIONS,
@@ -228,6 +244,15 @@ from ss25_hierarchical_multiscale_image_classification_tpu_torch.train.trainer i
     train_resnet_classifier,
     train_resnet_classifier_strategic,
 )
+from ss25_hierarchical_multiscale_image_classification_tpu_torch.utils.structure import (
+    check_good_files,
+    check_structure,
+    count_tumor_patches,
+    move_files_up,
+)
+from ss25_hierarchical_multiscale_image_classification_tpu_torch.visualization.wsi_viz import (
+    visualize_and_save_wsi,
+)
 
 log = get_logger("torch.cli")
 
@@ -262,6 +287,23 @@ def build_parser() -> argparse.ArgumentParser:
                         help="Sliding-window inference on one slide, or on "
                              "every slide of a directory: writes the "
                              "detection CSVs (FROC producer)")
+    parser.add_argument("--overlay", action="store_true",
+                        help="With --predict_slide: save the tumor heatmap "
+                             "overlay at the coarsest level (needs Pillow and "
+                             "matplotlib)")
+    parser.add_argument("--wsi_viz", type=str, default=None,
+                        help="Render annotation-mask QA figures for a slide "
+                             "path (needs Pillow and matplotlib)")
+    parser.add_argument("--check_structure", action="store_true",
+                        help="Check the data directory structure")
+    parser.add_argument("--count_tumor_patches", action="store_true",
+                        help="Per-level tumor/normal patch census")
+    parser.add_argument("--slide", type=str, default=None,
+                        help="Slide name for single-slide operations")
+    parser.add_argument("--move_files", action="store_true",
+                        help="Flatten nested tumor/ patch directories")
+    parser.add_argument("--check_good_downloaded_files", action="store_true",
+                        help="Scan patch stores for corruption")
     parser.add_argument("--multiscale", action="store_true",
                         help="With --predict_slide: classify every grid "
                              "cell from all --levels magnifications at once "
@@ -533,16 +575,31 @@ def _predict_slide(args, cfg: Config, level: int, device) -> int:
             devices = [device]
     csv_dir = os.path.join(cfg.models_dir, "model_predictions_csv")
     if os.path.isdir(args.predict_slide):
-        predict_slide_fleet(
+        grids = predict_slide_fleet(
             paths, model, csv_dir, level=level,
             group_size=_checked_group_size(args, len(devices)),
             threshold=threshold, devices=devices, **predict_kw)
-        return 0
-    _, csv_path = predict_and_export(
-        paths[0], model, csv_dir, level=level, threshold=threshold,
-        device=devices[0], devices=devices, **predict_kw)
-    log.info("Detections written: %s", csv_path)
+    else:
+        prob_grid, csv_path = predict_and_export(
+            paths[0], model, csv_dir, level=level, threshold=threshold,
+            device=devices[0], devices=devices, **predict_kw)
+        log.info("Detections written: %s", csv_path)
+        grids = {paths[0]: prob_grid}
+    if args.overlay:
+        _save_overlays(args, cfg, grids, level)
     return 0
+
+
+def _save_overlays(args, cfg: Config, grids: dict, level: int) -> None:
+    """``--overlay``: each slide's heatmap over its coarsest level, saved
+    as ``<models_dir>/overlays/<slide file>.overlay.png``, shifted to the
+    windows' centres for ``--stride``."""
+    for path, prob_grid in grids.items():
+        out = os.path.join(cfg.models_dir, "overlays",
+                           os.path.basename(path) + ".overlay.png")
+        render_overlay(path, prob_grid, save_path=out, predict_level=level,
+                       stride=args.stride)
+        log.info("Overlay saved: %s", out)
 
 
 def _predict_slide_multiscale(args, cfg: Config, device, paths) -> int:
@@ -574,11 +631,13 @@ def _predict_slide_multiscale(args, cfg: Config, device, paths) -> int:
     ms_kw.update(levels=levels, calibration=calibration,
                  combine=args.ms_combine, int8=args.int8)
     if not os.path.isdir(args.predict_slide):
-        _, csv_path = predict_and_export_multiscale(
+        prob_grid, csv_path = predict_and_export_multiscale(
             paths[0], model, csv_dir, threshold=threshold,
             export_components=args.ms_components, device=devices[0],
             devices=devices, **ms_kw)
         log.info("Detections written: %s", csv_path)
+        if args.overlay:
+            _save_overlays(args, cfg, {paths[0]: prob_grid}, max(levels))
         return 0
 
     def ms_predict(path, models, *, devices, **kw):
@@ -597,10 +656,12 @@ def _predict_slide_multiscale(args, cfg: Config, device, paths) -> int:
             return margins, grid
         return out
 
-    predict_slide_fleet(paths, model, csv_dir,
-                        group_size=_checked_group_size(args, len(devices)),
-                        threshold=threshold, devices=devices,
-                        predict_fn=ms_predict, **ms_kw)
+    grids = predict_slide_fleet(
+        paths, model, csv_dir,
+        group_size=_checked_group_size(args, len(devices)),
+        threshold=threshold, devices=devices, predict_fn=ms_predict, **ms_kw)
+    if args.overlay:
+        _save_overlays(args, cfg, grids, max(levels))
     return 0
 
 
@@ -643,12 +704,23 @@ def _training_inputs(cfg: Config, level: int) -> bool:
     return True
 
 
+#: The actions that run on ``--device``; the tools (``--check_structure``,
+#: ``--check_good_downloaded_files``, ``--move_files``,
+#: ``--count_tumor_patches``, ``--wsi_viz``) and ``--run_evaluation`` run on
+#: the host alone, as in the JAX CLI.
+_DEVICE_ACTIONS = ("patch", "patch_one_slide", "extract_features", "train",
+                   "train_strategy", "evaluate", "train_mil",
+                   "train_multiscale", "qat", "quantize", "mine_hard_negatives",
+                   "predict_slide")
+
 #: The actions without a data-parallel path, which ``torchrun`` refuses
 #: (``--train``, ``--train_strategy`` and ``--evaluate`` have one).
 _SINGLE_PROCESS_ACTIONS = ("patch", "patch_one_slide", "extract_features",
                            "train_mil", "train_multiscale", "qat", "quantize",
                            "mine_hard_negatives", "predict_slide",
-                           "run_evaluation")
+                           "run_evaluation", "wsi_viz", "check_structure",
+                           "check_good_downloaded_files", "move_files",
+                           "count_tumor_patches")
 
 
 def _group_actions_only(args) -> bool:
@@ -674,7 +746,18 @@ def main(argv=None) -> int:
     level = 3 if args.patch_level == "all" else int(args.patch_level)
     if "WORLD_SIZE" in os.environ and (args.train or args.train_strategy):
         return _main_in_group(args, cfg, level)
-    device = resolve_device(args.device)
+    if args.check_good_downloaded_files:
+        log.info("Checking downloaded files for corruption...")
+        check_good_files(cfg.data.patches_dir)
+        return 0
+    if args.check_structure:
+        check_structure(cfg.data)
+        return 0
+    device = (resolve_device(args.device)
+              if any(getattr(args, a) not in (None, False)
+                     for a in _DEVICE_ACTIONS) else None)
+    if args.move_files:
+        move_files_up(cfg.data.patch_level_dir(3))
 
     stain_norm = args.stain_norm or cfg.data.stain_norm
     streamed_train = False
@@ -723,6 +806,8 @@ def main(argv=None) -> int:
                                           epochs=args.epochs, device=device)
     if args.evaluate:
         evaluate_resnet_classifier(cfg, level=level, device=device)
+    if args.count_tumor_patches:
+        count_tumor_patches(cfg.data.patches_dir)
     if args.patch_one_slide:
         extract_patches(cfg.data, level=level,
                         slide_filter=[args.patch_one_slide], device=device)
@@ -752,6 +837,11 @@ def main(argv=None) -> int:
         rc = _predict_slide(args, cfg, level, device)
         if rc:
             return rc
+    if args.wsi_viz:
+        name = slide_name(os.path.basename(args.wsi_viz))
+        visualize_and_save_wsi(args.wsi_viz, annotation_path_for(cfg.data, name),
+                               os.path.join(cfg.models_dir, "wsi_viz", name),
+                               level=level)
     if args.run_evaluation:
         return _run_evaluation(cfg)
     return 0

@@ -8,7 +8,9 @@ mean RGB is at most 240, the grid is walked in the reference's x-major
 order, and a slide already in the level's manifest is skipped.
 
 The host route streams bounded column bands: each band's patches are cut
-from the level plane (or read with ``read_region``), the labels come from
+from the level plane of a ``.wsi.npz``, decoded by one threaded native call
+from a TIFF (``TiffSlide.read_regions``), or read with ``read_region``
+from another slide; the labels come from
 the annotation rasterized in full-width y-slabs one patch row tall
 (``grid/rasterize.py::polygons_to_mask_band``, the port's numpy fill) and
 any-pooled per window. ``impl="device"`` runs ``data/streamed.py`` on
@@ -129,8 +131,9 @@ def _fetch_band(
     slide: Slide, grid: PatchGrid, coords: np.ndarray, num_threads: int
 ) -> np.ndarray:
     """One band of patches, white-padded to full size: sliced from the
-    level plane where the slide holds it, else read with ``read_region``
-    on ``num_threads`` threads."""
+    level plane where the slide holds it, else decoded in one threaded
+    native call where the slide has ``read_regions`` (a TIFF), else read
+    with ``read_region`` on ``num_threads`` threads."""
     ps = grid.patch_size
     if len(coords) == 0:
         return np.zeros((0, ps, ps, 3), np.uint8)
@@ -143,6 +146,11 @@ def _fetch_band(
             w, h = grid.valid_patch_extent(int(x), int(y))
             out[i, :h, :w] = arr[y : y + h, x : x + w]
         return out
+
+    read_regions = getattr(slide, "read_regions", None)
+    if read_regions is not None:
+        # the native threaded batch decode; out-of-bounds pixels come back white
+        return read_regions(coords, grid.level, (ps, ps), num_threads=num_threads)
 
     def fetch(idx: int) -> np.ndarray:
         x, y = int(coords[idx, 0]), int(coords[idx, 1])

@@ -10,19 +10,19 @@ decoding. The PNG store (``--store png``) writes one file per patch with
 Pillow, which the card's machine lacks: there the writer raises at once
 (:func:`require_pillow`).
 
+Packed rows are gathered as the JAX package gathers them, by the native
+OpenMP ``gather_rows`` of ``io/native_lib.py`` (one call a pack file), and
+with ``s2d=True`` and no resize by its ``gather_rows_s2d``, which writes the
+int8 stem's space-to-depth layout during the gather.
+
 Differences from the JAX module, none in the bytes read:
 
-- the packed gather is numpy fancy indexing (the JAX package calls its
-  native OpenMP ``gather_rows``, which copies the same rows);
 - PNG records (Pillow) import their library when they are read, and
   raise where it is missing;
 - a downscale by an integer factor f ∈ {2, 3, 4, 8} (both sides of the
   stored patch f × the edge) is a numpy box mean, equal bit for bit to cv2's
   ``INTER_AREA`` (:func:`area_downscale`); any other resize imports cv2
-  when it is read, and raises where cv2 is missing;
-- the int8 path's space-to-depth layout (``s2d=True``) is a numpy
-  reshape/transpose of the gathered batch (the JAX package's native
-  ``gather_rows_s2d`` writes the same bytes during the gather).
+  when it is read, and raises where cv2 is missing.
 """
 
 from __future__ import annotations
@@ -36,6 +36,11 @@ from ss25_hierarchical_multiscale_image_classification_tpu_torch.data.manifest i
     LABEL_NAMES,
     PatchManifest,
     PatchRecord,
+)
+from ss25_hierarchical_multiscale_image_classification_tpu_torch.io.native_lib import (
+    gather_rows,
+    gather_rows_s2d,
+    space_to_depth_u8,
 )
 
 
@@ -164,19 +169,24 @@ class PatchReader:
         self, indices: Sequence[int], resize_to: int | None = None,
         s2d: bool = False,
     ) -> np.ndarray:
-        """(B, H, W, 3) uint8 batch of ``indices``; packed rows that come
-        from one pack file are gathered with one fancy-indexing copy.
-        ``s2d=True`` gives the stem's space-to-depth layout (B, H/2, W/2, 12)
-        instead, which feeds the int8 forward with no transpose on the
-        device."""
+        """(B, H, W, 3) uint8 batch of ``indices``; the packed rows of each
+        pack file come in one native gather. ``s2d=True`` gives the stem's
+        space-to-depth layout (B, H/2, W/2, 12) instead, which feeds the
+        int8 forward with no transpose on the device; the gather writes it
+        directly where every row has one size and no resize follows."""
         indices = [int(i) for i in indices]
         recs = [self.manifest[i] for i in indices]
         if recs and all(r.store == "packed" for r in recs):
             by_path: dict[str, list[int]] = {}
             for pos, r in enumerate(recs):
                 by_path.setdefault(r.path, []).append(pos)
-            parts = [(positions, np.asarray(self._mmap(path)[
-                np.array([recs[p].row for p in positions], np.int64)]))
+            stores = {path: self._mmap(path) for path in by_path}
+            shapes = {mm.shape[1:] for mm in stores.values()}
+            direct = s2d and len(shapes) == 1 and resize_to in (
+                None, next(iter(shapes))[0])
+            gather = gather_rows_s2d if direct else gather_rows
+            parts = [(positions, gather(stores[path], np.array(
+                [recs[p].row for p in positions], np.int64)))
                 for path, positions in by_path.items()]
             if len(parts) == 1:
                 imgs = parts[0][1]  # already the batch, in order: one copy
@@ -189,6 +199,8 @@ class PatchReader:
                 for positions, gathered in parts:
                     for j, p in enumerate(positions):
                         imgs[p] = gathered[j]
+            if direct:
+                return imgs
         else:
             imgs = [self.read(i) for i in indices]
         if resize_to is not None and isinstance(imgs, np.ndarray):
@@ -198,16 +210,6 @@ class PatchReader:
             imgs = [_resize(img, resize_to) for img in imgs]
         batch = imgs if isinstance(imgs, np.ndarray) else np.stack(imgs)
         return space_to_depth_u8(batch) if s2d else batch
-
-
-def space_to_depth_u8(batch: np.ndarray) -> np.ndarray:
-    """(B, H, W, 3) → (B, H/2, W/2, 12) with slot ``(r·2 + rx)·3 + c`` holding
-    pixel (2Y + r, 2X + rx, c): the stem's space-to-depth layout."""
-    b, h, w, c = batch.shape
-    if h % 2 or w % 2:
-        raise ValueError(f"space-to-depth needs even H and W, got {h}×{w}")
-    cells = batch.reshape(b, h // 2, 2, w // 2, 2, c).transpose(0, 1, 3, 2, 4, 5)
-    return np.ascontiguousarray(cells).reshape(b, h // 2, w // 2, 4 * c)
 
 
 #: integer downscale factors that :func:`area_downscale` takes without cv2

@@ -1,10 +1,11 @@
 """Slide readers: the pyramidal WSI abstraction.
 
-Copy of the part of the JAX package's ``io/slide.py`` that this slice uses,
-held to the original by exact-equality tests: the :class:`Slide` protocol,
-the in-memory :class:`ArraySlide` and the ``.wsi.npz`` :class:`NpzSlide`.
-Tiled BigTIFF slides (the JAX package's native decoder) come with a later
-slice.
+Copy of the JAX package's ``io/slide.py``, held to the original by
+exact-equality tests: the :class:`Slide` protocol, the in-memory
+:class:`ArraySlide`, the ``.wsi.npz`` :class:`NpzSlide`, and
+:func:`open_slide`, which opens ``.tif``/``.tiff`` slides (CAMELYON16's
+tiled BigTIFFs) as ``io/tiff_slide.py::TiffSlide`` on the port's native
+decoder.
 
 Coordinates follow OpenSlide: ``read_region(location, level, size)`` takes
 ``location`` in level-0 pixels and ``size`` in level pixels, and returns an
@@ -112,12 +113,13 @@ def save_npz_slide(
 
 
 def open_slide(path: str) -> Slide:
-    """Open a slide container by extension (``.npz`` in this slice)."""
+    """Open any supported slide container by extension."""
     if path.endswith(".npz"):
         return NpzSlide(path)
     if path.endswith((".tif", ".tiff")):
-        raise NotImplementedError(
-            f"{path}: tiled TIFF slides are not ported yet; convert the slide "
-            "to .wsi.npz"
+        from ss25_hierarchical_multiscale_image_classification_tpu_torch.io.tiff_slide import (
+            TiffSlide,
         )
+
+        return TiffSlide(path)
     raise ValueError(f"Unsupported slide container: {path}")

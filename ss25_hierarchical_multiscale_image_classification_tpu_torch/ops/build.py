@@ -18,14 +18,29 @@ accurate ones, and the stem kernels' float32 adds stay IEEE adds. The int8
 kernels write their float32 epilogue with the explicitly rounded intrinsics
 (``__fmul_rn``, ``__fadd_rn``, ``__fdiv_rn``), which nvcc never contracts
 into an FMA.
+
+Beside them, :func:`host_library` builds the two host libraries of
+``io/native/`` with the system's C++ compiler (the first of ``$CXX``,
+``c++`` and ``g++`` that builds OpenMP code):
+``libhipac_chunk_<hash>.so`` (the OpenMP chunk processor, nothing else) and
+``libhipac_tiff_<hash>.so`` (the tiled TIFF reader and writer, on
+libtiff). Where the compiler finds ``<tiffio.h>`` the TIFF library links
+``-ltiff``; where it does not, it compiles against ``io/native/tiff_abi.h``
+and links the libtiff that the loader knows (``libtiff.so.N``), else the
+copy that Pillow's wheel carries. Each is built at first use, by one
+process at a time (an ``fcntl`` lock), into a private file renamed into
+place; a failed build raises with the compiler's output.
 """
 
 from __future__ import annotations
 
 import contextlib
 import ctypes
+import ctypes.util
+import fcntl
 import functools
 import hashlib
+import importlib.util
 import os
 import shutil
 import subprocess
@@ -190,6 +205,140 @@ def build() -> list[Path]:
     if failed:
         raise RuntimeError("\n".join(failed))
     return [library_path(source) for source in SOURCES]
+
+
+NATIVE_DIR = Path(__file__).resolve().parent.parent / "io" / "native"
+HOST_FLAGS = ("-O3", "-march=native", "-fPIC", "-std=c++17", "-fopenmp",
+              "-shared")
+#: host library → its sources under ``io/native/``
+HOST_SOURCES = {"chunk": ("chunkproc.cpp",), "tiff": ("tile_decoder.cpp",)}
+
+
+_OPENMP_PROBE = ("#include <omp.h>\n"
+                 "int main() { return omp_get_max_threads() > 0 ? 0 : 1; }\n")
+
+
+@functools.cache
+def find_cxx() -> str:
+    """The first of ``$CXX``, ``c++`` and ``g++`` on PATH that compiles and
+    links OpenMP code (a compiler may lack OpenMP's support files)."""
+    candidates = dict.fromkeys(filter(None, (
+        os.environ.get("CXX"), shutil.which("c++"), shutil.which("g++"))))
+    refused = []
+    for cxx in candidates:
+        try:
+            proc = subprocess.run([cxx, "-fopenmp", "-x", "c++", "-o",
+                                   os.devnull, "-"], input=_OPENMP_PROBE,
+                                  capture_output=True, text=True, timeout=60)
+        except OSError as e:
+            refused.append(f"{cxx}: {e}")
+            continue
+        if proc.returncode == 0:
+            return cxx
+        refused.append(f"{cxx}: {proc.stderr.strip()}")
+    raise RuntimeError(
+        "no C++ compiler with OpenMP ($CXX, c++ or g++ on PATH); the host "
+        "libraries of io/native cannot be built: "
+        + ("; ".join(refused) or "none found"))
+
+
+def _has_tiff_headers(cxx: str) -> bool:
+    proc = subprocess.run([cxx, "-x", "c++", "-E", "-o", os.devnull, "-"],
+                          input="#include <tiffio.h>\n", capture_output=True,
+                          text=True, timeout=60)
+    return proc.returncode == 0
+
+
+def _pillow_libtiff() -> Path | None:
+    """The libtiff that Pillow's wheel carries (``pillow.libs/``), found
+    without importing Pillow."""
+    spec = importlib.util.find_spec("PIL")
+    if spec is None or spec.origin is None:
+        return None
+    found = sorted((Path(spec.origin).parent.parent / "pillow.libs").glob(
+        "libtiff-*.so*"))
+    return found[0] if found else None
+
+
+@functools.cache
+def libtiff_route() -> tuple[str, tuple[str, ...]]:
+    """How the TIFF library compiles and links: ``("headers", (-ltiff))``
+    where ``<tiffio.h>`` is found, else ``("abi", flags)`` against
+    ``tiff_abi.h`` and the libtiff the loader knows, else Pillow's copy
+    (its directory put in the library's search path, as ``DT_RPATH`` so
+    that the libjpeg beside it is found too). Raises where there is none."""
+    cxx = find_cxx()
+    if _has_tiff_headers(cxx):
+        return "headers", ("-ltiff",)
+    abi = ("-DHIPAC_TIFF_ABI", f"-I{NATIVE_DIR}")
+    name = ctypes.util.find_library("tiff")
+    if name:
+        return "abi", (*abi, f"-l:{name}")
+    bundled = _pillow_libtiff()
+    if bundled is not None:
+        return "abi", (*abi, str(bundled), "-Wl,--disable-new-dtags",
+                       f"-Wl,-rpath,{bundled.parent}")
+    raise RuntimeError(
+        "libtiff not found: no <tiffio.h> for the compiler, no libtiff.so.N "
+        "known to the loader and no Pillow wheel carrying one; tiled TIFF "
+        "slides cannot be read here (convert them to .wsi.npz)")
+
+
+def _host_command(name: str) -> list[str]:
+    cxx = find_cxx()
+    link = libtiff_route()[1] if name == "tiff" else ()
+    sources = [str(NATIVE_DIR / s) for s in HOST_SOURCES[name]]
+    compile_flags = [f for f in link if f.startswith(("-D", "-I"))]
+    link_flags = [f for f in link if f not in compile_flags]
+    return [cxx, *HOST_FLAGS, *compile_flags, *sources, *link_flags]
+
+
+@functools.cache
+def _native_target() -> bytes:
+    """What ``-march=native`` means to the compiler on this machine (the
+    target options it resolves to), so that a library built on one CPU is
+    never loaded on another."""
+    proc = subprocess.run([find_cxx(), "-march=native", "-Q", "--help=target"],
+                          capture_output=True, text=True, timeout=60)
+    return proc.stdout.encode()
+
+
+def host_library_path(name: str) -> Path:
+    """Where host library ``name`` (``"chunk"`` or ``"tiff"``) lives, keyed
+    by its sources, the headers beside them, the command that builds it and
+    the CPU it builds for."""
+    h = hashlib.sha256(" ".join(_host_command(name)).encode())
+    h.update(_native_target())
+    for path in sorted(NATIVE_DIR.glob("*.h")) + [
+            NATIVE_DIR / s for s in HOST_SOURCES[name]]:
+        h.update(path.read_bytes())
+    return BUILD_DIR / f"libhipac_{name}_{h.hexdigest()[:16]}.so"
+
+
+def host_library(name: str) -> Path:
+    """Host library ``name``, compiled first if it is not there yet: one
+    process at a time, under an ``fcntl`` lock on the build directory, into
+    a private file that is renamed into place. Raises with the compiler's
+    output if the build fails."""
+    so = host_library_path(name)
+    if so.exists():
+        return so
+    BUILD_DIR.mkdir(parents=True, exist_ok=True)
+    with open(BUILD_DIR / "host.lock", "w") as lock:
+        fcntl.flock(lock, fcntl.LOCK_EX)
+        if so.exists():  # another process built it while this one waited
+            return so
+        tmp = so.with_name(f"{so.name}.{os.getpid()}.tmp")
+        cmd = _host_command(name)
+        proc = subprocess.run([*cmd, "-o", str(tmp)], capture_output=True,
+                              text=True, timeout=600)
+        if proc.returncode != 0:
+            tmp.unlink(missing_ok=True)
+            raise RuntimeError(f"host build of {name} failed "
+                               f"({proc.returncode}): {' '.join(cmd)}\n"
+                               f"{proc.stderr}{proc.stdout}")
+        os.replace(tmp, so)
+    return so
 
 
 _LOCK = threading.Lock()

@@ -156,14 +156,24 @@ def test_synthetic_case_is_read_by_the_jax_package(tmp_path):
     assert len(parsed) == len(polys)
     for got, want in zip(parsed, polys):
         np.testing.assert_allclose(got, want, atol=5e-5)
-    # a normal slide writes no XML; TIFF is a later slice
+    # a normal slide writes no XML
     synthetic.write_synthetic_case(str(tmp_path), "normal_009",
                                    synthetic.normal_spec(width=64, height=48))
     assert not os.path.exists(os.path.join(str(tmp_path), "annotations",
                                            "normal_009.xml"))
-    with pytest.raises(NotImplementedError, match="item 10"):
-        synthetic.write_synthetic_case(str(tmp_path), "t", spec,
-                                       container="tiff")
+    # the tiled BigTIFF container: the JAX package decodes the same pyramid
+    tif = synthetic.write_synthetic_case(str(tmp_path / "tif"), "t", spec,
+                                         container="tiff")
+    assert tif == os.path.join(str(tmp_path / "tif"), "train", "img", "t.tif")
+    tslide = jopen(tif)
+    levels = synthetic.build_pyramid(level0, spec.num_levels)
+    assert tslide.level_count == spec.num_levels
+    for lv, want in enumerate(levels):
+        np.testing.assert_array_equal(
+            tslide.read_region((0, 0), lv, tslide.level_dimensions[lv]), want)
+    tslide.close()
+    assert len(jann.parse_annotation_xml(os.path.join(
+        str(tmp_path / "tif"), "annotations", "t.xml"))) == len(polys)
     with pytest.raises(ValueError):
         synthetic.write_synthetic_case(str(tmp_path), "t", spec,
                                        container="zarr")

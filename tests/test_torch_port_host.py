@@ -26,6 +26,9 @@ from ss25_hierarchical_multiscale_image_classification_tpu_torch.grid import (
 )
 from ss25_hierarchical_multiscale_image_classification_tpu_torch.io import slide as pslide
 from ss25_hierarchical_multiscale_image_classification_tpu_torch.io import (
+    tiff_slide as ptiff,
+)
+from ss25_hierarchical_multiscale_image_classification_tpu_torch.io import (
     synthetic as psynthetic,
 )
 from ss25_hierarchical_multiscale_image_classification_tpu_torch.logging_utils import (
@@ -121,8 +124,24 @@ def test_npz_slide_reads_equal_jax(tmp_path):
                              ((250, 120), 2, (30, 30)), ((4000, 0), 0, (8, 8))]:
         np.testing.assert_array_equal(p.read_region(loc, level, size),
                                       j.read_region(loc, level, size))
-    with pytest.raises(NotImplementedError):
-        pslide.open_slide("x.tif")
+    # a tiled TIFF of the same pyramid opens through both packages' readers
+    tif = str(tmp_path / "x.tif")
+    ptiff.write_pyramidal_tiff(tif, levels, tile_size=64)
+    pt, jt = pslide.open_slide(tif), jslide.open_slide(tif)
+    assert isinstance(pt, pslide.Slide)
+    assert pt.level_dimensions == jt.level_dimensions == p.level_dimensions
+    assert pt.level_downsamples == jt.level_downsamples
+    assert pt.properties == jt.properties
+    for loc, level, size in [((0, 0), 0, (328, 200)), ((40, 24), 1, (60, 70)),
+                             ((-16, -8), 1, (50, 40)), ((300, 180), 0, (64, 64)),
+                             ((250, 120), 2, (30, 30)), ((4000, 0), 0, (8, 8))]:
+        got = pt.read_region(loc, level, size)
+        np.testing.assert_array_equal(got, jt.read_region(loc, level, size))
+        np.testing.assert_array_equal(got, p.read_region(loc, level, size))
+    pt.close()
+    jt.close()
+    with pytest.raises(IOError):
+        pslide.open_slide(str(tmp_path / "missing.tif"))
     with pytest.raises(ValueError):
         pslide.open_slide("x.png")
 

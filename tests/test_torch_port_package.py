@@ -36,7 +36,9 @@ new = (".data.prefetch", ".models.quantized", ".ops.fused_stem", ".infer.feature
        ".evaluation.calibration", ".io.annotations", ".data.streamed",
        ".data.stain", ".data.extract", ".train.streaming",
        ".train.hard_negatives", ".parallel", ".parallel.mesh",
-       ".parallel.feed", ".parallel.collectives", ".infer.fleet")
+       ".parallel.feed", ".parallel.collectives", ".infer.fleet",
+       ".io.native_lib", ".io.tiff_slide", ".infer.overlay", ".visualization",
+       ".visualization.wsi_viz", ".utils", ".utils.structure")
 assert set(pkg.__name__ + m for m in new) <= set(names)
 print(len(names), bad)
 """
@@ -63,8 +65,9 @@ def _import_all(jax_platforms):
     # 44 with models.quant_artifact, ops.int8_conv, ops.int8_block and
     # ops.int8_pool of the int8 slice, 53 with the trainer's and FROC's nine,
     # 57 with the multiscale slice's four, 65 with extraction's six, 70 with
-    # the parallel package's four and the fleet
-    assert int(count) >= 70
+    # the parallel package's four and the fleet, 77 with the TIFF slice's
+    # seven
+    assert int(count) >= 77
     assert bad == "[]"
 
 
@@ -85,8 +88,9 @@ def test_port_sources_are_not_gitignored():
     for root, dirs, names in os.walk(os.path.join(REPO, PKG)):
         dirs[:] = [d for d in dirs if d not in ("__pycache__", "_build")]
         files += [os.path.relpath(os.path.join(root, n), REPO) for n in names
-                  if n.endswith((".py", ".cu", ".cuh"))]
+                  if n.endswith((".py", ".cu", ".cuh", ".cpp", ".h"))]
     assert any(f.endswith(".cu") for f in files)
+    assert any(f.endswith("tile_decoder.cpp") for f in files)
     proc = subprocess.run(["git", "check-ignore", "--no-index", *files],
                           cwd=REPO, capture_output=True, text=True)
     assert proc.stdout == "", f"ignored: {proc.stdout}"
