@@ -214,7 +214,26 @@ version on the card. Phases:
    ``main`` over the smoke slide and a second seeded slide: CSVs byte-equal
    to the slides run one after another, the same 2a launches; (e)
    ``predict_slide_fleet`` with two groups sharing the card (two threads,
-   a stream each): grids and CSVs equal; walls of each;
+   a stream each): grids and CSVs equal; walls of each; (h) (run after
+   phase 15) the data-parallel paths of multiscale training, QAT, the
+   streamed trainer and feature extraction at full width, through their
+   entry points: ``train_multiscale_classifier`` for an epoch of phase
+   12's cells at 448² + 224² (3 steps, calibration on rank 0) and two
+   bare steps on one global batch of 512 (Adam's state), ``qat_finetune``
+   for one epoch of the level-3 store, the streamed epoch on a fresh copy
+   of phase 13's root (rank 0 extracts; 4 global batches of the smoke
+   slide) and ``run_feature_extraction`` over the 1,752 cells (default
+   stem, ``stem_s2d``, int8 calibrated lazily), in one process, over a
+   world-1 NCCL group and in 2 spawned gloo ranks on the card: against one
+   process, the bf16 losses a step within 5e-4, BN running statistics
+   within 2e-2 of max|value|, weights within Adam's 2·lr a step, QAT's
+   float32 loss within 1e-5, int8 features bit-equal, bf16 features within
+   1e-3; parameters, BN statistics, Adam state, the calibration, QAT trees
+   and features bit-identical over the ranks, rank 0's multiscale artifact
+   equal to its state; ``--extract_features --int8`` through the CLI's
+   ``main`` as the world-1 NCCL group's rank, its triplet bit-equal to one
+   process's; each kernel's launches a rank on each path counted and
+   printed;
 15. TIFF slides (run before phase 8): (a) the libtiff version and build
    route, the host builds' walls; (b) the smoke slide's rendered pyramid
    written by ``write_pyramidal_tiff`` (what ``write_synthetic_case(
@@ -239,8 +258,11 @@ version on the card. Phases:
    ``write_synthetic_case(container="tiff")``): CSVs byte-equal to phase
    14's, the
    same 2a launches, walls beside phase 14's, two groups sharing the card
-   with the tile cache's counters; (last in the run) one TIFF run's idle
-   share under the profiler;
+   with the tile cache's counters; (h) ``--predict_slide <deflate tif>
+   --overlay`` through the CLI's ``main`` with Pillow alone: exit 0 and the
+   PNG equal to the slide's coarsest level blended with the rainbow table
+   of the grid; (last in the run) one TIFF run's idle share under the
+   profiler;
 8. feature extraction: the packed store of the slide's 1,752 tissue cells,
    the slice's ResNet18 saved as ``resnet18_patch_classifier.pt``,
    ``extract_features(cfg, level=3, dataset=ds, device="cuda")`` at batch 512
@@ -249,7 +271,16 @@ version on the card. Phases:
    (``fused_stem`` 4); the triplet on disk, the two routes against each
    other, sampled cells against the float32 CPU ``folded_forward`` and the
    unfolded model; warm patches/s of both routes, the loop's device idle
-   share and peak device memory.
+   share and peak device memory;
+16. legacy models and tools (last): ResNet50 (4×224²), UNetClassifier
+   (2×128²) and CNNEncoder (4×224²) from seeds, float32 on the card (TF32
+   off) against the CPU within 1e-4 of max|out|; ``GenericClassifierTrainer``
+   fitting a UNetClassifier on the card, its ``torch.export`` program saved,
+   reloaded and within 1e-6 of the module; through the CLI's ``main``:
+   ``--prepare`` on a zip of 50 XMLs written here, ``--validation`` (one
+   split line), ``--extract_features --profile`` (the Chrome trace names the
+   ``bias_relu_pool`` kernel) and ``--validate`` (exit 0 with scikit-learn,
+   else the ``ImportError`` naming it).
 
 It imports nothing of JAX or of the JAX package. Run it from the root of a
 checkout:
@@ -4994,6 +5025,554 @@ def phase_dp(dev, ds, smi, tmp) -> dict:
     return out
 
 
+# ---------------------------------------------------------------------------
+# phase 14 (h): the data-parallel paths of multiscale training, QAT, the
+# streamed trainer and feature extraction
+# ---------------------------------------------------------------------------
+
+H_QAT_CALIB = 2  # QAT's calibration batches (of 128)
+H_MS_STEPS = 2  # multiscale steps on one global batch
+# the streamed run's split seed: the smoke slide trains (4 global batches of
+# its tissue cells at stride 28) and normal_001 is held out; at the default
+# seed normal_001's 114 cells train, less than one global batch
+H_STREAM_SPLIT_SEED = 1
+# against one process. The bf16 steps (multiscale, streamed) differ by the
+# summation order of another batch split; each bound is 7-9x the largest
+# reading on an NVIDIA H100 80GB HBM3, 700.00 W: the losses a step 7.4e-5
+# (multiscale) and 6.8e-5 (streamed), the BN running statistics 2.3e-3 of
+# a tensor's max|value|
+H_MS_LOSS_ATOL = 5e-4
+H_STREAM_LOSS_ATOL = 5e-4
+H_BN_RTOL = 2e-2
+# QAT runs float32 (TF32 off): one process, world-1 NCCL and two ranks differ
+# only in the summation order of the loss, the gradients and the
+# convolutions of another batch size
+H_QAT_LOSS_RTOL = 1e-5
+H_FEAT_BF16_ATOL = 1e-3  # bf16 features (measured 0 on both stem routes)
+
+
+def launch_counts() -> dict:
+    """The launch counts of the six kernels the group paths run."""
+    from ss25_hierarchical_multiscale_image_classification_tpu_torch.ops.augment import (
+        augment_batch_kernel,
+    )
+    from ss25_hierarchical_multiscale_image_classification_tpu_torch.ops.fused_stem import (
+        bias_relu_pool_kernel,
+        fused_stem_kernel,
+    )
+
+    stage1, conv, pool = int8_launchers()
+    return {"augment": augment_batch_kernel.launches,
+            "bias_relu_pool": bias_relu_pool_kernel.launches,
+            "fused_stem": fused_stem_kernel.launches,
+            "fused_stage1_int8": stage1.launches,
+            "int8_conv_requant": conv.launches,
+            "int8_maxpool": pool.launches}
+
+
+def _counted(fn, dev):
+    """``fn()``'s result and the launches it made (counts zeroed just
+    before, read just after), the device synchronized around it."""
+    sync(dev)
+    reset_counts()
+    out = fn()
+    sync(dev)
+    return out, launch_counts()
+
+
+def h_paths(dev, group, inp: dict) -> dict:
+    """One rank of phase 14 (h), or the single process (``group`` None):
+    ``train_multiscale_classifier`` for one epoch of phase 12's 448² + 224²
+    cells (and, for Adam's state, two steps of its train step on one global
+    batch of 512), ``qat_finetune`` for one epoch of the level-3 store, the
+    streamed trainer's epoch on a fresh copy of phase 13's root (rank 0
+    extracts) and ``run_feature_extraction`` over the 1,752 cells on both
+    stem routes and int8 with lazy calibration; the launches of each."""
+    import numpy as np
+    import torch
+
+    from ss25_hierarchical_multiscale_image_classification_tpu_torch.config import (
+        Config,
+        DataConfig,
+    )
+    from ss25_hierarchical_multiscale_image_classification_tpu_torch.data.datasets import (
+        PatchDataset,
+    )
+    from ss25_hierarchical_multiscale_image_classification_tpu_torch.data.manifest import (
+        PatchManifest,
+        load_or_scan_manifest,
+    )
+    from ss25_hierarchical_multiscale_image_classification_tpu_torch.data.multiscale import (
+        MultiscaleDataset,
+    )
+    from ss25_hierarchical_multiscale_image_classification_tpu_torch.infer.features import (
+        run_feature_extraction,
+    )
+    from ss25_hierarchical_multiscale_image_classification_tpu_torch.models.hierarchical import (
+        HierarchicalPatchClassifier,
+    )
+    from ss25_hierarchical_multiscale_image_classification_tpu_torch.models.resnet import (
+        set_process_group,
+    )
+    from ss25_hierarchical_multiscale_image_classification_tpu_torch.parallel.feed import (
+        process_batch_slice,
+        to_device,
+    )
+    from ss25_hierarchical_multiscale_image_classification_tpu_torch.parallel.mesh import (
+        rank_and_size,
+        replicate,
+    )
+    from ss25_hierarchical_multiscale_image_classification_tpu_torch.train.checkpoints import (
+        load_model,
+        model_artifact_path,
+    )
+    from ss25_hierarchical_multiscale_image_classification_tpu_torch.train.multiscale_trainer import (
+        make_multiscale_train_step,
+        train_multiscale_classifier,
+    )
+    from ss25_hierarchical_multiscale_image_classification_tpu_torch.train.qat import (
+        qat_finetune,
+    )
+    from ss25_hierarchical_multiscale_image_classification_tpu_torch.train.state import (
+        create_train_state,
+    )
+    from ss25_hierarchical_multiscale_image_classification_tpu_torch.train.streaming import (
+        train_resnet_classifier_streaming,
+    )
+
+    rank, world = rank_and_size(group)
+    tag = f"rank{rank}" if group is not None else "one"
+    out: dict = {}
+    t0 = time.perf_counter()
+    msds = MultiscaleDataset({lvl: PatchManifest(recs)
+                              for lvl, recs in inp["ms_records"].items()},
+                             resize_to=224, input_mode="resize")
+
+    # multiscale through its entry point: one epoch, calibration on rank 0
+    cfg = Config(models_dir=os.path.join(inp["tmp"], f"h_ms_{inp['run']}"))
+    ms, counts = _counted(lambda: train_multiscale_classifier(
+        cfg, levels=MS_LEVELS, epochs=1, dataset=msds, batch_size=BATCH,
+        init_from=None, device=dev, group=group), dev)
+    path = model_artifact_path(cfg.models_dir, "hierarchical_classifier")
+    out["ms"] = {"history": ms["history"], "launches": counts,
+                 "variables": {k: v.detach().cpu().clone()
+                               for k, v in ms["variables"].items()},
+                 "calibration": ms["calibration"],
+                 "saved": load_model(path) if rank == 0 else None,
+                 "steps": -(-len(msds.split_by_slide(
+                     cfg.data.val_fraction, cfg.data.split_seed)[0]) // BATCH),
+                 "lr": cfg.train.learning_rate}
+    del ms
+    torch.cuda.empty_cache()
+
+    # the train step alone, H_MS_STEPS times on the first 512 training
+    # cells: Adam's state, which the entry point does not return
+    rows = process_batch_slice(BATCH, rank, world)
+    imgs, labels, valid = next(msds.batches(
+        BATCH, shuffle=False, indices=inp["ms_idx"], rows=rows))
+    imgs = {lvl: to_device(x, dev) for lvl, x in imgs.items()}
+    labels = to_device(labels.astype(np.int64), dev)
+    valid = to_device(valid, dev)
+    model = HierarchicalPatchClassifier(
+        levels=MS_LEVELS, generator=torch.Generator().manual_seed(SEED))
+    set_process_group(model, group)
+    state = create_train_state(model, 1e-4, dev)
+    replicate(model, group)
+    step = make_multiscale_train_step(inp["ms_weights"], 0.5, group)
+    gen = torch.Generator(device=dev).manual_seed(SEED)
+
+    def ms_steps():
+        losses = []
+        for _ in range(H_MS_STEPS):
+            _, m = step(state, gen, imgs, labels, valid)
+            losses.append(m["loss"])
+        return [float(v) for v in losses]
+
+    losses, counts = _counted(ms_steps, dev)
+    out["ms_step"] = {"losses": losses, "launches": counts,
+                      "sd": {k: v.detach().cpu().clone()
+                             for k, v in state.model.state_dict().items()},
+                      "adam": [v.detach().cpu().clone()
+                               for s in state.optimizer.state.values()
+                               for v in s.values()
+                               if isinstance(v, torch.Tensor)]}
+    del state, model, imgs
+    torch.cuda.empty_cache()
+
+    # QAT: one epoch of the level-3 store
+    cfg = Config(data=DataConfig(data_dir=inp["data_dir"]),
+                 models_dir=os.path.join(inp["tmp"], f"h_qat_{inp['run']}"))
+    qat, counts = _counted(lambda: qat_finetune(
+        cfg, variables=inp["sd"], level=LEVEL, epochs=1, batch_size=BATCH,
+        n_calib_batches=H_QAT_CALIB, device=dev, group=group), dev)
+    out["qat"] = {"history": qat["history"], "launches": counts,
+                  "folded": qat["folded"],
+                  "ascales": {k: v.cpu() for k, v in qat["ascales"].items()},
+                  "artifact": qat["artifact_path"],
+                  "steps": -(-len(load_or_scan_manifest(cfg.data.patches_dir,
+                                                        LEVEL)) // BATCH),
+                  "lr": 1e-5}  # qat_finetune's default
+    del qat
+    torch.cuda.empty_cache()
+
+    # the streamed trainer, one epoch on a fresh copy of phase 13's root
+    root = inp["stream_root"]
+    cfg = Config(data=DataConfig(data_dir=root,
+                                 split_seed=H_STREAM_SPLIT_SEED),
+                 models_dir=os.path.join(inp["tmp"], f"h_stream_{inp['run']}"))
+    cfg.model.pretrained = False
+    st, counts = _counted(lambda: train_resnet_classifier_streaming(
+        cfg, level=LEVEL, epochs=1, stride=STRIDE, batch_size=BATCH,
+        device=dev, group=group), dev)
+    out["stream"] = {"epoch": st["streamed_epoch"], "launches": counts,
+                     "variables": st["variables"],
+                     "lr": cfg.train.learning_rate}
+    del st
+    torch.cuda.empty_cache()
+
+    # features: both stem routes in bf16, and int8 calibrated lazily
+    ds = PatchDataset(PatchManifest(inp["records"]))
+    dim = int(inp["trunk"]["layer4.1.conv2.weight"].shape[0])
+    out["features"] = {}
+    for name, kw in (("bf16", {}), ("s2d", {"stem_s2d": True}),
+                     ("int8", {"int8": True})):
+        (feats, _, names), counts = _counted(
+            lambda: run_feature_extraction(ds, inp["trunk"], batch_size=BATCH,
+                                           feature_dim=dim, device=dev,
+                                           group=group, **kw), dev)
+        out["features"][name] = {"feats": np.array(feats), "launches": counts,
+                                 "names": names}
+    torch.cuda.empty_cache()
+    out["seconds"] = time.perf_counter() - t0
+    log(f"[dp-h] {tag}: the four group paths in {out['seconds']:.1f} s")
+    return out
+
+
+def _h_rank(rank: int, world: int, port: int, inp: dict, out_dir: str
+            ) -> None:
+    """A spawned gloo rank of phase 14 (h) on ``cuda:0``."""
+    import datetime
+
+    import torch
+    import torch.distributed as dist
+
+    dev = torch.device("cuda", 0)
+    torch.cuda.set_device(dev)
+    dist.init_process_group("gloo", init_method=f"tcp://localhost:{port}",
+                            rank=rank, world_size=world,
+                            timeout=datetime.timedelta(minutes=5))
+    try:
+        res = h_paths(dev, dist.group.WORLD, inp)
+        torch.save(res, os.path.join(out_dir, f"rank{rank}.pt"))
+    finally:
+        dist.destroy_process_group()
+
+
+def _h_identical(name: str, res: list, get) -> None:
+    """Every rank's tensors of ``get(result)`` (a dict or a list) bit-equal
+    to rank 0's."""
+    import torch
+
+    first = get(res[0])
+    keys = range(len(first)) if isinstance(first, list) else first.keys()
+    for r, out in enumerate(res[1:], 1):
+        other = get(out)
+        for k in keys:
+            a, b = other[k], first[k]
+            if isinstance(a, tuple):
+                same = all(torch.equal(torch.as_tensor(x), torch.as_tensor(y))
+                           for x, y in zip(a, b))
+            else:
+                same = torch.equal(torch.as_tensor(a), torch.as_tensor(b))
+            if not same:
+                raise AssertionError(f"(h) {name}: rank {r}'s {k} differs "
+                                     "from rank 0's")
+
+
+def _is_bn_stat(key: str) -> bool:
+    return key.endswith(("running_mean", "running_var"))
+
+
+def _h_against_one(name: str, what: str, got: dict, want: dict,
+                   lr: float, steps: int) -> tuple[float, float]:
+    """A rank's weights (a state dict) against the single process's:
+    parameters within Adam's 2·lr a step, the BN running statistics within
+    ``H_BN_RTOL`` of each tensor's max|value|; the largest of each, the
+    parameters' over the bound."""
+    import torch
+
+    worst_p = worst_bn = 0.0
+    for k, w in want.items():
+        w = torch.as_tensor(w)
+        if not w.is_floating_point() or k.startswith("calibration."):
+            continue
+        d = (torch.as_tensor(got[k]).double() - w.double()).abs().max().item()
+        if _is_bn_stat(k):
+            worst_bn = max(worst_bn, d / max(w.abs().max().item(), 1e-12))
+        else:
+            worst_p = max(worst_p, d / (2 * lr * steps))
+    if worst_p > 1.0 or worst_bn > H_BN_RTOL:
+        raise AssertionError(f"(h) {name}: {what} weights {worst_p:.3g} of "
+                             f"2·lr·steps, BN statistics {worst_bn:.3g} of "
+                             f"max|value| (bound {H_BN_RTOL}) from one process")
+    return worst_p, worst_bn
+
+
+def h_check(name: str, res: list, one: dict) -> dict:
+    """Phase 14 (h)'s checks of a run (its ranks' results) against the
+    single process; the measured differences."""
+    import numpy as np
+    import torch
+
+    world = len(res)
+    worst = {}
+    # multiscale through the entry point: bf16 steps; augment twice a step
+    steps = one["ms"]["steps"]
+    worst["ms_loss"] = max(abs(o["ms"]["history"][0]["loss"]
+                               - one["ms"]["history"][0]["loss"]) / steps
+                           for o in res)
+    if worst["ms_loss"] > H_MS_LOSS_ATOL:
+        raise AssertionError(f"(h) {name}: multiscale loss {worst['ms_loss']}"
+                             " a step from one process")
+    for r, o in enumerate(res):
+        if o["ms"]["launches"]["augment"] != 2 * steps:
+            raise AssertionError(f"(h) {name}: rank {r} launched augment "
+                                 f"{o['ms']['launches']['augment']} times on "
+                                 f"the multiscale epoch ({steps} steps)")
+        if o["ms"]["calibration"] != res[0]["ms"]["calibration"]:
+            raise AssertionError(f"(h) {name}: rank {r}'s calibration differs "
+                                 "from rank 0's")
+    worst["ms_w"], worst["ms_bn"] = (
+        max(v) for v in zip(*(_h_against_one(
+            name, "multiscale", o["ms"]["variables"], one["ms"]["variables"],
+            one["ms"]["lr"], steps) for o in res)))
+    saved, mine = res[0]["ms"]["saved"], res[0]["ms"]["variables"]
+    if saved.keys() != mine.keys() or not all(
+            torch.equal(saved[k], mine[k]) for k in mine):
+        raise AssertionError(f"(h) {name}: rank 0's multiscale artifact is "
+                             "not the state it returned")
+    # the train step alone, twice on one global batch
+    worst["ms_step_loss"] = max(abs(a - b) for o in res
+                                for a, b in zip(o["ms_step"]["losses"],
+                                                one["ms_step"]["losses"]))
+    for r, o in enumerate(res):
+        if o["ms_step"]["launches"]["augment"] != 2 * H_MS_STEPS:
+            raise AssertionError(f"(h) {name}: rank {r} launched augment "
+                                 f"{o['ms_step']['launches']['augment']} "
+                                 "times on the multiscale steps")
+    if worst["ms_step_loss"] > H_MS_LOSS_ATOL:
+        raise AssertionError(f"(h) {name}: multiscale step loss "
+                             f"{worst['ms_step_loss']} from one process")
+    # QAT: float32
+    worst["qat_loss"] = max(abs(o["qat"]["history"][0]["loss"]
+                                - one["qat"]["history"][0]["loss"])
+                            / abs(one["qat"]["history"][0]["loss"])
+                            for o in res)
+    if worst["qat_loss"] > H_QAT_LOSS_RTOL:
+        raise AssertionError(f"(h) {name}: QAT loss {worst['qat_loss']:.3g} "
+                             "from one process")
+
+    def folded(o):
+        return {f"{n}.{i}": kb[i] for n, kb in o["qat"]["folded"].items()
+                for i in (0, 1)}
+
+    worst["qat_w"] = max(_h_against_one(
+        name, "QAT", folded(o), folded(one), one["qat"]["lr"],
+        one["qat"]["steps"])[0] for o in res)
+    # the streamed epoch: the same patches, bf16 steps
+    steps = -(-one["stream"]["epoch"]["patches"] // BATCH)
+    if steps < 2:
+        raise AssertionError(f"(h) {name}: the streamed epoch is {steps} "
+                             "global batch(es)")
+    for o in res:
+        if o["stream"]["epoch"]["patches"] != one["stream"]["epoch"]["patches"]:
+            raise AssertionError(f"(h) {name}: the streamed epoch saw other "
+                                 "patches")
+    worst["stream_loss"] = max(abs(o["stream"]["epoch"]["loss"]
+                                   - one["stream"]["epoch"]["loss"]) / steps
+                               for o in res)
+    if worst["stream_loss"] > H_STREAM_LOSS_ATOL:
+        raise AssertionError(f"(h) {name}: streamed loss {worst['stream_loss']}"
+                             " a step from one process")
+    for r, o in enumerate(res):
+        if o["stream"]["launches"]["augment"] != steps:
+            raise AssertionError(f"(h) {name}: rank {r} launched augment "
+                                 f"{o['stream']['launches']['augment']} times "
+                                 f"on the streamed epoch ({steps} steps)")
+    worst["stream_w"], worst["stream_bn"] = (
+        max(v) for v in zip(*(_h_against_one(
+            name, "streamed", o["stream"]["variables"],
+            one["stream"]["variables"], one["stream"]["lr"], steps)
+            for o in res)))
+    # features: int8 bit-equal to one process, bf16 within a bound
+    for r, o in enumerate(res):
+        f = o["features"]
+        if not np.array_equal(f["int8"]["feats"], one["features"]["int8"]["feats"]):
+            raise AssertionError(f"(h) {name}: rank {r}'s int8 features differ "
+                                 "from one process's")
+        for route in ("bf16", "s2d"):
+            d = float(np.abs(f[route]["feats"]
+                             - one["features"][route]["feats"]).max())
+            worst[f"{route}_feat"] = max(worst.get(f"{route}_feat", 0.0), d)
+            if d > H_FEAT_BF16_ATOL:
+                raise AssertionError(f"(h) {name}: rank {r}'s {route} features "
+                                     f"{d} from one process's")
+        if f["int8"]["names"] != one["features"]["int8"]["names"]:
+            raise AssertionError(f"(h) {name}: the feature rows' order differs")
+    # ranks bit-identical
+    _h_identical(name, res, lambda o: o["ms"]["variables"])
+    _h_identical(name, res, lambda o: o["ms_step"]["sd"])
+    _h_identical(name, res, lambda o: o["ms_step"]["adam"])
+    _h_identical(name, res, lambda o: o["qat"]["folded"])
+    _h_identical(name, res, lambda o: o["qat"]["ascales"])
+    _h_identical(name, res, lambda o: o["stream"]["variables"])
+    _h_identical(name, res, lambda o: {k: v["feats"]
+                                       for k, v in o["features"].items()})
+    launches = {path: [o[path]["launches"] for o in res]
+                for path in ("ms", "ms_step", "qat", "stream")}
+    launches.update({f"features_{k}": [o["features"][k]["launches"]
+                                       for o in res]
+                     for k in ("bf16", "s2d", "int8")})
+    log(f"[dp-h] {name}, {world} rank(s): parameters, BN statistics, Adam "
+        f"state, the multiscale calibration, the QAT trees and the features "
+        f"bit-identical over the ranks, rank 0's multiscale artifact equal to "
+        f"its state; against one process: multiscale epoch "
+        f"({one['ms']['steps']} steps) loss |Δ| a step {worst['ms_loss']:.3g}, "
+        f"step loss |Δ| {worst['ms_step_loss']:.3g} (bound {H_MS_LOSS_ATOL}), "
+        f"weights {worst['ms_w']:.3g} of 2·lr·steps, BN statistics "
+        f"{worst['ms_bn']:.3g} of max|value|; QAT loss {worst['qat_loss']:.3g} "
+        f"relative (bound {H_QAT_LOSS_RTOL}), weights {worst['qat_w']:.3g} of "
+        f"2·lr·steps; streamed epoch ({steps} steps) loss |Δ| a step "
+        f"{worst['stream_loss']:.3g} (bound {H_STREAM_LOSS_ATOL}), weights "
+        f"{worst['stream_w']:.3g} of 2·lr·steps, BN statistics "
+        f"{worst['stream_bn']:.3g} of max|value| (bound {H_BN_RTOL}); int8 "
+        f"features bit-equal, bf16 features max|Δ| {worst['bf16_feat']:.3g} "
+        f"(default stem) and {worst['s2d_feat']:.3g} (stem_s2d) (bound "
+        f"{H_FEAT_BF16_ATOL}); launches a rank {json.dumps(launches)}")
+    return {"worst": worst, "launches": launches}
+
+
+def h_cli_in_group(dev, data_dir: str, sd: dict, tmp: str) -> dict:
+    """``--extract_features --int8`` through the CLI's ``main`` from a
+    models directory without an int8 artifact (lazy calibration): in one
+    process, then as the one rank of the world-1 NCCL group this process
+    holds (``WORLD_SIZE`` set: ``_main_in_group`` joins the group). The two
+    triplets bit-equal, the kernels' launches equal."""
+    import numpy as np
+
+    from ss25_hierarchical_multiscale_image_classification_tpu_torch.config import (
+        DataConfig,
+    )
+    from ss25_hierarchical_multiscale_image_classification_tpu_torch.infer.features import (
+        load_feature_artifacts,
+    )
+    from ss25_hierarchical_multiscale_image_classification_tpu_torch.train.checkpoints import (
+        save_model,
+    )
+
+    models = os.path.join(tmp, "h_cli_models")
+    save_model(os.path.join(models, "resnet18_patch_classifier"), sd)
+    argv = ["--extract_features", "--int8", "--batch_size", str(BATCH),
+            "--data_dir", data_dir, "--models_dir", models, "--device", "cuda"]
+    features_dir = DataConfig(data_dir=data_dir).features_dir
+    runs = {}
+    for name, env in (("one", {}),
+                      ("group", {"WORLD_SIZE": "1", "RANK": "0",
+                                 "LOCAL_RANK": "0"})):
+        saved = {k: os.environ.get(k) for k in env}
+        os.environ.update(env)
+        try:
+            (rc, wall), counts = _counted(lambda: run_cli(argv), dev)
+        finally:
+            for k, v in saved.items():
+                if v is None:
+                    os.environ.pop(k, None)
+                else:
+                    os.environ[k] = v
+        feats, labels, names = load_feature_artifacts(features_dir, LEVEL)
+        if rc != 0:
+            raise AssertionError(f"(h) --extract_features --int8 ({name}): "
+                                 f"exit {rc}")
+        runs[name] = {"feats": feats, "labels": labels, "names": names,
+                      "launches": counts, "wall": wall}
+    one, grp = runs["one"], runs["group"]
+    if (not np.array_equal(one["feats"], grp["feats"])
+            or not np.array_equal(one["labels"], grp["labels"])
+            or one["names"] != grp["names"]
+            or one["launches"] != grp["launches"]
+            or grp["launches"]["fused_stage1_int8"] == 0):
+        raise AssertionError(f"(h) --extract_features --int8 under the world-1 "
+                             f"NCCL group differs from one process: launches "
+                             f"{grp['launches']} / {one['launches']}")
+    log(f"[dp-h] --extract_features --int8 through the CLI (lazy "
+        f"calibration), one process and as rank 0 of the world-1 NCCL group: "
+        f"exit 0 both, {len(one['names'])} rows, triplets bit-equal, walls "
+        f"{one['wall']:.2f} / {grp['wall']:.2f} s, launches "
+        f"{json.dumps(grp['launches'])}")
+    return grp["launches"]
+
+
+def phase_dp_paths(dev, ds, msds, ms_idx, ms_weights, ext_root, data_dir,
+                   smi, tmp) -> dict:
+    """Phase 14 (h): :func:`h_paths` in one process, over a world-1 NCCL
+    group in this process (and the CLI's ``--extract_features --int8`` in
+    it, :func:`h_cli_in_group`), and in 2 spawned gloo ranks sharing the
+    card."""
+    import datetime
+
+    import torch
+    import torch.distributed as dist
+    import torch.multiprocessing as mp
+
+    from ss25_hierarchical_multiscale_image_classification_tpu_torch.models.convert import (
+        strip_head,
+    )
+    from ss25_hierarchical_multiscale_image_classification_tpu_torch.models.resnet import (
+        ResNet18Classifier,
+    )
+
+    t0 = time.perf_counter()
+    sd = ResNet18Classifier(generator=torch.Generator().manual_seed(SEED)
+                            ).state_dict()
+    ms_records = {lvl: msds.manifests[lvl].records for lvl in MS_LEVELS}
+
+    def inputs(run):
+        return {"records": ds.manifest.records, "ms_records": ms_records,
+                "ms_idx": ms_idx, "ms_weights": ms_weights, "sd": sd,
+                "trunk": strip_head(sd), "data_dir": data_dir, "tmp": tmp,
+                "run": run, "stream_root": fresh_root(
+                    ext_root, os.path.join(tmp, f"h_stream_root_{run}"))}
+
+    one = h_paths(dev, None, inputs("one"))
+    dist.init_process_group("nccl", init_method=f"tcp://localhost:{_free_port()}",
+                            rank=0, world_size=1,
+                            timeout=datetime.timedelta(minutes=5))
+    try:
+        nccl1 = h_paths(dev, dist.group.WORLD, inputs("nccl1"))
+        cli = h_cli_in_group(dev, data_dir, sd, tmp)
+    finally:
+        dist.destroy_process_group()
+    a = h_check("(h) world 1 over NCCL", [nccl1], one)
+    out_dir = tempfile.mkdtemp(dir=tmp)
+    t1 = time.perf_counter()
+    mp.start_processes(_h_rank, args=(DP_RANKS_ON_ONE_CARD, _free_port(),
+                                      inputs("gloo"), out_dir),
+                       nprocs=DP_RANKS_ON_ONE_CARD, join=True,
+                       start_method="spawn")
+    gloo = [torch.load(os.path.join(out_dir, f"rank{r}.pt"), weights_only=False)
+            for r in range(DP_RANKS_ON_ONE_CARD)]
+    log(f"[dp-h] {DP_RANKS_ON_ONE_CARD} gloo ranks spawned, ran and joined in "
+        f"{time.perf_counter() - t1:.1f} s")
+    b = h_check(f"(h) {DP_RANKS_ON_ONE_CARD} ranks on 1 card, gloo", gloo, one)
+    if not os.path.exists(gloo[0]["qat"]["artifact"]):
+        raise AssertionError("(h) rank 0 wrote no QAT artifact")
+    log(f"[dp-h] phase 14 (h) in {time.perf_counter() - t0:.1f} s [{smi}]")
+    return {"one": {k: one[k]["launches"] if k != "features" else
+                    {r: v["launches"] for r, v in one[k].items()}
+                    for k in ("ms", "ms_step", "qat", "stream", "features")},
+            "nccl1": a, "gloo": b, "cli": cli}
+
+
 def split_check(tag: str, run, want: dict, cells: int, batch: int,
                 levels: int, dev) -> None:
     """The split path (``devices=``) on the one card: ``run([dev, dev])``
@@ -5630,6 +6209,262 @@ def phase_tiff_profile(dev, sd, path) -> None:
         raise AssertionError("the profiler saw no device time")
 
 
+# ---------------------------------------------------------------------------
+# phase 15 (h): --overlay on the card; phase 16: the legacy models and the
+# tools of slice 16
+# ---------------------------------------------------------------------------
+
+def phase_overlay(dev, sd, slide_path, tmp) -> dict:
+    """Phase 15 (h): ``--predict_slide <tif> --overlay`` through the CLI's
+    ``main`` (Pillow alone: no matplotlib on this machine): exit 0, and the
+    PNG equal, pixel for pixel, to the slide's coarsest level blended at 0.4
+    with the rainbow table of the probability grid (the same grid from
+    ``predict_and_export`` in this process) resized bilinearly over it."""
+    import numpy as np
+    import torch
+    from PIL import Image
+
+    from ss25_hierarchical_multiscale_image_classification_tpu_torch.infer.overlay import (
+        _colormap_rainbow,
+    )
+    from ss25_hierarchical_multiscale_image_classification_tpu_torch.infer.sliding_window import (
+        predict_and_export,
+    )
+    from ss25_hierarchical_multiscale_image_classification_tpu_torch.io.slide import (
+        open_slide,
+    )
+    from ss25_hierarchical_multiscale_image_classification_tpu_torch.models.convert import (
+        resnet18_from_state_dict,
+    )
+
+    try:
+        import matplotlib  # noqa: F401
+        has_mpl = True
+    except ImportError:
+        has_mpl = False
+    models = os.path.join(tmp, "overlay_models")
+    os.makedirs(models)
+    torch.save(sd, os.path.join(models, "resnet18_patch_classifier.pt"))
+    rc, wall = run_cli(["--predict_slide", slide_path, "--overlay",
+                        "--tissue_filter", "device", "--models_dir", models,
+                        "--device", "cuda"])
+    png = os.path.join(models, "overlays",
+                       os.path.basename(slide_path) + ".overlay.png")
+    if rc != 0 or not os.path.exists(png):
+        raise AssertionError(f"--overlay: exit {rc}, PNG written "
+                             f"{os.path.exists(png)}")
+    model = resnet18_from_state_dict(sd).to(
+        device=dev, dtype=torch.bfloat16, memory_format=torch.channels_last)
+    grid, _ = predict_and_export(slide_path, model,
+                                 os.path.join(tmp, "overlay_csv"), level=LEVEL,
+                                 device=dev, devices=[dev],
+                                 tissue_filter="device")
+    slide = open_slide(slide_path)
+    try:
+        top = slide.level_count - 1
+        w, h = slide.level_dimensions[top]
+        thumb = slide.read_region((0, 0), top, (w, h))
+    finally:
+        slide.close()
+    heat = Image.fromarray(_colormap_rainbow(grid)).resize((w, h),
+                                                           Image.BILINEAR)
+    want = np.asarray(Image.blend(Image.fromarray(thumb), heat, 0.4))
+    with Image.open(png) as im:
+        got = np.asarray(im)
+    if not np.array_equal(got, want):
+        raise AssertionError("the overlay PNG differs from the rainbow table's "
+                             "blend of the grid")
+    log(f"[tiff] (h) --predict_slide {os.path.basename(slide_path)} --overlay "
+        f"(matplotlib on this machine: {has_mpl}): exit 0 in {wall:.2f} s; "
+        f"the {w}×{h} PNG equal to the slide's level {top} blended with the "
+        f"rainbow table of the {grid.shape[0]}×{grid.shape[1]} grid")
+    return {"wall": wall, "matplotlib": has_mpl}
+
+
+LEGACY_RTOL = 1e-4  # card float32 (TF32 off) against the CPU, of max|out|
+EXPORT_RTOL = 1e-6  # the exported program against the module, of max|out|
+
+
+def _legacy_forwards(dev) -> dict:
+    """ResNet50, UNetClassifier and CNNEncoder from seeds: the card's float32
+    forward (TF32 off) against the CPU's on the same inputs; the largest
+    difference over max|out|, and the card's ms a forward."""
+    import torch
+
+    from ss25_hierarchical_multiscale_image_classification_tpu_torch.models.cnn_encoder import (
+        CNNEncoder,
+    )
+    from ss25_hierarchical_multiscale_image_classification_tpu_torch.models.resnet import (
+        ResNet50,
+    )
+    from ss25_hierarchical_multiscale_image_classification_tpu_torch.models.unet import (
+        UNetClassifier,
+    )
+
+    g = torch.Generator().manual_seed(SEED)
+    cases = [("ResNet50", ResNet50(num_classes=2, generator=g), (4, 224, 224)),
+             ("UNetClassifier", UNetClassifier(num_classes=10, generator=g),
+              (2, 128, 128)),
+             ("CNNEncoder", CNNEncoder(generator=g), (4, 224, 224))]
+    out = {}
+    for name, model, (b, hh, ww) in cases:
+        model.eval()
+        x = torch.randn(b, hh, ww, 3, generator=g)
+        with torch.no_grad():
+            want = model(x)
+            card = model.to(dev)
+            with torch.backends.cudnn.flags(enabled=True, allow_tf32=False):
+                got = card(x.to(dev))
+                ms = statistics.median(cuda_ms(lambda: card(x.to(dev)), 5))
+        err = ((got.cpu() - want).abs().max() / want.abs().max()).item()
+        out[name] = {"rel_err": err, "ms": ms, "shape": tuple(got.shape)}
+        if err > LEGACY_RTOL:
+            raise AssertionError(f"{name} on the card {err:.3g} of max|out| "
+                                 f"from the CPU (bound {LEGACY_RTOL})")
+    return out
+
+
+def _generic_export(dev, tmp) -> dict:
+    """``GenericClassifierTrainer`` fitting a width-16 UNetClassifier on the
+    card for two epochs of a toy set, then ``export``, ``torch.export.load``
+    and the reloaded program against the module."""
+    import numpy as np
+    import torch
+
+    from ss25_hierarchical_multiscale_image_classification_tpu_torch.models.unet import (
+        UNetClassifier,
+    )
+    from ss25_hierarchical_multiscale_image_classification_tpu_torch.train.generic_classifier import (
+        ArrayDataset,
+        GenericClassifierTrainer,
+    )
+
+    rng = np.random.default_rng(SEED)
+    labels = rng.integers(0, 2, 160)
+    images = np.clip(np.where(labels[:, None, None, None] == 1, 180, 70)
+                     + rng.normal(0, 20, (160, 32, 32, 3)), 0,
+                     255).astype(np.uint8)
+    ds = ArrayDataset.from_arrays(images, labels.astype(np.int32))
+    trainer = GenericClassifierTrainer(
+        UNetClassifier(2, (16, 32), generator=torch.Generator().manual_seed(SEED)),
+        (8, 32, 32, 3), 2, learning_rate=1e-2, device=dev)
+    history = trainer.fit(ds, epochs=2, batch_size=16)
+    acc = trainer.evaluate(ds.test_x, ds.test_y)
+    path = os.path.join(tmp, "generic", "model.pt2")
+    trainer.export(path)
+    program = torch.export.load(path).module()
+    x = torch.from_numpy(ds.test_x[:8].astype(np.float32) / 255.0).to(dev)
+    with torch.no_grad():
+        got, want = program(x), trainer.model.eval()(x)
+    err = ((got - want).abs().max() / want.abs().max()).item()
+    if not all(np.isfinite(h["loss"]) for h in history) or err > EXPORT_RTOL:
+        raise AssertionError(f"GenericClassifierTrainer: losses {history}, "
+                             f"exported program {err:.3g} of max|out| off")
+    return {"losses": [h["loss"] for h in history], "test_acc": acc,
+            "export_err": err, "bytes": os.path.getsize(path)}
+
+
+def phase_legacy_tools(dev, train, smi, tmp) -> dict:
+    """Phase 16: the legacy models on the card against the CPU, the generic
+    trainer with its export, and the CLI's ``--prepare``, ``--validation``,
+    ``--extract_features --profile`` (the Chrome trace names the 2b kernel)
+    and ``--validate`` (scikit-learn present: exit 0; absent, as on this
+    machine: the ``ImportError`` naming it)."""
+    import zipfile
+
+    from ss25_hierarchical_multiscale_image_classification_tpu_torch.config import (
+        DataConfig,
+    )
+    from ss25_hierarchical_multiscale_image_classification_tpu_torch.ops.fused_stem import (
+        bias_relu_pool_kernel,
+    )
+
+    t0 = time.perf_counter()
+    legacy = _legacy_forwards(dev)
+    log("[legacy] card float32 (TF32 off) against the CPU: " + "; ".join(
+        f"{k} {tuple(v['shape'])} {v['rel_err']:.3g} of max|out|, "
+        f"{v['ms']:.2f} ms a forward" for k, v in legacy.items())
+        + f" (bound {LEGACY_RTOL}) [{smi}]")
+    gen = _generic_export(dev, tmp)
+    log(f"[legacy] GenericClassifierTrainer on the card: epoch losses "
+        f"{[round(v, 4) for v in gen['losses']]}, test accuracy "
+        f"{gen['test_acc']:.3f}; torch.export program ({gen['bytes']} bytes) "
+        f"reloaded, {gen['export_err']:.3g} of max|out| from the module")
+
+    # --prepare on a zip of XMLs
+    root = os.path.join(tmp, "prepare")
+    zpath = os.path.join(root, "train", "mask", "lesion_annotations.zip")
+    os.makedirs(os.path.dirname(zpath))
+    names = [f"tumor_{i:03d}.xml" for i in range(1, 51)]
+    with zipfile.ZipFile(zpath, "w") as zf:
+        for n in names:
+            zf.writestr(n, f"<ASAP_Annotations>{n}</ASAP_Annotations>")
+    rc, wall = run_cli(["--prepare", "--data_dir", root])
+    got = sorted(os.listdir(DataConfig(data_dir=root).annotations_dir))
+    if rc != 0 or got != names:
+        raise AssertionError(f"--prepare: exit {rc}, {len(got)} XMLs")
+    log(f"[tools] --prepare: exit 0 in {wall:.2f} s, {len(got)} XMLs extracted")
+
+    # --validation on phase 10's store
+    data_dir = train["data_dir"]
+    with _Messages("torch.cli") as records:
+        rc, wall = run_cli(["--validation", "--data_dir", data_dir])
+    split = [r.getMessage() for r in records
+             if r.getMessage().startswith("Validation split")]
+    if rc != 0 or len(split) != 1:
+        raise AssertionError(f"--validation: exit {rc}, {split}")
+    log(f"[tools] --validation: exit 0 in {wall:.2f} s; {split[0]}")
+
+    # --extract_features --profile: the Chrome trace names the 2b kernel
+    log_dir = os.path.join(tmp, "profile_logs")
+    cfg_path = os.path.join(tmp, "profile.json")
+    with open(cfg_path, "w") as f:
+        json.dump({"log_dir": log_dir}, f)
+    reset_counts()
+    rc, wall = run_cli(["--extract_features", "--profile", "--config",
+                        cfg_path, "--data_dir", data_dir, "--models_dir",
+                        train["models_dir"], "--device", "cuda"])
+    launches = bias_relu_pool_kernel.launches
+    trace_path = os.path.join(log_dir, "profile", "trace.json")
+    with open(trace_path) as f:
+        events = json.load(f)["traceEvents"]
+    kernels = {e["name"] for e in events if e.get("cat") == "kernel"}
+    named = sorted(k for k in kernels if "bias_relu_pool" in k)
+    if rc != 0 or not named or launches == 0:
+        raise AssertionError(f"--extract_features --profile: exit {rc}, 2b "
+                             f"launches {launches}, trace kernels naming it "
+                             f"{named}")
+    log(f"[tools] --extract_features --profile: exit 0 in {wall:.2f} s; "
+        f"{os.path.getsize(trace_path) / 1e6:.1f} MB Chrome trace with "
+        f"{len(kernels)} kernel names, {named[0]!r} among them; "
+        f"bias_relu_pool launches {launches}")
+
+    # --validate: scikit-learn decides which outcome applies
+    try:
+        import sklearn  # noqa: F401
+        has_sklearn = True
+    except ImportError:
+        has_sklearn = False
+    if has_sklearn:
+        rc, wall = run_cli(["--validate", "--data_dir", data_dir])
+        if rc != 0:
+            raise AssertionError(f"--validate: exit {rc}")
+        log(f"[tools] --validate (scikit-learn present): exit 0 in {wall:.2f} s")
+    else:
+        try:
+            run_cli(["--validate", "--data_dir", data_dir])
+        except ImportError as e:
+            if "sklearn" not in str(e):
+                raise
+            log(f"[tools] --validate without scikit-learn: ImportError "
+                f"{str(e)!r}")
+        else:
+            raise AssertionError("--validate ran without scikit-learn")
+    log(f"[tools] phase 16 in {time.perf_counter() - t0:.1f} s")
+    return {"legacy": legacy, "generic": gen, "bias_relu_pool": launches,
+            "sklearn": has_sklearn}
+
+
 def main() -> int:
     if not os.path.isdir(os.path.join(ROOT, PKG)):
         print(f"{PKG}/ not found beside {__file__}: run from a checkout",
@@ -5638,6 +6473,7 @@ def main() -> int:
     sys.path.insert(0, ROOT)
     import torch
 
+    t_start = time.perf_counter()
     smi, dev = phase_card()
     built = phase_build()
     kernel = phase_kernels(dev)
@@ -5717,6 +6553,19 @@ def main() -> int:
             tmp, "train_data", "train", "img", "smoke_slide.wsi.npz"), train,
             ext["root"], fleet, built, smi, tmp)
         torch.cuda.empty_cache()
+        overlay = phase_overlay(dev, sd, tiff["deflate"], tmp)
+        # phase 14 (h) here: it reads phase 12's level-2 store and phase 13's
+        # slide root
+        from ss25_hierarchical_multiscale_image_classification_tpu_torch.train.losses import (
+            class_weights_inv_min,
+        )
+
+        msds, ms_idx = ms_train["profile"][3:5]
+        dp_h = phase_dp_paths(
+            dev, ds, msds, ms_idx[:BATCH],
+            class_weights_inv_min(msds.labels[ms_idx], 2), ext["root"],
+            train["data_dir"], smi, tmp)
+        torch.cuda.empty_cache()
         # last: they end under torch.profiler, and host-clock walls taken in
         # this process after a profiler session come out longer
         feature_launches = phase_features(dev, ds, sd, tmp)
@@ -5725,6 +6574,8 @@ def main() -> int:
         phase_ms_train_profile(dev, *ms_train.pop("profile"))
         phase_extract_profile(dev, ext["root"], tmp)
         phase_tiff_profile(dev, sd, tiff["deflate"])
+        torch.cuda.empty_cache()
+        tools = phase_legacy_tools(dev, train, smi, tmp)
     del ds
 
     jax_pkg = "ss25_hierarchical_multiscale_image_classification_tpu"
@@ -5757,6 +6608,25 @@ def main() -> int:
     kernel["tiff_jpeg_launches"] = tiff["jpeg_launches"]
     kernel["tiff_multiscale_launches"] = tiff["multiscale_launches"]
     kernel["tiff_fleet_launches"] = tiff["fleet_launches"]
+    # phase 14 (h): the group paths' launches, summed over the 2 gloo ranks
+    h = dp_h["gloo"]["launches"]
+    aug["dp_paths_launches"] = sum(c["augment"]
+                                   for path in ("ms", "ms_step", "stream")
+                                   for c in h[path])
+    stem_pool["dp_paths_launches"] = sum(c["bias_relu_pool"]
+                                         for c in h["features_bf16"])
+    stem["dp_paths_launches"] = sum(c["fused_stem"] for c in h["features_s2d"])
+    for row, key in ((stage1, "fused_stage1_int8"),
+                     (int8_conv, "int8_conv_requant"),
+                     (int8_pool, "int8_maxpool")):
+        row["dp_paths_launches"] = sum(c[key] for c in h["features_int8"])
+    log(f"[paths] phase 14 (h), {DP_RANKS_ON_ONE_CARD} gloo ranks: launches "
+        f"a rank {json.dumps(h)}; single process "
+        f"{json.dumps(dp_h['one'])}")
+    log(f"[paths] phase 15 (h) --overlay exit 0 (matplotlib here: "
+        f"{overlay['matplotlib']}); phase 16: bias_relu_pool launches under "
+        f"--profile {tools['bias_relu_pool']}, scikit-learn here: "
+        f"{tools['sklearn']}")
     log(f"[paths] TIFF: fused_normalize launches {tiff['launches']} (deflate "
         f"slide), {tiff['jpeg_launches']} (JPEG-YCbCr), "
         f"{tiff['multiscale_launches']} (JPEG-YCbCr multiscale), "
@@ -5813,9 +6683,11 @@ def main() -> int:
                                    "fleet_launches", "tiff_launches",
                                    "tiff_jpeg_launches",
                                    "tiff_multiscale_launches",
-                                   "tiff_fleet_launches")
+                                   "tiff_fleet_launches", "dp_paths_launches")
            if key in k},
     } for name, source, replaces, k in rows]}
+    log(f"[smoke] every phase passed in {time.perf_counter() - t_start:.1f} s "
+        f"[{smi}]")
     log(smi)  # the card's name and power limit, as nvidia-smi prints them
     log(json.dumps(table))
     log(json.dumps({"ok": True, "device": {

@@ -1,9 +1,10 @@
 """Command line of the port: ``--patch`` (``-p``), ``--patch_one_slide``,
 ``--predict_slide`` (one slide or a directory, ``--overlay``),
-``--run_evaluation``, ``--train``, ``--train_strategy``, ``--evaluate``,
-``--train_mil``, ``--train_multiscale``, ``--qat``, ``--extract_features``,
-``--quantize``, ``--mine_hard_negatives``, ``--wsi_viz`` and the data
-tools ``--check_structure``, ``--check_good_downloaded_files``,
+``--run_evaluation``, ``--train``, ``--train_strategy``, ``--prepare``,
+``--validation``, ``--validate`` (``--tsne_full``), ``--evaluate``,
+``--train_mil``, ``--train_multiscale``, ``--qat``, ``--extract_features``
+(``--profile``), ``--quantize``, ``--mine_hard_negatives``, ``--wsi_viz``
+and the data tools ``--check_structure``, ``--check_good_downloaded_files``,
 ``--move_files`` and ``--count_tumor_patches`` (``--slide`` is parsed, as
 in the JAX CLI).
 
@@ -11,7 +12,8 @@ Counterpart of the JAX CLI (``cli/main.py`` of the JAX package) for these
 actions, with their flags under the same names and defaults, plus
 ``--device``. As there, one call runs every action given, in a fixed order
 (``--move_files``, ``--patch``, ``--extract_features``, ``--train``,
-``--train_strategy``, ``--evaluate``, ``--count_tumor_patches``,
+``--train_strategy``, ``--prepare``, ``--validation``, ``--validate``,
+``--evaluate``, ``--count_tumor_patches``,
 ``--patch_one_slide``, ``--train_mil``, ``--train_multiscale``, ``--qat``,
 ``--quantize``, ``--mine_hard_negatives``, ``--predict_slide``,
 ``--wsi_viz``, ``--run_evaluation``), and stops with exit code 1 at a stage
@@ -79,8 +81,19 @@ saved classifier on the validation split. Training needs a slide under
 pretraining included) train data-parallel, one process a card
 (``parallel/``): ``--batch_size`` is the global batch, each rank loads its
 rows, BatchNorm and NT-Xent see the global batch, the gradients are summed
-over the ranks, and rank 0 writes the artifacts; only these two actions
-and ``--evaluate`` (on rank 0) are taken under ``torchrun``.
+over the ranks, and rank 0 writes the artifacts. ``--train_multiscale``, ``--qat``,
+``--extract_features`` (rank 0 writes the triplet) and ``--patch --train``
+(rank 0 extracts and sends each global batch to the ranks) run the same
+way; besides these only ``--evaluate`` (on rank 0) is taken under
+``torchrun``: any other action, ``--patch`` without ``--train`` among
+them, makes every rank exit 2.
+
+``--prepare`` extracts ``<data_dir>/train/mask/lesion_annotations.zip``
+into ``<data_dir>/annotations``; ``--validation`` logs the level's
+slide-level split; ``--validate`` checks the level's feature triplet
+(PCA, t-SNE, logistic regression; needs scikit-learn, ``--tsne_full`` runs
+t-SNE on every row); ``--profile`` writes a ``torch.profiler`` Chrome trace
+of ``--extract_features`` under ``<log_dir>/profile``.
 
 ``--train_mil`` trains the attention-MIL slide classifier on the feature
 triplet under ``<data_dir>/features`` at ``--patch_level`` and writes
@@ -137,8 +150,9 @@ else with scales calibrated lazily on the run's first batches.
 Slides are ``.wsi.npz`` or tiled (Big)TIFF (``.tif``, ``.tiff``: the
 port's libtiff decoder, ``io/tiff_slide.py``). ``--overlay`` writes
 ``<models_dir>/overlays/<slide file>.overlay.png`` for every slide
-predicted; it and ``--wsi_viz`` (``<models_dir>/wsi_viz/<slide>/``) need
-Pillow and matplotlib, and raise ``ImportError`` where one is missing. Only
+predicted with Pillow (the rainbow colormap is a numpy table);
+``--wsi_viz`` (``<models_dir>/wsi_viz/<slide>/``) needs Pillow and
+matplotlib; each raises ``ImportError`` where one it needs is missing. Only
 the actions that use it resolve ``--device``.
 
 Flags the JAX CLI ignores in a combination (``--int8`` or
@@ -168,7 +182,11 @@ from ss25_hierarchical_multiscale_image_classification_tpu_torch.data.extract im
     annotation_path_for,
     extract_patches,
 )
+from ss25_hierarchical_multiscale_image_classification_tpu_torch.data.datasets import (
+    slide_level_split,
+)
 from ss25_hierarchical_multiscale_image_classification_tpu_torch.data.manifest import (
+    load_or_scan_manifest,
     patches_extracted,
 )
 from ss25_hierarchical_multiscale_image_classification_tpu_torch.device import (
@@ -185,6 +203,7 @@ from ss25_hierarchical_multiscale_image_classification_tpu_torch.evaluation.froc
 from ss25_hierarchical_multiscale_image_classification_tpu_torch.infer.features import (
     extract_features,
     extract_features_with_simclr,
+    load_feature_artifacts,
 )
 from ss25_hierarchical_multiscale_image_classification_tpu_torch.infer.fleet import (
     predict_slide_fleet,
@@ -206,6 +225,7 @@ from ss25_hierarchical_multiscale_image_classification_tpu_torch.infer.sliding_w
 )
 from ss25_hierarchical_multiscale_image_classification_tpu_torch.io.download import (
     images_downloaded,
+    prepare_data,
 )
 from ss25_hierarchical_multiscale_image_classification_tpu_torch.logging_utils import get_logger
 from ss25_hierarchical_multiscale_image_classification_tpu_torch.models.convert import (
@@ -243,6 +263,9 @@ from ss25_hierarchical_multiscale_image_classification_tpu_torch.train.streaming
 from ss25_hierarchical_multiscale_image_classification_tpu_torch.train.trainer import (
     train_resnet_classifier,
     train_resnet_classifier_strategic,
+)
+from ss25_hierarchical_multiscale_image_classification_tpu_torch.utils.profiling import (
+    trace,
 )
 from ss25_hierarchical_multiscale_image_classification_tpu_torch.utils.structure import (
     check_good_files,
@@ -289,8 +312,7 @@ def build_parser() -> argparse.ArgumentParser:
                              "detection CSVs (FROC producer)")
     parser.add_argument("--overlay", action="store_true",
                         help="With --predict_slide: save the tumor heatmap "
-                             "overlay at the coarsest level (needs Pillow and "
-                             "matplotlib)")
+                             "overlay at the coarsest level (needs Pillow)")
     parser.add_argument("--wsi_viz", type=str, default=None,
                         help="Render annotation-mask QA figures for a slide "
                              "path (needs Pillow and matplotlib)")
@@ -368,6 +390,17 @@ def build_parser() -> argparse.ArgumentParser:
                         help="Training strategy")
     parser.add_argument("-eval", "--evaluate", action="store_true",
                         help="Evaluate ResNet model on the validation split")
+    parser.add_argument("-prep", "--prepare", action="store_true",
+                        help="Prepare data (extract annotation zips)")
+    parser.add_argument("-val", "--validation", action="store_true",
+                        help="Create validation set (slide-level split is "
+                             "computed on the fly; kept for flag parity)")
+    parser.add_argument("--validate", action="store_true",
+                        help="Validate extracted patch features (sanity "
+                             "check; needs scikit-learn)")
+    parser.add_argument("--tsne_full", action="store_true",
+                        help="With --validate: run t-SNE on ALL features"
+                             " instead of the default 10k subsample")
     parser.add_argument("--freeze_bn", action="store_true",
                         help="Fine-tune with frozen BatchNorm statistics "
                              "(gamma/beta still train)")
@@ -378,6 +411,10 @@ def build_parser() -> argparse.ArgumentParser:
                         help="Extract features from patches")
     parser.add_argument("--simclr_features", action="store_true",
                         help="With --extract_features: use the SimCLR encoder")
+    parser.add_argument("--profile", action="store_true",
+                        help="Capture a torch.profiler trace around "
+                             "--extract_features (a Chrome trace under "
+                             "<log_dir>/profile)")
     parser.add_argument("--qat", action="store_true",
                         help="Quantization-aware fine-tune of the trained "
                              "classifier (fake-quant int8 graph, "
@@ -713,10 +750,15 @@ _DEVICE_ACTIONS = ("patch", "patch_one_slide", "extract_features", "train",
                    "train_multiscale", "qat", "quantize", "mine_hard_negatives",
                    "predict_slide")
 
+#: The actions with a data-parallel path, which ``torchrun`` runs over its
+#: process group (``--patch`` only with ``--train``: the streamed trainer).
+_GROUP_ACTIONS = ("train", "train_strategy", "train_multiscale", "qat",
+                  "extract_features")
+
 #: The actions without a data-parallel path, which ``torchrun`` refuses
-#: (``--train``, ``--train_strategy`` and ``--evaluate`` have one).
-_SINGLE_PROCESS_ACTIONS = ("patch", "patch_one_slide", "extract_features",
-                           "train_mil", "train_multiscale", "qat", "quantize",
+#: (``--evaluate`` runs on rank 0 after the group's training).
+_SINGLE_PROCESS_ACTIONS = ("patch_one_slide", "prepare", "validation",
+                           "validate", "train_mil", "quantize",
                            "mine_hard_negatives", "predict_slide",
                            "run_evaluation", "wsi_viz", "check_structure",
                            "check_good_downloaded_files", "move_files",
@@ -725,13 +767,46 @@ _SINGLE_PROCESS_ACTIONS = ("patch", "patch_one_slide", "extract_features",
 
 def _group_actions_only(args) -> bool:
     """Under ``torchrun``, whether no action without a data-parallel path
-    was asked for (each one that was is logged)."""
+    was asked for (each one that was is logged; ``--patch`` has one only
+    with ``--train``)."""
     others = [name for name in _SINGLE_PROCESS_ACTIONS
               if getattr(args, name) not in (None, False)]
+    if args.patch and not args.train:
+        others.insert(0, "patch")
     for name in others:
         log.error("--%s has no data-parallel path: run it without torchrun",
                   name)
     return not others
+
+
+def _profiled(args, cfg: Config):
+    """``--profile``'s trace under ``<log_dir>/profile``, or nothing."""
+    return trace(os.path.join(cfg.log_dir, "profile"), enabled=args.profile)
+
+
+def _validation_split(cfg: Config, level: int) -> None:
+    """``--validation``: log the level's slide-level train/val split."""
+    manifest = load_or_scan_manifest(cfg.data.patches_dir, level)
+    train_slides, val_slides = slide_level_split(
+        manifest.slides(), cfg.data.val_fraction, cfg.data.split_seed
+    )
+    log.info("Validation split (level %d): %d train slides %s / "
+             "%d val slides %s", level, len(train_slides), train_slides,
+             len(val_slides), val_slides)
+
+
+def _validate(args, cfg: Config, level: int) -> None:
+    """``--validate``: the feature sanity check on the level's triplet
+    (``--tsne_full``: t-SNE on every row)."""
+    from ss25_hierarchical_multiscale_image_classification_tpu_torch.evaluation.features_eval import (
+        validate_features,
+    )
+
+    feats, labels, _ = load_feature_artifacts(cfg.data.features_dir, level)
+    validate_features(
+        feats, labels,
+        **({"tsne_max_samples": len(feats)} if args.tsne_full else {}),
+    )
 
 
 def main(argv=None) -> int:
@@ -744,7 +819,8 @@ def main(argv=None) -> int:
                      "configures the cascade's screen pass)")
     cfg = _config_from_args(args)
     level = 3 if args.patch_level == "all" else int(args.patch_level)
-    if "WORLD_SIZE" in os.environ and (args.train or args.train_strategy):
+    if "WORLD_SIZE" in os.environ and any(getattr(args, a)
+                                          for a in ("patch", *_GROUP_ACTIONS)):
         return _main_in_group(args, cfg, level)
     if args.check_good_downloaded_files:
         log.info("Checking downloaded files for corruption...")
@@ -791,8 +867,9 @@ def main(argv=None) -> int:
                 return 1
         extract = (extract_features_with_simclr if args.simclr_features
                    else extract_features)
-        extract(cfg, level=level, batch_size=args.batch_size, device=device,
-                int8=args.int8)
+        with _profiled(args, cfg):
+            extract(cfg, level=level, batch_size=args.batch_size,
+                    device=device, int8=args.int8)
     if args.train and not streamed_train:
         if not _training_inputs(cfg, level):
             return 1
@@ -804,6 +881,12 @@ def main(argv=None) -> int:
         train_resnet_classifier_strategic(cfg, level=level,
                                           strategy=args.strategy,
                                           epochs=args.epochs, device=device)
+    if args.prepare:
+        prepare_data(cfg.data)
+    if args.validation:
+        _validation_split(cfg, level)
+    if args.validate:
+        _validate(args, cfg, level)
     if args.evaluate:
         evaluate_resnet_classifier(cfg, level=level, device=device)
     if args.count_tumor_patches:
@@ -848,9 +931,13 @@ def main(argv=None) -> int:
 
 
 def _main_in_group(args, cfg: Config, level: int) -> int:
-    """``--train`` / ``--train_strategy`` (``--evaluate``) as one rank of the
-    process group that ``torchrun`` describes: NCCL on ``cuda:LOCAL_RANK``,
-    gloo with ``--device cpu``; rank 0 writes the artifacts and evaluates."""
+    """The data-parallel actions as one rank of the process group that
+    ``torchrun`` describes (NCCL on ``cuda:LOCAL_RANK``, gloo with
+    ``--device cpu``), in the single-process order: ``--patch --train``
+    (rank 0 extracts and streams each global batch to the ranks),
+    ``--extract_features`` (rank 0 writes the triplet), ``--train``,
+    ``--train_strategy``, ``--evaluate`` (on rank 0), ``--train_multiscale``
+    and ``--qat``; rank 0 writes every artifact."""
     import torch.distributed as dist
 
     from ss25_hierarchical_multiscale_image_classification_tpu_torch.parallel.mesh import (
@@ -865,9 +952,44 @@ def _main_in_group(args, cfg: Config, level: int) -> int:
     owned = not dist.is_initialized()
     group = init_from_env(device)
     try:
-        if not _training_inputs(cfg, level):
+        streamed_train = False
+        if args.patch:
+            if not images_downloaded(cfg.data):
+                log.error("Images must be downloaded before extracting "
+                          "patches.")
+                return 1
+            stain_norm = args.stain_norm or cfg.data.stain_norm
+            if is_main(group):
+                for lvl in _levels(args.patch_level):
+                    if lvl != level:
+                        extract_patches(
+                            cfg.data, level=lvl,
+                            store_format=cfg.data.patch_store_format,
+                            impl=args.extract_impl, stain_norm=stain_norm,
+                            stride=args.stride, device=device)
+            barrier(group)
+            train_resnet_classifier_streaming(
+                cfg, level=level, epochs=args.epochs, stride=args.stride,
+                batch_size=args.batch_size,
+                store_format=cfg.data.patch_store_format,
+                extract_impl=args.extract_impl, stain_norm=stain_norm,
+                device=device, group=group)
+            streamed_train = True
+        if args.extract_features:
+            for lvl in _levels(args.patch_level):
+                if not patches_extracted(cfg.data, lvl):
+                    log.error("Patches must be extracted at level %d before "
+                              "features.", lvl)
+                    return 1
+            extract = (extract_features_with_simclr if args.simclr_features
+                       else extract_features)
+            with _profiled(args, cfg):
+                extract(cfg, level=level, batch_size=args.batch_size,
+                        device=device, int8=args.int8, group=group)
+        if ((args.train and not streamed_train) or args.train_strategy) \
+                and not _training_inputs(cfg, level):
             return 1
-        if args.train:
+        if args.train and not streamed_train:
             train_resnet_classifier(cfg, level=level, epochs=args.epochs,
                                     device=device, group=group)
         if args.train_strategy:
@@ -877,6 +999,15 @@ def _main_in_group(args, cfg: Config, level: int) -> int:
                                               device=device, group=group)
         if args.evaluate and is_main(group):
             evaluate_resnet_classifier(cfg, level=level, device=device)
+        if args.train_multiscale:
+            train_multiscale_classifier(
+                cfg, levels=tuple(int(v) for v in args.levels.split(",")),
+                epochs=args.epochs, fusion=args.ms_fusion,
+                input_mode=args.ms_input, device=device, group=group)
+        if args.qat:
+            qat_finetune(cfg, level=level, epochs=args.epochs,
+                         batch_size=args.batch_size, device=device,
+                         group=group)
         barrier(group)
         return 0
     finally:

@@ -523,14 +523,17 @@ def preprocess_batch(generator: torch.Generator | None, imgs_u8: torch.Tensor,
 
 def preprocess_multiscale_batch(generator: torch.Generator | None,
                                 imgs_by_level: dict,
-                                training: bool = True) -> dict:
+                                training: bool = True,
+                                rows: tuple[int, int] | None = None) -> dict:
     """``{level: uint8 (B, S, S, 3)}`` → ``{level: normalized float32}``,
     levels in sorted order. Training: ONE draw of
     :func:`sample_augment_params` for the batch, applied to every level (on
     a card the kernel of ``ops/augment.py``, once per level), so that the
     co-located patches of a cell keep one flip, rotation and colour jitter:
     they cover the same level-0 field of view. Evaluation: ``normalize``
-    per level."""
+    per level. ``rows = (start, total)``: the batch is rows
+    [start, start + B) of a global batch of ``total``, the draw is the
+    global batch's (see :func:`preprocess_batch`)."""
     levels = sorted(imgs_by_level)
     if not training:
         return {lvl: normalize(imgs_by_level[lvl]) for lvl in levels}
@@ -538,6 +541,8 @@ def preprocess_multiscale_batch(generator: torch.Generator | None,
         augment_batch_kernel,
     )
 
-    params = sample_augment_params(generator, imgs_by_level[levels[0]].shape[0])
+    b = imgs_by_level[levels[0]].shape[0]
+    params = take_rows(sample_augment_params(generator, _draw_size(rows, b)),
+                       rows, b)
     return {lvl: augment_batch_kernel(params, imgs_by_level[lvl])
             for lvl in levels}

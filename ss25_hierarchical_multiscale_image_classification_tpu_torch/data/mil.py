@@ -5,8 +5,9 @@ Numpy copies of the JAX package's ``data/mil.py`` (``slide_from_patch_name``,
 to the originals by exact tests: patch features grouped by slide, the slide
 label "tumor iff any patch is tumor", bags padded to a static size with a
 mask, batches shuffled with ``np.random.default_rng(seed + epoch)``. Patch
-names follow the reference's ``{slide}_x{x}_y{y}_{label}.png``. Image-space
-bags come with the CNN encoder in a later slice.
+names follow the reference's ``{slide}_x{x}_y{y}_{label}.png``.
+:func:`image_bags_from_manifest` builds image-space bags (raw uint8 patches
+of each slide, for ``models/cnn_encoder.py``), as in the JAX package.
 """
 
 from __future__ import annotations
@@ -73,6 +74,40 @@ def bags_from_artifacts(features_dir: str, level: int) -> list[Bag]:
 
     feats, labels, names = load_feature_artifacts(features_dir, level)
     return build_bags(feats, labels, names)
+
+
+def image_bags_from_manifest(
+    manifest, resize_to: int = 224
+) -> list[Bag]:
+    """Image-space bags: one (K, H, W, 3)-patch bag per slide, sorted by
+    slide: all stored patches of the slide (``features`` holds the raw
+    uint8 patches at ``resize_to``), label tumor iff any patch is tumor,
+    ``coords`` the patches' (x, y). Encode them with ``models.cnn_encoder``
+    (or the ResNet18 extractor) before pooling."""
+    from ss25_hierarchical_multiscale_image_classification_tpu_torch.data.patch_store import (
+        PatchReader,
+    )
+
+    reader = PatchReader(manifest)
+    by_slide: dict[str, list[int]] = {}
+    for i, rec in enumerate(manifest):
+        by_slide.setdefault(rec.slide, []).append(i)
+    bags = []
+    for slide, idxs in sorted(by_slide.items()):
+        imgs = reader.read_batch(idxs, resize_to=resize_to)
+        labels = manifest.labels()[np.asarray(idxs)]
+        coords = np.array(
+            [(manifest[i].x, manifest[i].y) for i in idxs], np.int64
+        )
+        bags.append(
+            Bag(
+                slide=slide,
+                features=imgs,  # (K, H, W, 3) uint8
+                label=int((labels == 1).any()),
+                coords=coords,
+            )
+        )
+    return bags
 
 
 class MILBagIterator:

@@ -190,8 +190,12 @@ class MultiscaleDataset:
 
     def batches(
         self, batch_size: int, shuffle: bool = True, seed: int = 0,
-        indices: np.ndarray | None = None,
+        indices: np.ndarray | None = None, rows: slice | None = None,
     ) -> Iterator[tuple[dict[int, np.ndarray], np.ndarray, np.ndarray]]:
+        """(``{level: uint8}``, labels, valid) batches of ``batch_size``
+        cells of ``indices`` (default all), shuffled by ``seed``, the last
+        wrap-padded with ``valid`` 0; ``rows`` (this rank's slice of each
+        batch under data parallelism) reads only those rows."""
         order = (
             np.arange(len(self.samples))
             if indices is None else np.asarray(indices, np.int64).copy()
@@ -206,5 +210,7 @@ class MultiscaleDataset:
                 idx = np.concatenate(
                     [idx, np.resize(order, batch_size - len(idx))]
                 )
+            if rows is not None:
+                idx, valid = idx[rows], valid[rows]
             imgs, labels = self.read_batch(idx)
             yield imgs, labels.astype(np.int32), valid

@@ -24,6 +24,16 @@ features reach the host while batch k computes. With ``int8=True`` the
 loop runs the int8 (w8a8) forward instead (``quant_forward``: every
 convolution on the port's int8 kernels), from a persisted artifact or from
 scales calibrated on the first dataset batches; features stay float32.
+
+With a process ``group`` (``torchrun``, one process a card: ``parallel/``)
+the loop is the JAX function's over its mesh: every rank walks the same
+batches and runs its contiguous rows of each global batch (the stem and
+int8 kernels on those rows); the rows' features are summed into a zeroed
+global batch over the group (exact: every entry is one rank's value plus
+zeros), so every rank holds the features in the original row order, and
+rank 0 alone writes the triplet. Without an artifact rank 0 calibrates
+the int8 scales on the first batches and every rank takes its tree
+(broadcast), so the ranks' trees are bit-identical.
 """
 
 from __future__ import annotations
@@ -72,6 +82,15 @@ from ss25_hierarchical_multiscale_image_classification_tpu_torch.models.quantize
     quantize_resnet18,
     quantized_to,
 )
+from ss25_hierarchical_multiscale_image_classification_tpu_torch.parallel.feed import (
+    process_batch_slice,
+)
+from ss25_hierarchical_multiscale_image_classification_tpu_torch.parallel.mesh import (
+    barrier,
+    broadcast_object,
+    is_main,
+    rank_and_size,
+)
 from ss25_hierarchical_multiscale_image_classification_tpu_torch.train.checkpoints import (
     load_model,
     model_artifact_path,
@@ -107,6 +126,37 @@ def _calibration_batches(dataset: PatchDataset, batch_size: int,
     return out
 
 
+def lazy_qtree(state: dict[str, torch.Tensor], dataset: PatchDataset,
+               batch_size: int, device: str | torch.device, group=None
+               ) -> dict:
+    """The int8 tree of the ResNet18 ``state`` (``quantized_to``'s, on
+    ``device``) with its activation scales calibrated on the first dataset
+    batches. With a ``group`` rank 0 alone calibrates and every rank takes
+    its tree (broadcast), so the ranks' trees are bit-identical."""
+    dev = resolve_device(device)
+    qtree = None
+    if is_main(group):
+        qtree = quantize_resnet18(
+            state, _calibration_batches(dataset, batch_size), device=dev
+        ).tree()
+        if group is not None:  # pickled without a device
+            qtree = quantized_to(qtree, "cpu")
+    return quantized_to(broadcast_object(qtree, group), dev)
+
+
+def _rows_to_global(feats: torch.Tensor, group, rank: int, world: int
+                    ) -> torch.Tensor:
+    """This rank's (b, D) rows → the (world·b, D) float32 global batch on
+    every rank, rank r's rows at [r·b, (r+1)·b)."""
+    import torch.distributed as dist
+
+    b = feats.shape[0]
+    out = feats.new_zeros((world * b, *feats.shape[1:]), dtype=torch.float32)
+    out[rank * b:(rank + 1) * b] = feats
+    dist.all_reduce(out, op=dist.ReduceOp.SUM, group=group)
+    return out
+
+
 def run_feature_extraction(
     dataset: PatchDataset,
     state: dict[str, torch.Tensor],
@@ -118,6 +168,7 @@ def run_feature_extraction(
     stem_s2d: bool = False,
     int8: bool = False,
     qtree: dict | None = None,
+    group=None,
 ) -> tuple[np.ndarray, np.ndarray, list[str]]:
     """Forward every patch through the extractor; returns
     (features (N, ``feature_dim``) float32, labels (N,), patch names).
@@ -134,16 +185,18 @@ def run_feature_extraction(
     with scales calibrated on the first dataset batches. With a
     space-to-depth stem the dataset's host gather emits the (B, H/2, W/2, 12)
     layout directly, the same bytes, and the device transposes nothing.
+
+    ``group``: one rank of the data-parallel extraction (``batch_size`` is
+    the global batch, which the group's size must divide); every rank
+    returns the features of every row (module docstring).
     """
     dev = resolve_device(device)
     on_card = dev.type == "cuda"
+    rank, world = rank_and_size(group)
+    rows = process_batch_slice(batch_size, rank, world)
     if int8:
-        if qtree is None:
-            # no persisted artifact: calibrate on the first dataset batches
-            qtree = quantize_resnet18(
-                state, _calibration_batches(dataset, batch_size), device=dev
-            ).tree()
-        qtree = quantized_to(qtree, dev)
+        qtree = (quantized_to(qtree, dev) if qtree is not None
+                 else lazy_qtree(state, dataset, batch_size, dev, group))
         if int(qtree["qkernels"]["stem"].shape[-1]) == 4:
             dataset = dataclasses.replace(dataset, s2d=True)
 
@@ -162,7 +215,8 @@ def run_feature_extraction(
         def forward(x: torch.Tensor) -> torch.Tensor:
             return folded_forward_inference(fp, x, with_fc=False)
 
-    batches = Prefetcher(BatchIterator(dataset, batch_size, shuffle=False))
+    batches = Prefetcher(BatchIterator(dataset, batch_size, shuffle=False,
+                                       rows=rows))
     n_total = len(dataset)
     if out is None:
         out = np.empty((n_total, feature_dim), np.float32)
@@ -177,7 +231,7 @@ def run_feature_extraction(
     def step(k: int, imgs: np.ndarray):
         """Enqueue batch k; returns what :func:`spool` needs to read it."""
         if not on_card:
-            return forward(torch.from_numpy(imgs)), None
+            return forward_rows(torch.from_numpy(imgs)), None
         slot = k % 2
         if staged[slot] is None:
             staged[slot] = torch.empty(imgs.shape, dtype=torch.uint8,
@@ -188,7 +242,7 @@ def run_feature_extraction(
         x = staged[slot].to(dev, non_blocking=True)
         uploaded[slot] = torch.cuda.Event()
         uploaded[slot].record()
-        feats = forward(x)
+        feats = forward_rows(x)
         copy_stream.wait_stream(torch.cuda.current_stream(dev))
         with torch.cuda.stream(copy_stream):
             fetched[slot].copy_(feats, non_blocking=True)
@@ -196,6 +250,14 @@ def run_feature_extraction(
             done.record()
         feats.record_stream(copy_stream)
         return fetched[slot], done
+
+    def forward_rows(x: torch.Tensor) -> torch.Tensor:
+        """The features of the global batch: this rank's, or every rank's
+        rows in order."""
+        feats = forward(x)
+        if group is None:
+            return feats
+        return _rows_to_global(feats, group, rank, world)
 
     def spool(pending) -> None:
         (feats, done), n_valid, at = pending
@@ -211,7 +273,8 @@ def run_feature_extraction(
             result = step(k, imgs)
             if pending is not None:
                 spool(pending)
-            n_valid = int(valid.sum())
+            n_valid = int(valid.sum()) if group is None else _global_valid(
+                k, batch_size, n_total)
             pending = (result, n_valid, pos)
             pos += n_valid
         if pending is not None:
@@ -220,6 +283,11 @@ def run_feature_extraction(
     labels = dataset.labels
     names = [rec.patch_name for rec in dataset.manifest]
     return out[:pos], labels, names
+
+
+def _global_valid(k: int, batch_size: int, n_total: int) -> int:
+    """The real rows of global batch ``k`` of a walk over ``n_total``."""
+    return min(batch_size, n_total - k * batch_size)
 
 
 def _features_memmap(features_dir: str, level: int, n: int,
@@ -265,16 +333,20 @@ def _level_dataset(cfg: Config, level: int,
 def _extract(cfg: Config, level: int, trunk: dict[str, torch.Tensor],
              dataset: PatchDataset, batch_size: int | None,
              device: str | torch.device | None, int8: bool = False,
-             qtree: dict | None = None) -> np.ndarray:
+             qtree: dict | None = None, group=None) -> np.ndarray:
     dev = resolve_device("cuda" if device is None else device)
     feature_dim = int(trunk["layer4.1.conv2.weight"].shape[0])
-    out = _features_memmap(cfg.data.features_dir, level, len(dataset),
-                           feature_dim)
+    main = is_main(group)
+    out = (_features_memmap(cfg.data.features_dir, level, len(dataset),
+                            feature_dim) if main else None)
     feats, labels, names = run_feature_extraction(
         dataset, trunk, batch_size or cfg.train.batch_size, out=out,
         feature_dim=feature_dim, device=dev, int8=int8, qtree=qtree,
+        group=group,
     )
-    _save_artifacts(cfg.data.features_dir, level, feats, labels, names)
+    if main:
+        _save_artifacts(cfg.data.features_dir, level, feats, labels, names)
+    barrier(group)
     return feats
 
 
@@ -282,6 +354,7 @@ def extract_features(
     cfg: Config, level: int = 3, model_path: str | None = None,
     batch_size: int | None = None, dataset: PatchDataset | None = None,
     device: str | torch.device | None = None, int8: bool = False,
+    group=None,
 ) -> np.ndarray:
     """Classifier-trunk feature extraction: loads the trained classifier
     (``<models_dir>/resnet18_patch_classifier.pt``), strips the fc head and
@@ -289,7 +362,8 @@ def extract_features(
     card unless ``device`` says otherwise. ``dataset=None`` loads the
     level's manifest; a given dataset serves installations without
     pyarrow. ``int8=True`` runs the int8 forward, from
-    ``<models_dir>/quantized_resnet18.npz`` when ``--quantize`` wrote one."""
+    ``<models_dir>/quantized_resnet18.npz`` when ``--quantize`` wrote one.
+    ``group``: one rank of the data-parallel extraction (rank 0 writes)."""
     dataset = _level_dataset(cfg, level, dataset)
     model_path = model_path or model_artifact_path(
         cfg.models_dir, "resnet18_patch_classifier")
@@ -298,18 +372,20 @@ def extract_features(
     if int8:
         qtree = maybe_load_artifact(cfg.models_dir, CLASSIFIER_ARTIFACT)
     return _extract(cfg, level, trunk, dataset, batch_size, device, int8,
-                    qtree)
+                    qtree, group)
 
 
 def extract_features_with_simclr(
     cfg: Config, level: int = 3, encoder_path: str | None = None,
     batch_size: int | None = None, dataset: PatchDataset | None = None,
     device: str | torch.device | None = None, int8: bool = False,
+    group=None,
 ) -> np.ndarray:
     """SimCLR-encoder feature extraction: reads the ``simclr_encoder.pt``
     that ``pretrain_simclr`` writes and takes its ``encoder.`` entries (a
     bare encoder state dict is taken as it is). ``int8=True`` quantizes the
-    encoder with scales calibrated on the first dataset batches."""
+    encoder with scales calibrated on the first dataset batches.
+    ``group``: one rank of the data-parallel extraction (rank 0 writes)."""
     dataset = _level_dataset(cfg, level, dataset)
     encoder_path = encoder_path or model_artifact_path(cfg.models_dir,
                                                        "simclr_encoder")
@@ -318,7 +394,7 @@ def extract_features_with_simclr(
         sd = {k.removeprefix("encoder."): v for k, v in sd.items()
               if k.startswith("encoder.")}
     return _extract(cfg, level, strip_head(sd), dataset, batch_size, device,
-                    int8)
+                    int8, group=group)
 
 
 def load_feature_artifacts(

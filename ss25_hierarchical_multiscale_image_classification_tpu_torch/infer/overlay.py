@@ -1,11 +1,13 @@
 """Tumor-heatmap overlays on slide thumbnails.
 
 Copy of the JAX package's ``infer/overlay.py``, held to it by an exact
-test: the sliding-window probability grid through matplotlib's rainbow
-colormap, resized over the slide's display level and alpha-blended with
-Pillow (``Image.blend(img, heatmap, 0.4)``, the reference's recipe). Pillow
-and matplotlib are imported when an overlay is drawn; where either is
-missing (matplotlib is, on the card's machine) ``render_overlay`` raises
+test: the sliding-window probability grid through the rainbow colormap,
+resized over the slide's display level and alpha-blended with Pillow
+(``Image.blend(img, heatmap, 0.4)``, the reference's recipe). The colormap
+is matplotlib's ``rainbow`` as a numpy table (:func:`rainbow_lut`, looked
+up by :func:`colormap_lookup` as matplotlib's ``Colormap.__call__`` looks
+it up), equal byte for byte to matplotlib's uint8 output, so an overlay
+needs Pillow alone; where Pillow is missing ``render_overlay`` raises
 ``ImportError`` naming it.
 """
 
@@ -19,12 +21,57 @@ from ss25_hierarchical_multiscale_image_classification_tpu_torch.io.slide import
 )
 
 
-def _colormap_rainbow(values: np.ndarray) -> np.ndarray:
-    """(H, W) in [0,1] → (H, W, 3) uint8 via matplotlib's rainbow map."""
-    import matplotlib.cm as cm
+#: Entries of matplotlib's default colormaps (``rcParams["image.lut"]``).
+LUT_SIZE = 256
 
-    rgba = cm.rainbow(np.clip(values, 0.0, 1.0))
-    return (rgba[..., :3] * 255).astype(np.uint8)
+
+def rainbow_lut(n: int = LUT_SIZE) -> np.ndarray:
+    """matplotlib's ``rainbow`` table, (n, 3) float64: (|2x − 0.5|,
+    sin πx, cos πx/2) on ``linspace(0, 1, n)``, clipped to [0, 1]."""
+    x = np.linspace(0, 1, n) ** 1.0
+    rgb = (np.abs(2 * x - 0.5), np.sin(x * np.pi), np.cos(x * np.pi / 2))
+    return np.stack([np.clip(np.array(c, dtype=float), 0, 1) for c in rgb],
+                    axis=-1)
+
+
+def segment_lut(segments, n: int = LUT_SIZE) -> np.ndarray:
+    """One channel of a segment-data colormap, (n,) float64: the rows
+    ``(x, y_left, y_right)`` interpolated linearly at ``linspace(0, 1, n)``
+    as matplotlib's ``_create_lookup_table`` interpolates them."""
+    a = np.array(segments, dtype=float)
+    x, y0, y1 = a[:, 0] * (n - 1), a[:, 1], a[:, 2]
+    xind = (n - 1) * np.linspace(0, 1, n) ** 1.0
+    ind = np.searchsorted(x, xind)[1:-1]
+    distance = (xind[1:-1] - x[ind - 1]) / (x[ind] - x[ind - 1])
+    lut = np.concatenate([[y1[0]], distance * (y0[ind] - y1[ind - 1])
+                          + y1[ind - 1], [y0[-1]]])
+    return np.clip(lut, 0.0, 1.0)
+
+
+def colormap_lookup(lut_u8: np.ndarray, values: np.ndarray) -> np.ndarray:
+    """(..., 3) uint8 colours of the float ``values`` in a (n, 3) uint8
+    table, indexed as matplotlib's ``Colormap.__call__`` indexes floats: v
+    takes entry ``int(v·n)`` (``n − 1`` at v = 1), below 0 the first entry,
+    from 1 up the last, NaN matplotlib's "bad" colour (black, alpha 0)."""
+    n = len(lut_u8)
+    xa = np.array(values, copy=True)
+    xa *= n
+    xa[xa == n] = n - 1
+    bad = np.isnan(xa)
+    np.clip(xa, -1, n, out=xa)
+    with np.errstate(invalid="ignore"):
+        xa = np.clip(xa.astype(int), 0, n - 1)
+    out = lut_u8[xa]
+    out[bad] = 0
+    return out
+
+
+_RAINBOW_U8 = (rainbow_lut() * 255).astype(np.uint8)
+
+
+def _colormap_rainbow(values: np.ndarray) -> np.ndarray:
+    """(H, W) in [0,1] → (H, W, 3) uint8 via the rainbow table."""
+    return colormap_lookup(_RAINBOW_U8, np.clip(values, 0.0, 1.0))
 
 
 def render_overlay(

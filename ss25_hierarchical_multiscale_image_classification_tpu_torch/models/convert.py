@@ -4,8 +4,8 @@
 ``models/torch_import.py::from_torch_state_dict``:
 
     stem_conv / stem_norm                  → conv1 / bn1
-    stage{L}_block{B}.Conv_{0,1}           → layer{L}.{B}.conv{1,2}
-    stage{L}_block{B}.BatchNorm_{0,1}      → layer{L}.{B}.bn{1,2}
+    stage{L}_block{B}.Conv_{0,1[,2]}       → layer{L}.{B}.conv{1,2[,3]}
+    stage{L}_block{B}.BatchNorm_{0,1[,2]}  → layer{L}.{B}.bn{1,2[,3]}
     stage{L}_block{B}.downsample_{conv,norm} → layer{L}.{B}.downsample.{0,1}
     fc                                     → fc
 
@@ -16,7 +16,11 @@ BatchNorm ``scale/bias`` (params) and ``mean/var`` (batch_stats) →
 across; :func:`hierarchical_state_dict_from_flax` the multiscale classifier
 with its calibration, in :func:`hierarchical_artifact`'s format (which the
 port's multiscale trainer writes too), and :func:`split_calibration` and
-:func:`hierarchical_from_state_dict` take it apart again. Numpy in (anything ``np.asarray`` takes), tensors out; nothing here
+:func:`hierarchical_from_state_dict` take it apart again;
+:func:`cnn_encoder_state_dict_from_flax` and
+:func:`unet_state_dict_from_flax` carry the legacy models (ResNet50 goes
+through :func:`state_dict_from_flax`, ``Conv_2`` being a Bottleneck's third
+convolution). Numpy in (anything ``np.asarray`` takes), tensors out; nothing here
 imports jax.
 """
 
@@ -31,8 +35,9 @@ import torch
 from ss25_hierarchical_multiscale_image_classification_tpu_torch.models.hierarchical import (
     HierarchicalPatchClassifier,
 )
-from ss25_hierarchical_multiscale_image_classification_tpu_torch.models.resnet import (
+from ss25_hierarchical_multiscale_image_classification_tpu_torch.models.resnet import (  # noqa: F401 (strip_head: re-exported)
     ResNet,
+    strip_head,
 )
 
 _BLOCK_RE = re.compile(r"^stage(?P<stage>\d+)_block(?P<block>\d+)$")
@@ -71,6 +76,9 @@ def state_dict_from_flax(variables: Mapping[str, Any]) -> dict[str, torch.Tensor
         norm(f"{dst}.bn1", p["BatchNorm_0"], s["BatchNorm_0"])
         conv(f"{dst}.conv2", p["Conv_1"])
         norm(f"{dst}.bn2", p["BatchNorm_1"], s["BatchNorm_1"])
+        if "Conv_2" in p:  # Bottleneck
+            conv(f"{dst}.conv3", p["Conv_2"])
+            norm(f"{dst}.bn3", p["BatchNorm_2"], s["BatchNorm_2"])
         if "downsample_conv" in p:
             conv(f"{dst}.downsample.0", p["downsample_conv"])
             norm(f"{dst}.downsample.1", p["downsample_norm"],
@@ -78,6 +86,65 @@ def state_dict_from_flax(variables: Mapping[str, Any]) -> dict[str, torch.Tensor
     if "fc" in params:
         sd["fc.weight"] = _tensor(np.asarray(params["fc"]["kernel"]).T)
         sd["fc.bias"] = _tensor(params["fc"]["bias"])
+    return sd
+
+
+def _conv_bias(sd: dict, dst: str, node) -> None:
+    """A flax ``Conv`` (HWIO kernel, bias) as a ``Conv2d``'s entries."""
+    sd[f"{dst}.weight"] = _tensor(np.asarray(node["kernel"]).transpose(3, 2, 0, 1))
+    sd[f"{dst}.bias"] = _tensor(node["bias"])
+
+
+def _dense(sd: dict, dst: str, node) -> None:
+    """A flax ``Dense`` ((in, out) kernel, bias) as a ``Linear``'s."""
+    sd[f"{dst}.weight"] = _tensor(np.asarray(node["kernel"]).T)
+    sd[f"{dst}.bias"] = _tensor(node["bias"])
+
+
+def cnn_encoder_state_dict_from_flax(variables: Mapping[str, Any]
+                                     ) -> dict[str, torch.Tensor]:
+    """flax ``{"params", "batch_stats"}`` of the JAX ``CNNEncoder`` → the
+    port's: the ResNet50 trunk through :func:`state_dict_from_flax` under
+    ``trunk.``, the projection as a ``Linear``."""
+    params = variables["params"]
+    trunk = state_dict_from_flax({
+        "params": params["trunk"],
+        "batch_stats": variables.get("batch_stats", {}).get("trunk", {}),
+    })
+    sd = {f"trunk.{k}": v for k, v in trunk.items()}
+    _dense(sd, "projection", params["projection"])
+    return sd
+
+
+def unet_state_dict_from_flax(variables: Mapping[str, Any]
+                              ) -> dict[str, torch.Tensor]:
+    """flax params of the JAX ``UNet`` or ``UNetClassifier`` → the port's
+    state dict. flax numbers the submodules in call order: ``_DoubleConv_0``
+    … the encoder's, the bottleneck's, then the decoder's; ``ConvTranspose_i``
+    the up-convolutions (their (kh, kw, in, out) kernels flipped in both
+    taps, since ``lax.conv_transpose`` does not flip a kernel that
+    ``ConvTranspose2d`` applies flipped); the head is the last ``Conv_0``
+    (UNet) or ``Dense_0`` (UNetClassifier)."""
+    params = variables.get("params", variables)
+    n_up = sum(1 for k in params if k.startswith("ConvTranspose_"))
+    sd: dict[str, torch.Tensor] = {}
+
+    def double(dst: str, node) -> None:
+        _conv_bias(sd, f"{dst}.conv0", node["Conv_0"])
+        _conv_bias(sd, f"{dst}.conv1", node["Conv_1"])
+
+    for i in range(n_up):
+        double(f"trunk.down.{i}", params[f"_DoubleConv_{i}"])
+        up = np.asarray(params[f"ConvTranspose_{i}"]["kernel"])
+        sd[f"trunk.up.{i}.weight"] = _tensor(
+            up[::-1, ::-1].transpose(2, 3, 0, 1).copy())
+        sd[f"trunk.up.{i}.bias"] = _tensor(params[f"ConvTranspose_{i}"]["bias"])
+        double(f"trunk.dec.{i}", params[f"_DoubleConv_{n_up + 1 + i}"])
+    double("trunk.bottleneck", params[f"_DoubleConv_{n_up}"])
+    if "Dense_0" in params:
+        _dense(sd, "head", params["Dense_0"])
+    else:
+        _conv_bias(sd, "head", params["Conv_0"])
     return sd
 
 
@@ -295,12 +362,6 @@ def classifier_trunk_from_simclr(sd: Mapping[str, torch.Tensor]
     head."""
     return {k.removeprefix("encoder."): v for k, v in sd.items()
             if k.startswith("encoder.")}
-
-
-def strip_head(sd: Mapping[str, torch.Tensor]) -> dict[str, torch.Tensor]:
-    """A classifier's state dict without its ``fc`` head, so that the trunk
-    loads into a feature extractor (the JAX ``models/resnet.py::strip_head``)."""
-    return {k: v for k, v in sd.items() if not k.startswith("fc.")}
 
 
 def load_state_dict_file(path: str) -> dict[str, torch.Tensor]:

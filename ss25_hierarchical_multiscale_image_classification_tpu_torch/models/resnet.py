@@ -1,11 +1,15 @@
-"""ResNet18 in PyTorch, in torchvision state-dict layout.
+"""The ResNet family in PyTorch, in torchvision state-dict layout.
 
 Counterpart of the JAX package's ``models/resnet.py`` (``BasicBlock``,
-``ResNet``, ``ResNet18Classifier``, ``ResNet18FeatureExtractor``). Parameter
-names follow torchvision (``conv1``, ``bn1``, ``layer{1..4}.{0,1}.conv1/bn1/
-conv2/bn2/downsample.{0,1}``, ``fc``), so reference ``.pth`` checkpoints load
-with ``load_state_dict`` and JAX weights arrive through
-:func:`..models.convert.state_dict_from_flax`.
+``Bottleneck``, ``ResNet``, ``ResNet18Classifier``,
+``ResNet18FeatureExtractor``, ``UnifiedResNet``, ``ResNet50``,
+``strip_head``, ``merge_trunk``). Parameter names follow torchvision
+(``conv1``, ``bn1``, ``layer{1..4}.{j}.conv1/bn1/conv2/bn2[/conv3/bn3]/
+downsample.{0,1}``, ``fc``), so reference ``.pth`` checkpoints load with
+``load_state_dict`` and JAX weights arrive through
+:func:`..models.convert.state_dict_from_flax`. ResNet50 (Bottleneck, the
+MIL track's encoder trunk, ``models/cnn_encoder.py``) is legacy code that
+no CLI path reaches, as in the JAX package.
 
 Semantics kept from the JAX model:
 
@@ -34,7 +38,7 @@ dtype.
 from __future__ import annotations
 
 import math
-from typing import Sequence
+from typing import Mapping, Sequence
 
 import torch
 import torch.nn.functional as F
@@ -155,8 +159,40 @@ class BasicBlock(nn.Module):
         return self.relu(out + identity)
 
 
+class Bottleneck(nn.Module):
+    """1×1 → 3×3 (strided) → 1×1 residual block, expansion 4 (torchvision
+    ``Bottleneck``, ResNet50)."""
+
+    expansion = 4
+
+    def __init__(self, inplanes: int, planes: int, stride: int = 1):
+        super().__init__()
+        out = planes * self.expansion
+        self.conv1 = nn.Conv2d(inplanes, planes, 1, bias=False)
+        self.bn1 = BatchNorm2d(planes, eps=1e-5)
+        self.conv2 = nn.Conv2d(planes, planes, 3, stride, 1, bias=False)
+        self.bn2 = BatchNorm2d(planes, eps=1e-5)
+        self.conv3 = nn.Conv2d(planes, out, 1, bias=False)
+        self.bn3 = BatchNorm2d(out, eps=1e-5)
+        self.relu = nn.ReLU(inplace=True)
+        self.downsample = None
+        if stride != 1 or inplanes != out:
+            self.downsample = nn.Sequential(
+                nn.Conv2d(inplanes, out, 1, stride, bias=False),
+                BatchNorm2d(out, eps=1e-5),
+            )
+
+    def forward(self, x: torch.Tensor) -> torch.Tensor:
+        identity = x if self.downsample is None else self.downsample(x)
+        out = self.relu(self.bn1(self.conv1(x)))
+        out = self.relu(self.bn2(self.conv2(out)))
+        out = self.bn3(self.conv3(out))
+        return self.relu(out + identity)
+
+
 class ResNet(nn.Module):
-    """BasicBlock ResNet trunk with an optional ``fc`` head.
+    """ResNet trunk of ``block`` (BasicBlock or Bottleneck) with an optional
+    ``fc`` head.
 
     ``num_classes=None`` is the fc-stripped feature extractor. Parameters
     are initialised from ``generator`` (seed 0 when none is given) and never
@@ -172,6 +208,7 @@ class ResNet(nn.Module):
         num_filters: int = 64,
         generator: torch.Generator | None = None,
         frozen_bn: bool = False,
+        block: type[nn.Module] = BasicBlock,
     ):
         super().__init__()
         self.frozen_bn = frozen_bn
@@ -186,8 +223,8 @@ class ResNet(nn.Module):
                 blocks = []
                 for j in range(count):
                     stride = 2 if i > 0 and j == 0 else 1
-                    blocks.append(BasicBlock(inplanes, planes, stride))
-                    inplanes = planes
+                    blocks.append(block(inplanes, planes, stride))
+                    inplanes = planes * getattr(block, "expansion", 1)
                 self.add_module(f"layer{i + 1}", nn.Sequential(*blocks))
             self.num_stages = len(stage_sizes)
             self.fc = (
@@ -212,7 +249,8 @@ class ResNet(nn.Module):
     @torch.no_grad()
     def reset_parameters(self, generator: torch.Generator) -> None:
         """He-normal (fan_out) convs, unit BN with zeroed last-BN scale per
-        block, LeCun-normal head: the JAX model's initialisers."""
+        block, LeCun-normal head: the JAX model's initialisers (the shapes'
+        distributions; flax draws other values from its key)."""
         for m in self.modules():
             if isinstance(m, nn.Conv2d):
                 fan_out = m.out_channels * m.kernel_size[0] * m.kernel_size[1]
@@ -231,11 +269,14 @@ class ResNet(nn.Module):
         for m in self.modules():
             if isinstance(m, BasicBlock):
                 m.bn2.weight.zero_()
+            elif isinstance(m, Bottleneck):
+                m.bn3.weight.zero_()
 
     def forward(self, x: torch.Tensor, from_stem: bool = False
                 ) -> torch.Tensor:
         """(B, H, W, 3) normalized images → float32 logits (B, classes), or
-        float32 features (B, 8·num_filters) when there is no head.
+        float32 features (B, 8·num_filters·expansion) when there is no
+        head.
 
         With ``from_stem=True``, ``x`` is the already-pooled stem output
         (B, H/4, W/4, num_filters), e.g. of the fused stem kernels
@@ -267,3 +308,39 @@ def ResNet18FeatureExtractor(num_filters: int = 64,
                              ) -> ResNet:
     """fc-stripped ResNet18 → (B, 8·num_filters) features."""
     return ResNet((2, 2, 2, 2), None, num_filters, generator)
+
+
+def UnifiedResNet(mode: str = "features", num_classes: int = 2,
+                  **kw) -> ResNet:
+    """The ResNet18 feature extractor (``mode="features"``) or classifier
+    (``"classifier"``) behind one flag."""
+    if mode == "features":
+        return ResNet18FeatureExtractor(**kw)
+    if mode == "classifier":
+        return ResNet18Classifier(num_classes=num_classes, **kw)
+    raise ValueError(f"unknown mode {mode!r}")
+
+
+def ResNet50(num_classes: int | None = 2, num_filters: int = 64,
+             generator: torch.Generator | None = None,
+             frozen_bn: bool = False) -> ResNet:
+    """Bottleneck ResNet50: (B, classes) logits, or (B, 32·num_filters)
+    features with ``num_classes=None``."""
+    return ResNet((3, 4, 6, 3), num_classes, num_filters, generator,
+                  frozen_bn, block=Bottleneck)
+
+
+def strip_head(sd: Mapping[str, torch.Tensor]) -> dict[str, torch.Tensor]:
+    """A classifier's state dict without its ``fc`` head, so that the trunk
+    loads into a feature extractor."""
+    return {k: v for k, v in sd.items() if not k.startswith("fc.")}
+
+
+def merge_trunk(target: Mapping[str, torch.Tensor],
+                source: Mapping[str, torch.Tensor]
+                ) -> dict[str, torch.Tensor]:
+    """``target``'s entries, each non-head one replaced by ``source``'s of
+    the same name where ``source`` has it (same trunk topology); the ``fc``
+    head and target-only entries stay ``target``'s."""
+    return {k: v if k.startswith("fc.") else source.get(k, v)
+            for k, v in target.items()}

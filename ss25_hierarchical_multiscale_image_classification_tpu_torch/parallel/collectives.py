@@ -20,7 +20,8 @@ is the transpose JAX uses:
   and whose gradient is this rank's share of it, so that the gradients
   summed over the ranks (:func:`all_reduce_grads`) are the global loss's;
 - :func:`global_batch_norm`: training BatchNorm over the group's global
-  batch on CUDA tensors, from PyTorch's synchronized-BatchNorm kernels.
+  batch on CUDA tensors, from PyTorch's synchronized-BatchNorm kernels;
+- :func:`epoch_totals`: an epoch's summed step metrics, the group's.
 
 ``torch.distributed.nn.functional.all_gather`` is not used: on backends
 other than NCCL its backward goes through ``all_to_all``, which gloo lacks
@@ -111,6 +112,24 @@ def all_reduce_grads(params, group) -> None:
     for g in grads:
         g.copy_(flat[offset:offset + g.numel()].view_as(g))
         offset += g.numel()
+
+
+@torch.no_grad()
+def epoch_totals(metrics: list, group=None, device=None) -> dict:
+    """The summed ``loss``, ``correct`` and ``count`` of an epoch's step
+    metrics (dicts of 0-d tensors) as floats. Each step's loss is its global
+    batch's already; ``correct`` and ``count`` are summed over ``group``'s
+    ranks, every one of which must call this (with as many steps).
+    ``device`` holds the zeros of an epoch without steps."""
+    keys = ("loss", "correct", "count")
+    sums = (torch.stack([torch.stack([m[k].float() for m in metrics]).sum()
+                         for k in keys]) if metrics
+            else torch.zeros(len(keys), device=device))
+    if group is not None:
+        counts = sums[1:].clone()
+        dist.all_reduce(counts, op=dist.ReduceOp.SUM, group=group)
+        sums = torch.cat([sums[:1], counts])
+    return dict(zip(keys, sums.tolist()))
 
 
 def _gather(x: torch.Tensor, group) -> torch.Tensor:

@@ -91,6 +91,19 @@ def barrier(group=None) -> None:
         dist.barrier(group)
 
 
+def broadcast_object(obj: Any, group=None) -> Any:
+    """The group's first rank's ``obj`` (picklable) on every rank; ``obj``
+    itself without a group. Every rank must call it."""
+    if group is None:
+        return obj
+    import torch.distributed as dist
+
+    shared = [obj]
+    dist.broadcast_object_list(shared, src=dist.get_global_rank(group, 0),
+                               group=group)
+    return shared[0]
+
+
 def mesh_shape(n: int, axis_names: Sequence[str],
                shape: Sequence[int] | None = None) -> tuple[int, ...]:
     """The extents of a mesh of ``n`` members: one per axis name, a single

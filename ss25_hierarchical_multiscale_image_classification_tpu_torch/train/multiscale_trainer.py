@@ -14,6 +14,15 @@ patches of ``data/multiscale.py::MultiscaleDataset`` on one card:
   takes the fusion head's weighted cross entropy plus ``aux_weight`` times
   the per-scale heads' (:func:`deep_supervision_loss`), then one Adam
   update;
+- with a process ``group`` (``torchrun``, one process a card:
+  ``parallel/``) the step is the JAX trainer's over its mesh: every rank
+  walks the same cell order and loads its contiguous rows of each global
+  batch (``shard_batch``'s split of the S·B stack), the augmentation is
+  drawn for the global batch and each rank's rows taken (the ``augment``
+  kernel runs once a level on those rows), BatchNorm normalizes with the
+  statistics of the whole stacked S·B batch of the group, the losses are the
+  global batch's, the gradients are summed over the ranks and Adam makes the
+  same update everywhere; rank 0 calibrates and writes the artifact;
 - after training, the validation cells calibrate the detection scores
   (``evaluation/calibration.py``: temperatures, the default surface, the
   cascade's operating point), which ship inside the artifact
@@ -60,6 +69,19 @@ from ss25_hierarchical_multiscale_image_classification_tpu_torch.models.convert 
 from ss25_hierarchical_multiscale_image_classification_tpu_torch.models.hierarchical import (
     HierarchicalPatchClassifier,
 )
+from ss25_hierarchical_multiscale_image_classification_tpu_torch.models.resnet import (
+    set_process_group,
+)
+from ss25_hierarchical_multiscale_image_classification_tpu_torch.parallel.feed import (
+    process_batch_slice,
+)
+from ss25_hierarchical_multiscale_image_classification_tpu_torch.parallel.mesh import (
+    barrier,
+    broadcast_object,
+    is_main,
+    rank_and_size,
+    replicate,
+)
 from ss25_hierarchical_multiscale_image_classification_tpu_torch.train.checkpoints import (
     SUFFIX,
     load_model,
@@ -82,8 +104,10 @@ log = get_logger("train.multiscale")
 
 
 def deep_supervision_loss(aux: torch.Tensor, labels: torch.Tensor,
-                          weights, valid: torch.Tensor) -> torch.Tensor:
-    """Per-scale auxiliary cross entropy over (B, S, C) logits.
+                          weights, valid: torch.Tensor, group=None
+                          ) -> torch.Tensor:
+    """Per-scale auxiliary cross entropy over (B, S, C) logits (over
+    ``group``'s global batch, see ``weighted_cross_entropy``).
 
     The flatten is sample-major (row r is sample r // S at scale r % S), so
     labels and ``valid`` are repeated S times each; tiling them would pair
@@ -91,7 +115,7 @@ def deep_supervision_loss(aux: torch.Tensor, labels: torch.Tensor,
     s = aux.shape[1]
     return weighted_cross_entropy(aux.reshape(-1, aux.shape[-1]),
                                   labels.repeat_interleave(s), weights,
-                                  valid.repeat_interleave(s))
+                                  valid.repeat_interleave(s), group)
 
 
 def warm_start_from_classifier(state: Mapping[str, torch.Tensor],
@@ -117,27 +141,40 @@ def warm_start_from_classifier(state: Mapping[str, torch.Tensor],
 
 def multiscale_loss(model: HierarchicalPatchClassifier, batch: dict,
                     labels: torch.Tensor, class_weights, valid: torch.Tensor,
-                    aux_weight: float):
+                    aux_weight: float, group=None):
     """The step's loss and fused logits: the forward of the augmented
     ``{level: batch}`` (under bf16 autocast on the card), the fusion head's
     weighted cross entropy plus ``aux_weight`` times
-    :func:`deep_supervision_loss`, in float32."""
+    :func:`deep_supervision_loss`, in float32 (over ``group``'s global
+    batch)."""
     dev = next(iter(batch.values())).device
     with torch.autocast("cuda", torch.bfloat16, enabled=dev.type == "cuda"):
         logits, aux = model(batch, with_aux=True)
-    loss = weighted_cross_entropy(logits, labels, class_weights, valid)
+    loss = weighted_cross_entropy(logits, labels, class_weights, valid, group)
     loss = loss + aux_weight * deep_supervision_loss(aux, labels,
-                                                     class_weights, valid)
+                                                     class_weights, valid,
+                                                     group)
     return loss, logits
 
 
-def make_multiscale_train_step(class_weights=None,
-                               aux_weight: float = 0.5) -> Callable:
+def make_multiscale_train_step(class_weights=None, aux_weight: float = 0.5,
+                               group=None) -> Callable:
     """``train_step(state, generator, imgs_u8, labels, valid) → (state,
     metrics)`` with ``imgs_u8`` a ``{level: uint8 (B, S, S, 3)}`` dict on
     one device: one shared augmentation draw from ``generator`` → forward →
     loss → backward → Adam. ``metrics`` (loss, correct, count) are device
-    scalars."""
+    scalars.
+
+    With a ``group`` the batch is this rank's rows of the global batch
+    (rank r holds rows [r·b, (r+1)·b) of every level): the draw is the
+    global batch's, ``metrics["loss"]`` the global loss, correct and count
+    this rank's, and the gradients are summed over the group before Adam.
+    The model's BatchNorm must take the group (``set_process_group``)."""
+    from ss25_hierarchical_multiscale_image_classification_tpu_torch.parallel.collectives import (
+        all_reduce_grads,
+    )
+
+    rank, world = rank_and_size(group)
     weights = None if class_weights is None else np.asarray(class_weights,
                                                             np.float32)
     cw: dict[torch.device, torch.Tensor] = {}  # on each device, made once
@@ -148,11 +185,16 @@ def make_multiscale_train_step(class_weights=None,
         if weights is not None and dev not in cw:
             cw[dev] = torch.as_tensor(weights).to(dev)
         state.model.train()
-        batch = preprocess_multiscale_batch(generator, imgs_u8, training=True)
+        b = labels.shape[0]
+        batch = preprocess_multiscale_batch(
+            generator, imgs_u8, training=True,
+            rows=None if group is None else (rank * b, world * b))
         state.optimizer.zero_grad(set_to_none=True)
         loss, logits = multiscale_loss(state.model, batch, labels, cw.get(dev),
-                                       valid, aux_weight)
+                                       valid, aux_weight, group)
         loss.backward()
+        if group is not None:
+            all_reduce_grads(state.model.parameters(), group)
         state.optimizer.step()
         state.step += 1
         with torch.no_grad():
@@ -189,20 +231,26 @@ def _upload(batches, dev: torch.device):
 def train_epoch(state: TrainState, train_step: Callable,
                 generator: torch.Generator, dataset: MultiscaleDataset,
                 batch_size: int, seed: int, indices: np.ndarray,
-                device: torch.device) -> dict:
+                device: torch.device, group=None) -> dict:
     """One epoch of ``train_step`` over the cells ``indices``, shuffled by
-    ``seed``, read on a prefetch thread and uploaded through pinned memory.
-    Returns the summed ``loss``, ``correct`` and ``count`` and the number of
-    ``steps``; the metrics stay on the card until the epoch ends."""
+    ``seed``, read on a prefetch thread and uploaded through pinned memory
+    (with a ``group``, this rank's rows of each global batch of
+    ``batch_size``). Returns the summed ``loss``, ``correct`` and ``count``
+    (the group's) and the number of ``steps``; the metrics stay on the card
+    until the epoch ends."""
+    rows = (None if group is None
+            else process_batch_slice(batch_size, *rank_and_size(group)))
     step_out = []
     batches = Prefetcher(dataset.batches(batch_size, shuffle=True, seed=seed,
-                                         indices=indices), depth=2)
+                                         indices=indices, rows=rows), depth=2)
     for imgs, labels, valid in _upload(batches, device):
         state, metrics = train_step(state, generator, imgs, labels, valid)
         step_out.append(metrics)
-    totals = {k: float(torch.stack([m[k] for m in step_out]).sum())
-              if step_out else 0.0 for k in ("loss", "correct", "count")}
-    return {**totals, "steps": len(step_out)}
+    from ss25_hierarchical_multiscale_image_classification_tpu_torch.parallel.collectives import (
+        epoch_totals,
+    )
+
+    return {**epoch_totals(step_out, group, device), "steps": len(step_out)}
 
 
 def train_multiscale_classifier(
@@ -216,10 +264,14 @@ def train_multiscale_classifier(
     init_from: str | None = "auto",
     input_mode: str = "resize",
     device: str | torch.device = "cuda",
+    group=None,
 ) -> dict:
     """Train the fusion classifier on ``device``, write
     ``<models_dir>/hierarchical_classifier.pt`` and return ``{"variables"
     (the artifact's state dict), "history", "levels", "calibration"}``.
+    ``group``: one rank of the data-parallel trainer (``batch_size`` is the
+    global batch, which the group's size must divide; rank 0 calibrates
+    and writes, every rank returns the same result).
 
     ``dataset=None`` joins the levels' manifests under ``patches_dir`` in
     ``input_mode``. ``init_from`` warm-starts the trunk and the aux head
@@ -262,10 +314,12 @@ def train_multiscale_classifier(
             model.state_dict(), load_model(init_from)))
         log.info("warm-started trunk + aux head from %s", init_from)
 
+    set_process_group(model, group)
     state = create_train_state(model, cfg.train.learning_rate, dev)
+    replicate(model, group)
     weights = class_weights_inv_min(dataset.labels[train_idx],
                                     cfg.model.num_classes)
-    train_step = make_multiscale_train_step(weights, aux_weight)
+    train_step = make_multiscale_train_step(weights, aux_weight, group)
 
     epochs = epochs or cfg.train.strategy_epochs
     history = []
@@ -274,7 +328,7 @@ def train_multiscale_classifier(
         t0 = time.perf_counter()
         totals = train_epoch(state, train_step, generator, dataset,
                              batch_size, cfg.train.seed + epoch, train_idx,
-                             dev)
+                             dev, group)
         acc = totals["correct"] / max(totals["count"], 1.0)
         history.append({"epoch": epoch, "loss": totals["loss"], "acc": acc})
         log.info(
@@ -282,7 +336,25 @@ def train_multiscale_classifier(
             epoch + 1, epochs, totals["loss"], acc, time.perf_counter() - t0,
         )
 
-    # ---- post-hoc calibration on the held-out cells -------------------
+    calibration = None
+    if is_main(group):
+        calibration = _calibrate(model, dataset, val_idx, batch_size, dev)
+    calibration = broadcast_object(calibration, group)
+    sd = hierarchical_artifact(model.state_dict(), calibration)
+    if is_main(group):
+        save_model(model_artifact_path(cfg.models_dir,
+                                       "hierarchical_classifier"), sd)
+    barrier(group)
+    return {"variables": sd, "history": history, "levels": levels,
+            "calibration": calibration}
+
+
+def _calibrate(model: HierarchicalPatchClassifier,
+               dataset: MultiscaleDataset, val_idx: np.ndarray,
+               batch_size: int, dev: torch.device) -> dict:
+    """The post-hoc calibration on the held-out cells ``val_idx``:
+    temperatures, the default surface and its mixture weights, the cascade
+    margin (module docstring)."""
     val_logits, val_aux, val_labels = [], [], []
     for imgs, labels, valid in dataset.batches(batch_size, shuffle=False,
                                                indices=val_idx):
@@ -347,9 +419,4 @@ def train_multiscale_classifier(
                 (m_aux_base[labels_np == 0] < margin).mean()
             )
         log.info("calibration: %s (proxies %s)", calibration, proxies)
-
-    sd = hierarchical_artifact(model.state_dict(), calibration)
-    save_model(model_artifact_path(cfg.models_dir, "hierarchical_classifier"),
-               sd)
-    return {"variables": sd, "history": history, "levels": levels,
-            "calibration": calibration}
+    return calibration

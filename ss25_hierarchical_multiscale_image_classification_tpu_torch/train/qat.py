@@ -14,6 +14,14 @@ The tuned tree is re-quantized with ``quantize_folded`` into the artifact
 ``quantized_resnet18.npz`` that ``--predict_slide --int8`` and
 ``--extract_features --int8`` serve.
 
+With a process ``group`` (``torchrun``, one process a card: ``parallel/``)
+the fine-tune is the JAX function's over its mesh: rank 0 calibrates the
+activation scales and every rank takes them and rank 0's folded tree
+(broadcast), walks the same batch order and loads its contiguous rows
+of each global batch; the loss is the global batch's, the gradients are
+summed over the ranks and Adam makes the same update everywhere. Rank 0
+writes the artifact.
+
 ``round`` is half to even in both frameworks, and the scales divide as
 tensors (on CUDA a division by a host scalar is a multiply by its
 reciprocal). On the card the fine-tune's convolutions run on cuDNN in
@@ -141,6 +149,7 @@ def qat_finetune(
     save: bool = True,
     input_size: int | None = None,
     device: str | torch.device = "cuda",
+    group=None,
 ) -> dict:
     """Fine-tune the trained classifier (``variables``, a ResNet18 state
     dict; default ``<models_dir>/resnet18_patch_classifier.pt``) under fake
@@ -152,13 +161,30 @@ def qat_finetune(
     the folded tree over shuffled batches of the level's patches, weighted
     by ``class_weights_inv_min``; the tuned tree is quantized
     anew (the activation scales recalibrated on it). Returns ``{"folded",
-    "ascales", "history", "artifact_path", "quantized"}``."""
+    "ascales", "history", "artifact_path", "quantized"}``. ``group``: one
+    rank of the data-parallel fine-tune (``batch_size`` is the global
+    batch, which the group's size must divide; rank 0 writes, every rank
+    returns the same result)."""
     from ss25_hierarchical_multiscale_image_classification_tpu_torch.data.datasets import (
         BatchIterator,
         PatchDataset,
     )
     from ss25_hierarchical_multiscale_image_classification_tpu_torch.data.manifest import (
         load_or_scan_manifest,
+    )
+    from ss25_hierarchical_multiscale_image_classification_tpu_torch.parallel.collectives import (
+        all_reduce_grads,
+        epoch_totals,
+    )
+    from ss25_hierarchical_multiscale_image_classification_tpu_torch.parallel.feed import (
+        process_batch_slice,
+    )
+    from ss25_hierarchical_multiscale_image_classification_tpu_torch.parallel.mesh import (
+        barrier,
+        broadcast_object,
+        is_main,
+        rank_and_size,
+        replicate,
     )
     from ss25_hierarchical_multiscale_image_classification_tpu_torch.models.quant_artifact import (
         CLASSIFIER_ARTIFACT,
@@ -186,15 +212,21 @@ def qat_finetune(
         dataset=dataset,
     )
     folded = fold_batchnorm(variables)
-    ascales = {k: v.to(dev) for k, v in calibrate(folded, calib, dev).items()}
+    ascales = None
+    if is_main(group):
+        ascales = {k: v.cpu() for k, v in calibrate(folded, calib, dev).items()}
+    ascales = {k: v.to(dev) for k, v in broadcast_object(ascales, group).items()}
     fp = trainable_folded(folded, dev)
+    params = [t for v in fp.values() for t in v.values()]
+    replicate(params, group)
     weights = torch.as_tensor(
         class_weights_inv_min(dataset.labels, cfg.model.num_classes)).to(dev)
-    opt = torch.optim.Adam([t for v in fp.values() for t in v.values()],
-                           lr=learning_rate, fused=dev.type == "cuda")
+    opt = torch.optim.Adam(params, lr=learning_rate,
+                           fused=dev.type == "cuda")
 
     epochs = epochs or cfg.train.strategy_epochs
     batch_size = batch_size or cfg.train.batch_size
+    rows = process_batch_slice(batch_size, *rank_and_size(group))
     history = []
     # cuDNN on, TF32 off (flags() alone would also turn cuDNN off)
     with torch.backends.cudnn.flags(enabled=True, allow_tf32=False):
@@ -203,26 +235,29 @@ def qat_finetune(
             outs = []
             for imgs, labels, valid in BatchIterator(
                     dataset, batch_size, shuffle=True,
-                    seed=cfg.train.seed + epoch):
+                    seed=cfg.train.seed + epoch, rows=rows):
                 x = to_device(imgs, dev)
                 y = to_device(labels.astype(np.int64), dev)
                 v = to_device(valid, dev)
                 opt.zero_grad(set_to_none=True)
                 logits = qat_forward(fp, ascales, x)
-                loss = weighted_cross_entropy(logits, y, weights, v)
+                loss = weighted_cross_entropy(logits, y, weights, v, group)
                 loss.backward()
+                if group is not None:
+                    all_reduce_grads(params, group)
                 opt.step()
                 with torch.no_grad():
-                    outs.append(torch.stack([
-                        loss.detach(),
-                        ((logits.argmax(dim=-1) == y).float() * v).sum(),
-                        v.sum()]))
-            total = (torch.stack(outs).sum(dim=0).tolist() if outs
-                     else [0.0, 0.0, 0.0])
-            acc = total[1] / max(total[2], 1.0)
-            history.append({"epoch": epoch, "loss": total[0], "acc": acc})
+                    outs.append({
+                        "loss": loss.detach(),
+                        "correct": ((logits.argmax(dim=-1) == y).float()
+                                    * v).sum(),
+                        "count": v.sum()})
+            total = epoch_totals(outs, group, dev)
+            acc = total["correct"] / max(total["count"], 1.0)
+            history.append({"epoch": epoch, "loss": total["loss"],
+                            "acc": acc})
             log.info("QAT epoch %d/%d: loss %.4f acc %.4f (%.1fs)",
-                     epoch + 1, epochs, total[0], acc,
+                     epoch + 1, epochs, total["loss"], acc,
                      time.perf_counter() - t0)
 
     folded_tuned = {
@@ -235,9 +270,11 @@ def qat_finetune(
     q = quantize_folded(folded_tuned, calib, device=dev)
     path = None
     if save:
-        path = save_quantized(
-            os.path.join(cfg.models_dir, CLASSIFIER_ARTIFACT), q.tree())
-        log.info("QAT int8 artifact saved: %s", path)
+        path = os.path.join(cfg.models_dir, CLASSIFIER_ARTIFACT)
+        if is_main(group):
+            path = save_quantized(path, q.tree())
+            log.info("QAT int8 artifact saved: %s", path)
+        barrier(group)
     return {
         "folded": folded_tuned,
         "ascales": {k: v.cpu() for k, v in ascales.items()},

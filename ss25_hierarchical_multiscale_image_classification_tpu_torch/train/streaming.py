@@ -16,6 +16,17 @@ unweighted cross entropy (the class counts are unknown until extraction
 ends). The step is the port's ``make_train_step(None, frozen_bn)``, so the
 augmentation runs on the ``augment`` kernel on the card; its draws come
 from a ``torch.Generator`` seeded ``train.seed + 1``.
+
+With a process ``group`` (``torchrun``, one process a card: ``parallel/``)
+rank 0 alone extracts, since the store is one set of files on one disk and
+a second writer would race it; it broadcasts each global batch of the
+stream to the ranks (a header first: a batch follows, the stream ended, or
+the extraction failed, which then raises on every rank), and each rank
+trains on its contiguous rows of it with the data-parallel step of
+``train/trainer.py`` (the augmentation drawn for the global batch, the
+``augment`` kernel on the rank's rows, BatchNorm over the global batch, the
+gradients summed over the ranks). The validation slides stay held out of
+the stream; the epochs after it run the data-parallel store-based trainer.
 """
 
 from __future__ import annotations
@@ -51,6 +62,18 @@ from ss25_hierarchical_multiscale_image_classification_tpu_torch.io.download imp
 from ss25_hierarchical_multiscale_image_classification_tpu_torch.logging_utils import (
     Timer,
     get_logger,
+)
+from ss25_hierarchical_multiscale_image_classification_tpu_torch.models.resnet import (
+    set_process_group,
+)
+from ss25_hierarchical_multiscale_image_classification_tpu_torch.parallel.feed import (
+    process_batch_slice,
+)
+from ss25_hierarchical_multiscale_image_classification_tpu_torch.parallel.mesh import (
+    barrier,
+    is_main,
+    rank_and_size,
+    replicate,
 )
 from ss25_hierarchical_multiscale_image_classification_tpu_torch.train.checkpoints import (
     model_artifact_path,
@@ -117,6 +140,48 @@ def _stream_batches(rec_queue, batch_size: int, resize_to: int):
     yield from drain(final=True)
 
 
+def _group_batches(batches, batch_size: int, resize_to: int,
+                   dev: torch.device, group):
+    """Rank 0's global batches of ``batches`` (None on the other ranks)
+    broadcast to every rank of ``group``: yields (images, labels, valid) of
+    this rank's rows on ``dev`` and the global batch's valid count."""
+    import torch.distributed as dist
+
+    rank, world = rank_and_size(group)
+    src = dist.get_global_rank(group, 0)
+    rows = process_batch_slice(batch_size, rank, world)
+    it = iter(batches) if rank == 0 else None
+    while True:
+        head = torch.zeros(1, dtype=torch.int64, device=dev)
+        imgs = torch.empty((batch_size, resize_to, resize_to, 3),
+                           dtype=torch.uint8, device=dev)
+        labels = torch.empty(batch_size, dtype=torch.int64, device=dev)
+        valid = torch.empty(batch_size, dtype=torch.float32, device=dev)
+        err = None
+        if it is not None:
+            try:
+                batch = next(it)
+                head.fill_(1)
+                for t, a in zip((imgs, labels, valid), batch):
+                    t.copy_(torch.from_numpy(a))
+            except StopIteration:
+                pass
+            except Exception as e:  # sent to every rank, raised below
+                err = e
+                head.fill_(-1)
+        dist.broadcast(head, src, group=group)
+        state = int(head.item())
+        if state == 0:
+            return
+        if state < 0:
+            if err is not None:
+                raise err
+            raise RuntimeError("the streamed extraction failed on rank 0")
+        for t in (imgs, labels, valid):
+            dist.broadcast(t, src, group=group)
+        yield imgs[rows], labels[rows], valid[rows], int(valid.sum())
+
+
 def train_resnet_classifier_streaming(
     cfg: Config,
     level: int = 3,
@@ -127,6 +192,7 @@ def train_resnet_classifier_streaming(
     extract_impl: str = "host",
     stain_norm: bool = False,
     device: str | torch.device = "cuda",
+    group=None,
 ) -> dict:
     """The combined ``--patch --train`` pipeline (module docstring) on
     ``device``, which also runs the device extraction and ``stain_norm``.
@@ -135,6 +201,9 @@ def train_resnet_classifier_streaming(
     steps, accuracy, patches seen), ``history`` (epochs 1+) and
     ``variables`` (the final state dict on the CPU). With ``epochs == 1``
     the streamed epoch's weights are saved as ``resnet18_patch_classifier``.
+    ``group``: one rank of the data-parallel trainer (``batch_size`` is the
+    global batch, which the group's size must divide; rank 0 extracts and
+    writes, every rank returns the same weights).
     """
     dev = resolve_device(device)
     epochs = epochs or cfg.train.epochs
@@ -168,26 +237,39 @@ def train_resnet_classifier_streaming(
             rec_q.put(e)
 
     # the store-based epochs' model exactly: epoch 1 warm-starts from it
-    state = create_train_state(_classifier(cfg), cfg.train.learning_rate, dev)
-    step = make_train_step(None, frozen_bn=cfg.train.freeze_bn)
+    model = _classifier(cfg)
+    set_process_group(model, group)
+    state = create_train_state(model, cfg.train.learning_rate, dev)
+    replicate(model, group)
+    step = make_train_step(None, frozen_bn=cfg.train.freeze_bn, group=group)
     generator = torch.Generator(device=dev).manual_seed(cfg.train.seed + 1)
 
+    main = is_main(group)
     thread = threading.Thread(target=producer, daemon=True)
-    thread.start()
+    if main:
+        thread.start()
+    stream = _stream_batches(rec_q, batch_size, resize_to) if main else None
+    if group is None:
+        batches = ((to_device(imgs, dev),
+                    to_device(labels.astype(np.int64), dev),
+                    to_device(valid, dev), int(valid.sum()))
+                   for imgs, labels, valid in stream)
+    else:
+        batches = _group_batches(stream, batch_size, resize_to, dev, group)
     n_seen = 0
     step_metrics = []
     with Timer("streamed epoch 0 (extraction-overlapped)", log):
-        for imgs, labels, valid in _stream_batches(
-            rec_q, batch_size, resize_to
-        ):
-            state, m = step(state, generator, to_device(imgs, dev),
-                            to_device(labels.astype(np.int64), dev),
-                            to_device(valid, dev))
+        for imgs, labels, valid, n_valid in batches:
+            state, m = step(state, generator, imgs, labels, valid)
             step_metrics.append(m)
-            n_seen += int(valid.sum())
-    thread.join()
-    totals = {k: float(torch.stack([m[k] for m in step_metrics]).sum())
-              if step_metrics else 0.0 for k in ("loss", "correct", "count")}
+            n_seen += n_valid
+    if main:
+        thread.join()
+    from ss25_hierarchical_multiscale_image_classification_tpu_torch.parallel.collectives import (
+        epoch_totals,
+    )
+
+    totals = epoch_totals(step_metrics, group, dev)
     ep0 = {
         "epoch": 0,
         "loss": totals["loss"],
@@ -201,17 +283,19 @@ def train_resnet_classifier_streaming(
     variables = {k: v.detach().cpu().clone()
                  for k, v in state.model.state_dict().items()}
     result: dict = {"streamed_epoch": ep0, "variables": variables}
+    barrier(group)  # rank 0's store is complete
     if epochs > 1:
         trainer = train_resnet_classifier(
             cfg, level=level, epochs=epochs - 1,
-            pretrained_variables=variables, device=dev,
+            pretrained_variables=variables, device=dev, group=group,
         )
         result["history"] = trainer.history
         result["variables"] = trainer.variables()
     else:
-        save_model(
-            model_artifact_path(cfg.models_dir, "resnet18_patch_classifier"),
-            variables,
-        )
+        if main:
+            save_model(model_artifact_path(cfg.models_dir,
+                                           "resnet18_patch_classifier"),
+                       variables)
+        barrier(group)
         result["history"] = []
     return result

@@ -276,15 +276,11 @@ class Trainer:
             self.state, metrics = self.train_step(
                 self.state, self.generator, imgs, labels, valid)
             step_metrics.append(metrics)
-        if step_metrics:
-            # each step's loss is the global batch's already
-            totals = {"loss": float(torch.stack(
-                [m["loss"] for m in step_metrics]).sum())}
-            totals["correct"], totals["count"] = self._over_group(torch.stack(
-                [torch.stack([m[k].float() for m in step_metrics]).sum()
-                 for k in ("correct", "count")])).tolist()
-        else:
-            totals = {"loss": 0.0, "correct": 0.0, "count": 0.0}
+        from ss25_hierarchical_multiscale_image_classification_tpu_torch.parallel.collectives import (
+            epoch_totals,
+        )
+
+        totals = epoch_totals(step_metrics, self.group, self.device)
         return {
             "epoch": epoch,
             "train_loss": totals["loss"],

@@ -2,8 +2,8 @@
 
 - ``infer/overlay.py::render_overlay`` and ``--overlay`` on one slide, a
   directory and the multiscale path: the JAX function's image on the same
-  grid, from ``.wsi.npz`` and TIFF slides alike; without matplotlib it
-  raises ``ImportError``;
+  grid, from ``.wsi.npz`` and TIFF slides alike, and with matplotlib's
+  import blocked too (the rainbow colormap is a numpy table);
 - ``visualization/wsi_viz.py::visualize_and_save_wsi`` and ``--wsi_viz``:
   the JAX package's artifacts;
 - the five functions of ``utils/structure.py`` on the same trees: the same
@@ -11,7 +11,7 @@
 - the new flags' exit codes and order against the JAX CLI's.
 
 Pillow and matplotlib are installed here; the card's machine lacks
-matplotlib, and there the drawing tools raise.
+matplotlib, and there ``--wsi_viz``'s figure raises.
 """
 
 import importlib
@@ -120,11 +120,14 @@ def test_render_overlay_equals_jax(slides, tmp_path, display_level,
     slide.close()
 
 
-def test_render_overlay_without_matplotlib_raises(slides, monkeypatch):
+def test_render_overlay_without_matplotlib_equals_jax(slides, monkeypatch):
+    grid = np.random.default_rng(4).random((6, 8)).astype(np.float32)
+    grid[0, 0], grid[1, 1] = np.nan, 1.5
+    want = joverlay.render_overlay(slides["tumor"], grid)
     monkeypatch.setitem(sys.modules, "matplotlib", None)
     monkeypatch.setitem(sys.modules, "matplotlib.cm", None)
-    with pytest.raises(ImportError, match="matplotlib"):
-        overlay.render_overlay(slides["tumor"], np.zeros((2, 2), np.float32))
+    np.testing.assert_array_equal(
+        overlay.render_overlay(slides["tumor"], grid), want)
 
 
 @pytest.fixture(scope="module")

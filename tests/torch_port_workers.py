@@ -322,3 +322,199 @@ def cli_worker(rank: int, world: int, group, argv: list) -> dict:
     )
 
     return {"rc": cli.main(argv)}
+
+
+# ---------------------------------------------------------------------------
+# the data-parallel paths of multiscale training, QAT, the streamed trainer
+# and feature extraction
+# ---------------------------------------------------------------------------
+
+MS_LEVELS = (2, 3)
+MS_LR = 1e-4
+
+
+def ms_inputs(seed: int = 5) -> dict:
+    """A global batch of 8 cells at levels (2, 3), 32² each, whose last two
+    rows are wrap padding."""
+    rng = np.random.default_rng(seed)
+    return {
+        "imgs": {lvl: rng.integers(0, 256, (BATCH, SIZE, SIZE, 3),
+                                   dtype=np.uint8) for lvl in MS_LEVELS},
+        "labels": np.array([1, 0, 1, 1, 0, 0, 1, 0], np.int64),
+        "valid": np.array([1] * 6 + [0] * 2, np.float32),
+    }
+
+
+def ms_step(sd: dict, cw, group=None, rank: int = 0, world: int = 1,
+            steps: int = 2, seed: int = 5) -> dict:
+    """``steps`` multiscale train steps on this rank's rows of the global
+    batch: each step's metrics, the first step's gradients and running
+    statistics, the final state dict and Adam's state."""
+    from ss25_hierarchical_multiscale_image_classification_tpu_torch.models.convert import (
+        hierarchical_from_state_dict,
+    )
+    from ss25_hierarchical_multiscale_image_classification_tpu_torch.models.resnet import (
+        set_process_group,
+    )
+    from ss25_hierarchical_multiscale_image_classification_tpu_torch.train.multiscale_trainer import (
+        make_multiscale_train_step,
+    )
+    from ss25_hierarchical_multiscale_image_classification_tpu_torch.train.state import (
+        create_train_state,
+    )
+
+    d = ms_inputs(seed)
+    model = hierarchical_from_state_dict(sd)
+    set_process_group(model, group)
+    state = create_train_state(model, MS_LR, torch.device("cpu"))
+    step = make_multiscale_train_step(cw, 0.5, group)
+    gen = torch.Generator().manual_seed(13)
+    imgs = {lvl: torch.from_numpy(rows(x, rank, world))
+            for lvl, x in d["imgs"].items()}
+    metrics, grads, stats = [], None, None
+    for _ in range(steps):
+        state, m = step(state, gen, imgs,
+                        torch.from_numpy(rows(d["labels"], rank, world)),
+                        torch.from_numpy(rows(d["valid"], rank, world)))
+        metrics.append({k: float(v) for k, v in m.items()})
+        if grads is None:
+            grads = {k: p.grad.clone()
+                     for k, p in state.model.named_parameters()}
+            stats = {k: v.clone() for k, v in state.model.named_buffers()
+                     if "running" in k}
+    adam = [v.clone() for s in state.optimizer.state.values()
+            for v in s.values() if isinstance(v, torch.Tensor)]
+    return {"metrics": metrics, "grads": grads, "stats": stats,
+            "sd": {k: v.clone() for k, v in state.model.state_dict().items()},
+            "adam": adam}
+
+
+def ms_worker(rank: int, world: int, group, sd: dict, cw, cfg, ds_kw: dict
+              ) -> dict:
+    """Two multiscale steps, then ``train_multiscale_classifier`` on the
+    store of ``cfg`` (rank 0 writes the artifact)."""
+    from ss25_hierarchical_multiscale_image_classification_tpu_torch.data.multiscale import (
+        MultiscaleDataset,
+    )
+    from ss25_hierarchical_multiscale_image_classification_tpu_torch.train.multiscale_trainer import (
+        train_multiscale_classifier,
+    )
+
+    ds = MultiscaleDataset.from_patches_dir(cfg.data.patches_dir, **ds_kw)
+    out = train_multiscale_classifier(cfg, dataset=ds, epochs=2,
+                                      device="cpu", group=group)
+    return {"step": ms_step(sd, cw, group, rank, world),
+            "fit": {"history": out["history"],
+                    "calibration": out["calibration"],
+                    "variables": out["variables"]}}
+
+
+def qat_run(cfg, sd: dict, group=None) -> dict:
+    """``qat_finetune`` for two epochs at 32² on ``cfg``'s level-3 store
+    (rank 0 writes the artifact)."""
+    from ss25_hierarchical_multiscale_image_classification_tpu_torch.train.qat import (
+        qat_finetune,
+    )
+
+    out = qat_finetune(cfg, variables=sd, level=3, epochs=2, batch_size=BATCH,
+                       learning_rate=1e-3, input_size=SIZE,
+                       n_calib_batches=1, device="cpu", group=group)
+    return {"history": out["history"], "folded": out["folded"],
+            "ascales": out["ascales"], "tree": out["quantized"].tree(),
+            "artifact_path": out["artifact_path"]}
+
+
+def qat_worker(rank: int, world: int, group, cfg, sd: dict) -> dict:
+    return qat_run(cfg, sd, group)
+
+
+def narrow_classifier(cfg):
+    """The streamed trainer's model at 16 filters (for time on the CPU)."""
+    from ss25_hierarchical_multiscale_image_classification_tpu_torch.models.resnet import (
+        ResNet18Classifier,
+    )
+
+    return ResNet18Classifier(
+        num_classes=cfg.model.num_classes, num_filters=16,
+        generator=torch.Generator().manual_seed(cfg.train.seed),
+        frozen_bn=cfg.train.freeze_bn)
+
+
+def streaming_run(cfg, epochs: int, group=None) -> dict:
+    """``train_resnet_classifier_streaming`` at level 3, stride 28, with the
+    16-filter trunk, and without pyarrow, as on the card's machine: the
+    store's manifest is ``manifest.npz`` (reading back a parquet manifest
+    that the producer thread wrote crashes in this build's pyarrow)."""
+    import sys
+
+    from ss25_hierarchical_multiscale_image_classification_tpu_torch.train import (
+        streaming,
+        trainer,
+    )
+
+    kept = streaming._classifier, trainer._classifier
+    blocked = {m: sys.modules.get(m) for m in ("pyarrow", "pyarrow.parquet")}
+    streaming._classifier = trainer._classifier = narrow_classifier
+    sys.modules.update(dict.fromkeys(blocked))
+    try:
+        out = streaming.train_resnet_classifier_streaming(
+            cfg, level=3, epochs=epochs, stride=28, device="cpu", group=group)
+    finally:
+        streaming._classifier, trainer._classifier = kept
+        for m, mod in blocked.items():
+            if mod is None:
+                sys.modules.pop(m, None)
+            else:
+                sys.modules[m] = mod
+    return {"streamed_epoch": out["streamed_epoch"],
+            "history": [{k: v for k, v in h.items() if k != "seconds"}
+                        for h in out["history"]],
+            "variables": out["variables"]}
+
+
+def streaming_worker(rank: int, world: int, group, cfg, epochs: int) -> dict:
+    return streaming_run(cfg, epochs, group)
+
+
+def features_run(recs, sd: dict, int8: bool, qtree=None, group=None,
+                 stem_s2d: bool = False) -> dict:
+    """``run_feature_extraction`` over the records at 32², batch 8."""
+    from ss25_hierarchical_multiscale_image_classification_tpu_torch.data.datasets import (
+        PatchDataset,
+    )
+    from ss25_hierarchical_multiscale_image_classification_tpu_torch.data.manifest import (
+        PatchManifest,
+    )
+    from ss25_hierarchical_multiscale_image_classification_tpu_torch.infer.features import (
+        run_feature_extraction,
+    )
+
+    ds = PatchDataset(PatchManifest(recs), resize_to=SIZE)
+    feats, labels, names = run_feature_extraction(
+        ds, sd, batch_size=BATCH, feature_dim=64, device="cpu", int8=int8,
+        qtree=qtree, group=group, stem_s2d=stem_s2d)
+    return {"feats": np.array(feats), "labels": labels, "names": names}
+
+
+def features_worker(rank: int, world: int, group, recs, sd: dict,
+                    qtree) -> dict:
+    """The float32 (both stems), lazily calibrated int8 and artifact int8
+    extractions, and the lazily calibrated int8 tree this rank holds."""
+    from ss25_hierarchical_multiscale_image_classification_tpu_torch.infer.features import (
+        lazy_qtree,
+    )
+    from ss25_hierarchical_multiscale_image_classification_tpu_torch.data.datasets import (
+        PatchDataset,
+    )
+    from ss25_hierarchical_multiscale_image_classification_tpu_torch.data.manifest import (
+        PatchManifest,
+    )
+
+    ds = PatchDataset(PatchManifest(recs), resize_to=SIZE)
+    tree = lazy_qtree(sd, ds, BATCH, "cpu", group)
+    return {"float": features_run(recs, sd, False, group=group),
+            "float_s2d": features_run(recs, sd, False, group=group,
+                                      stem_s2d=True),
+            "int8": features_run(recs, sd, True, group=group),
+            "int8_tree": features_run(recs, sd, True, qtree, group=group),
+            "tree": {k: v for k, v in tree.items() if k != "plan"}}
