@@ -280,7 +280,25 @@ version on the card. Phases:
    ``--prepare`` on a zip of 50 XMLs written here, ``--validation`` (one
    split line), ``--extract_features --profile`` (the Chrome trace names the
    ``bias_relu_pool`` kernel) and ``--validate`` (exit 0 with scikit-learn,
-   else the ``ImportError`` naming it).
+   else the ``ImportError`` naming it);
+17. the last parity gaps (run after phase 15 (h)): (a) ``predict_and_export(
+   int8=True)`` with no int8 tree on the smoke slide at batch 512, on one
+   device and split over ``devices=[card, card]`` (one tree calibrated on
+   the whole first batch before the split): the two trees equal, the CSVs
+   byte-equal; the int8 kernels' launches on each (the split launches once
+   a non-empty part); (b) the same for ``predict_and_export_multiscale`` at levels
+   (2, 3) from phase 11's artifact at batch 256 (the float heads run in
+   calls of ``HEAD_ROWS`` rows; called on 256 rows against two calls of
+   128 they are printed: cuBLAS takes another kernel); (c) ``--download`` through the CLI's
+   ``main`` against a loopback server serving the deflate TIFF and an
+   annotation zip under the CAMELYON16 paths (``CAMELYON16_BASE_URL``
+   patched in this process; the other three files are 404s, logged): the
+   two files byte-equal, five paths requested, and ``--predict_slide`` on
+   the downloaded TIFF writing the CSV of the local file; (d)
+   ``--compile_cache_dir`` in two CLI processes on the downloaded TIFF: the
+   first builds the nine kernel libraries (``nvcc``) and the TIFF host
+   library into a fresh directory, the second finds them and builds
+   nothing (the files untouched, no build line); both CSVs equal; walls.
 
 It imports nothing of JAX or of the JAX package. Run it from the root of a
 checkout:
@@ -6465,6 +6483,309 @@ def phase_legacy_tools(dev, train, smi, tmp) -> dict:
             "sklearn": has_sklearn}
 
 
+# ---------------------------------------------------------------------------
+# phase 17: int8 split over devices without a tree, the download actions,
+# --compile_cache_dir
+# ---------------------------------------------------------------------------
+
+
+def split_part_launches(tissue: int, batch: int, parts: int) -> int:
+    """The non-empty parts of ``tissue`` cells in batches of ``batch``, each
+    split in contiguous parts of ``batch // parts`` rows."""
+    per = batch // parts
+    full, rest = divmod(tissue, batch)
+    return full * parts + -(-rest // per)
+
+
+class _LoopbackFiles:
+    """An HTTP server on 127.0.0.1 serving ``files`` (path → bytes), 404
+    for the rest, recording the paths asked for; a context."""
+
+    def __init__(self, files: dict):
+        import http.server
+        import threading
+
+        self.files, self.requests = files, []
+        outer = self
+
+        class Handler(http.server.BaseHTTPRequestHandler):
+            def do_GET(self):
+                path = self.path.lstrip("/")
+                outer.requests.append(path)
+                body = outer.files.get(path)
+                if body is None:
+                    self.send_error(404)
+                    return
+                self.send_response(200)
+                self.send_header("Content-Length", str(len(body)))
+                self.end_headers()
+                self.wfile.write(body)
+
+            def log_message(self, *args):
+                pass
+
+        self.httpd = http.server.ThreadingHTTPServer(("127.0.0.1", 0), Handler)
+        self.url = f"http://127.0.0.1:{self.httpd.server_address[1]}/"
+        self.thread = threading.Thread(target=self.httpd.serve_forever,
+                                       daemon=True)
+
+    def __enter__(self):
+        self.thread.start()
+        return self
+
+    def __exit__(self, *exc):
+        self.httpd.shutdown()
+        self.httpd.server_close()
+        self.thread.join()
+
+
+def _cache_files(path: str) -> dict:
+    """Each library in a cache directory → (inode, mtime in ns)."""
+    out = {}
+    for name in sorted(os.listdir(path)):
+        if name.endswith(".so"):
+            st = os.stat(os.path.join(path, name))
+            out[name] = (st.st_ino, st.st_mtime_ns)
+    return out
+
+
+def _same_tree(a, b) -> bool:
+    """Two quantized trees (nested dicts of tensors) equal bit for bit."""
+    import torch
+
+    if isinstance(a, dict):
+        return a.keys() == b.keys() and all(_same_tree(a[k], b[k]) for k in a)
+    if isinstance(a, (tuple, list)):
+        return len(a) == len(b) and all(map(_same_tree, a, b))
+    if isinstance(a, torch.Tensor):
+        return isinstance(b, torch.Tensor) and torch.equal(a.cpu(), b.cpu())
+    return a == b
+
+
+def phase_parity_gaps(dev, sd, spec, npz_path, tiff_path, ms_models,
+                      host_margins, tmp) -> dict:
+    """Phase 17 (see the module docstring): returns the int8 kernels'
+    launches of (a) and (b), one device and split."""
+    import zipfile
+
+    import numpy as np
+    import torch
+
+    from ss25_hierarchical_multiscale_image_classification_tpu_torch.infer.multiscale import (
+        HEAD_ROWS,
+        predict_and_export_multiscale,
+    )
+    from ss25_hierarchical_multiscale_image_classification_tpu_torch.infer.sliding_window import (
+        NON_TISSUE_MARGIN,
+        predict_and_export,
+    )
+    from ss25_hierarchical_multiscale_image_classification_tpu_torch.io import (
+        download,
+    )
+    from ss25_hierarchical_multiscale_image_classification_tpu_torch.io.annotations import (
+        write_annotation_xml,
+    )
+    from ss25_hierarchical_multiscale_image_classification_tpu_torch.io.synthetic import (
+        polygons_level0,
+    )
+    from ss25_hierarchical_multiscale_image_classification_tpu_torch.models.convert import (
+        hierarchical_from_state_dict,
+        resnet18_from_state_dict,
+        split_calibration,
+    )
+    from ss25_hierarchical_multiscale_image_classification_tpu_torch.train.checkpoints import (
+        load_model,
+        model_artifact_path,
+    )
+
+    t_phase = time.perf_counter()
+    root = os.path.join(tmp, "p17")
+    stage1, conv, pool = int8_launchers()
+    counts = lambda: (stage1.launches, conv.launches, pool.launches)  # noqa: E731
+    tissue = int((host_margins != NON_TISSUE_MARGIN).sum())
+
+    def one_and_split(tag, export, model, batch, **kw):
+        """``export`` without a tree on one device, then split over two,
+        each run's lazily calibrated tree captured: CSV bytes, launches and
+        walls. The two trees and the two CSVs must be equal."""
+        from ss25_hierarchical_multiscale_image_classification_tpu_torch.models import (
+            quantized,
+        )
+
+        out, trees = {}, []
+        real = quantized.quantize_resnet18
+
+        def spy(*args, **kwargs):
+            q = real(*args, **kwargs)
+            trees.append(q.tree())
+            return q
+
+        quantized.quantize_resnet18 = spy
+        try:
+            for name, devices in (("one", [dev]), ("split", [dev, dev])):
+                csv_dir = os.path.join(root, f"{tag}_{name}")
+                reset_counts()  # counts from here on are this run's
+                torch.cuda.synchronize()
+                t0 = time.perf_counter()
+                probs, csv_path = export(npz_path, model, csv_dir,
+                                         batch_size=batch, int8=True,
+                                         device=dev, devices=devices, **kw)
+                torch.cuda.synchronize()
+                with open(csv_path, "rb") as f:
+                    out[name] = (f.read(), counts(), time.perf_counter() - t0,
+                                 probs)
+        finally:
+            quantized.quantize_resnet18 = real
+        (csv1, n1, w1, p1), (csv2, n2, w2, p2) = out["one"], out["split"]
+        same_tree = len(trees) == 2 and _same_tree(trees[0], trees[1])
+        batches = -(-tissue // batch)
+        parts = split_part_launches(tissue, batch, 2)
+        d = float(np.abs(p1 - p2).max())
+        log(f"[p17] ({tag}) int8 without a tree, batch {batch}: one device "
+            f"{w1:.2f} s, launches fused_stage1_int8 {n1[0]}, "
+            f"int8_conv_requant {n1[1]}, int8_maxpool {n1[2]}; split over "
+            f"[{dev}, {dev}] {w2:.2f} s, launches {n2[0]}, {n2[1]}, {n2[2]}; "
+            f"the two lazily calibrated trees equal: {same_tree}; CSV "
+            f"{len(csv1)} bytes, byte-equal: {csv1 == csv2}; probability "
+            f"grids max|Δ| {d:.3g}")
+        if n1 != (batches, 16 * batches, batches):
+            raise AssertionError(f"({tag}) one device: expected {batches}, "
+                                 f"{16 * batches} and {batches} launches, "
+                                 f"counted {n1}")
+        if n2 != (parts, 16 * parts, parts):
+            raise AssertionError(f"({tag}) split: expected {parts}, "
+                                 f"{16 * parts} and {parts} launches, counted "
+                                 f"{n2}")
+        if not (same_tree and csv1 and csv1 == csv2):
+            raise AssertionError(f"({tag}) the split run differs from one "
+                                 "device's")
+        return {"one": n1, "split": n2}
+
+    # (a) the single-level producer, float32 model as the CLI's --int8 loads it
+    model = resnet18_from_state_dict(sd).to(device=dev,
+                                            memory_format=torch.channels_last)
+    single = one_and_split("a", predict_and_export, model, BATCH,
+                           level=LEVEL, stride=STRIDE)
+    del model
+    # (b) multiscale from phase 11's artifact; the float heads run in calls
+    # of HEAD_ROWS rows, so the split's scores are one device's too
+    state, cal = split_calibration(load_model(model_artifact_path(
+        ms_models, "hierarchical_classifier")))
+    m32 = hierarchical_from_state_dict(state, MS_LEVELS).for_inference(
+        dev, torch.float32)
+    multi = one_and_split("b", predict_and_export_multiscale, m32, MS_BATCH,
+                          levels=MS_LEVELS, stride=STRIDE, calibration=cal)
+    g = torch.Generator().manual_seed(SEED)
+    feats = torch.rand(MS_BATCH, len(MS_LEVELS), 512, generator=g).to(dev)
+    with torch.inference_mode():
+        heads = {name: (fn(feats) - torch.cat([fn(feats[:MS_BATCH // 2]),
+                                               fn(feats[MS_BATCH // 2:])])
+                        ).abs().max().item()
+                 for name, fn in (("fuse", m32.fuse),
+                                  ("aux_logits", m32.aux_logits))}
+    log(f"[p17] (b) why the int8 step calls its heads on {HEAD_ROWS} rows at "
+        f"a time: called on {MS_BATCH} rows against two calls of "
+        f"{MS_BATCH // 2} (random features), logits max|Δ| fuse "
+        f"{heads['fuse']:.3g}, aux_logits {heads['aux_logits']:.3g}")
+    del m32
+    torch.cuda.empty_cache()
+
+    # (c) --download from a loopback server
+    xml = os.path.join(root, "tumor_001.xml")
+    write_annotation_xml(xml, polygons_level0(spec))
+    zbuf = os.path.join(root, "lesion_annotations.zip")
+    with zipfile.ZipFile(zbuf, "w") as zf:
+        zf.write(xml, "tumor_001.xml")
+    with open(tiff_path, "rb") as f:
+        tif_bytes = f.read()
+    with open(zbuf, "rb") as f:
+        zip_bytes = f.read()
+    served = {"CAMELYON16/training/tumor/tumor_001.tif": tif_bytes,
+              "CAMELYON16/training/lesion_annotations.zip": zip_bytes}
+    data = os.path.join(root, "camelyon16")
+    real_url = download.CAMELYON16_BASE_URL
+    with _LoopbackFiles(served) as srv:
+        download.CAMELYON16_BASE_URL = srv.url
+        try:
+            rc, dl_wall = run_cli(["--download", "--data_dir", data])
+        finally:
+            download.CAMELYON16_BASE_URL = real_url
+    got = os.path.join(data, "train", "img", "tumor_001.tif")
+    with open(got, "rb") as f:
+        same_tif = f.read() == tif_bytes
+    with open(os.path.join(data, "train", "mask", "lesion_annotations.zip"),
+              "rb") as f:
+        same_zip = f.read() == zip_bytes
+    files = sorted(os.path.relpath(os.path.join(d, n), data)
+                   for d, _, names in os.walk(data) for n in names)
+    log(f"[p17] (c) --download from {srv.url}: exit {rc} in {dl_wall:.2f} s, "
+        f"{len(srv.requests)} paths requested, {len(files)} files written "
+        f"({', '.join(files)}); the TIFF ({len(tif_bytes)} bytes) and the zip "
+        f"byte-equal to the served ones: {same_tif}, {same_zip}")
+    if (rc != 0 or len(srv.requests) != 5 or not (same_tif and same_zip)
+            or len(files) != 2):
+        raise AssertionError("--download did not write the two served files")
+    models = os.path.join(root, "models")
+    os.makedirs(models)
+    torch.save(sd, os.path.join(models, "resnet18_patch_classifier.pt"))
+    csvs = {}
+    for tag, path in (("downloaded", got), ("local", tiff_path)):
+        rc, wall = run_cli(["--predict_slide", path, "--tissue_filter",
+                            "device", "--models_dir", models, "--device",
+                            dev.type])
+        name = os.path.basename(path).rsplit(".", 1)[0]
+        with open(os.path.join(models, "model_predictions_csv",
+                               f"{name}.csv"), "rb") as f:
+            csvs[tag] = f.read()
+        if rc != 0:
+            raise AssertionError(f"--predict_slide on the {tag} TIFF: exit {rc}")
+    log(f"[p17] (c) --predict_slide on the downloaded TIFF: the CSV "
+        f"({len(csvs['local'])} bytes) byte-equal to the local file's: "
+        f"{csvs['downloaded'] == csvs['local']}")
+    if csvs["downloaded"] != csvs["local"] or not csvs["local"]:
+        raise AssertionError("the downloaded slide's CSV differs")
+
+    # (d) --compile_cache_dir in two processes
+    cache = os.path.join(root, "compile_cache")
+    runs = []
+    for i in range(2):
+        out_models = os.path.join(root, f"cache_models_{i}")
+        os.makedirs(out_models)
+        torch.save(sd, os.path.join(out_models, "resnet18_patch_classifier.pt"))
+        before = _cache_files(cache) if os.path.isdir(cache) else {}
+        cmd = [sys.executable, "-m", f"{PKG}.cli.main", "--predict_slide", got,
+               "--tissue_filter", "device", "--compile_cache_dir", cache,
+               "--models_dir", out_models, "--device", dev.type]
+        t0 = time.perf_counter()
+        proc = subprocess.run(cmd, cwd=ROOT, env=dict(os.environ),
+                              capture_output=True, text=True, timeout=600)
+        wall = time.perf_counter() - t0
+        if proc.returncode != 0:
+            raise AssertionError(f"--compile_cache_dir run {i + 1} failed "
+                                 f"({proc.returncode}):\n{proc.stderr[-4000:]}")
+        built = [ln.split(": ", 1)[1] for ln in proc.stderr.splitlines()
+                 if "building" in ln and "torch.ops.build" in ln]
+        with open(os.path.join(out_models, "model_predictions_csv",
+                               "tumor_001.csv"), "rb") as f:
+            runs.append((wall, built, before, _cache_files(cache), f.read()))
+    (w1, built1, _, after1, csv1), (w2, built2, before2, after2, csv2) = runs
+    n_kernels = len([n for n in after1 if not n.startswith(("libhipac_tiff",
+                                                            "libhipac_chunk"))])
+    log(f"[p17] (d) --compile_cache_dir, first process: {w1:.1f} s, "
+        f"{'; '.join(built1)}; {len(after1)} libraries there ({n_kernels} "
+        f"kernel libraries); second process: {w2:.1f} s, build lines "
+        f"{len(built2)}, libraries untouched: {after2 == before2 == after1}; "
+        f"CSVs byte-equal to each other: {csv1 == csv2}, to the in-process "
+        f"CLI's: {csv1 == csvs['downloaded']}")
+    if (n_kernels != 9 or not any(b.startswith("nvcc") for b in built1)
+            or built2 or after2 != after1 or csv1 != csv2 or not csv1):
+        raise AssertionError("--compile_cache_dir: the first process did not "
+                             "build into the directory, or the second built "
+                             "again")
+    log(f"[p17] phase 17 in {time.perf_counter() - t_phase:.1f} s")
+    return {"single": single, "multi": multi}
+
+
 def main() -> int:
     if not os.path.isdir(os.path.join(ROOT, PKG)):
         print(f"{PKG}/ not found beside {__file__}: run from a checkout",
@@ -6554,6 +6875,12 @@ def main() -> int:
             ext["root"], fleet, built, smi, tmp)
         torch.cuda.empty_cache()
         overlay = phase_overlay(dev, sd, tiff["deflate"], tmp)
+        torch.cuda.empty_cache()
+        gaps = phase_parity_gaps(
+            dev, sd, spec, os.path.join(tmp, "train_data", "train", "img",
+                                        "smoke_slide.wsi.npz"),
+            tiff["deflate"], os.path.join(tmp, "ms_models"), host_margins, tmp)
+        torch.cuda.empty_cache()
         # phase 14 (h) here: it reads phase 12's level-2 store and phase 13's
         # slide root
         from ss25_hierarchical_multiscale_image_classification_tpu_torch.train.losses import (
@@ -6616,10 +6943,15 @@ def main() -> int:
     stem_pool["dp_paths_launches"] = sum(c["bias_relu_pool"]
                                          for c in h["features_bf16"])
     stem["dp_paths_launches"] = sum(c["fused_stem"] for c in h["features_s2d"])
-    for row, key in ((stage1, "fused_stage1_int8"),
-                     (int8_conv, "int8_conv_requant"),
-                     (int8_pool, "int8_maxpool")):
+    for i, (row, key) in enumerate(((stage1, "fused_stage1_int8"),
+                                    (int8_conv, "int8_conv_requant"),
+                                    (int8_pool, "int8_maxpool"))):
         row["dp_paths_launches"] = sum(c[key] for c in h["features_int8"])
+        # phase 17: lazily calibrated int8, one device and split over two
+        row["lazy_one_device_launches"] = gaps["single"]["one"][i]
+        row["split_launches"] = gaps["single"]["split"][i]
+        row["multiscale_lazy_one_device_launches"] = gaps["multi"]["one"][i]
+        row["multiscale_split_launches"] = gaps["multi"]["split"][i]
     log(f"[paths] phase 14 (h), {DP_RANKS_ON_ONE_CARD} gloo ranks: launches "
         f"a rank {json.dumps(h)}; single process "
         f"{json.dumps(dp_h['one'])}")
@@ -6683,7 +7015,10 @@ def main() -> int:
                                    "fleet_launches", "tiff_launches",
                                    "tiff_jpeg_launches",
                                    "tiff_multiscale_launches",
-                                   "tiff_fleet_launches", "dp_paths_launches")
+                                   "tiff_fleet_launches", "dp_paths_launches",
+                                   "lazy_one_device_launches", "split_launches",
+                                   "multiscale_lazy_one_device_launches",
+                                   "multiscale_split_launches")
            if key in k},
     } for name, source, replaces, k in rows]}
     log(f"[smoke] every phase passed in {time.perf_counter() - t_start:.1f} s "

@@ -16,3 +16,16 @@ plain PyTorch version beside it that CPU tensors take.
 """
 
 __version__ = "0.1.0"
+
+from ss25_hierarchical_multiscale_image_classification_tpu_torch._exports import (
+    lazy_exports,
+)
+
+# ``Config`` and ``get_config``, and the subpackages, at first use
+__getattr__, __dir__ = lazy_exports(__name__, {
+    "Config": "config",
+    "get_config": "config",
+    **{name: name for name in ("io", "grid", "data", "models", "ops",
+                               "parallel", "train", "infer", "evaluation",
+                               "visualization", "utils", "cli")},
+})

@@ -2,18 +2,20 @@
 ``--predict_slide`` (one slide or a directory, ``--overlay``),
 ``--run_evaluation``, ``--train``, ``--train_strategy``, ``--prepare``,
 ``--validation``, ``--validate`` (``--tsne_full``), ``--evaluate``,
-``--train_mil``, ``--train_multiscale``, ``--qat``, ``--extract_features``
-(``--profile``), ``--quantize``, ``--mine_hard_negatives``, ``--wsi_viz``
-and the data tools ``--check_structure``, ``--check_good_downloaded_files``,
+``--download`` (``--remote``), ``--balance_dataset``, ``--train_mil``,
+``--train_multiscale``, ``--qat``, ``--extract_features`` (``--profile``),
+``--quantize``, ``--mine_hard_negatives``, ``--wsi_viz``, the library
+cache's ``--compile_cache_dir`` and the data tools ``--check_structure``, ``--check_good_downloaded_files``,
 ``--move_files`` and ``--count_tumor_patches`` (``--slide`` is parsed, as
 in the JAX CLI).
 
 Counterpart of the JAX CLI (``cli/main.py`` of the JAX package) for these
 actions, with their flags under the same names and defaults, plus
 ``--device``. As there, one call runs every action given, in a fixed order
-(``--move_files``, ``--patch``, ``--extract_features``, ``--train``,
-``--train_strategy``, ``--prepare``, ``--validation``, ``--validate``,
-``--evaluate``, ``--count_tumor_patches``,
+(``--download``, ``--move_files``, ``--patch``, ``--extract_features``,
+``--train``, ``--train_strategy``, ``--prepare``, ``--validation``,
+``--validate``, ``--evaluate``, ``--balance_dataset``,
+``--count_tumor_patches``,
 ``--patch_one_slide``, ``--train_mil``, ``--train_multiscale``, ``--qat``,
 ``--quantize``, ``--mine_hard_negatives``, ``--predict_slide``,
 ``--wsi_viz``, ``--run_evaluation``), and stops with exit code 1 at a stage
@@ -88,6 +90,16 @@ way; besides these only ``--evaluate`` (on rank 0) is taken under
 ``torchrun``: any other action, ``--patch`` without ``--train`` among
 them, makes every rank exit 2.
 
+``--download`` fetches the first CAMELYON16 slide of each category and the
+two annotation zips into ``<data_dir>`` (``--remote``: every slide up to
+``SUBSET_LIMITS``), skipping files already there; ``--balance_dataset``
+fetches tumor_036 … tumor_111 and extracts each one's tumor patches at level
+3 (``io/download.py``). A file that fails (no network, as on the card's
+machine) is logged and the run goes on, as in the JAX CLI.
+``--compile_cache_dir DIR`` puts the library cache (the kernels' and the
+host libraries, ``ops/build.py``) in ``DIR`` instead of ``ops/_build/``;
+``off`` builds into a temporary directory removed at exit.
+
 ``--prepare`` extracts ``<data_dir>/train/mask/lesion_annotations.zip``
 into ``<data_dir>/annotations``; ``--validation`` logs the level's
 slide-level split; ``--validate`` checks the level's feature triplet
@@ -157,8 +169,7 @@ the actions that use it resolve ``--device``.
 
 Flags the JAX CLI ignores in a combination (``--int8`` or
 ``--simclr_features`` without their action, no action at all) are ignored
-here too. The download flags are not ported (no network on the card's
-machine). Unlike the JAX CLI, which rebuilds
+here too. Unlike the JAX CLI, which rebuilds
 the data section and so drops it, ``--config``'s ``data.stain_norm`` is
 kept. On the card the float model runs in bfloat16, on the CPU
 in float32.
@@ -170,6 +181,7 @@ import argparse
 import json
 import os
 import sys
+import types
 
 import torch
 
@@ -224,6 +236,8 @@ from ss25_hierarchical_multiscale_image_classification_tpu_torch.infer.sliding_w
     write_detection_csv,
 )
 from ss25_hierarchical_multiscale_image_classification_tpu_torch.io.download import (
+    download_all_tumor_extract_patches,
+    download_dataset,
     images_downloaded,
     prepare_data,
 )
@@ -240,6 +254,9 @@ from ss25_hierarchical_multiscale_image_classification_tpu_torch.models.quant_ar
     maybe_load_artifact,
     quantize_classifier_to_artifact,
     quantize_trunk_to_artifact,
+)
+from ss25_hierarchical_multiscale_image_classification_tpu_torch.ops.build import (
+    set_build_dir,
 )
 from ss25_hierarchical_multiscale_image_classification_tpu_torch.train.checkpoints import (
     load_model,
@@ -290,6 +307,14 @@ def build_parser() -> argparse.ArgumentParser:
                     "attention-MIL slide classification, patch feature "
                     "extraction, int8 quantization and QAT (PyTorch/CUDA)",
     )
+    parser.add_argument("--download", action="store_true",
+                        help="Download CAMELYON16 dataset")
+    parser.add_argument("--remote", action="store_true",
+                        help="Download the full dataset (not the "
+                             "1-per-class subset)")
+    parser.add_argument("--balance_dataset", action="store_true",
+                        help="Download tumor slides and extract tumor "
+                             "patches")
     parser.add_argument("-p", "--patch", action="store_true",
                         help="Extract patches")
     parser.add_argument("--patch_one_slide", type=str, default=None,
@@ -474,6 +499,10 @@ def build_parser() -> argparse.ArgumentParser:
                         help="With --predict_slide <dir>: devices per slide"
                              " group (fleet inference, one slide per group;"
                              " default all devices on one slide at a time)")
+    parser.add_argument("--compile_cache_dir", type=str, default=None,
+                        help="Library cache of the built kernels and host "
+                             "libraries (default ops/_build in the package; "
+                             "'off': a temporary directory removed at exit)")
     parser.add_argument("--device", choices=["cuda", "cpu"], default="cuda",
                         help="Where the model runs (default cuda; no "
                              "fallback when no card is visible)")
@@ -607,9 +636,6 @@ def _predict_slide(args, cfg: Config, level: int, device) -> int:
         predict_kw["int8"] = True
         predict_kw["qtree"] = maybe_load_artifact(cfg.models_dir,
                                                   CLASSIFIER_ARTIFACT)
-        if predict_kw["qtree"] is None:
-            # lazy calibration runs on one device
-            devices = [device]
     csv_dir = os.path.join(cfg.models_dir, "model_predictions_csv")
     if os.path.isdir(args.predict_slide):
         grids = predict_slide_fleet(
@@ -661,9 +687,6 @@ def _predict_slide_multiscale(args, cfg: Config, device, paths) -> int:
     devices = _visible_devices(device)
     if args.int8:
         ms_kw["qtree"] = maybe_load_artifact(cfg.models_dir, TRUNK_ARTIFACT)
-        if ms_kw["qtree"] is None:
-            # lazy calibration runs on one device
-            devices = [device]
     csv_dir = os.path.join(cfg.models_dir, "model_predictions_csv")
     ms_kw.update(levels=levels, calibration=calibration,
                  combine=args.ms_combine, int8=args.int8)
@@ -757,7 +780,8 @@ _GROUP_ACTIONS = ("train", "train_strategy", "train_multiscale", "qat",
 
 #: The actions without a data-parallel path, which ``torchrun`` refuses
 #: (``--evaluate`` runs on rank 0 after the group's training).
-_SINGLE_PROCESS_ACTIONS = ("patch_one_slide", "prepare", "validation",
+_SINGLE_PROCESS_ACTIONS = ("download", "balance_dataset",
+                           "patch_one_slide", "prepare", "validation",
                            "validate", "train_mil", "quantize",
                            "mine_hard_negatives", "predict_slide",
                            "run_evaluation", "wsi_viz", "check_structure",
@@ -817,6 +841,7 @@ def main(argv=None) -> int:
     if args.cascade_bailout is not None and args.cascade is None:
         parser.error("--cascade_bailout requires --cascade (the bailout probe "
                      "configures the cascade's screen pass)")
+    set_build_dir(args.compile_cache_dir)
     cfg = _config_from_args(args)
     level = 3 if args.patch_level == "all" else int(args.patch_level)
     if "WORLD_SIZE" in os.environ and any(getattr(args, a)
@@ -832,6 +857,8 @@ def main(argv=None) -> int:
     device = (resolve_device(args.device)
               if any(getattr(args, a) not in (None, False)
                      for a in _DEVICE_ACTIONS) else None)
+    if args.download:
+        download_dataset(cfg.data, remote=args.remote)
     if args.move_files:
         move_files_up(cfg.data.patch_level_dir(3))
 
@@ -889,6 +916,8 @@ def main(argv=None) -> int:
         _validate(args, cfg, level)
     if args.evaluate:
         evaluate_resnet_classifier(cfg, level=level, device=device)
+    if args.balance_dataset:
+        download_all_tumor_extract_patches(cfg.data)
     if args.count_tumor_patches:
         count_tumor_patches(cfg.data.patches_dir)
     if args.patch_one_slide:
@@ -1014,6 +1043,17 @@ def _main_in_group(args, cfg: Config, level: int) -> int:
         if owned:
             dist.destroy_process_group()
 
+
+class _CallableModule(types.ModuleType):
+    """This module, callable as :func:`main`: the JAX package's ``cli``
+    exports its ``main`` function under the name that is this module's
+    here, so ``cli.main(argv)`` runs the command line in both."""
+
+    def __call__(self, argv=None) -> int:
+        return main(argv)
+
+
+sys.modules[__name__].__class__ = _CallableModule
 
 if __name__ == "__main__":
     sys.exit(main())

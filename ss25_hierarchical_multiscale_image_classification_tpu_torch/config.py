@@ -1,14 +1,15 @@
-"""Constants and configuration of the ported slices.
+"""Constants and configuration.
 
-Copies of the JAX package's ``config.py`` constants and of the dataclass
-fields that the ported slices read, held to the originals by exact-equality
-tests. The port keeps its own copy so that it loads nothing of the JAX
-package.
+Copies of the JAX package's ``config.py`` constants and dataclass tree,
+held to the originals by exact-equality tests (``Config().to_dict()`` is
+the JAX package's, key for key). The port keeps its own copy so that it
+loads nothing of the JAX package.
 """
 
 from __future__ import annotations
 
 import dataclasses
+import json
 import os
 from typing import Any, Mapping
 
@@ -47,10 +48,23 @@ L0_RESOLUTION_UM_PER_PX: float = 0.243
 FROC_ANNOTATION_EXPANSION_UM: float = 75.0
 FROC_ITC_THRESHOLD_UM: float = 275.0
 
+#: CAMELYON16 download source (``io/download.py``).
+CAMELYON16_BASE_URL: str = (
+    "https://s3.ap-northeast-1.wasabisys.com/gigadb-datasets/live/pub/"
+    "10.5524/100001_101000/100439/"
+)
+
+#: Files of each category that ``--download --remote`` fetches.
+SUBSET_LIMITS: dict[str, int] = {
+    "train_normal": 50,
+    "train_tumor": 110,
+    "test_images": 30,
+}
+
 
 @dataclasses.dataclass
 class DataConfig:
-    """The ``DataConfig`` fields that the ported slices read."""
+    """Paths and dataset layout."""
 
     data_dir: str = "data"
     train_img_subdir: str = os.path.join("train", "img")
@@ -69,6 +83,8 @@ class DataConfig:
     val_fraction: float = 0.2
     split_seed: int = 42
     balance_val_seed: int = 42
+    #: patches a class (kept for the JAX package's config; nothing reads it)
+    max_samples_per_class: int = 7480
 
     @property
     def train_img_dir(self) -> str:
@@ -179,8 +195,20 @@ class UncertaintyConfig:
 
 
 @dataclasses.dataclass
+class MeshConfig:
+    """The JAX package's device-mesh section, carried so that a config
+    JSON means the same to both packages; nothing in either reads it (the
+    port's layouts come from ``torchrun`` and ``--group_size``)."""
+
+    #: data-parallel axis name
+    data_axis: str = "data"
+    #: number of devices; None = all visible
+    num_devices: int | None = None
+
+
+@dataclasses.dataclass
 class Config:
-    """The ``Config`` fields that the ported slices read."""
+    """The whole configuration: one section a subsystem."""
 
     data: DataConfig = dataclasses.field(default_factory=DataConfig)
     model: ModelConfig = dataclasses.field(default_factory=ModelConfig)
@@ -189,6 +217,7 @@ class Config:
     mil: MILConfig = dataclasses.field(default_factory=MILConfig)
     uncertainty: UncertaintyConfig = dataclasses.field(
         default_factory=UncertaintyConfig)
+    mesh: MeshConfig = dataclasses.field(default_factory=MeshConfig)
     models_dir: str = MODELS_DIR
     #: where the trainers write their per-epoch history JSON
     log_dir: str = "logs"
@@ -199,11 +228,14 @@ class Config:
     def to_dict(self) -> dict:
         return dataclasses.asdict(self)
 
+    def to_json(self) -> str:
+        return json.dumps(self.to_dict(), indent=2)
+
     @classmethod
     def from_dict(cls, d: Mapping[str, Any]) -> "Config":
         """A config from a (JSON) mapping as the JAX package's
         ``Config.from_dict`` builds it: nested sections by name, keys that
-        are no field (here also: fields of slices not ported yet) skipped."""
+        are no field skipped."""
         def _build(dc_type, values):
             fields = {f.name for f in dataclasses.fields(dc_type)}
             kwargs = {}
@@ -216,6 +248,9 @@ class Config:
 
         return _build(cls, dict(d))
 
+    def print_config(self) -> None:
+        print(self.to_json())
+
 
 _FIELD_TYPES = {
     ("Config", "data"): DataConfig,
@@ -224,4 +259,15 @@ _FIELD_TYPES = {
     ("Config", "simclr"): SimCLRConfig,
     ("Config", "mil"): MILConfig,
     ("Config", "uncertainty"): UncertaintyConfig,
+    ("Config", "mesh"): MeshConfig,
 }
+
+_default_config: Config | None = None
+
+
+def get_config() -> Config:
+    """One process-wide default :class:`Config`, made at the first call."""
+    global _default_config
+    if _default_config is None:
+        _default_config = Config()
+    return _default_config

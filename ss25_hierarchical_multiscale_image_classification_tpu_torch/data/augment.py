@@ -2,7 +2,9 @@
 SimCLR views and the classifier's training augmentation.
 
 Counterparts of the JAX package's ``data/augment.py``: ``normalize``, the
-``jax.image.resize(..., "bilinear")`` call of its sliding-window step, the
+``jax.image.resize(..., "bilinear")`` call of its sliding-window step,
+``color_jitter`` and ``random_resized_crop`` (their math in
+:func:`adjust_color` and :func:`resample_box`), the
 fused SimCLR view path (``sample_simclr_view_params``,
 ``_sample_crop_box``, ``_interp_matrix``, ``_jitter_affine``,
 ``_apply_color_affine``, ``simclr_view_batch``, ``simclr_two_views``), and
@@ -13,7 +15,8 @@ is the plain version of the hand-written kernel of ``ops/augment.py``,
 which the trainers run on the card.
 
 Random draws come from a ``torch.Generator`` on the device and are kept
-apart from the arithmetic: :func:`sample_crop_boxes`,
+apart from the arithmetic: :func:`sample_jitter_factors`,
+:func:`sample_crop_boxes`,
 :func:`sample_simclr_view_params` and :func:`sample_augment_params` draw,
 :func:`simclr_view_batch` and :func:`augment_batch` compute, so a test can
 hand both packages the same boxes and parameters (the two frameworks'
@@ -460,6 +463,12 @@ def _adjust_contrast(img: torch.Tensor, factor: torch.Tensor) -> torch.Tensor:
     return (img - mean) * factor + mean
 
 
+def _adjust_saturation(img: torch.Tensor, factor: torch.Tensor
+                       ) -> torch.Tensor:
+    gray = img.mean(dim=-1, keepdim=True)
+    return (img - gray) * factor + gray
+
+
 def _apply_3x3(img: torch.Tensor, m) -> torch.Tensor:
     r, g, b = img[..., 0], img[..., 1], img[..., 2]
     return torch.stack([m[i][0] * r + m[i][1] * g + m[i][2] * b
@@ -492,11 +501,78 @@ def _augment_one_with_params(img_u8: torch.Tensor, h, v, k, fb, fc, fs, fh
     img = torch.rot90(img, int(k), dims=(0, 1))
     img = img * torch.as_tensor(fb).to(img.dtype)
     img = _adjust_contrast(img, torch.as_tensor(fc).to(img.dtype))
-    fs = torch.as_tensor(fs).to(img.dtype)
-    gray = img.mean(dim=-1, keepdim=True)
-    img = (img - gray) * fs + gray
+    img = _adjust_saturation(img, torch.as_tensor(fs).to(img.dtype))
     img = _adjust_hue(img, torch.as_tensor(fh))
     return torch.clamp(img, 0.0, 1.0)
+
+
+def sample_jitter_factors(generator: torch.Generator, brightness: float,
+                          contrast: float, saturation: float, hue: float
+                          ) -> tuple[torch.Tensor, ...]:
+    """torchvision ColorJitter's draws: brightness, contrast and saturation
+    factors uniform in [max(0, 1 − s), 1 + s], the hue shift in [−h, h]
+    turns; four float32 scalars on the generator's device."""
+    return tuple(
+        _uniform(generator, 1, lo, hi)[0]
+        for lo, hi in ((max(0.0, 1 - brightness), 1 + brightness),
+                       (max(0.0, 1 - contrast), 1 + contrast),
+                       (max(0.0, 1 - saturation), 1 + saturation),
+                       (-hue, hue)))
+
+
+def adjust_color(img: torch.Tensor, fb, fc, fs, fh) -> torch.Tensor:
+    """Brightness, contrast, saturation and hue by the factors ``fb``,
+    ``fc``, ``fs`` and the shift ``fh`` (turns), in that order, then a
+    clip to [0, 1]: float (..., H, W, 3) in [0, 1], computed in its dtype
+    (the contrast mean in float32, over the last three axes)."""
+    def cast(f):
+        return torch.as_tensor(f, device=img.device).to(img.dtype)
+
+    img = img * cast(fb)
+    img = _adjust_contrast(img, cast(fc))
+    img = _adjust_saturation(img, cast(fs))
+    img = _adjust_hue(img, torch.as_tensor(fh, device=img.device))
+    return torch.clamp(img, 0.0, 1.0)
+
+
+def color_jitter(img: torch.Tensor, brightness: float, contrast: float,
+                 saturation: float, hue: float, *,
+                 generator: torch.Generator) -> torch.Tensor:
+    """torchvision-style ColorJitter of a float (..., H, W, 3) image in
+    [0, 1]: one draw of :func:`sample_jitter_factors` from ``generator``,
+    applied by :func:`adjust_color`."""
+    return adjust_color(img, *sample_jitter_factors(
+        generator, brightness, contrast, saturation, hue))
+
+
+def resample_box(img: torch.Tensor, y0, x0, h, w, out_size: int
+                 ) -> torch.Tensor:
+    """The box [y0, y0 + h) × [x0, x0 + w) of a float (H, W, 3) image,
+    bilinearly resampled to (out_size, out_size, 3): two products with the
+    box's interpolation matrices, summed in float32, returned in the
+    image's dtype."""
+    H, W = img.shape[0], img.shape[1]
+
+    def box(v):
+        return torch.as_tensor(v, dtype=torch.float32,
+                               device=img.device).reshape(1)
+
+    wy = _interp_matrix(box(y0), box(h), H, out_size)[0].to(img.dtype)
+    wx = _interp_matrix(box(x0), box(w), W, out_size)[0].to(img.dtype)
+    tmp = torch.einsum("oh,hwc->owc", wy.float(), img.float()).to(img.dtype)
+    out = torch.einsum("pw,owc->opc", wx.float(), tmp.float())
+    return out.to(img.dtype)
+
+
+def random_resized_crop(img: torch.Tensor, out_size: int,
+                        scale=(0.08, 1.0), ratio=(3 / 4, 4 / 3), *,
+                        generator: torch.Generator) -> torch.Tensor:
+    """torchvision RandomResizedCrop of a float (H, W, 3) image: one box of
+    :func:`sample_crop_boxes` from ``generator``, resampled by
+    :func:`resample_box`."""
+    y0, x0, h, w = sample_crop_boxes(generator, 1, img.shape[0], img.shape[1],
+                                     scale, ratio)
+    return resample_box(img, y0[0], x0[0], h[0], w[0], out_size)
 
 
 def preprocess_batch(generator: torch.Generator | None, imgs_u8: torch.Tensor,

@@ -64,7 +64,8 @@ from ss25_hierarchical_multiscale_image_classification_tpu_torch.grid.pyramid im
 from ss25_hierarchical_multiscale_image_classification_tpu_torch.grid.rasterize import (
     polygons_to_mask_band,
 )
-from ss25_hierarchical_multiscale_image_classification_tpu_torch.infer.sliding_window import (
+from ss25_hierarchical_multiscale_image_classification_tpu_torch.infer.sliding_window import (  # noqa: F401 (SLIDE_EXTENSIONS: a public name here)
+    SLIDE_EXTENSIONS,
     slide_name,
 )
 from ss25_hierarchical_multiscale_image_classification_tpu_torch.io.annotations import (

@@ -2,8 +2,8 @@
 
 Copy of the part of the JAX package's ``grid/pyramid.py`` that slide
 inference and extraction use, held to the original by exact-equality tests:
-per-level patch sizes, stride, pad-to-grid, level → level-0 coordinates and
-a border patch's in-bounds extent.
+per-level patch sizes, stride, pad-to-grid, level → level-0 coordinates, a
+border patch's in-bounds extent and the area that truncation would lose.
 """
 
 from __future__ import annotations
@@ -111,3 +111,11 @@ class PatchGrid:
             min(self.patch_size, self.width - x),
             min(self.patch_size, self.height - y),
         )
+
+    def coverage_loss_without_padding(self) -> float:
+        """Fraction of the level's area that truncating to whole patches
+        instead of padding would leave out."""
+        covered_w = (self.width // self.patch_size) * self.patch_size
+        covered_h = (self.height // self.patch_size) * self.patch_size
+        total = self.width * self.height
+        return 1.0 - (covered_w * covered_h) / total

@@ -92,6 +92,20 @@ COMBINE_COLUMNS = ("ensemble", "fusion", "aux", "aux_base", "ensemble_base")
 #: the calibration selects it
 COMPONENT_EXPORTS = ("fusion", "aux", "aux_base", "ensemble_base")
 
+#: rows of each call of the int8 step's float heads. cuBLAS and MKL pick a
+#: GEMM kernel by the row count, and kernels sum in other orders: heads
+#: called on a fixed number of rows score a cell the same at any batch size
+#: and on any split over devices, as the int8 trunk does.
+HEAD_ROWS = 64
+
+
+def _in_row_chunks(fn, x: torch.Tensor, rows: int = HEAD_ROWS) -> torch.Tensor:
+    """``fn`` over ``x``'s rows in calls of exactly ``rows`` rows (the last
+    one padded with zeros), the results cut back to ``x``'s rows."""
+    n = x.shape[0]
+    x = torch.cat([x, x.new_zeros((-n % rows, *x.shape[1:]))])
+    return torch.cat([fn(chunk) for chunk in x.split(rows)])[:n]
+
 
 def _scalar(value: float, like: torch.Tensor) -> torch.Tensor:
     """``value`` as a float32 0-d tensor on ``like``'s device: a division by
@@ -219,8 +233,9 @@ def make_prob_step_multiscale_int8(
     the shared trunk runs the int8 (w8a8) forward once on the stacked
     (S·B, input, input, 3) batch, the scale embedding and the heads stay
     float (:meth:`~..models.hierarchical.HierarchicalPatchClassifier.fuse`,
-    ``aux_logits``). A finer level is cropped, or resized in float32 and
-    rounded back to uint8, as in the JAX step."""
+    ``aux_logits``), in calls of :data:`HEAD_ROWS` rows. A finer level is
+    cropped, or resized in float32 and rounded back to uint8, as in the JAX
+    step."""
     from ss25_hierarchical_multiscale_image_classification_tpu_torch.models.quantized import (
         quant_forward,
     )
@@ -241,8 +256,8 @@ def make_prob_step_multiscale_int8(
         feats = quant_forward(qtree, torch.cat(parts), with_fc=False)
         b = parts[0].shape[0]
         feats = feats.reshape(len(levels), b, -1).transpose(0, 1).float()
-        logits = model.fuse(feats)
-        aux = model.aux_logits(feats) if with_aux else None
+        logits = _in_row_chunks(model.fuse, feats)
+        aux = _in_row_chunks(model.aux_logits, feats) if with_aux else None
         return _combine_scores(logits, aux, temperature, aux_temperature,
                                ensemble_weight, ensemble_base_weight)
 
@@ -274,10 +289,10 @@ def _lazy_trunk_tree(model: HierarchicalPatchClassifier,
                      batch_by_level: Mapping[int, torch.Tensor], levels,
                      input_size: int, batch_size: int,
                      dev: torch.device) -> dict:
-    """The trunk quantized with scales calibrated on the first fused batch,
-    on ``dev``. Every level is resized as the JAX function's calibration
-    resizes it (a ``"crop"`` level too: the JAX function calibrates on the
-    resized fine stream). The JAX buffers are white-padded to
+    """The trunk quantized with scales calibrated on the first whole fused
+    batch (host or device tensors), on ``dev``. Every level is resized as
+    the JAX function's calibration resizes it (a ``"crop"`` level too: the
+    JAX function calibrates on the resized fine stream). The JAX buffers are white-padded to
     ``batch_size`` rows, so a short batch gets one white cell per level
     beside it (the same maxima)."""
     from ss25_hierarchical_multiscale_image_classification_tpu_torch.models.quantized import (
@@ -287,7 +302,7 @@ def _lazy_trunk_tree(model: HierarchicalPatchClassifier,
 
     cal = []
     for lvl in levels:
-        x = batch_by_level[lvl]
+        x = batch_by_level[lvl].to(dev)
         if x.shape[0] < batch_size:
             x = torch.cat([x, torch.full_like(x[:1], 255)])
         cal.append(_resize_u8(x, input_size))
@@ -332,8 +347,7 @@ def predict_slide_multiscale(
     ``devices`` (``device`` first among them): each batch is split in
     contiguous rows over the devices, with a replica of ``model`` on each
     (``model`` may also be the list of replicas), and ``batch_size`` is
-    rounded up to a multiple of their number; int8 on several devices needs
-    a ``qtree``.
+    rounded up to a multiple of their number.
 
     ``combine`` selects the reported surface: ``"auto"`` (the one the
     calibration selected; fusion-only for artifacts without aux heads),
@@ -346,7 +360,8 @@ def predict_slide_multiscale(
 
     ``int8=True`` runs the shared trunk quantized: from ``qtree`` (a
     persisted trunk artifact) or, without one, with scales calibrated on
-    the slide's first fused batch; the heads stay float.
+    the slide's first whole fused batch on ``device``, before the split,
+    the tree then copied to every device; the heads stay float.
 
     ``cascade`` screens every tissue cell with the base level's aux head
     first and runs the fused model on the survivors only; rows without a
@@ -392,10 +407,6 @@ def predict_slide_multiscale(
                 f"model lies on {model_dev}, not {d}: move it with "
                 "model.for_inference(device, dtype) first"
             )
-    if int8 and qtree is None and len(devs) > 1:
-        raise ValueError("int8 on several devices needs a persisted qtree "
-                         "(--quantize --multiscale): lazy calibration runs "
-                         "on one device")
     if batch_size % len(devs):
         batch_size = -(-batch_size // len(devs)) * len(devs)
         log.info("batch_size rounded up to %d (multiple of the %d-device "
@@ -565,17 +576,22 @@ def predict_slide_multiscale(
             def step(batch_by_level):
                 if not int8:
                     return fsteps[i](batch_by_level)
-                if "trees" not in qstate:  # one device (checked above)
-                    qstate["trees"] = [_lazy_trunk_tree(
-                        model, batch_by_level, levels, input_size, batch_size,
-                        dev)]
                 return qsteps[i](qstate["trees"][i], batch_by_level)
             return step
+
+        def calibrate(batch_by_level) -> None:
+            """Lazy int8: one trunk tree from the first whole batch, before
+            the split, copied to every device."""
+            if "trees" not in qstate:
+                tree = _lazy_trunk_tree(model, batch_by_level, levels,
+                                        input_size, batch_size, dev)
+                qstate["trees"] = [quantized_to(tree, d) for d in devs]
 
         # the base level first: the host filter reads it
         order = (base,) + tuple(lvl for lvl in levels if lvl != base)
         pipeline = _BatchPipeline([device_step(i) for i in range(len(devs))],
-                                  devs, batch_size, ps, probs, columns=ncol)
+                                  devs, batch_size, ps, probs, columns=ncol,
+                                  before=calibrate if int8 else None)
         producer = BandProducer(len(rows), read_row)
         try:
             with Timer(f"predict_slide_multiscale[{n} cells]", log):

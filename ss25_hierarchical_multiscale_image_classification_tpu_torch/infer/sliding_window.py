@@ -255,13 +255,16 @@ class _BatchPipeline:
     of per-level buffers. ``columns`` gives each cell a row of that many
     results. ``out`` is the array the results land in at their positions,
     or a function ``out(positions, values)`` that takes them.
+    ``before(batch)``, where given, sees each whole batch (host tensors of
+    its rows, a dict of them for a multiscale step) before the split: the
+    int8 path's lazy calibration.
     """
 
     DEPTH = 4
 
     def __init__(self, step, device, batch_size: int,
                  patch_size: int | dict, out, columns: int | None = None,
-                 depth: int = DEPTH):
+                 depth: int = DEPTH, before=None):
         many = isinstance(device, (list, tuple))
         self._devices = list(device) if many else [device]
         self._steps = list(step) if many else [step]
@@ -281,6 +284,7 @@ class _BatchPipeline:
                                      pin_memory=pin) for _ in range(ring)]
         self._out = out
         self._depth = depth
+        self._before = before
         self._slot = 0
         self._pending: deque = deque()  # (result view, positions, event)
         self.host = self._host_views()
@@ -294,6 +298,9 @@ class _BatchPipeline:
     def dispatch(self, positions: list) -> None:
         k = len(positions)
         res = self._results[self._slot][:k]
+        if self._before is not None:
+            batch = {key: b[:k] for key, b in self._bufs[self._slot].items()}
+            self._before(batch[None] if self._single else batch)
         events = []
         for i, (dev, step) in enumerate(zip(self._devices, self._steps)):
             lo, hi = i * self._part, min(k, (i + 1) * self._part)
@@ -381,14 +388,16 @@ def predict_slide(
     ``models/quant_artifact.py`` tree, calibrated once on training tissue)
     outputs do not depend on batch size or slide; without one, the model's
     weights are quantized with scales calibrated on this slide's first
-    tissue batch (with one white cell beside it when that batch is short:
-    the JAX function calibrates on its white-padded batch buffer).
+    whole tissue batch (with one white cell beside it when that batch is
+    short: the JAX function calibrates on its white-padded batch buffer),
+    on ``device``, before the batch is split, and the tree is copied to
+    every device.
 
     ``devices`` (``device`` first among them; the JAX function's ``mesh``):
     each batch is split in contiguous rows over the devices, with a replica
     of ``model`` on each (``model`` may also be the list of replicas,
     :func:`replicate_model`), and ``batch_size`` is rounded up to a
-    multiple of their number. int8 on several devices needs a ``qtree``.
+    multiple of their number.
     """
     if output not in ("prob", "margin"):
         raise ValueError(f"unknown output mode {output!r}")
@@ -418,9 +427,6 @@ def predict_slide(
                 f"model lies on {model_dev}, not {d}: move it with "
                 "model.to(device) first"
             )
-    if int8 and qtree is None and len(devs) > 1:
-        raise ValueError("int8 on several devices needs a persisted qtree "
-                         "(--quantize): lazy calibration runs on one device")
     if batch_size % len(devs):
         batch_size = -(-batch_size // len(devs)) * len(devs)
         log.info("batch_size rounded up to %d (multiple of the %d-device "
@@ -436,9 +442,10 @@ def predict_slide(
         )
         coords = grid.coords_array()
         ps = grid.patch_size
+        calibrate = None
         if int8:
-            steps = [_int8_step(m, qtree, input_size, batch_size, d)
-                     for m, d in zip(models, devs)]
+            steps, calibrate = _int8_steps(models, qtree, input_size,
+                                           batch_size, devs)
         else:
             steps = [make_prob_step(
                 m,
@@ -465,7 +472,8 @@ def predict_slide(
             return band
 
         ny, nx = grid.ny, grid.nx
-        pipeline = _BatchPipeline(steps, devs, batch_size, ps, margins)
+        pipeline = _BatchPipeline(steps, devs, batch_size, ps, margins,
+                                  before=calibrate)
         producer = BandProducer(ny, read_band)
         try:
             with Timer(f"predict_slide[{n} cells]", log):
@@ -511,10 +519,15 @@ def predict_slide(
             slide.close()
 
 
-def _int8_step(model: torch.nn.Module, qtree: dict | None, input_size: int,
-               batch_size: int, dev: torch.device):
-    """``step(imgs_u8)`` of the int8 path: the persisted tree moved to
-    ``dev`` once, or a tree quantized at the first batch."""
+def _int8_steps(models: Sequence[torch.nn.Module], qtree: dict | None,
+                input_size: int, batch_size: int,
+                devs: Sequence[torch.device]):
+    """The int8 path's ``(steps, calibrate)``: one ``step(imgs_u8)`` a
+    device over one tree, a copy on each device. With a persisted ``qtree``
+    the copies are made here and ``calibrate`` is None; without one,
+    ``calibrate(batch_u8)`` (the pipeline's ``before``) quantizes
+    ``models[0]`` on ``devs[0]`` at the first whole batch, before the
+    split, as the JAX function calibrates before it shards the batch."""
     from ss25_hierarchical_multiscale_image_classification_tpu_torch.models.quantized import (
         quantize_resnet18,
         quantized_to,
@@ -522,23 +535,28 @@ def _int8_step(model: torch.nn.Module, qtree: dict | None, input_size: int,
 
     qstep = make_prob_step_int8(input_size)
     # a persisted artifact: deterministic scales, no calibration per slide
-    state = {} if qtree is None else {"tree": quantized_to(qtree, dev)}
+    trees = None if qtree is None else [quantized_to(qtree, d) for d in devs]
 
-    def step(imgs_u8: torch.Tensor) -> torch.Tensor:
-        if "tree" not in state:
-            # calibrate on this slide's first tissue batch, resized as the
-            # step resizes (the folded stem's bias map is bound to the
-            # calibration input size)
-            cal = imgs_u8
-            if cal.shape[0] < batch_size:
-                cal = torch.cat([cal, torch.full_like(cal[:1], 255)])
-            weights = {k: v.float() for k, v in model.state_dict().items()}
-            q = quantize_resnet18(weights, [_resize_u8(cal, input_size)],
-                                  device=dev)
-            state["tree"] = quantized_to(q.tree(), dev)
-        return qstep(state["tree"], imgs_u8)
+    def calibrate(batch_u8: torch.Tensor) -> None:
+        nonlocal trees
+        if trees is not None:
+            return
+        # this slide's first tissue batch, resized as the step resizes (the
+        # folded stem's bias map is bound to the calibration input size)
+        cal = batch_u8.to(devs[0])
+        if cal.shape[0] < batch_size:
+            cal = torch.cat([cal, torch.full_like(cal[:1], 255)])
+        weights = {k: v.float() for k, v in models[0].state_dict().items()}
+        q = quantize_resnet18(weights, [_resize_u8(cal, input_size)],
+                              device=devs[0])
+        tree = q.tree()
+        trees = [quantized_to(tree, d) for d in devs]
 
-    return step
+    def step_on(i: int):
+        return lambda imgs_u8: qstep(trees[i], imgs_u8)
+
+    return ([step_on(i) for i in range(len(devs))],
+            calibrate if qtree is None else None)
 
 
 def _component_mask(

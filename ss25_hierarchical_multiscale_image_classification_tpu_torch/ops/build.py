@@ -3,8 +3,10 @@
 The sources under ``ops/csrc/`` expose plain C entry points (no PyTorch
 headers), so ``nvcc`` builds each in seconds. Each source becomes a library
 of its own, all compiled at once (one ``nvcc`` process per source), at first
-use, into ``ops/_build/`` (listed in ``.gitignore``), under a name keyed by
-that source, the shared headers and the flags: an edited source builds anew, an unchanged one
+use, into the library cache (``ops/_build/``, listed in ``.gitignore``, or
+the directory :func:`set_build_dir` names: the CLI's
+``--compile_cache_dir``), under a name keyed by that source, the shared
+headers and the flags: an edited source builds anew, an unchanged one
 loads the library already there. Nothing is built or imported when this
 module is imported, so CPU-only installations import it freely. The build
 and the launch counts take a lock: the slide fleet launches from one
@@ -34,6 +36,7 @@ place; a failed build raises with the compiler's output.
 
 from __future__ import annotations
 
+import atexit
 import contextlib
 import ctypes
 import ctypes.util
@@ -44,11 +47,19 @@ import importlib.util
 import os
 import shutil
 import subprocess
+import tempfile
 import threading
 import types
 from pathlib import Path
 
+from ss25_hierarchical_multiscale_image_classification_tpu_torch.logging_utils import (
+    get_logger,
+)
+
+log = get_logger("torch.ops.build")
+
 CSRC_DIR = Path(__file__).resolve().parent / "csrc"
+#: the library cache: device and host libraries alike
 BUILD_DIR = Path(__file__).resolve().parent / "_build"
 NVCC_FLAGS = (
     "-gencode", "arch=compute_90a,code=sm_90a",
@@ -170,6 +181,25 @@ def find_nvcc() -> str:
     return path
 
 
+def set_build_dir(path: str | None) -> Path:
+    """Point the library cache at ``path`` (the CLI's
+    ``--compile_cache_dir``) and return it: None keeps the cache where it
+    is (``ops/_build/`` by default); ``"off"`` builds into a temporary
+    directory of this process, removed when the process exits. Call it
+    before the first library loads: a library already loaded stays
+    loaded from where it was built."""
+    global BUILD_DIR
+    if path is None:
+        return BUILD_DIR
+    if path == "off":
+        tmp = tempfile.mkdtemp(prefix="hipac_build_")
+        atexit.register(shutil.rmtree, tmp, ignore_errors=True)
+        BUILD_DIR = Path(tmp)
+    else:
+        BUILD_DIR = Path(path).expanduser().resolve()
+    return BUILD_DIR
+
+
 def library_path(source: str) -> Path:
     """Where the library built from ``source`` and the flags lives."""
     h = hashlib.sha256(" ".join(NVCC_FLAGS).encode())
@@ -194,6 +224,9 @@ def build() -> list[Path]:
         proc = subprocess.Popen(cmd, stdout=subprocess.PIPE,
                                 stderr=subprocess.STDOUT, text=True)
         jobs.append((so, tmp, cmd, proc))
+    if jobs:
+        log.info("nvcc: building %d kernel libraries into %s", len(jobs),
+                 BUILD_DIR)
     failed = []
     for so, tmp, cmd, proc in jobs:
         out, _ = proc.communicate()
@@ -330,6 +363,8 @@ def host_library(name: str) -> Path:
             return so
         tmp = so.with_name(f"{so.name}.{os.getpid()}.tmp")
         cmd = _host_command(name)
+        log.info("%s: building host library %s into %s", cmd[0], name,
+                 BUILD_DIR)
         proc = subprocess.run([*cmd, "-o", str(tmp)], capture_output=True,
                               text=True, timeout=600)
         if proc.returncode != 0:

@@ -6,4 +6,18 @@ loads its rows of every global batch (``feed.py``), and the collectives of
 ``collectives.py`` give the global BatchNorm statistics, the gathered NT-Xent
 columns and the summed gradients. ``mesh.py`` joins the process group and
 keeps the JAX mesh's shape rules for ranks and for the fleet's devices.
+
+``make_mesh``, ``shard_batch`` and ``replicate`` resolve here at first use;
+they stand for the JAX package's ``make_mesh``, ``shard_batch``,
+``batch_sharding`` and ``replicated_sharding``, which describe the TPU mesh.
 """
+
+from ss25_hierarchical_multiscale_image_classification_tpu_torch._exports import (
+    lazy_exports,
+)
+
+__getattr__, __dir__ = lazy_exports(__name__, {
+    "make_mesh": "mesh",
+    "shard_batch": "mesh",
+    "replicate": "mesh",
+})

@@ -1,5 +1,12 @@
-"""Slide visualization: the WSI mask QA renders (``wsi_viz.py``)."""
+"""Visualization: attention heatmaps and the WSI mask QA renders.
 
-from ss25_hierarchical_multiscale_image_classification_tpu_torch.visualization.wsi_viz import (  # noqa: F401
-    visualize_and_save_wsi,
+The names of the JAX package's ``visualization`` resolve here at first use."""
+
+from ss25_hierarchical_multiscale_image_classification_tpu_torch._exports import (
+    lazy_exports,
 )
+
+__getattr__, __dir__ = lazy_exports(__name__, {
+    "visualize_attention_heatmap": "attention_heatmap",
+    "visualize_and_save_wsi": "wsi_viz",
+})

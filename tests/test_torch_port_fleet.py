@@ -8,7 +8,11 @@ rounding (the CPU convolutions sum a batch of 4 and one of 8 in other
 orders: measured one ulp), and the JAX fleet's grids within the slide
 tests' float32 bound; a failing slide surfaces as the JAX fleet's
 ``RuntimeError``; the CLI's ``--group_size`` that does not divide the devices warns and runs
-one group. The launch counts and the lazy kernel build take a lock, held by
+one group. Lazily calibrated int8 (no ``qtree``) split over two devices
+equals one device at the same rounded batch bit for bit, and JAX's
+2-device mesh within the one-device int8 bound; the fleet calibrates each
+slide on its group, and the CLI's ``--int8`` without an artifact takes
+every visible device. The launch counts and the lazy kernel build take a lock, held by
 a stress test with more threads than cores.
 """
 
@@ -194,9 +198,91 @@ def test_predict_slide_rejects_a_device_list_it_cannot_run(slides, models):
     with pytest.raises(ValueError, match="2 model replicas for 3"):
         psw.predict_slide(paths[0], [models[3]] * 2, device="cpu",
                           devices=["cpu"] * 3, **KW)
-    with pytest.raises(ValueError, match="needs a persisted qtree"):
-        psw.predict_slide(paths[0], models[3], device="cpu",
-                          devices=["cpu"] * 2, int8=True, **KW)
+
+
+INT8_RTOL = 1e-2  # of the largest margin: the one-device int8 parity bound
+
+
+@pytest.fixture(scope="module")
+def int8_one_device(slides, models):
+    """Lazily calibrated int8 margins on one device at batch 8."""
+    _, paths = slides
+    return psw.predict_slide(paths[0], models[3], output="margin", int8=True,
+                             device="cpu", **KW)[0]
+
+
+def test_split_int8_lazy_calibration_equals_one_device_and_jax(slides,
+                                                               models):
+    """``int8=True`` without a ``qtree`` on two devices: one tree, quantized
+    from the whole first batch before the split, on every device. The
+    batch of 3 rounds up to 4 (the slide's 5 tissue cells: a full batch of
+    2 + 2 rows, then one row on the first device), and the margins equal
+    one device's at 4 bit for bit (int8 sums are exact, the
+    requantization works row by row);
+    JAX's ``predict_slide(mesh=<2 CPU devices>, int8=True)`` calibrates the
+    same way, and the margins agree within the one-device int8 bound."""
+    from ss25_hierarchical_multiscale_image_classification_tpu.infer.sliding_window import (
+        predict_slide as jax_predict_slide,
+    )
+    from ss25_hierarchical_multiscale_image_classification_tpu.parallel.mesh import (
+        make_mesh as jax_make_mesh,
+    )
+
+    jmodel, variables, _, model = models
+    _, paths = slides
+    quantized = []
+    real = psw._int8_steps
+
+    def spy(*args, **kw):
+        steps, calibrate = real(*args, **kw)
+
+        def counted(batch):
+            quantized.append(len(batch))
+            calibrate(batch)
+        return steps, counted
+
+    psw._int8_steps = spy
+    try:
+        two, _ = psw.predict_slide(paths[0], model, output="margin",
+                                   int8=True, device="cpu",
+                                   devices=["cpu"] * 2,
+                                   **{**KW, "batch_size": 3})
+    finally:
+        psw._int8_steps = real
+    # the hook sees each whole batch; the first one calibrates
+    assert quantized == [4, 1]
+    one, _ = psw.predict_slide(paths[0], model, output="margin", int8=True,
+                               device="cpu", **{**KW, "batch_size": 4})
+    np.testing.assert_array_equal(two, one)
+    white = two == psw.NON_TISSUE_MARGIN
+    assert white.any() and (~white).sum() == 5
+    want, _ = jax_predict_slide(paths[0], variables, model=jmodel,
+                                output="margin", int8=True,
+                                mesh=jax_make_mesh(num_devices=2),
+                                **{**KW, "batch_size": 3})
+    np.testing.assert_array_equal(want == psw.NON_TISSUE_MARGIN, white)
+    np.testing.assert_allclose(two[~white], want[~white], rtol=0,
+                               atol=INT8_RTOL * np.abs(want[~white]).max())
+
+
+def test_int8_fleet_calibrates_each_slide_on_its_group(slides, models,
+                                                       int8_one_device,
+                                                       tmp_path):
+    """Two groups of two without a ``qtree``: each slide is calibrated on
+    its own first batch, on its group, and gives the split single-slide
+    path's margins and CSV bytes."""
+    _, paths = slides
+    got = predict_slide_fleet(paths, models[3], str(tmp_path / "fleet"),
+                              group_size=2, devices=[CPU] * 4, threshold=0.0,
+                              int8=True, **KW)
+    for path in paths:
+        want, _ = psw.predict_and_export(
+            path, models[3], str(tmp_path / "one"), threshold=0.0,
+            device="cpu", devices=[CPU, CPU], int8=True, **KW)
+        np.testing.assert_array_equal(got[path], want)
+    np.testing.assert_array_equal(got[paths[0]],
+                                  psw.sigmoid(int8_one_device))
+    assert _bytes(str(tmp_path / "fleet")) == _bytes(str(tmp_path / "one"))
 
 
 def test_two_groups_on_one_device_equal_the_sequential_slides(slides, models,
@@ -336,6 +422,41 @@ def test_cli_multiscale_fleet_over_groups_of_several_devices(
     for key, rows in want.items():
         assert got[key].shape == rows.shape, key
         np.testing.assert_allclose(got[key], rows, rtol=SPLIT_RTOL, atol=0)
+
+
+@pytest.mark.parametrize("multiscale", [False, True],
+                         ids=["single_level", "multiscale"])
+def test_cli_int8_without_an_artifact_runs_every_device(
+        slides, models_dir, tmp_path, monkeypatch, multiscale):
+    """``--predict_slide <slide> [--multiscale] --int8`` with no int8
+    artifact on two visible devices: the producer gets both (it calibrates
+    before the split), and the CSV bytes are one device's at the same
+    batch."""
+    _, paths = slides
+    if multiscale:
+        from test_torch_port_cli import _hierarchical_artifacts
+
+        _, models = _hierarchical_artifacts(tmp_path, {}, seed=85)
+        extra, name = ["--multiscale"], "predict_and_export_multiscale"
+    else:
+        models = tmp_path / "m"
+        shutil.copytree(models_dir, models)
+        extra, name = [], "predict_and_export"
+    argv = ["--predict_slide", paths[0], "--int8", *extra, "--stride", "56",
+            "--batch_size", "4", "--detect_threshold", "0.0",
+            "--models_dir", str(models), "--device", "cpu"]
+    csv = models / "model_predictions_csv" / "a_tumor.csv"
+    assert cli.main(argv) == 0
+    one = csv.read_bytes()
+    csv.unlink()
+    seen = []
+    real = getattr(cli, name)
+    monkeypatch.setattr(cli, name, lambda *a, **kw: seen.append(
+        kw["devices"]) or real(*a, **kw))
+    monkeypatch.setattr(cli, "_visible_devices", lambda device: [CPU] * 2)
+    assert cli.main(argv) == 0
+    assert seen == [[CPU, CPU]]
+    assert csv.read_bytes() == one and one
 
 
 def test_cli_under_torchrun_refuses_actions_without_a_dp_path(tmp_path,

@@ -486,6 +486,72 @@ def test_int8_lazy_calibration_matches_jax(jms, slide_path, concat_models,
         full[0][tissue]).max() + 0.05
 
 
+def test_int8_lazy_calibration_split_over_devices_matches_one_device_and_jax(
+        jms, slide_path, concat_models):
+    """No ``qtree``, two devices: one trunk tree from the whole first fused
+    batch, quantized before the split and copied to both. The batch of 3
+    rounds up to 4, and every column equals one device's at 4 bit for bit.
+    JAX's run on a 2-device mesh calibrates on the same cells: the trees
+    agree as in the one-device test, and the port run with JAX's tree on
+    the two devices holds JAX's scores within ``INT8_RTOL``."""
+    from ss25_hierarchical_multiscale_image_classification_tpu.parallel.mesh import (
+        make_mesh as jax_make_mesh,
+    )
+
+    jmodel, variables, port = concat_models
+    v, port_cal = _with_cal(variables, CAL)
+    kw = {**KW, "output": "margin", "return_components": True, "int8": True,
+          "batch_size": 3}
+    two_devices = dict(device="cpu", devices=["cpu"] * 2)
+    with _Trees() as trees:
+        got = pms.predict_slide_multiscale(slide_path, port, port_cal,
+                                           **two_devices, **kw)
+        want = jms.predict_slide_multiscale(
+            slide_path, v, model=jmodel, mesh=jax_make_mesh(num_devices=2),
+            **kw)
+    one = pms.predict_slide_multiscale(slide_path, port, port_cal,
+                                       device="cpu", **{**kw, "batch_size": 4})
+    for name in pms.COMBINE_COLUMNS:
+        np.testing.assert_array_equal(got[2][name], one[2][name])
+    assert (got[2]["fusion"] > NTM).sum() > 4  # more than one batch
+    _assert_same_tree(trees.trees["port"], trees.trees["jax"])
+    with_jax_tree = pms.predict_slide_multiscale(
+        slide_path, port, port_cal, qtree=quantized_from_jax(
+            _np(trees.trees["jax"])), **two_devices, **kw)
+    _assert_int8(with_jax_tree, want)
+
+
+@pytest.mark.parametrize("fusion", ["concat", "attention"])
+def test_int8_step_scores_do_not_depend_on_the_rows_beside_them(fusion):
+    """At full width (512 features a level), the int8 step's five columns
+    for a cell are the same whatever rows share its call: 16 rows at once,
+    and 5 + 11. The float heads run in calls of ``HEAD_ROWS`` rows; called
+    on all the rows at once, MKL's products on this CPU (as cuBLAS's on the
+    card) round otherwise at another row count."""
+    from ss25_hierarchical_multiscale_image_classification_tpu_torch.models.hierarchical import (
+        HierarchicalPatchClassifier,
+    )
+
+    g = torch.Generator().manual_seed(3)
+    model = HierarchicalPatchClassifier(fusion=fusion, generator=g)
+    model.for_inference("cpu", torch.float32)
+    imgs = {2: torch.randint(0, 256, (16, 128, 128, 3), generator=g,
+                             dtype=torch.uint8),
+            3: torch.randint(0, 256, (16, 64, 64, 3), generator=g,
+                             dtype=torch.uint8)}
+    tree = q.quantize_resnet18(
+        {k: v.float() for k, v in model.trunk.state_dict().items()},
+        [imgs[3]], device="cpu").tree()
+    step = pms.make_prob_step_multiscale_int8(model, (2, 3), 64,
+                                              with_aux=True)
+    whole = step(tree, imgs)
+    parts = torch.cat([step(tree, {k: v[lo:hi] for k, v in imgs.items()})
+                       for lo, hi in ((0, 5), (5, 16))])
+    assert whole.shape == (16, len(pms.COMBINE_COLUMNS))
+    assert torch.isfinite(whole).all() and whole.std(dim=0).min() > 0
+    torch.testing.assert_close(parts, whole, rtol=0, atol=0)
+
+
 def test_int8_from_a_trunk_artifact_matches_jax(jms, slide_path, concat_models):
     """A trunk tree calibrated once (by the JAX package) and carried across:
     the same integers on both sides, independent of the batch size; the

@@ -48,7 +48,8 @@ _JAX_IMPORT = re.compile(rf"^\s*(import|from)\s+(jax|jaxlib|flax|{JAX_PKG})\b",
                          re.M)
 # libraries the card's machine lacks: never at a module's top level
 _HOST_ONLY_IMPORT = re.compile(
-    r"^(import|from)\s+(optax|sklearn|PIL|cv2|matplotlib|pyarrow)\b", re.M)
+    r"^(import|from)\s+(optax|sklearn|PIL|cv2|matplotlib|pyarrow|requests|"
+    r"tqdm)\b", re.M)
 
 
 def _import_all(jax_platforms):
