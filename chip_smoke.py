@@ -279,8 +279,9 @@ version on the card. Phases:
    reloaded and within 1e-6 of the module; through the CLI's ``main``:
    ``--prepare`` on a zip of 50 XMLs written here, ``--validation`` (one
    split line), ``--extract_features --profile`` (the Chrome trace names the
-   ``bias_relu_pool`` kernel) and ``--validate`` (exit 0 with scikit-learn,
-   else the ``ImportError`` naming it);
+   ``bias_relu_pool`` kernel), ``--validate --device cuda`` and
+   ``--validate --tsne_full --device cuda`` (exit 0, scikit-learn never
+   loaded);
 17. the last parity gaps (run after phase 15 (h)): (a) ``predict_and_export(
    int8=True)`` with no int8 tree on the smoke slide at batch 512, on one
    device and split over ``devices=[card, card]`` (one tree calibrated on
@@ -298,7 +299,15 @@ version on the card. Phases:
    ``--compile_cache_dir`` in two CLI processes on the downloaded TIFF: the
    first builds the nine kernel libraries (``nvcc``) and the TIFF host
    library into a fresh directory, the second finds them and builds
-   nothing (the files untouched, no build line); both CSVs equal; walls.
+   nothing (the files untouched, no build line); both CSVs equal; walls;
+18. the feature-evaluation stage (last): ``validate_features(device=
+   "cuda")`` on phase 8's 1,752 × 512 triplet against the port's own CPU
+   run: the PCA ratio within 1e-5, accuracy and confusion equal, the final
+   t-SNE KL (both embeddings under the card's P) within 5 % and the
+   trustworthiness (k = 5) within 0.02 (the trajectories differ: the
+   descent is chaotic); its pieces (PCA, kNN and P, init, descent, logistic
+   regression) by CUDA events; then t-SNE at the default cap on 10,000 ×
+   512 seeded two-class features: wall, kNN and P, ms a descent iteration.
 
 It imports nothing of JAX or of the JAX package. Run it from the root of a
 checkout:
@@ -4258,7 +4267,6 @@ def phase_features(dev, ds, sd, tmp) -> dict:
     tissue cells, the stem kernels' launches counted around each route."""
     import numpy as np
     import torch
-    from torch.profiler import ProfilerActivity, profile
 
     from ss25_hierarchical_multiscale_image_classification_tpu_torch.config import (
         Config,
@@ -4391,8 +4399,27 @@ def phase_features(dev, ds, sd, tmp) -> dict:
         log(f"[features] warm {name} forward at B={BATCH} bf16 (batch on the "
             f"card): median {med:.3f} ms (quartiles {q1:.3f}–{q3:.3f}, "
             f"{len(ms)} steps) = {BATCH / med * 1e3:.0f} patches/s")
+    return {"bias_relu_pool": launches["bias_relu_pool"],
+            "fused_stem": launches_s2d["fused_stem"],
+            "features": disk, "labels": labels}
 
-    # the loop as run_feature_extraction runs it, warm, under the profiler
+
+def phase_features_profile(dev, ds, sd) -> None:
+    """The loop as ``run_feature_extraction`` runs it, warm, under the
+    profiler, both routes: the device's idle share. Last in the run: walls
+    taken after a profiler session run long."""
+    import torch
+    from torch.profiler import ProfilerActivity, profile
+
+    from ss25_hierarchical_multiscale_image_classification_tpu_torch.infer.features import (
+        run_feature_extraction,
+    )
+    from ss25_hierarchical_multiscale_image_classification_tpu_torch.models.convert import (
+        strip_head,
+    )
+
+    trunk = strip_head(sd)
+    n = len(ds)
     for s2d in (False, True):
         torch.cuda.synchronize()
         with profile(activities=[ProfilerActivity.CPU,
@@ -4406,8 +4433,6 @@ def phase_features(dev, ds, sd, tmp) -> dict:
             f"packed-store reads included: {wall_ms:.1f} ms = "
             f"{n / wall_ms * 1e3:.0f} patches/s; device busy {busy:.1f} ms, "
             f"idle share {1 - busy / wall_ms:.3f}")
-    return {"bias_relu_pool": launches["bias_relu_pool"],
-            "fused_stem": launches_s2d["fused_stem"]}
 
 
 def phase_int8(dev, ds, sd, slide, host_margins, ref_cells, ref_u8, tmp) -> dict:
@@ -6386,8 +6411,8 @@ def phase_legacy_tools(dev, train, smi, tmp) -> dict:
     """Phase 16: the legacy models on the card against the CPU, the generic
     trainer with its export, and the CLI's ``--prepare``, ``--validation``,
     ``--extract_features --profile`` (the Chrome trace names the 2b kernel)
-    and ``--validate`` (scikit-learn present: exit 0; absent, as on this
-    machine: the ``ImportError`` naming it)."""
+    and ``--validate [--tsne_full] --device cuda`` (exit 0, the accuracy
+    line logged, scikit-learn never loaded)."""
     import zipfile
 
     from ss25_hierarchical_multiscale_image_classification_tpu_torch.config import (
@@ -6457,30 +6482,20 @@ def phase_legacy_tools(dev, train, smi, tmp) -> dict:
         f"{len(kernels)} kernel names, {named[0]!r} among them; "
         f"bias_relu_pool launches {launches}")
 
-    # --validate: scikit-learn decides which outcome applies
-    try:
-        import sklearn  # noqa: F401
-        has_sklearn = True
-    except ImportError:
-        has_sklearn = False
-    if has_sklearn:
-        rc, wall = run_cli(["--validate", "--data_dir", data_dir])
-        if rc != 0:
-            raise AssertionError(f"--validate: exit {rc}")
-        log(f"[tools] --validate (scikit-learn present): exit 0 in {wall:.2f} s")
-    else:
-        try:
-            run_cli(["--validate", "--data_dir", data_dir])
-        except ImportError as e:
-            if "sklearn" not in str(e):
-                raise
-            log(f"[tools] --validate without scikit-learn: ImportError "
-                f"{str(e)!r}")
-        else:
-            raise AssertionError("--validate ran without scikit-learn")
+    # --validate and --validate --tsne_full on the card: no scikit-learn
+    for extra in ([], ["--tsne_full"]):
+        with _Messages("evaluation.features") as records:
+            rc, wall = run_cli(["--validate", *extra, "--data_dir", data_dir,
+                                "--device", "cuda"])
+        acc = [r.getMessage() for r in records
+               if r.getMessage().startswith("Logistic Regression Accuracy")]
+        if rc != 0 or len(acc) != 1 or "sklearn" in sys.modules:
+            raise AssertionError(f"--validate {extra}: exit {rc}, {acc}, "
+                                 f"sklearn loaded: {'sklearn' in sys.modules}")
+        log(f"[tools] {' '.join(['--validate', *extra, '--device', 'cuda'])}"
+            f": exit 0 in {wall:.2f} s, {acc[0]}; sklearn not loaded")
     log(f"[tools] phase 16 in {time.perf_counter() - t0:.1f} s")
-    return {"legacy": legacy, "generic": gen, "bias_relu_pool": launches,
-            "sklearn": has_sklearn}
+    return {"legacy": legacy, "generic": gen, "bias_relu_pool": launches}
 
 
 # ---------------------------------------------------------------------------
@@ -6786,6 +6801,185 @@ def phase_parity_gaps(dev, sd, spec, npz_path, tiff_path, ms_models,
     return {"single": single, "multi": multi}
 
 
+# ---------------------------------------------------------------------------
+# phase 18: the feature-evaluation stage (validate_features) on the card
+# ---------------------------------------------------------------------------
+
+EMB_PCA_RATIO_ATOL = 1e-5  # card against CPU, float64 both sides
+EMB_KL_RTOL = 0.05  # the final KL, card against CPU (chaotic trajectories)
+EMB_TRUST_ATOL = 0.02  # trustworthiness at k = 5, card against CPU
+EMB_TIMING_ROWS = 10_000  # validate_features' default t-SNE cap
+EMB_TIMING_DIM = 512
+# --tsne_full at the mean size of phase 9's MIL triplet (every row embedded)
+EMB_FULL_ROWS = MIL_SLIDES * sum(MIL_INSTANCES) // 2
+EMB_FULL_ITERS = 3  # timed descent iterations there, after one warm one
+
+
+def _events_ms(fn):
+    """(result, ms) of ``fn`` between two CUDA events; the host's waits
+    inside ``fn`` (L-BFGS, the descent's progress checks) count."""
+    import torch
+
+    start = torch.cuda.Event(enable_timing=True)
+    end = torch.cuda.Event(enable_timing=True)
+    start.record()
+    out = fn()
+    end.record()
+    end.synchronize()
+    return out, start.elapsed_time(end)
+
+
+def phase_embedding(dev, feats, labels, smi) -> None:
+    """Phase 18: ``validate_features`` on the card on phase 8's feature
+    triplet, held to the port's own CPU run (PCA ratio, split, confusion,
+    final KL and trustworthiness; the t-SNE trajectories themselves differ)
+    and to a second card run (bit-equal); its pieces timed by CUDA events;
+    then t-SNE at the default cap on 10,000 × 512 seeded two-class features
+    (wall, kNN and P, ms a descent iteration), and kNN, P and a few descent
+    iterations at the MIL triplet's size, where ``--tsne_full`` embeds every
+    row."""
+    import numpy as np
+    import torch
+
+    from ss25_hierarchical_multiscale_image_classification_tpu_torch.evaluation import (
+        embedding as E,
+    )
+    from ss25_hierarchical_multiscale_image_classification_tpu_torch.evaluation.features_eval import (
+        validate_features,
+    )
+
+    t_phase = time.perf_counter()
+    n, d = feats.shape
+    walls, runs = {}, {}
+    for where in ("cuda", "cpu"):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        runs[where] = validate_features(feats, labels, device=where)
+        torch.cuda.synchronize()
+        walls[where] = time.perf_counter() - t0
+    card, cpu = runs["cuda"], runs["cpu"]
+    again = validate_features(feats, labels, device="cuda")
+    repeats = all(np.array_equal(np.asarray(card[k]), np.asarray(again[k]))
+                  for k in card)
+    log(f"[embed] a second card run equal bit for bit: {repeats}")
+    if not repeats:
+        raise AssertionError("validate_features on the card does not repeat "
+                             "bit for bit")
+    d_ratio = float(np.abs(np.subtract(card["pca_explained_variance"],
+                                       cpu["pca_explained_variance"])).max())
+    x = torch.as_tensor(feats, dtype=torch.float64, device=dev)
+    p = E.tsne_affinities(x, 30.0)
+    kl = {k: E.kl_divergence(p, torch.as_tensor(r["tsne_coords"], device=dev))
+          for k, r in runs.items()}
+    trust = {k: E.trustworthiness(x, torch.as_tensor(r["tsne_coords"],
+                                                      device=dev), 5)
+             for k, r in runs.items()}
+    log(f"[embed] validate_features on phase 8's {n}×{d} triplet: card "
+        f"{walls['cuda']:.2f} s, CPU {walls['cpu']:.2f} s; PCA ratio "
+        f"{card['pca_explained_variance']} (|Δ| {d_ratio:.3g}, bound "
+        f"{EMB_PCA_RATIO_ATOL}); logreg accuracy card "
+        f"{card['logreg_accuracy']:.4f}, CPU {cpu['logreg_accuracy']:.4f}, "
+        f"confusion {card['logreg_confusion'].tolist()}; t-SNE KL card "
+        f"{kl['cuda']:.4f}, CPU {kl['cpu']:.4f} (bound {EMB_KL_RTOL:.0%}); "
+        f"trustworthiness card {trust['cuda']:.4f}, CPU {trust['cpu']:.4f} "
+        f"(bound {EMB_TRUST_ATOL})")
+    if (d_ratio > EMB_PCA_RATIO_ATOL
+            or card["logreg_accuracy"] != cpu["logreg_accuracy"]
+            or not np.array_equal(card["logreg_confusion"],
+                                  cpu["logreg_confusion"])
+            or abs(kl["cuda"] / kl["cpu"] - 1.0) > EMB_KL_RTOL
+            or abs(trust["cuda"] - trust["cpu"]) > EMB_TRUST_ATOL
+            or card["tsne_coords"].shape != (n, 2)
+            or not np.isfinite(card["tsne_coords"]).all()
+            or not np.isfinite(card["pca_coords"]).all()):
+        raise AssertionError("validate_features on the card disagrees with "
+                             "its CPU run")
+
+    # the pieces on the card, as validate_features runs them
+    test_size = max(0.2, 2 / n + 1e-9)
+    pieces = {}
+    _, pieces["pca"] = _events_ms(lambda: E.pca(x, 2))
+    p, pieces["knn_p"] = _events_ms(lambda: E.tsne_affinities(x, 30.0))
+    y0, pieces["init"] = _events_ms(lambda: E.tsne_init(x))
+    lr = E.tsne_learning_rate(n)
+    (_, _, it), pieces["descent"] = _events_ms(
+        lambda: E.tsne_descent(E.KLObjective(p), y0, lr))
+
+    def logreg():
+        train, test = E.stratified_split(labels, test_size, 42)
+        fit = E.fit_logistic_regression(x[torch.as_tensor(train, device=dev)],
+                                        labels[train])
+        return fit.predict(x[torch.as_tensor(test, device=dev)]), fit.n_iter
+
+    (_, lbfgs_iter), pieces["logreg"] = _events_ms(logreg)
+    log(f"[embed] pieces at {n}×{d} on the card (CUDA events): PCA "
+        f"{pieces['pca']:.2f} ms, kNN and P {pieces['knn_p']:.2f} ms, PCA "
+        f"init {pieces['init']:.2f} ms, descent {pieces['descent']:.1f} ms "
+        f"for {it + 1} iterations = {pieces['descent'] / (it + 1):.3f} ms an "
+        f"iteration, logistic regression {pieces['logreg']:.1f} ms "
+        f"({lbfgs_iter} L-BFGS iterations) [{smi}]")
+
+    # t-SNE at the default cap, 10,000 × 512 two-class features from SEED
+    g = torch.Generator(device=dev).manual_seed(SEED)
+    cls = torch.rand(EMB_TIMING_ROWS, generator=g, device=dev) < 0.4
+    big = torch.randn(EMB_TIMING_ROWS, EMB_TIMING_DIM, generator=g, device=dev)
+    big += 0.5 * cls[:, None] * torch.randn(EMB_TIMING_DIM, generator=g,
+                                            device=dev)
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    t0 = time.perf_counter()
+    p_big, knn_ms = _events_ms(lambda: E.tsne_affinities(big, 30.0))
+    y_big, init_ms = _events_ms(lambda: E.tsne_init(big))
+    (y_big, kl_big, it_big), desc_ms = _events_ms(lambda: E.tsne_descent(
+        E.KLObjective(p_big), y_big, E.tsne_learning_rate(EMB_TIMING_ROWS)))
+    torch.cuda.synchronize()
+    wall_big = time.perf_counter() - t0
+    if not torch.isfinite(y_big).all() or not np.isfinite(kl_big):
+        raise AssertionError("t-SNE at 10,000 rows gave non-finite output")
+    trust_big = E.trustworthiness(big, y_big, 5)
+    log(f"[embed] t-SNE at {EMB_TIMING_ROWS}×{EMB_TIMING_DIM} (seeded, two "
+        f"classes) on the card: wall {wall_big:.2f} s; kNN and P "
+        f"{knn_ms:.1f} ms ({p_big.vals.numel()} edges), PCA init "
+        f"{init_ms:.1f} ms, descent {desc_ms:.1f} ms for {it_big + 1} "
+        f"iterations = {desc_ms / (it_big + 1):.3f} ms an iteration; KL "
+        f"{kl_big:.4f}, trustworthiness {trust_big:.4f}; peak device memory "
+        f"{torch.cuda.max_memory_allocated() / 2**30:.2f} GiB [{smi}]")
+    del p_big, y_big, big
+
+    # --tsne_full at the MIL triplet's size: kNN, P and init in full, then
+    # descent iterations of the exaggerated phase (the O(N²) repulsion)
+    cls = torch.rand(EMB_FULL_ROWS, generator=g, device=dev) < 0.4
+    full = torch.randn(EMB_FULL_ROWS, EMB_TIMING_DIM, generator=g, device=dev)
+    full += 0.5 * cls[:, None] * torch.randn(EMB_TIMING_DIM, generator=g,
+                                             device=dev)
+    torch.cuda.reset_peak_memory_stats()
+    p_full, knn_full_ms = _events_ms(lambda: E.tsne_affinities(full, 30.0))
+    y_full, init_full_ms = _events_ms(lambda: E.tsne_init(full))
+    del full
+    obj = E.KLObjective(p_full)
+    obj.scale(E.EARLY_EXAGGERATION)
+    kw = dict(n_iter_check=E.N_ITER_CHECK, n_iter_without_progress=
+              E.EXPLORATION_ITER, momentum=0.5,
+              learning_rate=E.tsne_learning_rate(EMB_FULL_ROWS),
+              min_gain=E.MIN_GAIN, min_grad_norm=E.MIN_GRAD_NORM)
+    y_full, _, _ = E.gradient_descent(obj, y_full, 0, 1, **kw)  # warm
+    (y_full, kl_full, _), iters_ms = _events_ms(lambda: E.gradient_descent(
+        obj, y_full, 1, 1 + EMB_FULL_ITERS, **kw))
+    if not torch.isfinite(y_full).all() or not np.isfinite(kl_full):
+        raise AssertionError(f"t-SNE at {EMB_FULL_ROWS} rows gave non-finite "
+                             "output")
+    it_ms = iters_ms / EMB_FULL_ITERS
+    log(f"[embed] --tsne_full at the MIL triplet's size, {EMB_FULL_ROWS}×"
+        f"{EMB_TIMING_DIM} (seeded, two classes) on the card: kNN and P "
+        f"{knn_full_ms:.1f} ms ({p_full.vals.numel()} edges), PCA init "
+        f"{init_full_ms:.1f} ms, descent {it_ms:.1f} ms an iteration "
+        f"({EMB_FULL_ITERS} timed after a warm one), so "
+        f"{(knn_full_ms + init_full_ms + E.MAX_ITER * it_ms) / 1e3:.0f} s for "
+        f"{E.MAX_ITER} iterations; peak device memory "
+        f"{torch.cuda.max_memory_allocated() / 2**30:.2f} GiB [{smi}]")
+    log(f"[embed] phase 18 in {time.perf_counter() - t_phase:.1f} s")
+
+
 def main() -> int:
     if not os.path.isdir(os.path.join(ROOT, PKG)):
         print(f"{PKG}/ not found beside {__file__}: run from a checkout",
@@ -6893,9 +7087,14 @@ def main() -> int:
             class_weights_inv_min(msds.labels[ms_idx], 2), ext["root"],
             train["data_dir"], smi, tmp)
         torch.cuda.empty_cache()
-        # last: they end under torch.profiler, and host-clock walls taken in
-        # this process after a profiler session come out longer
         feature_launches = phase_features(dev, ds, sd, tmp)
+        torch.cuda.empty_cache()
+        phase_embedding(dev, feature_launches.pop("features"),
+                        feature_launches.pop("labels"), smi)
+        torch.cuda.empty_cache()
+        # last: they run under torch.profiler, and host-clock walls taken in
+        # this process after a profiler session come out longer
+        phase_features_profile(dev, ds, sd)
         phase_train_profile(train.pop("trainer"), len(ds))
         phase_multiscale_profile(dev, slide, ms.pop("model"), ms["cal"])
         phase_ms_train_profile(dev, *ms_train.pop("profile"))
@@ -6957,8 +7156,7 @@ def main() -> int:
         f"{json.dumps(dp_h['one'])}")
     log(f"[paths] phase 15 (h) --overlay exit 0 (matplotlib here: "
         f"{overlay['matplotlib']}); phase 16: bias_relu_pool launches under "
-        f"--profile {tools['bias_relu_pool']}, scikit-learn here: "
-        f"{tools['sklearn']}")
+        f"--profile {tools['bias_relu_pool']}")
     log(f"[paths] TIFF: fused_normalize launches {tiff['launches']} (deflate "
         f"slide), {tiff['jpeg_launches']} (JPEG-YCbCr), "
         f"{tiff['multiscale_launches']} (JPEG-YCbCr multiscale), "

@@ -103,9 +103,10 @@ host libraries, ``ops/build.py``) in ``DIR`` instead of ``ops/_build/``;
 ``--prepare`` extracts ``<data_dir>/train/mask/lesion_annotations.zip``
 into ``<data_dir>/annotations``; ``--validation`` logs the level's
 slide-level split; ``--validate`` checks the level's feature triplet
-(PCA, t-SNE, logistic regression; needs scikit-learn, ``--tsne_full`` runs
-t-SNE on every row); ``--profile`` writes a ``torch.profiler`` Chrome trace
-of ``--extract_features`` under ``<log_dir>/profile``.
+(PCA, t-SNE, logistic regression in torch on ``--device``, no
+scikit-learn; ``--tsne_full`` runs t-SNE on every row); ``--profile``
+writes a ``torch.profiler`` Chrome trace of ``--extract_features`` under
+``<log_dir>/profile``.
 
 ``--train_mil`` trains the attention-MIL slide classifier on the feature
 triplet under ``<data_dir>/features`` at ``--patch_level`` and writes
@@ -769,7 +770,7 @@ def _training_inputs(cfg: Config, level: int) -> bool:
 #: ``--count_tumor_patches``, ``--wsi_viz``) and ``--run_evaluation`` run on
 #: the host alone, as in the JAX CLI.
 _DEVICE_ACTIONS = ("patch", "patch_one_slide", "extract_features", "train",
-                   "train_strategy", "evaluate", "train_mil",
+                   "train_strategy", "validate", "evaluate", "train_mil",
                    "train_multiscale", "qat", "quantize", "mine_hard_negatives",
                    "predict_slide")
 
@@ -819,9 +820,9 @@ def _validation_split(cfg: Config, level: int) -> None:
              len(val_slides), val_slides)
 
 
-def _validate(args, cfg: Config, level: int) -> None:
-    """``--validate``: the feature sanity check on the level's triplet
-    (``--tsne_full``: t-SNE on every row)."""
+def _validate(args, cfg: Config, level: int, device) -> None:
+    """``--validate``: the feature sanity check on the level's triplet, on
+    ``device`` (``--tsne_full``: t-SNE on every row)."""
     from ss25_hierarchical_multiscale_image_classification_tpu_torch.evaluation.features_eval import (
         validate_features,
     )
@@ -830,6 +831,7 @@ def _validate(args, cfg: Config, level: int) -> None:
     validate_features(
         feats, labels,
         **({"tsne_max_samples": len(feats)} if args.tsne_full else {}),
+        device=device,
     )
 
 
@@ -913,7 +915,7 @@ def main(argv=None) -> int:
     if args.validation:
         _validation_split(cfg, level)
     if args.validate:
-        _validate(args, cfg, level)
+        _validate(args, cfg, level, device)
     if args.evaluate:
         evaluate_resnet_classifier(cfg, level=level, device=device)
     if args.balance_dataset:

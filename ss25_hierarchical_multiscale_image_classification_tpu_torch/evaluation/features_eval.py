@@ -1,21 +1,21 @@
 """Feature sanity evaluation and analysis plots (``--validate``,
 ``--tsne_full``).
 
-Copy of the JAX package's ``evaluation/features_eval.py``, held to it by
-exact tests:
+The JAX package's ``evaluation/features_eval.py`` on the device, without
+scikit-learn (the card's machine has none): the same keys with the same
+meaning, the numerics in ``evaluation/embedding.py``:
 
 - PCA(2): explained variance ratio + per-class means;
 - t-SNE(2, perplexity 30): per-class means, on a seeded 10k subsample
   above ``tsne_max_samples`` rows (``--tsne_full`` lifts it to every row);
+  its repulsion is exact where sklearn's is Barnes–Hut at ``angle=0.5``, so
+  the coordinates are another run of the same descent, not equal ones;
 - LogisticRegression(max_iter=1000, class_weight="balanced") on an 80/20
-  stratified split: accuracy + confusion matrix;
-- saved-to-disk PCA/t-SNE scatter plots and the logreg confusion heatmap;
-- the unlabeled-patch QA overlay.
-
-Host numpy code. scikit-learn, matplotlib, seaborn and Pillow are imported
-inside the functions that use them; where scikit-learn is missing (the
-card's machine has none) :func:`validate_features` raises ``ImportError``
-naming it.
+  stratified split (the same indices as sklearn's): accuracy + confusion
+  matrix;
+- saved-to-disk PCA/t-SNE scatter plots and the logreg confusion heatmap
+  (matplotlib and seaborn, imported inside the functions that draw);
+- the unlabeled-patch QA overlay (Pillow).
 """
 
 from __future__ import annotations
@@ -23,7 +23,17 @@ from __future__ import annotations
 import os
 
 import numpy as np
+import torch
 
+from ss25_hierarchical_multiscale_image_classification_tpu_torch.device import (
+    resolve_device,
+)
+from ss25_hierarchical_multiscale_image_classification_tpu_torch.evaluation import (
+    embedding,
+)
+from ss25_hierarchical_multiscale_image_classification_tpu_torch.evaluation.metrics import (
+    confusion_matrix,
+)
 from ss25_hierarchical_multiscale_image_classification_tpu_torch.logging_utils import (
     get_logger,
 )
@@ -38,35 +48,29 @@ def validate_features(
     tsne_perplexity: float = 30.0,
     seed: int = 42,
     tsne_max_samples: int = 10_000,
+    device: str | torch.device = "cuda",
 ) -> dict:
-    """Sanity-check extracted patch features.
+    """Sanity-check extracted patch features on ``device`` (arrays come
+    back as numpy on the host).
 
-    t-SNE is O(N²)-ish on one host core; above ``tsne_max_samples`` it
-    runs on a seeded random subsample (the class-mean summary it feeds is
+    t-SNE is O(N²) a descent step; above ``tsne_max_samples`` it runs on a
+    seeded random subsample (the class-mean summary it feeds is
     statistically stable under subsampling) — full-dataset PCA and logreg
     are unaffected."""
-    try:
-        from sklearn.decomposition import PCA
-        from sklearn.linear_model import LogisticRegression
-        from sklearn.model_selection import train_test_split
-    except ImportError as e:
-        raise ImportError(
-            "validate_features needs scikit-learn (sklearn), which is not "
-            "installed") from e
-
-    from ss25_hierarchical_multiscale_image_classification_tpu_torch.evaluation.metrics import (
-        confusion_matrix,
-    )
-
+    dev = resolve_device(device)
+    features = np.asarray(features)
     result: dict = {"num_samples": len(features), "feature_dim": features.shape[1]}
     labels = np.asarray(labels)
     classes = np.unique(labels)
+    x = torch.as_tensor(features, dtype=torch.float64, device=dev)
 
     n_comp = min(2, len(features), features.shape[1])
     if n_comp >= 1:
-        pca = PCA(n_components=n_comp)
-        pca_coords = pca.fit_transform(features)
-        result["pca_explained_variance"] = pca.explained_variance_ratio_.tolist()
+        coords, ratio = embedding.pca(x, n_comp)
+        # sklearn's output dtype: float32 stays, anything else is float64
+        pca_coords = coords.cpu().numpy().astype(
+            np.result_type(features.dtype, np.float32))
+        result["pca_explained_variance"] = ratio.cpu().numpy().tolist()
         result["pca_class_means"] = {
             int(c): pca_coords[labels == c].mean(axis=0).tolist() for c in classes
         }
@@ -74,23 +78,19 @@ def validate_features(
         log.info("PCA explained variance: %s", result["pca_explained_variance"])
 
     if run_tsne and len(features) >= 5:
-        from sklearn.manifold import TSNE
-
-        t_feats, t_labels = features, labels
+        t_x, t_labels = x, labels
         if len(features) > tsne_max_samples:
             sel = np.random.default_rng(seed).choice(
                 len(features), tsne_max_samples, replace=False
             )
-            t_feats, t_labels = features[sel], labels[sel]
+            t_x, t_labels = x[torch.as_tensor(sel, device=dev)], labels[sel]
             log.info(
                 "t-SNE on a %d-sample subsample of %d",
                 tsne_max_samples, len(features),
             )
-        # sklearn requires perplexity < n_samples
-        perplexity = min(tsne_perplexity, (len(t_feats) - 1) / 3.0)
-        tsne_coords = TSNE(
-            n_components=2, perplexity=perplexity, random_state=seed
-        ).fit_transform(t_feats)
+        # as in sklearn, the perplexity must stay below n_samples
+        perplexity = min(tsne_perplexity, (len(t_x) - 1) / 3.0)
+        tsne_coords = embedding.tsne(t_x, perplexity).embedding.cpu().numpy()
         result["tsne_class_means"] = {
             int(c): tsne_coords[t_labels == c].mean(axis=0).tolist() for c in classes
         }
@@ -102,13 +102,11 @@ def validate_features(
         # stratification needs ≥2 members per class and a test split big
         # enough to hold one of each
         test_size = max(0.2, len(classes) / len(features) + 1e-9)
-        x_tr, x_te, y_tr, y_te = train_test_split(
-            features, labels, test_size=test_size, stratify=labels,
-            random_state=seed,
-        )
-        clf = LogisticRegression(max_iter=1000, class_weight="balanced")
-        clf.fit(x_tr, y_tr)
-        preds = clf.predict(x_te)
+        train, test = embedding.stratified_split(labels, test_size, seed)
+        fit = embedding.fit_logistic_regression(
+            x[torch.as_tensor(train, device=dev)], labels[train])
+        preds = fit.predict(x[torch.as_tensor(test, device=dev)])
+        y_te = labels[test]
         result["logreg_accuracy"] = float((preds == y_te).mean())
         result["logreg_confusion"] = confusion_matrix(y_te, preds)
         log.info("Logistic Regression Accuracy: %.4f", result["logreg_accuracy"])
@@ -138,20 +136,22 @@ def _scatter(coords, labels, title: str, save_path: str) -> None:
     plt.close(fig)
 
 
-def plot_pca(features, labels, save_path: str) -> None:
-    from sklearn.decomposition import PCA
-
-    coords = PCA(n_components=2).fit_transform(features)
+def plot_pca(features, labels, save_path: str,
+             device: str | torch.device = "cuda") -> None:
+    x = torch.as_tensor(np.asarray(features), dtype=torch.float64,
+                        device=resolve_device(device))
+    coords = embedding.pca(x, 2)[0].cpu().numpy()
     _scatter(coords, np.asarray(labels), "PCA of patch features", save_path)
 
 
 def plot_tsne(features, labels, save_path: str, perplexity: float = 30.0,
-              seed: int = 42) -> None:
-    from sklearn.manifold import TSNE
-
+              seed: int = 42, device: str | torch.device = "cuda") -> None:
+    """The t-SNE scatter (``seed`` is kept for the JAX signature: the port's
+    t-SNE draws nothing at random)."""
+    x = torch.as_tensor(np.asarray(features), dtype=torch.float64,
+                        device=resolve_device(device))
     perplexity = min(perplexity, (len(features) - 1) / 3.0)
-    coords = TSNE(n_components=2, perplexity=perplexity,
-                  random_state=seed).fit_transform(features)
+    coords = embedding.tsne(x, perplexity).embedding.cpu().numpy()
     _scatter(coords, np.asarray(labels), "t-SNE of patch features", save_path)
 
 

@@ -3,11 +3,15 @@
 - ``io/download.py::extract_zip`` and ``prepare_data`` (``--prepare``): the
   same extracted tree from the same zip, the same skip/re-extract rule;
 - ``--validation``: the same logged slide-level split;
-- ``evaluation/features_eval.py``: ``validate_features`` returns JAX's dict
-  exactly (the same sklearn calls on the same features), with and without
-  the t-SNE subsample (``--tsne_full`` lifts it), the plots and the
-  unlabeled-patch QA write what JAX writes, and without scikit-learn
-  ``validate_features`` raises ``ImportError`` naming it;
+- ``evaluation/features_eval.py``: ``validate_features`` on the CPU
+  returns JAX's keys with and without the t-SNE subsample (``--tsne_full``
+  lifts it): the split, the logistic regression's accuracy and confusion
+  equal, PCA within 1e-6 of its explained variance ratio and 1e-5 of
+  max|coord|, and t-SNE, whose trajectory cannot equal sklearn's
+  (Barnes–Hut repulsion there, exact here), held by its KL (≤ 1.05 × JAX's
+  + 0.02, both under the port's P) and its trustworthiness (within 0.02 of
+  JAX's); the same result with scikit-learn blocked; the plots and the
+  unlabeled-patch QA write what JAX writes;
 - ``utils/profiling.py``: ``trace`` writes a Chrome trace on the CPU, and
   ``--extract_features --profile`` writes it under ``<log_dir>/profile``;
 - every option string of the JAX parser, but the four that need the
@@ -34,6 +38,9 @@ from ss25_hierarchical_multiscale_image_classification_tpu.io import (
 from ss25_hierarchical_multiscale_image_classification_tpu_torch import config
 from ss25_hierarchical_multiscale_image_classification_tpu_torch.cli import (
     main as cli,
+)
+from ss25_hierarchical_multiscale_image_classification_tpu_torch.evaluation import (
+    embedding,
 )
 from ss25_hierarchical_multiscale_image_classification_tpu_torch.evaluation import (
     features_eval as fe,
@@ -228,14 +235,64 @@ def _features(n=60, d=12, seed=0):
     return feats, labels
 
 
-def _assert_same(got, want):
+#: the bounds of the port's ``validate_features`` against JAX's
+PCA_RATIO_RTOL = 1e-6
+PCA_COORD_TOL = 1e-5  # of max|coord|
+TSNE_KL_FACTOR, TSNE_KL_SLACK = 1.05, 0.02
+TSNE_TRUST_TOL = 0.02
+
+
+def _tsne_rows(feats, kw):
+    n, cap = len(feats), kw.get("tsne_max_samples", 10_000)
+    if n <= cap:
+        return feats
+    return feats[np.random.default_rng(kw.get("seed", 42)).choice(
+        n, cap, replace=False)]
+
+
+def _assert_close(got, want, feats, kw=None):
+    """The port's ``validate_features`` result against JAX's: the same keys
+    and dtypes, the split-dependent numbers equal, PCA to its bounds, and
+    t-SNE by its KL and trustworthiness (sklearn's, at k = 5 or less on the
+    smallest sets)."""
+    from sklearn.manifold import trustworthiness
+
+    kw = kw or {}
     assert got.keys() == want.keys()
-    for k, v in want.items():
-        if isinstance(v, dict):
-            assert got[k] == v, k
-        else:
-            np.testing.assert_array_equal(np.asarray(got[k]), np.asarray(v),
-                                          err_msg=k)
+    for k in ("num_samples", "feature_dim", "logreg_accuracy"):
+        if k in want:
+            assert got[k] == want[k], k
+    if "logreg_confusion" in want:
+        np.testing.assert_array_equal(got["logreg_confusion"],
+                                      want["logreg_confusion"])
+    if "pca_coords" in want:
+        np.testing.assert_allclose(got["pca_explained_variance"],
+                                   want["pca_explained_variance"],
+                                   rtol=PCA_RATIO_RTOL)
+        scale = np.abs(want["pca_coords"]).max()
+        assert got["pca_coords"].dtype == want["pca_coords"].dtype
+        np.testing.assert_allclose(got["pca_coords"], want["pca_coords"],
+                                   rtol=0, atol=PCA_COORD_TOL * scale)
+        assert got["pca_class_means"].keys() == want["pca_class_means"].keys()
+        for c, m in want["pca_class_means"].items():
+            np.testing.assert_allclose(got["pca_class_means"][c], m, rtol=0,
+                                       atol=PCA_COORD_TOL * scale)
+    if "tsne_coords" in want:
+        np.testing.assert_array_equal(got["tsne_labels"], want["tsne_labels"])
+        assert got["tsne_class_means"].keys() == want["tsne_class_means"].keys()
+        y, yj = got["tsne_coords"], want["tsne_coords"]
+        assert y.shape == yj.shape and y.dtype == yj.dtype
+        assert np.isfinite(y).all()
+        rows = _tsne_rows(feats, kw)
+        x = torch.from_numpy(np.asarray(rows, np.float64))
+        perplexity = min(kw.get("tsne_perplexity", 30.0), (len(rows) - 1) / 3)
+        p = embedding.tsne_affinities(x, perplexity)
+        kl = embedding.kl_divergence(p, torch.from_numpy(y))
+        kl_jax = embedding.kl_divergence(p, torch.from_numpy(yj))
+        assert kl <= TSNE_KL_FACTOR * kl_jax + TSNE_KL_SLACK, (kl, kl_jax)
+        k = min(5, -(-len(rows) // 2) - 1)
+        t, tj = (trustworthiness(rows, e, n_neighbors=k) for e in (y, yj))
+        assert abs(t - tj) <= TSNE_TRUST_TOL, (t, tj)
 
 
 @pytest.mark.parametrize("kw", [
@@ -247,8 +304,8 @@ def _assert_same(got, want):
 ], ids=["no_tsne", "tsne", "subsample", "full", "perplexity_seed"])
 def test_validate_features_equals_jax(kw):
     feats, labels = _features()
-    _assert_same(fe.validate_features(feats, labels, **kw),
-                 jfe.validate_features(feats, labels, **kw))
+    _assert_close(fe.validate_features(feats, labels, device="cpu", **kw),
+                  jfe.validate_features(feats, labels, **kw), feats, kw)
 
 
 @pytest.mark.parametrize("n,classes", [(6, 2), (9, 1), (12, 3)])
@@ -256,8 +313,8 @@ def test_validate_features_small_and_odd_sets_equal_jax(n, classes):
     rng = np.random.default_rng(n)
     feats = rng.normal(size=(n, 5)).astype(np.float32)
     labels = np.arange(n) % classes
-    _assert_same(fe.validate_features(feats, labels),
-                 jfe.validate_features(feats, labels))
+    _assert_close(fe.validate_features(feats, labels, device="cpu"),
+                  jfe.validate_features(feats, labels), feats)
 
 
 @pytest.mark.parametrize("tsne_full", [False, True])
@@ -277,21 +334,36 @@ def test_validate_cli_passes_the_jax_options(tmp_path, jcli, monkeypatch,
                         lambda f, lab, **kw: calls.append(("jax", f, lab, kw)))
     argv = ["--validate", "--data_dir", str(tmp_path / "data")] + (
         ["--tsne_full"] if tsne_full else [])
-    assert cli.main(argv) == 0
+    assert cli.main(argv + ["--device", "cpu"]) == 0
     assert jcli.main(argv) == 0
     (_, f1, l1, kw1), (_, f2, l2, kw2) = calls
     np.testing.assert_array_equal(f1, f2)
     np.testing.assert_array_equal(l1, l2)
-    assert kw1 == kw2 == ({"tsne_max_samples": 30} if tsne_full else {})
+    assert kw2 == ({"tsne_max_samples": 30} if tsne_full else {})
+    assert kw1 == {**kw2, "device": torch.device("cpu")}
 
 
 def test_validate_without_sklearn_raises_naming_it(monkeypatch):
-    feats, labels = _features(n=10)
+    """It raised the ``ImportError`` naming sklearn until the stage moved to
+    torch; now, with every sklearn module blocked, it returns what it
+    returns with sklearn importable, to the bit."""
+    feats, labels = _features(n=40)
+    want = fe.validate_features(feats, labels, device="cpu")
+    for mod in [m for m in sys.modules if m.split(".")[0] == "sklearn"]:
+        monkeypatch.delitem(sys.modules, mod)
     for mod in ("sklearn", "sklearn.decomposition", "sklearn.linear_model",
-                "sklearn.model_selection"):
+                "sklearn.model_selection", "sklearn.manifold"):
         monkeypatch.setitem(sys.modules, mod, None)
-    with pytest.raises(ImportError, match="sklearn"):
-        fe.validate_features(feats, labels)
+    got = fe.validate_features(feats, labels, device="cpu")
+    assert not any(m.split(".")[0] == "sklearn" and sys.modules[m] is not None
+                   for m in sys.modules)
+    assert got.keys() == want.keys()
+    for k, v in want.items():
+        if isinstance(v, dict):
+            assert got[k] == v, k
+        else:
+            np.testing.assert_array_equal(np.asarray(got[k]), np.asarray(v),
+                                          err_msg=k)
 
 
 @pytest.mark.parametrize("plot", ["pca", "tsne", "confusion"])
@@ -300,10 +372,11 @@ def test_plots_write_a_png_where_jax_does(tmp_path, plot):
     feats, labels = _features(n=40)
     for name, mod in (("port", fe), ("jax", jfe)):
         path = str(tmp_path / name / f"{plot}.png")
+        kw = {"device": "cpu"} if mod is fe else {}
         if plot == "pca":
-            mod.plot_pca(feats, labels, path)
+            mod.plot_pca(feats, labels, path, **kw)
         elif plot == "tsne":
-            mod.plot_tsne(feats, labels, path)
+            mod.plot_tsne(feats, labels, path, **kw)
         else:
             pytest.importorskip("seaborn")
             mod.plot_logreg_confusion(np.array([[5, 2], [1, 7]]), path)

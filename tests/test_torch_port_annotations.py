@@ -21,7 +21,16 @@ from ss25_hierarchical_multiscale_image_classification_tpu_torch.logging_utils i
     get_logger,
 )
 
+from torch_port_native import load_jax_native_lib
+
 pytest.importorskip("lxml")
+
+
+@pytest.fixture(autouse=True, scope="session")
+def _jax_native_lib():
+    """The JAX TIFF code's library, built or loaded under the workers' lock
+    before any test here reaches it (``tests/torch_port_native.py``)."""
+    load_jax_native_lib()
 
 
 def _polygons(seed: int, n_polys: int, max_vertices: int = 40):

@@ -43,9 +43,18 @@ from ss25_hierarchical_multiscale_image_classification_tpu_torch.io import (
     synthetic,
 )
 
+from torch_port_native import load_jax_native_lib
+
 #: a path whose response promises this many bytes and sends fewer
 DROPPED = "CAMELYON16/training/normal/normal_001.tif"
 DROP_SIZE, DROP_SENT = 4096, 1000
+
+
+@pytest.fixture(autouse=True, scope="session")
+def _jax_native_lib():
+    """The JAX TIFF code's library, built or loaded under the workers' lock
+    before any test here reaches it (``tests/torch_port_native.py``)."""
+    load_jax_native_lib()
 
 
 class _Server:

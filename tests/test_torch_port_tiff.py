@@ -81,12 +81,21 @@ from ss25_hierarchical_multiscale_image_classification_tpu_torch.ops import (
     build,
 )
 
+from torch_port_native import load_jax_native_lib
+
 JAX_PKG = "ss25_hierarchical_multiscale_image_classification_tpu"
 REPO = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 COMPRESSIONS = ["none", "deflate", "jpeg", "jpeg_ycbcr"]
 CPU = torch.device("cpu")
 
 torch.set_num_threads(2)
+
+
+@pytest.fixture(autouse=True, scope="session")
+def _jax_native_lib():
+    """The JAX TIFF code's library, built or loaded under the workers' lock
+    before any test here reaches it (``tests/torch_port_native.py``)."""
+    load_jax_native_lib()
 
 
 def _levels(seed=0, w=600, h=424, n=3):

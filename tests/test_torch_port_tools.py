@@ -61,10 +61,19 @@ from ss25_hierarchical_multiscale_image_classification_tpu_torch.visualization i
     visualize_and_save_wsi,
 )
 
+from torch_port_native import load_jax_native_lib
+
 torch.set_num_threads(2)
 
 pytest.importorskip("matplotlib")
 pytest.importorskip("PIL")
+
+
+@pytest.fixture(autouse=True, scope="session")
+def _jax_native_lib():
+    """The JAX TIFF code's library, built or loaded under the workers' lock
+    before any test here reaches it (``tests/torch_port_native.py``)."""
+    load_jax_native_lib()
 
 
 @pytest.fixture(scope="module")
