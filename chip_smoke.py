@@ -297,7 +297,7 @@ version on the card. Phases:
    two files byte-equal, five paths requested, and ``--predict_slide`` on
    the downloaded TIFF writing the CSV of the local file; (d)
    ``--compile_cache_dir`` in two CLI processes on the downloaded TIFF: the
-   first builds the nine kernel libraries (``nvcc``) and the TIFF host
+   first builds the ten kernel libraries (``nvcc``) and the TIFF host
    library into a fresh directory, the second finds them and builds
    nothing (the files untouched, no build line); both CSVs equal; walls;
 18. the feature-evaluation stage (last): ``validate_features(device=
@@ -305,9 +305,19 @@ version on the card. Phases:
    run: the PCA ratio within 1e-5, accuracy and confusion equal, the final
    t-SNE KL (both embeddings under the card's P) within 5 % and the
    trustworthiness (k = 5) within 0.02 (the trajectories differ: the
-   descent is chaotic); its pieces (PCA, kNN and P, init, descent, logistic
-   regression) by CUDA events; then t-SNE at the default cap on 10,000 ×
-   512 seeded two-class features: wall, kNN and P, ms a descent iteration.
+   descent is chaotic), the ``tsne_repulsion`` kernel's launches on the
+   card run (none fails the phase) and a second card run bit-equal; its
+   pieces (PCA, kNN and P, init, descent, logistic regression) by CUDA
+   events; then t-SNE at the default cap on 10,000 × 512 seeded two-class
+   features: wall, kNN and P, ms a descent iteration, and the same descent
+   with the repulsion's plain version held to it (KL within 5 %,
+   trustworthiness within 0.02); the whole ``--tsne_full`` t-SNE at the
+   MIL triplet's mean size, 168,000 × 512 (wall, iterations, KL); at
+   1,752, 10,000 and 168,000 rows the kernel against its plain version on
+   those runs' embeddings (float32 and float64: ``neg`` within 1e-4 of
+   max|neg| and ``sum_q`` within 1e-6 relative in float32, both 1e-10 in
+   float64), timed per call and back to back beside the plain version,
+   with its bound (reciprocals: 16 a clock per SM).
 
 It imports nothing of JAX or of the JAX package. Run it from the root of a
 checkout:
@@ -581,6 +591,9 @@ QAT_COSINE_MIN = 0.995
 # The card's published peaks (H100 SXM): device memory and dense rates.
 HBM_BYTES_S = 3.35e12
 FP32_FLOP_S = 67e12
+# reciprocals a second: 16 a clock per SM (CUDA programming guide, compute
+# capability 9.0) on 132 SMs at the 1,980 MHz boost clock
+SFU_RCP_S = 132 * 16 * 1.98e9
 TF32_FLOP_S = 495e12
 BF16_FLOP_S = 989e12
 INT8_OP_S = 1979e12
@@ -798,10 +811,13 @@ def reset_counts() -> None:
     from ss25_hierarchical_multiscale_image_classification_tpu_torch.ops.preprocess import (
         fused_normalize,
     )
+    from ss25_hierarchical_multiscale_image_classification_tpu_torch.ops.tsne_repulsion import (
+        tsne_repulsion_kernel,
+    )
 
     for fn in (fused_normalize, *ntxent_launchers(), mil_attention_pool_kernel,
                bias_relu_pool_kernel, fused_stem_kernel, *int8_launchers(),
-               augment_batch_kernel):
+               augment_batch_kernel, tsne_repulsion_kernel):
         fn.launches = 0
 
 
@@ -6792,7 +6808,7 @@ def phase_parity_gaps(dev, sd, spec, npz_path, tiff_path, ms_models,
         f"{len(built2)}, libraries untouched: {after2 == before2 == after1}; "
         f"CSVs byte-equal to each other: {csv1 == csv2}, to the in-process "
         f"CLI's: {csv1 == csvs['downloaded']}")
-    if (n_kernels != 9 or not any(b.startswith("nvcc") for b in built1)
+    if (n_kernels != 10 or not any(b.startswith("nvcc") for b in built1)
             or built2 or after2 != after1 or csv1 != csv2 or not csv1):
         raise AssertionError("--compile_cache_dir: the first process did not "
                              "build into the directory, or the second built "
@@ -6812,7 +6828,14 @@ EMB_TIMING_ROWS = 10_000  # validate_features' default t-SNE cap
 EMB_TIMING_DIM = 512
 # --tsne_full at the mean size of phase 9's MIL triplet (every row embedded)
 EMB_FULL_ROWS = MIL_SLIDES * sum(MIL_INSTANCES) // 2
-EMB_FULL_ITERS = 3  # timed descent iterations there, after one warm one
+# the repulsion kernel against its plain version: neg within this share of
+# max|neg|, sum_q relative (float32: the hardware reciprocal)
+REP_NEG_RTOL = {"float32": 1e-4, "float64": 1e-10}
+REP_SUM_RTOL = {"float32": 1e-6, "float64": 1e-10}
+# The function's work an unordered pair {i, j} (q_ij = q_ji, so each is
+# needed once): one reciprocal, and 10 FP32 instructions: 2 subtracts, 2 FMAs
+# for d² + 1, q², the add into Σq, 4 FMAs of q²·(y_i − y_j) into rows i and j
+REP_FP32_OPS_PAIR = 10
 
 
 def _events_ms(fn):
@@ -6829,15 +6852,98 @@ def _events_ms(fn):
     return out, start.elapsed_time(end)
 
 
-def phase_embedding(dev, feats, labels, smi) -> None:
+def check_repulsion(y) -> float:
+    """The ``tsne_repulsion`` kernel against its plain version on the
+    embedding ``y`` (N, 2), in float32 and float64; returns the float32
+    max |Δneg|."""
+    import torch
+
+    from ss25_hierarchical_multiscale_image_classification_tpu_torch.evaluation.embedding import (
+        tsne_repulsion_reference,
+    )
+    from ss25_hierarchical_multiscale_image_classification_tpu_torch.ops.tsne_repulsion import (
+        tsne_repulsion_kernel,
+    )
+
+    errs = {}
+    for dtype in (torch.float32, torch.float64):
+        name = str(dtype).removeprefix("torch.")
+        yd = y.to(dtype).contiguous()
+        neg, sum_q = tsne_repulsion_kernel(yd)
+        torch.cuda.synchronize()
+        ref_neg, ref_sum = tsne_repulsion_reference(yd)
+        errs[name] = float((neg - ref_neg).abs().max())
+        rel = errs[name] / float(ref_neg.abs().max())
+        rel_sum = abs(float(sum_q) / float(ref_sum) - 1.0)
+        log(f"[embed] tsne_repulsion {tuple(y.shape)} {name}: max_abs_err "
+            f"{errs[name]:.3g} = {rel:.3g} of max|neg| (bound "
+            f"{REP_NEG_RTOL[name]}), sum_q relative {rel_sum:.3g} (bound "
+            f"{REP_SUM_RTOL[name]})")
+        if not (rel <= REP_NEG_RTOL[name] and rel_sum <= REP_SUM_RTOL[name]):
+            raise AssertionError(f"tsne_repulsion differs from its plain "
+                                 f"version at {tuple(y.shape)} {name}")
+    return errs["float32"]
+
+
+def time_repulsion(y, plain_runs: int, smi) -> dict:
+    """Per-call CUDA-event times of the kernel and its plain version on
+    ``y`` in turns (plain, kernel, kernel, plain), the kernel back to back,
+    and its bound: the larger of the reciprocals (one an unordered pair)
+    over the special-function units' rate, :data:`REP_FP32_OPS_PAIR` FP32
+    instructions an unordered pair over the FP32 pipe's, and the bytes over
+    the memory rate. Reciprocals can also be taken by Newton steps on the
+    FMA pipe, so the special-function figure alone is no floor."""
+    from ss25_hierarchical_multiscale_image_classification_tpu_torch.evaluation.embedding import (
+        tsne_repulsion_reference,
+    )
+    from ss25_hierarchical_multiscale_image_classification_tpu_torch.ops.tsne_repulsion import (
+        tsne_repulsion_kernel,
+    )
+
+    kernel = lambda: tsne_repulsion_kernel(y)  # noqa: E731
+    plain = lambda: tsne_repulsion_reference(y)  # noqa: E731
+    cuda_ms(kernel, 3)
+    cuda_ms(plain, 1)
+    p = cuda_ms(plain, plain_runs)
+    k = cuda_ms(kernel, 5) + cuda_ms(kernel, 5)
+    p += cuda_ms(plain, plain_runs)
+    b2b = statistics.median(back_to_back_ms(kernel, groups=5, per=10))
+    n = y.shape[0]
+    pairs = n * (n - 1) // 2
+    by_sfu = pairs / SFU_RCP_S * 1e3
+    # an FMA is one instruction of the two operations the peak counts
+    by_fp32 = REP_FP32_OPS_PAIR * pairs / (FP32_FLOP_S / 2) * 1e3
+    by_bytes = (2 * y.numel() * y.element_size() + 8) / HBM_BYTES_S * 1e3
+    bound = max(by_sfu, by_fp32, by_bytes)
+    pipe = "sfu" if bound == by_sfu else "fp32" if bound == by_fp32 else None
+    k_med, p_med = statistics.median(k), statistics.median(p)
+    log(f"[embed] tsne_repulsion at {n} rows: kernel {k_med:.4f} ms a call "
+        f"({min(k):.4f}–{max(k):.4f}), {b2b:.4f} back to back; plain "
+        f"{p_med:.4f} ms ({min(p):.4f}–{max(p):.4f}); bound {bound:.4f} ms "
+        f"over {pairs:.4g} unordered pairs: FP32 pipe {by_fp32:.4f} "
+        f"({REP_FP32_OPS_PAIR} instructions a pair at "
+        f"{FP32_FLOP_S / 2:.3g}/s), reciprocals {by_sfu:.4f} (one a pair at "
+        f"{SFU_RCP_S:.3g}/s), bytes {by_bytes:.6f}; {bound / b2b * 100:.1f} % "
+        f"of it back to back [{smi}]")
+    return {"ms": k_med, "back_to_back_ms": b2b, "plain_ms": p_med,
+            "bound_ms": bound,
+            "bound_by": "bytes" if pipe is None else "operations",
+            "bound_pipe": pipe, "bound_fp32_ms": by_fp32,
+            "bound_sfu_ms": by_sfu}
+
+
+def phase_embedding(dev, feats, labels, smi) -> dict:
     """Phase 18: ``validate_features`` on the card on phase 8's feature
     triplet, held to the port's own CPU run (PCA ratio, split, confusion,
     final KL and trustworthiness; the t-SNE trajectories themselves differ)
-    and to a second card run (bit-equal); its pieces timed by CUDA events;
-    then t-SNE at the default cap on 10,000 × 512 seeded two-class features
-    (wall, kNN and P, ms a descent iteration), and kNN, P and a few descent
-    iterations at the MIL triplet's size, where ``--tsne_full`` embeds every
-    row."""
+    and to a second card run (bit-equal), the ``tsne_repulsion`` kernel's
+    launches counted on the card run; its pieces timed by CUDA events; then
+    t-SNE at the default cap on 10,000 × 512 seeded two-class features
+    (wall, kNN and P, ms a descent iteration), the same descent on the
+    repulsion's plain version held to it, and the whole t-SNE at the MIL
+    triplet's size, where ``--tsne_full`` embeds every row. At each of the
+    three sizes the kernel is held to its plain version on the embedding
+    the run gave, and timed. Returns the kernel's row of the table."""
     import numpy as np
     import torch
 
@@ -6847,17 +6953,28 @@ def phase_embedding(dev, feats, labels, smi) -> None:
     from ss25_hierarchical_multiscale_image_classification_tpu_torch.evaluation.features_eval import (
         validate_features,
     )
+    from ss25_hierarchical_multiscale_image_classification_tpu_torch.ops.tsne_repulsion import (
+        tsne_repulsion_kernel,
+    )
 
     t_phase = time.perf_counter()
     n, d = feats.shape
     walls, runs = {}, {}
     for where in ("cuda", "cpu"):
         torch.cuda.synchronize()
+        reset_counts()
         t0 = time.perf_counter()
         runs[where] = validate_features(feats, labels, device=where)
         torch.cuda.synchronize()
         walls[where] = time.perf_counter() - t0
+        if where == "cuda":
+            launches = tsne_repulsion_kernel.launches
     card, cpu = runs["cuda"], runs["cpu"]
+    log(f"[embed] tsne_repulsion launches on the card's validate_features: "
+        f"{launches}")
+    if launches == 0:
+        raise AssertionError("validate_features on the card never launched "
+                             "the tsne_repulsion kernel")
     again = validate_features(feats, labels, device="cuda")
     repeats = all(np.array_equal(np.asarray(card[k]), np.asarray(again[k]))
                   for k in card)
@@ -6894,6 +7011,9 @@ def phase_embedding(dev, feats, labels, smi) -> None:
             or not np.isfinite(card["pca_coords"]).all()):
         raise AssertionError("validate_features on the card disagrees with "
                              "its CPU run")
+    y_card = torch.as_tensor(card["tsne_coords"], device=dev)
+    errs = [check_repulsion(y_card)]
+    by_rows = {n: time_repulsion(y_card, 5, smi)}
 
     # the pieces on the card, as validate_features runs them
     test_size = max(0.2, 2 / n + 1e-9)
@@ -6925,15 +7045,19 @@ def phase_embedding(dev, feats, labels, smi) -> None:
     big = torch.randn(EMB_TIMING_ROWS, EMB_TIMING_DIM, generator=g, device=dev)
     big += 0.5 * cls[:, None] * torch.randn(EMB_TIMING_DIM, generator=g,
                                             device=dev)
+    lr_big = E.tsne_learning_rate(EMB_TIMING_ROWS)
     torch.cuda.synchronize()
     torch.cuda.reset_peak_memory_stats()
+    reset_counts()
     t0 = time.perf_counter()
     p_big, knn_ms = _events_ms(lambda: E.tsne_affinities(big, 30.0))
-    y_big, init_ms = _events_ms(lambda: E.tsne_init(big))
+    p_plain = E.JointP(p_big.rows, p_big.cols, p_big.vals.clone(), p_big.n)
+    y0_big, init_ms = _events_ms(lambda: E.tsne_init(big))
     (y_big, kl_big, it_big), desc_ms = _events_ms(lambda: E.tsne_descent(
-        E.KLObjective(p_big), y_big, E.tsne_learning_rate(EMB_TIMING_ROWS)))
+        E.KLObjective(p_big), y0_big, lr_big))
     torch.cuda.synchronize()
     wall_big = time.perf_counter() - t0
+    big_launches = tsne_repulsion_kernel.launches
     if not torch.isfinite(y_big).all() or not np.isfinite(kl_big):
         raise AssertionError("t-SNE at 10,000 rows gave non-finite output")
     trust_big = E.trustworthiness(big, y_big, 5)
@@ -6941,43 +7065,73 @@ def phase_embedding(dev, feats, labels, smi) -> None:
         f"classes) on the card: wall {wall_big:.2f} s; kNN and P "
         f"{knn_ms:.1f} ms ({p_big.vals.numel()} edges), PCA init "
         f"{init_ms:.1f} ms, descent {desc_ms:.1f} ms for {it_big + 1} "
-        f"iterations = {desc_ms / (it_big + 1):.3f} ms an iteration; KL "
-        f"{kl_big:.4f}, trustworthiness {trust_big:.4f}; peak device memory "
+        f"iterations = {desc_ms / (it_big + 1):.3f} ms an iteration "
+        f"(tsne_repulsion launches {big_launches}); KL {kl_big:.4f}, "
+        f"trustworthiness {trust_big:.4f}; peak device memory "
         f"{torch.cuda.max_memory_allocated() / 2**30:.2f} GiB [{smi}]")
-    del p_big, y_big, big
+    # the same descent with the repulsion's plain version
+    tsne_repulsion = E.tsne_repulsion
+    E.tsne_repulsion = E.tsne_repulsion_reference
+    try:
+        (y_plain, kl_plain, it_plain), plain_desc_ms = _events_ms(
+            lambda: E.tsne_descent(E.KLObjective(p_plain), y0_big, lr_big))
+    finally:
+        E.tsne_repulsion = tsne_repulsion
+    trust_plain = E.trustworthiness(big, y_plain, 5)
+    log(f"[embed] the same descent on the plain repulsion: {plain_desc_ms:.1f} "
+        f"ms for {it_plain + 1} iterations = "
+        f"{plain_desc_ms / (it_plain + 1):.3f} ms an iteration; KL "
+        f"{kl_plain:.4f} (kernel's {kl_big:.4f}, bound {EMB_KL_RTOL:.0%}), "
+        f"trustworthiness {trust_plain:.4f} (kernel's {trust_big:.4f}, bound "
+        f"{EMB_TRUST_ATOL}); tsne_repulsion launches "
+        f"{tsne_repulsion_kernel.launches - big_launches}")
+    if (abs(kl_big / kl_plain - 1.0) > EMB_KL_RTOL
+            or abs(trust_big - trust_plain) > EMB_TRUST_ATOL
+            or tsne_repulsion_kernel.launches != big_launches):
+        raise AssertionError("t-SNE at 10,000 rows on the kernel disagrees "
+                             "with the plain repulsion's")
+    errs.append(check_repulsion(y_big))
+    by_rows[EMB_TIMING_ROWS] = time_repulsion(y_big.contiguous(), 5, smi)
+    del p_big, p_plain, y_big, y_plain, big
 
-    # --tsne_full at the MIL triplet's size: kNN, P and init in full, then
-    # descent iterations of the exaggerated phase (the O(N²) repulsion)
+    # --tsne_full at the MIL triplet's size: the whole t-SNE
     cls = torch.rand(EMB_FULL_ROWS, generator=g, device=dev) < 0.4
     full = torch.randn(EMB_FULL_ROWS, EMB_TIMING_DIM, generator=g, device=dev)
     full += 0.5 * cls[:, None] * torch.randn(EMB_TIMING_DIM, generator=g,
                                              device=dev)
+    torch.cuda.synchronize()
     torch.cuda.reset_peak_memory_stats()
+    reset_counts()
+    t0 = time.perf_counter()
     p_full, knn_full_ms = _events_ms(lambda: E.tsne_affinities(full, 30.0))
     y_full, init_full_ms = _events_ms(lambda: E.tsne_init(full))
     del full
-    obj = E.KLObjective(p_full)
-    obj.scale(E.EARLY_EXAGGERATION)
-    kw = dict(n_iter_check=E.N_ITER_CHECK, n_iter_without_progress=
-              E.EXPLORATION_ITER, momentum=0.5,
-              learning_rate=E.tsne_learning_rate(EMB_FULL_ROWS),
-              min_gain=E.MIN_GAIN, min_grad_norm=E.MIN_GRAD_NORM)
-    y_full, _, _ = E.gradient_descent(obj, y_full, 0, 1, **kw)  # warm
-    (y_full, kl_full, _), iters_ms = _events_ms(lambda: E.gradient_descent(
-        obj, y_full, 1, 1 + EMB_FULL_ITERS, **kw))
+    (y_full, kl_full, it_full), desc_full_ms = _events_ms(
+        lambda: E.tsne_descent(E.KLObjective(p_full), y_full,
+                               E.tsne_learning_rate(EMB_FULL_ROWS)))
+    torch.cuda.synchronize()
+    wall_full = time.perf_counter() - t0
+    full_launches = tsne_repulsion_kernel.launches
     if not torch.isfinite(y_full).all() or not np.isfinite(kl_full):
         raise AssertionError(f"t-SNE at {EMB_FULL_ROWS} rows gave non-finite "
                              "output")
-    it_ms = iters_ms / EMB_FULL_ITERS
     log(f"[embed] --tsne_full at the MIL triplet's size, {EMB_FULL_ROWS}×"
-        f"{EMB_TIMING_DIM} (seeded, two classes) on the card: kNN and P "
-        f"{knn_full_ms:.1f} ms ({p_full.vals.numel()} edges), PCA init "
-        f"{init_full_ms:.1f} ms, descent {it_ms:.1f} ms an iteration "
-        f"({EMB_FULL_ITERS} timed after a warm one), so "
-        f"{(knn_full_ms + init_full_ms + E.MAX_ITER * it_ms) / 1e3:.0f} s for "
-        f"{E.MAX_ITER} iterations; peak device memory "
+        f"{EMB_TIMING_DIM} (seeded, two classes), the whole t-SNE on the "
+        f"card: wall {wall_full:.2f} s; kNN and P {knn_full_ms:.1f} ms "
+        f"({p_full.vals.numel()} edges), PCA init {init_full_ms:.1f} ms, "
+        f"descent {desc_full_ms:.1f} ms for {it_full + 1} iterations = "
+        f"{desc_full_ms / (it_full + 1):.3f} ms an iteration (tsne_repulsion "
+        f"launches {full_launches}); KL {kl_full:.4f}; peak device memory "
         f"{torch.cuda.max_memory_allocated() / 2**30:.2f} GiB [{smi}]")
+    del p_full
+    errs.append(check_repulsion(y_full))
+    by_rows[EMB_FULL_ROWS] = time_repulsion(y_full.contiguous(), 1, smi)
     log(f"[embed] phase 18 in {time.perf_counter() - t_phase:.1f} s")
+    return {"launches": launches, "max_abs_err": max(errs),
+            **by_rows[EMB_FULL_ROWS], "library_ms": None,
+            "tsne_10k_launches": big_launches,
+            "tsne_full_launches": full_launches,
+            "by_rows": {str(k): v for k, v in by_rows.items()}}
 
 
 def main() -> int:
@@ -7089,8 +7243,8 @@ def main() -> int:
         torch.cuda.empty_cache()
         feature_launches = phase_features(dev, ds, sd, tmp)
         torch.cuda.empty_cache()
-        phase_embedding(dev, feature_launches.pop("features"),
-                        feature_launches.pop("labels"), smi)
+        tsne_row = phase_embedding(dev, feature_launches.pop("features"),
+                                   feature_launches.pop("labels"), smi)
         torch.cuda.empty_cache()
         # last: they run under torch.profiler, and host-clock walls taken in
         # this process after a profiler session come out longer
@@ -7192,6 +7346,10 @@ def main() -> int:
     # the port's own: XLA fuses augment_batch inside the JAX train step
     rows.append(("augment", "augment.cu", f"{jax_pkg}/data/augment.py:350",
                  {"launches": train["launches"], **aug}))
+    # the port's own: the repulsive half of sklearn's Barnes–Hut gradient,
+    # which the JAX package runs on the host through TSNE
+    rows.append(("tsne_repulsion", "tsne_repulsion.cu",
+                 f"{jax_pkg}/evaluation/features_eval.py:82", tsne_row))
     table = {"kernels": [{
         "name": name,
         "route": "cuda",
@@ -7204,7 +7362,10 @@ def main() -> int:
         "bound_ms": k["bound_ms"],
         "bound_by": k["bound_by"],
         "library_ms": k["library_ms"],
-        **{key: k[key] for key in ("bound_fp32_ms", "back_to_back_ms",
+        **{key: k[key] for key in ("bound_fp32_ms", "bound_sfu_ms",
+                                   "bound_pipe",
+                                   "back_to_back_ms", "by_rows",
+                                   "tsne_10k_launches", "tsne_full_launches",
                                    "kernel_ms", "kernel_back_to_back_ms",
                                    "multiscale_launches",
                                    "trained_multiscale_launches",

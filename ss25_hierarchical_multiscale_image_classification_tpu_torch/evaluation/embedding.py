@@ -23,8 +23,10 @@ JAX package takes from scikit-learn, written for the device.
   ``_gradient_descent`` (early exaggeration 12 and momentum 0.5 for 250
   iterations, then 0.8, delta-bar-delta gains, a progress check every 50).
   **One deliberate difference**: the repulsive term is exact over all pairs
-  (Barnes–Hut at ``angle=0``), in row blocks of at most ~1 GB, where sklearn
-  approximates it at ``angle=0.5``;
+  (Barnes–Hut at ``angle=0``), where sklearn approximates it at
+  ``angle=0.5``: :func:`tsne_repulsion`, the hand-written kernel of
+  ``ops/tsne_repulsion.py`` on the card, row blocks of at most ~1 GB of
+  torch ops on the CPU;
 - :func:`trustworthiness`: sklearn's ``trustworthiness`` (k nearest
   neighbours, Euclidean), in row blocks.
 
@@ -372,12 +374,53 @@ def tsne_init(x: torch.Tensor) -> torch.Tensor:
     return y / y[:, 0].std(correction=0) * 1e-4
 
 
+def tsne_repulsion_reference(y: torch.Tensor
+                             ) -> tuple[torch.Tensor, torch.Tensor]:
+    """t-SNE's exact repulsion, plain version: ``(neg (N, D) in y's dtype,
+    sum_q float64 scalar)``, ``neg[i] = Σ_{j≠i} q_ij² (y_i − y_j)``,
+    ``sum_q = Σ_{i≠j} q_ij``, ``q_ij = 1 / (1 + |y_i − y_j|²)``. Row blocks
+    of at most :data:`BLOCK_BYTES`, each writing the coordinate differences,
+    q, q² and their products in y's dtype and summing q in float64."""
+    n, dim = y.shape
+    rows = _block_rows(n, (dim + 4) * y.element_size() * n)
+    neg = torch.empty_like(y)
+    sum_q = torch.zeros((), dtype=torch.float64, device=y.device)
+    ar = torch.arange(rows, device=y.device)
+    for a in range(0, n, rows):
+        b = min(n, a + rows)
+        diffs = [y[a:b, c:c + 1] - y[None, :, c] for c in range(dim)]
+        q = diffs[0] * diffs[0]
+        for dc in diffs[1:]:
+            q.addcmul_(dc, dc)
+        q.add_(1.0).reciprocal_()
+        q[ar[:b - a], ar[:b - a] + a] = 0.0
+        sum_q += q.sum(dtype=torch.float64)
+        q.mul_(q)
+        for c, dc in enumerate(diffs):
+            neg[a:b, c] = (q * dc).sum(dim=1)
+    return neg, sum_q
+
+
+def tsne_repulsion(y: torch.Tensor) -> tuple[torch.Tensor, torch.Tensor]:
+    """``(neg, sum_q)`` of the embedding ``y`` (N, D): the kernel of
+    ``ops/tsne_repulsion.py`` for CUDA tensors (which takes D = 2 and
+    raises on anything else), :func:`tsne_repulsion_reference` for CPU
+    tensors."""
+    if y.device.type == "cpu":
+        return tsne_repulsion_reference(y)
+    from ss25_hierarchical_multiscale_image_classification_tpu_torch.ops.tsne_repulsion import (
+        tsne_repulsion_kernel,
+    )
+
+    return tsne_repulsion_kernel(y.contiguous())
+
+
 class KLObjective:
     """The t-SNE objective at one degree of freedom (a 2-D embedding): the
     KL divergence of P and Q and its gradient. Attraction runs over the
     sparse P edges, summed a row at a time in edge order (no atomic adds, so
     a run repeats bit for bit on the card); repulsion is exact over all
-    pairs, in row blocks of at most :data:`BLOCK_BYTES`. The KL is sklearn's Barnes–Hut error term
+    pairs (:func:`tsne_repulsion`). The KL is sklearn's Barnes–Hut error term
     (Σ p·log(max(p, tiny) / max(q, tiny)) over the edges), computed only
     when asked for. Works in the embedding's dtype; Σ q in float64."""
 
@@ -400,24 +443,7 @@ class KLObjective:
     def __call__(self, y: torch.Tensor, compute_error: bool = True
                  ) -> tuple[float, torch.Tensor]:
         y = y.reshape(self.p.n, -1).to(self.dtype)
-        n, dim = y.shape
-        item = y.element_size()
-        rows = _block_rows(n, (dim + 4) * item * n)
-        neg = torch.empty_like(y)
-        sum_q = torch.zeros((), dtype=torch.float64, device=y.device)
-        ar = torch.arange(rows, device=y.device)
-        for a in range(0, n, rows):
-            b = min(n, a + rows)
-            diffs = [y[a:b, c:c + 1] - y[None, :, c] for c in range(dim)]
-            q = diffs[0] * diffs[0]
-            for dc in diffs[1:]:
-                q.addcmul_(dc, dc)
-            q.add_(1.0).reciprocal_()
-            q[ar[:b - a], ar[:b - a] + a] = 0.0
-            sum_q += q.sum(dtype=torch.float64)
-            q.mul_(q)
-            for c, dc in enumerate(diffs):
-                neg[a:b, c] = (q * dc).sum(dim=1)
+        neg, sum_q = tsne_repulsion(y)
         sum_q = sum_q.clamp(min=_MACHINE_EPSILON)
         diff = y[self.p.rows] - y[self.p.cols]
         q_edge = 1.0 / (1.0 + (diff * diff).sum(dim=1))

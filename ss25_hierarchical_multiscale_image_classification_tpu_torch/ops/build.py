@@ -19,7 +19,8 @@ NT-Xent and MIL-pool kernels' ``expf``/``logf``/``tanhf`` stay the
 accurate ones, and the stem kernels' float32 adds stay IEEE adds. The int8
 kernels write their float32 epilogue with the explicitly rounded intrinsics
 (``__fmul_rn``, ``__fadd_rn``, ``__fdiv_rn``), which nvcc never contracts
-into an FMA.
+into an FMA. The t-SNE repulsion kernel asks for the approximate float32
+reciprocal where it wants it, by an explicit ``rcp.approx``.
 
 Beside them, :func:`host_library` builds the two host libraries of
 ``io/native/`` with the system's C++ compiler (the first of ``$CXX``,
@@ -160,6 +161,13 @@ SOURCES = {
             [_I32, _I32, _I32, _I32, ctypes.POINTER(ctypes.c_int)],
             ctypes.c_int,
         ),
+    },
+    "tsne_repulsion.cu": {
+        # n -> the float64 scratch elements a call takes on the current device
+        "hipac_tsne_repulsion_scratch": ([_I64], _I64),
+        # y, neg, sum_q, scratch, scratch elements, n, is_double, stream
+        "hipac_tsne_repulsion": ([_P, _P, _P, _P, _I64, _I64, _I32, _P],
+                                 ctypes.c_int),
     },
 }
 

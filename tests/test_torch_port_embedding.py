@@ -299,19 +299,30 @@ def test_tsne_default_run_reaches_sklearn_kl_and_trustworthiness(n, d,
                - trustworthiness(x, want, n_neighbors=5)) <= TRUST_TOL
 
 
-@pytest.mark.parametrize("block_rows", [1, 7, 64])
+@pytest.mark.parametrize("block_rows,what", [
+    *(pytest.param(b, "objective", id=str(b)) for b in (1, 7, 64)),
+    *(pytest.param(b, "repulsion", id=f"repulsion-{b}") for b in (1, 7, 64)),
+])
 def test_tsne_row_blocked_repulsion_equals_one_block(affinities, block_rows,
-                                                     monkeypatch):
+                                                     what, monkeypatch):
+    """KLObjective's gradient and KL, or the plain repulsion's ``neg`` and
+    ``sum_q`` it takes them from, in row blocks against one block."""
     x, _, p = affinities
     n = len(x)
     y = torch.from_numpy(np.random.default_rng(5).normal(size=(n, 2)))
-    row_bytes = (2 + 4) * 8 * n  # KLObjective's row in float64 at 2-D
+    row_bytes = (2 + 4) * 8 * n  # the repulsion's row in float64 at 2-D
+    run = (E.KLObjective(p, torch.float64) if what == "objective"
+           else E.tsne_repulsion_reference)
     monkeypatch.setattr(E, "BLOCK_BYTES", n * row_bytes)
-    kl, grad = E.KLObjective(p, torch.float64)(y)
+    one = run(y)
     monkeypatch.setattr(E, "BLOCK_BYTES", block_rows * row_bytes)
-    kl_b, grad_b = E.KLObjective(p, torch.float64)(y)
+    blocked = run(y)
+    if what == "objective":
+        (kl, grad), (kl_b, grad_b) = one, blocked
+    else:
+        (grad, kl), (grad_b, kl_b) = one, blocked
     assert _rel(grad_b.numpy(), grad.numpy()) <= BLOCK_RTOL
-    assert abs(kl_b - kl) <= BLOCK_RTOL * abs(kl)
+    assert abs(float(kl_b) - float(kl)) <= BLOCK_RTOL * abs(float(kl))
 
 
 @pytest.mark.parametrize("n", [10_000, 170_000, 1_000_000])
