@@ -312,7 +312,9 @@ version on the card. Phases:
    features: wall, kNN and P, ms a descent iteration, and the same descent
    with the repulsion's plain version held to it (KL within 5 %,
    trustworthiness within 0.02); the whole ``--tsne_full`` t-SNE at the
-   MIL triplet's mean size, 168,000 × 512 (wall, iterations, KL); at
+   MIL triplet's mean size, 168,000 × 512 (wall, iterations, KL), and a
+   descent iteration there by piece (CUDA events, back to back: the whole,
+   the repulsion kernel, the attraction, the gains and update); at
    1,752, 10,000 and 168,000 rows the kernel against its plain version on
    those runs' embeddings (float32 and float64: ``neg`` within 1e-4 of
    max|neg| and ``sum_q`` within 1e-6 relative in float32, both 1e-10 in
@@ -6932,6 +6934,52 @@ def time_repulsion(y, plain_runs: int, smi) -> dict:
             "bound_sfu_ms": by_sfu}
 
 
+def time_iteration(objective, y, lr: float, iters: int, smi) -> dict:
+    """ms a descent iteration on the embedding ``y`` (N, 2) by piece, each
+    piece back to back over ``iters`` calls between CUDA events: the whole
+    iteration as ``gradient_descent`` runs it (the objective without its
+    error, then ``descent_step`` at momentum 0.8), the repulsion kernel, the
+    attraction (the edge gather, ``q_edge``, ``segment_reduce``) and the
+    gains and update; the rest of the iteration (the gradient's combination
+    and casts) is the whole less the three."""
+    import torch
+
+    from ss25_hierarchical_multiscale_image_classification_tpu_torch.evaluation import (
+        embedding as E,
+    )
+
+    p = y.reshape(-1).clone()
+    update, gains = torch.zeros_like(p), torch.ones_like(p)
+    yv = p.reshape(objective.p.n, -1)
+
+    def iteration():
+        nonlocal update, gains
+        _, grad = objective(p, compute_error=False)
+        _, update, gains = E.descent_step(p, grad, update, gains, 0.8, lr,
+                                          E.MIN_GAIN)
+
+    _, grad = objective(p, compute_error=False)
+    pieces = {"iteration": iteration,
+              "repulsion": lambda: E.tsne_repulsion(yv),
+              "attraction": lambda: objective.attraction(yv),
+              "gains_update": lambda: E.descent_step(
+                  p.clone(), grad, update, gains, 0.8, lr, E.MIN_GAIN)}
+    out = {}
+    for name, fn in pieces.items():
+        fn()
+        out[name] = statistics.median(back_to_back_ms(fn, groups=3,
+                                                      per=iters))
+    out["rest"] = (out["iteration"] - out["repulsion"] - out["attraction"]
+                   - out["gains_update"])
+    log(f"[embed] a descent iteration at {objective.p.n} rows "
+        f"({objective.p.vals.numel()} edges) by piece, back to back (CUDA "
+        f"events, median of 3 × {iters}): whole {out['iteration']:.3f} ms = "
+        f"repulsion kernel {out['repulsion']:.3f} + attraction "
+        f"{out['attraction']:.3f} + gains and update "
+        f"{out['gains_update']:.3f} + rest {out['rest']:.3f} [{smi}]")
+    return out
+
+
 def phase_embedding(dev, feats, labels, smi) -> dict:
     """Phase 18: ``validate_features`` on the card on phase 8's feature
     triplet, held to the port's own CPU run (PCA ratio, split, confusion,
@@ -6941,9 +6989,10 @@ def phase_embedding(dev, feats, labels, smi) -> dict:
     t-SNE at the default cap on 10,000 × 512 seeded two-class features
     (wall, kNN and P, ms a descent iteration), the same descent on the
     repulsion's plain version held to it, and the whole t-SNE at the MIL
-    triplet's size, where ``--tsne_full`` embeds every row. At each of the
-    three sizes the kernel is held to its plain version on the embedding
-    the run gave, and timed. Returns the kernel's row of the table."""
+    triplet's size, where ``--tsne_full`` embeds every row, with a descent
+    iteration there timed by piece. At each of the three sizes the kernel
+    is held to its plain version on the embedding the run gave, and timed.
+    Returns the kernel's row of the table."""
     import numpy as np
     import torch
 
@@ -7123,6 +7172,8 @@ def phase_embedding(dev, feats, labels, smi) -> dict:
         f"{desc_full_ms / (it_full + 1):.3f} ms an iteration (tsne_repulsion "
         f"launches {full_launches}); KL {kl_full:.4f}; peak device memory "
         f"{torch.cuda.max_memory_allocated() / 2**30:.2f} GiB [{smi}]")
+    iteration = time_iteration(E.KLObjective(p_full), y_full,
+                               E.tsne_learning_rate(EMB_FULL_ROWS), 10, smi)
     del p_full
     errs.append(check_repulsion(y_full))
     by_rows[EMB_FULL_ROWS] = time_repulsion(y_full.contiguous(), 1, smi)
@@ -7131,6 +7182,7 @@ def phase_embedding(dev, feats, labels, smi) -> dict:
             **by_rows[EMB_FULL_ROWS], "library_ms": None,
             "tsne_10k_launches": big_launches,
             "tsne_full_launches": full_launches,
+            "iteration_ms": iteration,
             "by_rows": {str(k): v for k, v in by_rows.items()}}
 
 
@@ -7365,6 +7417,7 @@ def main() -> int:
         **{key: k[key] for key in ("bound_fp32_ms", "bound_sfu_ms",
                                    "bound_pipe",
                                    "back_to_back_ms", "by_rows",
+                                   "iteration_ms",
                                    "tsne_10k_launches", "tsne_full_launches",
                                    "kernel_ms", "kernel_back_to_back_ms",
                                    "multiscale_launches",

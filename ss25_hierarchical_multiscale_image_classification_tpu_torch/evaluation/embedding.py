@@ -440,15 +440,23 @@ class KLObjective:
         self.p.vals.div_(factor)
         self.vals = self.p.vals.to(self.dtype)
 
+    def attraction(self, y: torch.Tensor
+                   ) -> tuple[torch.Tensor, torch.Tensor]:
+        """``(pos (N, D), q_edge)`` of the embedding ``y`` (N, D) in the
+        working dtype: ``pos[i] = Σ_j p_ij q_ij (y_i − y_j)`` over the P
+        edges, a row at a time in edge order."""
+        diff = y[self.p.rows] - y[self.p.cols]
+        q_edge = 1.0 / (1.0 + (diff * diff).sum(dim=1))
+        pos = torch.segment_reduce((self.vals * q_edge)[:, None] * diff, "sum",
+                                   lengths=self.row_lengths, unsafe=True)
+        return pos, q_edge
+
     def __call__(self, y: torch.Tensor, compute_error: bool = True
                  ) -> tuple[float, torch.Tensor]:
         y = y.reshape(self.p.n, -1).to(self.dtype)
         neg, sum_q = tsne_repulsion(y)
         sum_q = sum_q.clamp(min=_MACHINE_EPSILON)
-        diff = y[self.p.rows] - y[self.p.cols]
-        q_edge = 1.0 / (1.0 + (diff * diff).sum(dim=1))
-        pos = torch.segment_reduce((self.vals * q_edge)[:, None] * diff, "sum",
-                                   lengths=self.row_lengths, unsafe=True)
+        pos, q_edge = self.attraction(y)
         grad = 4.0 * (pos - neg / sum_q.to(self.dtype))
         error = math.nan
         if compute_error:
@@ -457,6 +465,22 @@ class KLObjective:
             error = float((p * torch.log(p.clamp(min=_FLOAT32_TINY)
                                          / qn.clamp(min=_FLOAT32_TINY))).sum())
         return error, grad.reshape(-1)
+
+
+def descent_step(p: torch.Tensor, grad: torch.Tensor, update: torch.Tensor,
+                 gains: torch.Tensor, momentum: float, learning_rate: float,
+                 min_gain: float
+                 ) -> tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
+    """One step of :func:`gradient_descent` after the gradient: the gains
+    (+0.2 where the update and the gradient disagree in sign, ×0.8
+    elsewhere, at least ``min_gain``), the momentum update, ``p`` moved in
+    place. Returns (the gained gradient, update, gains)."""
+    inc = update * grad < 0.0
+    gains = torch.where(inc, gains + 0.2, gains * 0.8).clamp_(min=min_gain)
+    grad = grad * gains
+    update = momentum * update - learning_rate * grad
+    p += update
+    return grad, update, gains
 
 
 def gradient_descent(objective: Callable, p0: torch.Tensor, it: int,
@@ -479,11 +503,8 @@ def gradient_descent(objective: Callable, p0: torch.Tensor, it: int,
     for i in range(it, max_iter):
         check = (i + 1) % n_iter_check == 0
         error, grad = objective(p, compute_error=check or i == max_iter - 1)
-        inc = update * grad < 0.0
-        gains = torch.where(inc, gains + 0.2, gains * 0.8).clamp_(min=min_gain)
-        grad = grad * gains
-        update = momentum * update - learning_rate * grad
-        p += update
+        grad, update, gains = descent_step(p, grad, update, gains, momentum,
+                                           learning_rate, min_gain)
         if check:
             grad_norm = float(torch.linalg.vector_norm(grad))
             if error < best_error:

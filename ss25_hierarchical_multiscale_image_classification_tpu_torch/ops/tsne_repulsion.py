@@ -17,18 +17,16 @@ an iteration, which made ``--tsne_full`` at the MIL triplet's 168,000 rows a
 has a kernel (``ops/csrc/tsne_repulsion.cu``;
 ``tsne_repulsion_kernel.launches`` counts the calls).
 
-What bounds the kernel is the arithmetic a pair: one reciprocal, which the
-special-function unit issues at 16 a clock per SM, and a few FP32
-instructions. The kernel reads nothing twice from device memory: y_i sits in
-registers, column tiles in shared memory, and each tile's partial sums go
-into float64 row accumulators. It visits every ordered pair, twice the
-unordered pairs the function needs (q_ij = q_ji); taking each pair once is
-later work. The columns are split over the grid's y so that small N fills
-the card, and the splits are summed in a fixed order with no atomic adds, so
-a call repeats bit for bit on a card. The tiling and the split are the
-``.cu`` file's alone: it reports the scratch a call takes. The float32
-reciprocal is the hardware approximation: the kernel is held to the plain
-version within a tolerance, not bit for bit.
+What bounds the kernel is the arithmetic a pair: ten FP32 instructions and
+one reciprocal (which the special-function unit issues at 16 a clock per
+SM). q_ij = q_ji, so the kernel takes each unordered pair once and adds its
+term to both rows, keeps rows in registers and columns in shared memory, and
+reads nothing twice from device memory. Its partial sums are summed in a
+fixed order with no atomic adds, in two launches, so a call repeats bit for
+bit on a card. The tiling is the ``.cu`` file's alone: it reports the
+scratch a call takes. The float32 reciprocal is the hardware approximation:
+the kernel is held to the plain version within a tolerance, not bit for
+bit.
 """
 
 from __future__ import annotations

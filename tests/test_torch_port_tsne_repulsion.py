@@ -6,7 +6,8 @@ Bounds:
 
 - the plain version against a direct float64 numpy loop over the pairs:
   ``neg`` within 1e-12 of max|neg| and ``sum_q`` within 1e-12 relative in
-  float64, 1e-5 in float32;
+  float64, 1e-5 in float32; the same with coincident rows off the diagonal
+  (q = 1 counts);
 - against the repulsive part of sklearn's ``_kl_divergence_bh(angle=0)``
   gradient (the JAX package's t-SNE), ``neg / sum_q`` within 1e-5 of its
   maximum (sklearn works in float32);
@@ -16,7 +17,9 @@ Bounds:
 - on the card (marked ``cuda``; no jax imported here): the kernel against
   its plain version on the same tensor, ``neg`` within 1e-4 of max|neg| and
   ``sum_q`` within 1e-6 relative in float32 (the hardware reciprocal), both
-  within 1e-10 in float64; two launches equal bit for bit;
+  within 1e-10 in float64, also at the edges of the kernel's tiles, with
+  coincident rows and at scales 1e-3 and 1e3; two launches equal bit for
+  bit;
   ``tsne_repulsion_kernel.launches`` counts each call.
 
 The row-blocked plain version is held to one block by
@@ -90,6 +93,31 @@ def test_reference_equals_a_float64_loop_over_the_pairs(n, dtype):
     assert sum_q.dtype == torch.float64 and sum_q.dim() == 0
     assert _rel(neg.numpy(), want_neg) <= LOOP_RTOL[dtype]
     assert abs(float(sum_q) / want_sum - 1.0) <= LOOP_RTOL[dtype]
+
+
+def _coincident(n, seed=0, scale=10.0, dtype=torch.float64):
+    """An embedding whose every third row, from row 1 on, equals row 0, and
+    whose last row equals its first: coincident points off the diagonal,
+    where q = 1 counts."""
+    y = _embedding(n, seed=seed, scale=scale, dtype=dtype)
+    y[1::3] = y[0]
+    y[-1] = y[0]
+    return y
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.float64])
+@pytest.mark.parametrize("n", [5, 7, 300])
+def test_reference_counts_coincident_points_off_the_diagonal(n, dtype):
+    """q = 1 for two rows at one point, and they push each other by 0: the
+    plain version counts them as the float64 loop does, and leaves only the
+    diagonal out."""
+    y = _coincident(n, seed=n, scale=3.0, dtype=dtype)
+    neg, sum_q = E.tsne_repulsion_reference(y)
+    want_neg, want_sum = _loop(y.numpy())
+    assert _rel(neg.numpy(), want_neg) <= LOOP_RTOL[dtype]
+    assert abs(float(sum_q) / want_sum - 1.0) <= LOOP_RTOL[dtype]
+    dup = (y[:, None, :] == y[None, :, :]).all(dim=2).sum() - n
+    assert dup > 0 and float(sum_q) >= float(dup)
 
 
 @pytest.mark.parametrize("scale", [1e-2, 1.0, 10.0])
@@ -250,3 +278,46 @@ def test_kernel_launches_count_each_call(cuda_device):
     E.KLObjective(p)(y)
     torch.cuda.synchronize()
     assert R.tsne_repulsion_kernel.launches == before + 3
+
+
+def _card_against_plain(y):
+    neg, sum_q = R.tsne_repulsion_kernel(y)
+    want_neg, want_sum = E.tsne_repulsion_reference(y)
+    torch.cuda.synchronize()
+    dtype = y.dtype
+    assert neg.dtype == dtype and neg.shape == y.shape
+    assert torch.isfinite(neg).all()
+    assert _rel(neg.cpu().numpy(), want_neg.cpu().numpy()) <= CARD_NEG_RTOL[dtype]
+    assert abs(float(sum_q) / float(want_sum) - 1.0) <= CARD_SUM_RTOL[dtype]
+
+
+# The kernel's tiling: row strips of 2048 (8 warps of 256 rows), column items
+# of 128; a strip pairs with the columns from its first row on. At 20,000
+# rows on 132 SMs the 850 (strip, item) pairs cut into 213 pieces of 4 and a
+# last of 2, and strips cross pieces.
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", [torch.float32, torch.float64])
+@pytest.mark.parametrize("n", [127, 128, 129, 2_047, 2_048, 2_049, 4_097,
+                               20_000])
+def test_kernel_at_the_edges_of_its_tiles(cuda_device, n, dtype):
+    _card_against_plain(_embedding(n, seed=n + 1, dtype=dtype).to(cuda_device))
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", [torch.float32, torch.float64])
+@pytest.mark.parametrize("n", [300, 2_049, 5_000])
+def test_kernel_counts_coincident_points_off_the_diagonal(cuda_device, n,
+                                                          dtype):
+    """Rows at one point across warps, strips and items count q = 1: the
+    diagonal is left out by index, never by distance."""
+    _card_against_plain(_coincident(n, seed=n, dtype=dtype).to(cuda_device))
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", [torch.float32, torch.float64])
+@pytest.mark.parametrize("scale", [1e-3, 1e3])
+def test_kernel_at_small_and_large_scales(cuda_device, scale, dtype):
+    """1e-3: every q near 1 (sum_q's float32 chains at their longest
+    values); 1e3: most q near 1e-6."""
+    _card_against_plain(_embedding(3_000, seed=5, scale=scale,
+                                   dtype=dtype).to(cuda_device))
