@@ -319,7 +319,38 @@ version on the card. Phases:
    those runs' embeddings (float32 and float64: ``neg`` within 1e-4 of
    max|neg| and ``sum_q`` within 1e-6 relative in float32, both 1e-10 in
    float64), timed per call and back to back beside the plain version,
-   with its bound (reciprocals: 16 a clock per SM).
+   with its bound (reciprocals: 16 a clock per SM);
+19. the device paths that had run only on the CPU (after phase 18), each
+   through the CLI's ``main`` with ``--device cuda``, the launches counted
+   around each step, each step's wall and the phase's: (a) ``--extract_features
+   --simclr_features`` at batch 512 from phase 6's encoder, the triplet
+   bit-equal to ``extract_features`` of the encoder's trunk (2b 4), then
+   with ``--int8`` (lazy calibration): the features within one int8 step
+   of ``quant_forward`` of the encoder's tree calibrated on the same
+   batches, every reference cell's feature cosine against the float32
+   folded trunk above 0.98 (2d, ``int8_conv_requant``, ``int8_maxpool``);
+   (b) ``--train_strategy --strategy balanced``, then ``weighted_loss``,
+   one epoch each: strict loads, finite weights and history, ``augment``
+   once a step, and a bf16 card step of the balanced classifier on the
+   ``BalancedSampler``'s first cells against the float32 CPU step (phase
+   10's bounds); (c) ``train_resnet_classifier`` with ``freeze_bn`` from
+   phase 10's classifier: BN statistics bit-equal to the warm start's, a
+   frozen-BN card step against the CPU step, then ``--train --freeze_bn``
+   (no warm start on the card's machine: the warning, statistics at their
+   initial values); (d) ``--train_multiscale --ms_fusion attention`` from
+   phase 10's classifier, the bf16 ``fuse`` on the card within 0.1 of the
+   float32 CPU ``fuse`` on 32 pooled feature rows, then ``--predict_slide
+   --multiscale`` with each explicit ``--ms_combine``, each CSV equal to
+   that component of an in-process ``predict_slide_multiscale`` (2a 14 a
+   slide); (e) ``--quantize`` on phase 10's trained classifier, then
+   ``--predict_slide <dir> --int8 --run_evaluation`` (1 + 16 + 1 launches
+   a batch) and the float run on the device filter (2a 6): the margins'
+   cosine and max|Δ| on the tissue cells, each reference
+   cell's feature cosine (above 0.98) and both FROC scores (int8 at least
+   the float's); (f) ``--predict_slide --model_name
+   resnet18_patch_classifier_balanced --detect_threshold 0.3`` on (b)'s
+   artifact, the CSV equal to an in-process ``predict_slide`` +
+   ``margin_detections`` at that floor (2a 6).
 
 It imports nothing of JAX or of the JAX package. Run it from the root of a
 checkout:
@@ -2330,6 +2361,71 @@ def phase_simclr_check(dev, ds, sd) -> None:
                              "check the bf16 step")
 
 
+def card_step_against_cpu(tag: str, sd, imgs, lab, cw, valid=None,
+                          frozen_bn: bool = False) -> float:
+    """One bf16 card step of the classifier ``sd`` against a float32 CPU
+    step: the same cells, augmentation draws and class weights (``cw``
+    None: none), the BatchNorms on their running statistics with
+    ``frozen_bn``. The loss within :data:`TRAIN_LOSS_ATOL`, the head's
+    gradients within :data:`TRAIN_GRAD_RTOL` of max|g|; returns the loss
+    |Δ|."""
+    import numpy as np
+    import torch
+
+    from ss25_hierarchical_multiscale_image_classification_tpu_torch.data.augment import (
+        augment_batch,
+        sample_augment_params,
+    )
+    from ss25_hierarchical_multiscale_image_classification_tpu_torch.models.convert import (
+        resnet18_from_state_dict,
+    )
+    from ss25_hierarchical_multiscale_image_classification_tpu_torch.ops.augment import (
+        augment_batch_kernel,
+    )
+    from ss25_hierarchical_multiscale_image_classification_tpu_torch.train.trainer import (
+        classifier_loss,
+        set_bn_frozen,
+    )
+
+    params = sample_augment_params(torch.Generator().manual_seed(SEED),
+                                   len(imgs))
+    out = {}
+    for where in ("cuda", "cpu"):
+        d = torch.device(where)
+        model = resnet18_from_state_dict(sd).to(
+            d, memory_format=torch.channels_last).train()
+        set_bn_frozen(model, frozen_bn)
+        p = {k: v.to(d) for k, v in params.items()}
+        x_u8 = torch.from_numpy(imgs).to(d)
+        x = (augment_batch_kernel(p, x_u8) if where == "cuda"
+             else augment_batch(p, x_u8))
+        loss, _ = classifier_loss(
+            model, x, torch.from_numpy(lab).long().to(d),
+            None if cw is None else torch.from_numpy(cw).to(d),
+            None if valid is None else torch.from_numpy(valid).to(d))
+        loss.backward()
+        out[where] = (loss.item(), x.cpu(),
+                      {k: q.grad.detach().float().cpu()
+                       for k, q in model.named_parameters()})
+    d_loss = abs(out["cuda"][0] - out["cpu"][0])
+    d_x = (out["cuda"][1] - out["cpu"][1]).abs().max().item()
+    d_grad = {k: (out["cuda"][2][k] - g).abs().max().item() / g.abs().max().item()
+              for k, g in out["cpu"][2].items() if g.abs().max() > 0}
+    head = max(d_grad["fc.weight"], d_grad["fc.bias"])
+    log(f"[{tag}] {len(imgs)} cells: bf16 card loss {out['cuda'][0]:.6f}, "
+        f"float32 CPU loss {out['cpu'][0]:.6f} (|Δ| {d_loss:.3g}, bound "
+        f"{TRAIN_LOSS_ATOL}); augmented inputs card kernel vs CPU plain "
+        f"max|Δ| {d_x:.3g}; head grads max|Δ|/max|g| {head:.3g} (bound "
+        f"{TRAIN_GRAD_RTOL}); all tensors: median {np.median(list(d_grad.values())):.3g}"
+        f", max {max(d_grad.values()):.3g}")
+    if not (np.isfinite(out["cuda"][0]) and np.isfinite(out["cpu"][0])):
+        raise AssertionError("non-finite classifier loss")
+    if d_loss > TRAIN_LOSS_ATOL or head > TRAIN_GRAD_RTOL:
+        raise AssertionError(f"[{tag}] bf16 card step outside its bound of "
+                             f"the float32 CPU step")
+    return d_loss
+
+
 def phase_train(dev, ds, slide, spec, simclr_models, tmp) -> dict:
     """The patch-classifier trainer on the card through the command line:
     ``--train`` for TRAIN_EPOCHS epochs on the slide's labelled tissue cells
@@ -2350,15 +2446,10 @@ def phase_train(dev, ds, slide, spec, simclr_models, tmp) -> dict:
         DataConfig,
         TrainConfig,
     )
-    from ss25_hierarchical_multiscale_image_classification_tpu_torch.data.augment import (
-        augment_batch,
-        sample_augment_params,
-    )
     from ss25_hierarchical_multiscale_image_classification_tpu_torch.data.datasets import (
         BatchIterator,
     )
     from ss25_hierarchical_multiscale_image_classification_tpu_torch.data.manifest import (
-        PatchManifest,
         manifest_npz_path,
     )
     from ss25_hierarchical_multiscale_image_classification_tpu_torch.io.slide import (
@@ -2379,14 +2470,10 @@ def phase_train(dev, ds, slide, spec, simclr_models, tmp) -> dict:
     from ss25_hierarchical_multiscale_image_classification_tpu_torch.train.losses import (
         class_weights_inv_min,
     )
-    from ss25_hierarchical_multiscale_image_classification_tpu_torch.train.simclr_trainer import (
-        to_device,
-    )
     from ss25_hierarchical_multiscale_image_classification_tpu_torch.train.state import (
         create_train_state,
     )
     from ss25_hierarchical_multiscale_image_classification_tpu_torch.train.trainer import (
-        classifier_loss,
         make_train_step,
         train_resnet_classifier_strategic,
     )
@@ -2503,39 +2590,7 @@ def phase_train(dev, ds, slide, spec, simclr_models, tmp) -> dict:
     sd = load_model(os.path.join(models_dir, "resnet18_patch_classifier"))
     imgs, lab = ds.read_batch(range(REF_BATCH))
     cw = class_weights_inv_min(labels, 2)
-    params = sample_augment_params(torch.Generator().manual_seed(SEED),
-                                   REF_BATCH)
-    out = {}
-    for where in ("cuda", "cpu"):
-        d = torch.device(where)
-        model = resnet18_from_state_dict(sd).to(
-            d, memory_format=torch.channels_last).train()
-        p = {k: v.to(d) for k, v in params.items()}
-        x_u8 = torch.from_numpy(imgs).to(d)
-        x = (augment_batch_kernel(p, x_u8) if where == "cuda"
-             else augment_batch(p, x_u8))
-        loss, _ = classifier_loss(model, x, torch.from_numpy(lab).long().to(d),
-                                  torch.from_numpy(cw).to(d))
-        loss.backward()
-        out[where] = (loss.item(), x.cpu(),
-                      {k: q.grad.detach().float().cpu()
-                       for k, q in model.named_parameters()})
-    d_loss = abs(out["cuda"][0] - out["cpu"][0])
-    d_x = (out["cuda"][1] - out["cpu"][1]).abs().max().item()
-    d_grad = {k: (out["cuda"][2][k] - g).abs().max().item() / g.abs().max().item()
-              for k, g in out["cpu"][2].items() if g.abs().max() > 0}
-    head = max(d_grad["fc.weight"], d_grad["fc.bias"])
-    log(f"[train-check] {REF_BATCH} cells: bf16 card loss {out['cuda'][0]:.6f}, "
-        f"float32 CPU loss {out['cpu'][0]:.6f} (|Δ| {d_loss:.3g}, bound "
-        f"{TRAIN_LOSS_ATOL}); augmented inputs card kernel vs CPU plain "
-        f"max|Δ| {d_x:.3g}; head grads max|Δ|/max|g| {head:.3g} (bound "
-        f"{TRAIN_GRAD_RTOL}); all tensors: median {np.median(list(d_grad.values())):.3g}"
-        f", max {max(d_grad.values()):.3g}")
-    if not (np.isfinite(out["cuda"][0]) and np.isfinite(out["cpu"][0])):
-        raise AssertionError("non-finite classifier loss")
-    if d_loss > TRAIN_LOSS_ATOL or head > TRAIN_GRAD_RTOL:
-        raise AssertionError("bf16 card step outside its bound of the "
-                             "float32 CPU step")
+    card_step_against_cpu("train-check", sd, imgs, lab, cw)
 
     # warm steps of the path's step function on the path's batches
     state = create_train_state(resnet18_from_state_dict(sd), 1e-4, dev)
@@ -7186,6 +7241,643 @@ def phase_embedding(dev, feats, labels, smi) -> dict:
             "by_rows": {str(k): v for k, v in by_rows.items()}}
 
 
+# ---------------------------------------------------------------------------
+# phase 19: the device paths that had run only on the CPU
+# ---------------------------------------------------------------------------
+
+# an fc-less trunk's int8 features against its float32 folded forward, per
+# cell: the JAX package's own gate (tests/test_quantized.py)
+GAPS_FEATURE_COSINE_MIN = 0.98
+GAPS_DETECT_THRESHOLD = 0.3  # (f)'s --detect_threshold
+
+
+def _text(path: str) -> str:
+    with open(path) as f:
+        return f.read()
+
+
+def _gaps_simclr(dev, ds, data_dir, root, simclr_models, smi) -> dict:
+    """(a) ``--extract_features --simclr_features`` through the CLI: its
+    triplet bit-equal to an in-process ``extract_features`` of the
+    encoder's trunk, 2b launched once a batch; then with ``--int8`` (lazy
+    calibration): the features against ``quant_forward`` of the tree
+    quantized from the encoder on the same calibration batches, within
+    :data:`INT8_CPU_STEPS` int8 steps, and each reference cell's cosine
+    against the float32 folded trunk above :data:`GAPS_FEATURE_COSINE_MIN`."""
+    import numpy as np
+    import torch
+    import torch.nn.functional as F
+
+    from ss25_hierarchical_multiscale_image_classification_tpu_torch.config import (
+        Config,
+        DataConfig,
+    )
+    from ss25_hierarchical_multiscale_image_classification_tpu_torch.infer.features import (
+        extract_features,
+        lazy_qtree,
+        load_feature_artifacts,
+    )
+    from ss25_hierarchical_multiscale_image_classification_tpu_torch.models.quantized import (
+        fold_batchnorm,
+        folded_forward,
+        quant_forward,
+    )
+    from ss25_hierarchical_multiscale_image_classification_tpu_torch.train.checkpoints import (
+        load_model,
+        save_model,
+    )
+
+    n, steps = len(ds), -(-len(ds) // BATCH)
+    # phase 10's store under a data root of its own, where the triplet lands
+    own = os.path.join(root, "simclr_data")
+    os.makedirs(own)
+    os.symlink(DataConfig(data_dir=data_dir).patches_dir,
+               DataConfig(data_dir=own).patches_dir)
+    features_dir = DataConfig(data_dir=own).features_dir
+    argv = ["--extract_features", "--simclr_features", "--patch_level",
+            str(LEVEL), "--batch_size", str(BATCH), "--data_dir", own,
+            "--models_dir", simclr_models, "--device", "cuda"]
+    (rc, wall), counts = _counted(lambda: run_cli(argv), dev)
+    if rc != 0:
+        raise AssertionError(f"--extract_features --simclr_features: exit {rc}")
+    feats, labels, names = load_feature_artifacts(features_dir, LEVEL)
+    enc = load_model(os.path.join(simclr_models, "simclr_encoder"))
+    trunk = {k.removeprefix("encoder."): v for k, v in enc.items()
+             if k.startswith("encoder.")}
+    trunk_dir = os.path.join(root, "simclr_trunk")
+    save_model(os.path.join(trunk_dir, "resnet18_patch_classifier"), trunk)
+    cfg = Config(data=DataConfig(data_dir=os.path.join(root, "simclr_ref")),
+                 models_dir=trunk_dir)
+    extract_features(cfg, level=LEVEL, batch_size=BATCH, dataset=ds,
+                     device="cuda")
+    want, want_labels, want_names = load_feature_artifacts(
+        cfg.data.features_dir, LEVEL)
+    same = (np.array_equal(feats, want) and names == want_names
+            and np.array_equal(labels, want_labels) and len(names) == n)
+    log(f"[gaps] (a) --extract_features --simclr_features from phase 6's "
+        f"encoder: exit 0 in {wall:.2f} s; {feats.shape} float32; "
+        f"bias_relu_pool launches {counts['bias_relu_pool']} ({steps} "
+        f"batches); the triplet bit-equal to extract_features of the "
+        f"encoder's trunk: {same}")
+    if not same:
+        raise AssertionError("--simclr_features differs from extract_features "
+                             "of the encoder's trunk")
+    if counts["bias_relu_pool"] != steps or counts["fused_stem"]:
+        raise AssertionError(f"expected {steps} bias_relu_pool launches on "
+                             f"--simclr_features, counted {counts}")
+
+    (rc, wall8), counts8 = _counted(lambda: run_cli([*argv, "--int8"]), dev)
+    if rc != 0:
+        raise AssertionError(f"--simclr_features --int8: exit {rc}")
+    f8, _, _ = load_feature_artifacts(features_dir, LEVEL)
+    tree = lazy_qtree(trunk, ds, BATCH, dev)
+    with torch.inference_mode():
+        direct = np.concatenate([
+            quant_forward(tree, torch.from_numpy(
+                ds.read_batch(range(i, min(i + BATCH, n)))[0]).to(dev),
+                with_fc=False).cpu().numpy()
+            for i in range(0, n, BATCH)])
+    step = tree["ascales"]["s4b1o"].item() / 49
+    d = float(np.abs(f8 - direct).max())
+    idx = np.sort(np.random.default_rng(SEED).choice(n, FEAT_REF_CELLS,
+                                                     replace=False))
+    imgs, _ = ds.read_batch(idx)
+    with torch.inference_mode():
+        f32 = folded_forward(fold_batchnorm(trunk),
+                             torch.from_numpy(imgs).to(dev),
+                             with_fc=False).cpu()
+    cos = F.cosine_similarity(torch.from_numpy(f8[idx]), f32, dim=1)
+    int8 = (counts8["fused_stage1_int8"], counts8["int8_conv_requant"],
+            counts8["int8_maxpool"])
+    log(f"[gaps] (a) --simclr_features --int8 (lazy calibration): exit 0 in "
+        f"{wall8:.2f} s; launches fused_stage1_int8 {int8[0]}, "
+        f"int8_conv_requant {int8[1]}, int8_maxpool {int8[2]}; against "
+        f"quant_forward of the encoder's tree on the same calibration "
+        f"batches max|Δ| {d:.3g} = {d / step:.3g} int8 steps (bound "
+        f"{INT8_CPU_STEPS}); feature cosine against the float32 folded trunk "
+        f"on {len(idx)} cells: min {cos.min().item():.5f}, median "
+        f"{cos.median().item():.5f} (bound > {GAPS_FEATURE_COSINE_MIN}) "
+        f"[{smi}]")
+    if int8 != (steps, 16 * steps, steps):
+        raise AssertionError(f"expected {steps}, {16 * steps} and {steps} int8 "
+                             f"launches on --simclr_features --int8, counted "
+                             f"{int8}")
+    if d > INT8_CPU_STEPS * step or not np.isfinite(f8).all():
+        raise AssertionError("--simclr_features --int8 differs from the "
+                             "encoder's quantized forward")
+    if not cos.min().item() > GAPS_FEATURE_COSINE_MIN:
+        raise AssertionError("--simclr_features --int8: a reference cell's "
+                             f"feature cosine is at or below "
+                             f"{GAPS_FEATURE_COSINE_MIN}")
+    return {"bias_relu_pool": counts["bias_relu_pool"], "int8": int8}
+
+
+def _gaps_strategies(dev, ds, data_dir, root, cfg_path, logs) -> dict:
+    """(b) ``--train_strategy --strategy balanced``, then ``weighted_loss``,
+    one epoch each through the CLI: each artifact loads strictly with
+    finite weights and history, ``augment`` once a step; one bf16 card
+    step of the balanced classifier on the ``BalancedSampler``'s first
+    cells (no class weights) against the float32 CPU step."""
+    import numpy as np
+    import torch
+
+    from ss25_hierarchical_multiscale_image_classification_tpu_torch.config import (
+        DataConfig,
+        TrainConfig,
+    )
+    from ss25_hierarchical_multiscale_image_classification_tpu_torch.data.datasets import (
+        BalancedSampler,
+        BatchIterator,
+        make_train_val_datasets,
+    )
+    from ss25_hierarchical_multiscale_image_classification_tpu_torch.models.convert import (
+        resnet18_from_state_dict,
+    )
+    from ss25_hierarchical_multiscale_image_classification_tpu_torch.train.checkpoints import (
+        load_model,
+    )
+
+    models = os.path.join(root, "strategy_models")
+    steps = -(-len(ds) // BATCH)  # one slide: the split trains on every cell
+    out = {"models_dir": models}
+    for strategy in ("balanced", "weighted_loss"):
+        argv = ["--train_strategy", "--strategy", strategy, "--epochs", "1",
+                "--batch_size", str(BATCH), "--patch_level", str(LEVEL),
+                "--data_dir", data_dir, "--models_dir", models, "--config",
+                cfg_path, "--device", "cuda"]
+        (rc, wall), counts = _counted(lambda: run_cli(argv), dev)
+        if rc != 0:
+            raise AssertionError(f"--strategy {strategy}: exit {rc}")
+        with open(os.path.join(logs, f"train_history_{strategy}.json")) as f:
+            history = json.load(f)
+        sd = load_model(os.path.join(models,
+                                     f"resnet18_patch_classifier_{strategy}"))
+        resnet18_from_state_dict(sd)  # strict: every tensor in place
+        finite = (all(torch.isfinite(v).all() for v in sd.values()
+                      if v.is_floating_point())
+                  and all(np.isfinite(h["train_loss"]) for h in history))
+        log(f"[gaps] (b) --train_strategy --strategy {strategy} --epochs 1: "
+            f"exit 0 in {wall:.2f} s; augment launches {counts['augment']} "
+            f"({history[0]['steps']} steps); history "
+            f"{[{k: round(v, 4) for k, v in h.items()} for h in history]}; "
+            f"resnet18_patch_classifier_{strategy}.pt loads strictly, finite "
+            f"{finite}")
+        if (len(history) != 1 or history[0]["steps"] != steps or not finite
+                or counts["augment"] != steps):
+            raise AssertionError(f"--strategy {strategy}: expected one epoch of "
+                                 f"{steps} steps with as many augment launches"
+                                 f" and finite weights")
+        out[strategy] = counts["augment"]
+        if strategy == "balanced":
+            data = DataConfig(data_dir=data_dir)
+            seed = TrainConfig().seed
+            train_ds, _ = make_train_val_datasets(
+                ds.manifest, val_fraction=data.val_fraction,
+                split_seed=data.split_seed,
+                balance_val_seed=data.balance_val_seed)
+            it = BatchIterator(train_ds, REF_BATCH, shuffle=True, seed=seed,
+                               sampler=BalancedSampler(train_ds.labels,
+                                                       seed=seed))
+            imgs, lab, valid = next(iter(it))
+            log(f"[gaps] (b) the BalancedSampler's first {REF_BATCH} cells: "
+                f"{int(lab.sum())} tumor, {int((lab == 0).sum())} normal")
+            card_step_against_cpu("gaps-balanced-check", sd, imgs, lab, None,
+                                  valid.astype(np.float32))
+    return out
+
+
+def _gaps_frozen_bn(dev, ds, data_dir, root, cfg_path, trained) -> dict:
+    """(c) ``train_resnet_classifier`` with ``train.freeze_bn`` (the field
+    ``--freeze_bn`` sets) warm-started from phase 10's classifier for one
+    epoch: every BN running statistic of the artifact bit-equal to the warm
+    start's, ``augment`` once a step, one frozen-BN bf16 card step against
+    the float32 CPU step; then ``--train --freeze_bn`` through the CLI,
+    which has no warm start on this machine: exit 0, the warning, the
+    statistics still at their initial values."""
+    import numpy as np
+    import torch
+
+    from ss25_hierarchical_multiscale_image_classification_tpu_torch.config import (
+        Config,
+        DataConfig,
+        TrainConfig,
+    )
+    from ss25_hierarchical_multiscale_image_classification_tpu_torch.train.checkpoints import (
+        load_model,
+    )
+    from ss25_hierarchical_multiscale_image_classification_tpu_torch.train.losses import (
+        class_weights_inv_min,
+    )
+    from ss25_hierarchical_multiscale_image_classification_tpu_torch.train.trainer import (
+        train_resnet_classifier,
+    )
+
+    def stats(sd):
+        return [k for k in sd if k.endswith(("running_mean", "running_var"))]
+
+    steps = -(-len(ds) // BATCH)
+    warm = load_model(trained.removesuffix(".pt"))
+    models = os.path.join(root, "frozen_bn_models")
+    cfg = Config(data=DataConfig(data_dir=data_dir), models_dir=models,
+                 log_dir=os.path.join(root, "frozen_bn_logs"),
+                 train=TrainConfig(batch_size=BATCH, freeze_bn=True))
+    t0 = time.perf_counter()
+    trainer, counts = _counted(lambda: train_resnet_classifier(
+        cfg, level=LEVEL, epochs=1, pretrained_variables=warm,
+        device="cuda"), dev)
+    wall = time.perf_counter() - t0
+    art = load_model(os.path.join(models, "resnet18_patch_classifier"))
+    keys = stats(warm)
+    kept = all(torch.equal(art[k], warm[k]) for k in keys)
+    moved = sum(not torch.equal(art[k], warm[k]) for k in art
+                if k.endswith(("weight", "bias")))
+    finite = all(np.isfinite(h["train_loss"]) for h in trainer.history)
+    log(f"[gaps] (c) train_resnet_classifier(freeze_bn) for 1 epoch from "
+        f"phase 10's classifier: {wall:.2f} s; augment launches "
+        f"{counts['augment']} ({steps} steps); history {trainer.history}; "
+        f"{len(keys)} BN running statistics bit-equal to the warm start's: "
+        f"{kept}; {moved} weight and bias tensors moved")
+    if not kept or not moved or not finite or counts["augment"] != steps:
+        raise AssertionError("frozen BatchNorm: statistics moved, nothing "
+                             "trained, a non-finite loss or other augment "
+                             "launches than steps")
+    imgs, lab = ds.read_batch(range(REF_BATCH))
+    card_step_against_cpu("gaps-frozen-bn-check", art, imgs, lab,
+                          class_weights_inv_min(ds.labels, 2), frozen_bn=True)
+
+    cli_models = os.path.join(root, "freeze_bn_cli_models")
+    argv = ["--train", "--freeze_bn", "--epochs", "1", "--batch_size",
+            str(BATCH), "--patch_level", str(LEVEL), "--data_dir", data_dir,
+            "--models_dir", cli_models, "--config", cfg_path, "--device",
+            "cuda"]
+    with _Messages("train") as records:
+        (rc, cli_wall), cli_counts = _counted(lambda: run_cli(argv), dev)
+    warned = any("--freeze_bn without a warm start" in r.getMessage()
+                 for r in records)
+    sd = load_model(os.path.join(cli_models, "resnet18_patch_classifier"))
+    initial = all(torch.count_nonzero(sd[k]) == 0 if k.endswith("mean")
+                  else bool((sd[k] == 1).all()) for k in stats(sd))
+    log(f"[gaps] (c) --train --freeze_bn --epochs 1: exit {rc} in "
+        f"{cli_wall:.2f} s; warned of no warm start {warned}; augment launches "
+        f"{cli_counts['augment']}; running statistics at their initial "
+        f"values (mean 0, var 1): {initial}")
+    if rc != 0 or not warned or not initial or cli_counts["augment"] != steps:
+        raise AssertionError("--train --freeze_bn: exit, warning, statistics "
+                             "or augment launches wrong")
+    return {"frozen_bn": counts["augment"], "freeze_bn_cli": cli_counts["augment"]}
+
+
+def _gaps_attention(dev, ds, data_dir, root, cfg_path, trained, msds,
+                    ms_train_idx, slide_path, smi) -> dict:
+    """(d) ``--train_multiscale --ms_fusion attention`` for one epoch from
+    phase 10's classifier: the artifact's fusion is attention, ``augment``
+    twice a step; its bf16 ``fuse`` on the card against the float32 CPU
+    ``fuse`` on 32 pooled feature rows within :data:`BF16_ATOL`; then
+    ``--predict_slide --multiscale`` with each explicit ``--ms_combine``:
+    each CSV equal to ``margin_detections`` of that component of one
+    in-process ``predict_slide_multiscale``, 2a twice a batch."""
+    import shutil
+
+    import numpy as np
+    import torch
+
+    from ss25_hierarchical_multiscale_image_classification_tpu_torch.config import (
+        DETECTION_PROB_THRESHOLD,
+    )
+    from ss25_hierarchical_multiscale_image_classification_tpu_torch.data.augment import (
+        normalize,
+    )
+    from ss25_hierarchical_multiscale_image_classification_tpu_torch.infer.multiscale import (
+        COMBINE_COLUMNS,
+        predict_slide_multiscale,
+    )
+    from ss25_hierarchical_multiscale_image_classification_tpu_torch.infer.sliding_window import (
+        margin_detections,
+        write_detection_csv,
+    )
+    from ss25_hierarchical_multiscale_image_classification_tpu_torch.models.convert import (
+        hierarchical_from_state_dict,
+        split_calibration,
+    )
+    from ss25_hierarchical_multiscale_image_classification_tpu_torch.ops.preprocess import (
+        fused_normalize,
+    )
+    from ss25_hierarchical_multiscale_image_classification_tpu_torch.train.checkpoints import (
+        load_model,
+    )
+
+    s = len(MS_LEVELS)
+    levels = ",".join(map(str, MS_LEVELS))
+    models = os.path.join(root, "attention_models")
+    os.makedirs(models)
+    shutil.copy(trained, models)
+    argv = ["--train_multiscale", "--ms_fusion", "attention", "--levels",
+            levels, "--epochs", "1", "--batch_size", str(BATCH),
+            "--data_dir", data_dir, "--models_dir", models, "--config",
+            cfg_path, "--device", "cuda"]
+    with _Messages("train.multiscale") as records:
+        (rc, wall), counts = _counted(lambda: run_cli(argv), dev)
+    warm = [r for r in records if r.msg.startswith("warm-started")]
+    state, cal = split_calibration(load_model(os.path.join(
+        models, "hierarchical_classifier")))
+    cpu = hierarchical_from_state_dict(state, MS_LEVELS)
+    steps = -(-len(ms_train_idx) // BATCH)
+    log(f"[gaps] (d) --train_multiscale --ms_fusion attention --epochs 1: "
+        f"exit {rc} in {wall:.2f} s; warm-started {len(warm) == 1}; fusion "
+        f"{cpu.fusion}; augment launches {counts['augment']} ({steps} steps "
+        f"× {s} levels); calibration {cal}")
+    if (rc != 0 or len(warm) != 1 or cpu.fusion != "attention"
+            or counts["augment"] != s * steps
+            or not all(np.isfinite(v) for v in cal.values())):
+        raise AssertionError("--train_multiscale --ms_fusion attention failed, "
+                             "lost its warm start or its fusion mode, or "
+                             "launched augment other than twice a step")
+
+    # fuse: bf16 heads on the card against float32 on the CPU, on the same
+    # pooled features (the trunk's, float32 on the card)
+    imgs, _ = msds.read_batch(range(REF_BATCH))
+    f32 = hierarchical_from_state_dict(state, MS_LEVELS).to(dev).eval()
+    card = hierarchical_from_state_dict(state, MS_LEVELS).for_inference(
+        dev, torch.bfloat16)
+    with torch.inference_mode():
+        x = torch.cat([normalize(torch.from_numpy(imgs[lvl]).to(dev))
+                       for lvl in sorted(imgs)])
+        feats = f32.trunk(x).reshape(s, REF_BATCH, -1).transpose(0, 1)
+        want = cpu.fuse(feats.cpu().contiguous())
+        got = card.fuse(feats.contiguous()).float().cpu()
+    d = (got - want).abs().max().item()
+    margins = want[:, 1] - want[:, 0]
+    log(f"[gaps] (d) HierarchicalPatchClassifier.fuse (attention) on "
+        f"{REF_BATCH} pooled feature rows × {s} scales: bf16 card against "
+        f"float32 CPU max|Δ| {d:.4g} (bound {BF16_ATOL}) = "
+        f"{d / want.abs().max().item():.3g} of max|logit|; CPU logits up to "
+        f"{want.abs().max().item():.4f}, margins spread "
+        f"{(margins.max() - margins.min()).item():.4f} [{smi}]")
+    if not d <= BF16_ATOL:
+        raise AssertionError("the attention fuse in bf16 on the card strays "
+                             "from float32 on the CPU")
+
+    # each explicit --ms_combine against one in-process pass
+    del f32, feats
+    _, grid, comps = predict_slide_multiscale(
+        slide_path, card, cal, levels=MS_LEVELS, stride=STRIDE,
+        batch_size=MS_BATCH, output="margin", return_components=True,
+        device=dev, devices=[dev])
+    want_launches = s * -(-len(ds) // MS_BATCH)
+    out = []
+    for combine in COMBINE_COLUMNS:
+        (rc, wall), _ = _counted(lambda: run_cli([
+            "--predict_slide", slide_path, "--multiscale", "--levels", levels,
+            "--ms_combine", combine, "--stride", str(STRIDE), "--batch_size",
+            str(MS_BATCH), "--models_dir", models, "--device", "cuda"]), dev)
+        launches = fused_normalize.launches
+        ref = os.path.join(root, "ms_combine_ref", f"{combine}.csv")
+        write_detection_csv(ref, margin_detections(comps[combine], grid,
+                                                   DETECTION_PROB_THRESHOLD))
+        got_csv = _text(os.path.join(models, "model_predictions_csv",
+                                     "smoke_slide.csv"))
+        equal = got_csv == _text(ref)
+        log(f"[gaps] (d) --predict_slide --multiscale --ms_combine {combine}: "
+            f"exit {rc} in {wall:.2f} s; {len(got_csv.splitlines())} "
+            f"detections, equal to the in-process component: {equal}; "
+            f"fused_normalize launches {launches}")
+        if rc != 0 or not equal or launches != want_launches:
+            raise AssertionError(f"--ms_combine {combine}: exit {rc}, CSV equal "
+                                 f"{equal}, 2a launches {launches} (expected "
+                                 f"{want_launches})")
+        out.append(launches)
+    return {"augment": counts["augment"], "fused_normalize": out}
+
+
+def _gaps_trained_int8(dev, data_dir, root, trained, slide, slide_path,
+                       n_tissue, grid_cells, ref_u8, smi) -> dict:
+    """(e) int8 on trained weights: ``--quantize`` through the CLI on phase
+    10's classifier, then ``--predict_slide <dir> --int8 --run_evaluation``
+    (host filter: int8 folds normalize into its stem) and the float
+    ``--predict_slide <dir> --run_evaluation`` (device filter, on 2a) from
+    that models directory; the margins of both on the tissue cells, each
+    reference cell's feature cosine (above
+    :data:`GAPS_FEATURE_COSINE_MIN`) and both FROC scores (int8 at least
+    the float's)."""
+    import shutil
+
+    import numpy as np
+    import torch
+    import torch.nn.functional as F
+
+    from ss25_hierarchical_multiscale_image_classification_tpu_torch.infer.sliding_window import (
+        NON_TISSUE_MARGIN,
+        predict_slide,
+    )
+    from ss25_hierarchical_multiscale_image_classification_tpu_torch.models.convert import (
+        load_state_dict_file,
+        resnet18_from_state_dict,
+        strip_head,
+    )
+    from ss25_hierarchical_multiscale_image_classification_tpu_torch.models.quant_artifact import (
+        CLASSIFIER_ARTIFACT,
+        load_quantized,
+    )
+    from ss25_hierarchical_multiscale_image_classification_tpu_torch.models.quantized import (
+        fold_batchnorm,
+        folded_forward,
+        quant_forward,
+        quantized_to,
+    )
+    from ss25_hierarchical_multiscale_image_classification_tpu_torch.ops.preprocess import (
+        fused_normalize,
+    )
+
+    models = os.path.join(root, "trained_int8_models")
+    os.makedirs(models)
+    shutil.copy(trained, models)
+    # the smoke slide alone in a directory: the FROC reads its CSV
+    slides = os.path.join(root, "trained_int8_slides")
+    os.makedirs(slides)
+    os.symlink(slide_path, os.path.join(slides, os.path.basename(slide_path)))
+    common = ["--patch_level", str(LEVEL), "--data_dir", data_dir,
+              "--models_dir", models, "--device", "cuda"]
+    (rc, wall), counts = _counted(lambda: run_cli(["--quantize", *common]), dev)
+    path = os.path.join(models, CLASSIFIER_ARTIFACT)
+    if rc != 0 or not os.path.exists(path) or any(counts.values()):
+        raise AssertionError(f"--quantize on the trained classifier: exit {rc},"
+                             f" launches {counts}")
+    log(f"[gaps] (e) --quantize on phase 10's trained classifier: exit 0 in "
+        f"{wall:.2f} s → {CLASSIFIER_ARTIFACT}")
+    predict = ["--predict_slide", slides, "--run_evaluation", "--stride",
+               str(STRIDE), "--batch_size", str(BATCH), *common]
+    runs = {}
+    for name, extra in (("int8", ["--int8", "--tissue_filter", "host"]),
+                        ("float", ["--tissue_filter", "device"])):
+        with _Messages("evaluation.froc") as froc, \
+                _Messages("models.quant_artifact") as artifact:
+            (rc, wall), counts = _counted(lambda: run_cli([*predict, *extra]),
+                                          dev)
+        runs[name] = {
+            "rc": rc, "wall": wall, "counts": counts,
+            "fused_normalize": fused_normalize.launches,
+            "froc": [r.args[0] for r in froc
+                     if r.msg.startswith("FROC score")],
+            "artifact": any(r.getMessage().startswith(
+                "using persisted quantization artifact") for r in artifact)}
+    i8, fl = runs["int8"], runs["float"]
+    int8 = (i8["counts"]["fused_stage1_int8"], i8["counts"]["int8_conv_requant"],
+            i8["counts"]["int8_maxpool"])
+    log(f"[gaps] (e) --predict_slide <dir> --int8 --run_evaluation: exit "
+        f"{i8['rc']} in {i8['wall']:.2f} s, the artifact used {i8['artifact']},"
+        f" launches fused_stage1_int8 {int8[0]}, int8_conv_requant {int8[1]}, "
+        f"int8_maxpool {int8[2]}; float --predict_slide <dir> "
+        f"--run_evaluation: exit {fl['rc']} in {fl['wall']:.2f} s, "
+        f"fused_normalize launches {fl['fused_normalize']}")
+    batches, float_batches = -(-n_tissue // BATCH), -(-grid_cells // BATCH)
+    if i8["rc"] != 0 or fl["rc"] != 0 or not i8["artifact"]:
+        raise AssertionError("--predict_slide --int8 / float from the trained "
+                             "classifier failed or left the artifact unused")
+    if (int8 != (batches, 16 * batches, batches)
+            or fl["fused_normalize"] != float_batches):
+        raise AssertionError(f"expected {batches}, {16 * batches} and {batches} "
+                             f"int8 launches and {float_batches} of 2a, "
+                             f"counted {int8} and {fl['fused_normalize']}")
+    if len(i8["froc"]) != 1 or len(fl["froc"]) != 1:
+        raise AssertionError("--run_evaluation gave no FROC score")
+
+    # the margins of both on the tissue cells, the reference cells' features
+    sd = load_state_dict_file(trained)
+    tree = load_quantized(path)
+    m8, _ = predict_slide(slide, resnet18_from_state_dict(sd).to(
+        dev, memory_format=torch.channels_last), level=LEVEL, stride=STRIDE,
+        batch_size=BATCH, output="margin", int8=True, qtree=tree, device=dev)
+    mf, _ = predict_slide(slide, resnet18_from_state_dict(sd).to(
+        dev, dtype=torch.bfloat16, memory_format=torch.channels_last),
+        level=LEVEL, stride=STRIDE, batch_size=BATCH, output="margin",
+        tissue_filter="device", device=dev)
+    tissue = mf != NON_TISSUE_MARGIN
+    a, b = torch.from_numpy(m8[tissue]), torch.from_numpy(mf[tissue])
+    cos_m = F.cosine_similarity(a, b, dim=0).item()
+    d_m = (a - b).abs()
+    x = torch.from_numpy(ref_u8).to(dev)
+    with torch.inference_mode():
+        f32 = folded_forward(fold_batchnorm(strip_head(sd)), x, with_fc=False)
+        f8 = quant_forward(quantized_to(tree, dev), x, with_fc=False)
+    cos_f = F.cosine_similarity(f8, f32, dim=1).cpu()
+    log(f"[gaps] (e) int8 on trained weights, {int(tissue.sum())} tissue "
+        f"cells: margin cosine {cos_m:.5f}; max|Δ| {d_m.max().item():.4f}, "
+        f"mean|Δ| {d_m.mean().item():.4f}, on float margins spreading "
+        f"{(b.max() - b.min()).item():.4f} (std {b.std().item():.4f}); "
+        f"feature cosine on the {len(ref_u8)} reference cells: "
+        f"{', '.join(f'{c:.4f}' for c in cos_f.tolist())} (min "
+        f"{cos_f.min().item():.5f}, bound > {GAPS_FEATURE_COSINE_MIN}); FROC "
+        f"int8 {i8['froc'][0]} against float {fl['froc'][0]} [{smi}]")
+    if not np.array_equal(m8 == NON_TISSUE_MARGIN, ~tissue):
+        raise AssertionError("the int8 and float tissue partitions differ")
+    if not cos_f.min().item() > GAPS_FEATURE_COSINE_MIN:
+        raise AssertionError("int8 on trained weights: a reference cell's "
+                             "feature cosine is at or below "
+                             f"{GAPS_FEATURE_COSINE_MIN}")
+    if not i8["froc"][0] >= fl["froc"][0]:
+        raise AssertionError("int8 on trained weights: its FROC is below the "
+                             "float path's")
+    return {"int8": int8, "fused_normalize": fl["fused_normalize"],
+            "froc": (i8["froc"][0], fl["froc"][0]), "margin_cosine": cos_m,
+            "feature_cosine_min": cos_f.min().item()}
+
+
+def _gaps_model_name(dev, root, strategy_models, slide_path, grid_cells):
+    """(f) ``--predict_slide --model_name resnet18_patch_classifier_balanced
+    --detect_threshold 0.3`` on (b)'s artifact: the CSV equal to an
+    in-process ``predict_slide`` + ``margin_detections`` at that floor, 2a
+    once a batch of the device filter."""
+    import numpy as np
+    import torch
+
+    from ss25_hierarchical_multiscale_image_classification_tpu_torch.infer.sliding_window import (
+        margin_detections,
+        predict_slide,
+        write_detection_csv,
+    )
+    from ss25_hierarchical_multiscale_image_classification_tpu_torch.models.convert import (
+        load_state_dict_file,
+        resnet18_from_state_dict,
+    )
+    from ss25_hierarchical_multiscale_image_classification_tpu_torch.ops.preprocess import (
+        fused_normalize,
+    )
+
+    name = "resnet18_patch_classifier_balanced"
+    argv = ["--predict_slide", slide_path, "--model_name", name,
+            "--detect_threshold", str(GAPS_DETECT_THRESHOLD), "--tissue_filter",
+            "device", "--stride", str(STRIDE), "--batch_size", str(BATCH),
+            "--models_dir", strategy_models, "--device", "cuda"]
+    (rc, wall), _ = _counted(lambda: run_cli(argv), dev)
+    launches = fused_normalize.launches
+    model = resnet18_from_state_dict(load_state_dict_file(os.path.join(
+        strategy_models, f"{name}.pt"))).to(
+        dev, dtype=torch.bfloat16, memory_format=torch.channels_last)
+    margins, grid = predict_slide(slide_path, model, level=LEVEL, stride=STRIDE,
+                                  batch_size=BATCH, output="margin",
+                                  tissue_filter="device", device=dev)
+    ref = os.path.join(root, "model_name_ref.csv")
+    write_detection_csv(ref, margin_detections(margins, grid,
+                                               GAPS_DETECT_THRESHOLD))
+    csv = os.path.join(strategy_models, "model_predictions_csv",
+                       "smoke_slide.csv")
+    got = _text(csv)
+    rows = np.loadtxt(csv, delimiter=",", ndmin=2) if got.strip() else None
+    want_launches = -(-grid_cells // BATCH)
+    log(f"[gaps] (f) --predict_slide --model_name {name} --detect_threshold "
+        f"{GAPS_DETECT_THRESHOLD}: exit {rc} in {wall:.2f} s; "
+        f"{0 if rows is None else len(rows)} detections, lowest "
+        f"{None if rows is None else rows[:, 0].min()}; equal to the "
+        f"in-process predict_slide + margin_detections: {got == _text(ref)}; "
+        f"fused_normalize launches {launches}")
+    if (rc != 0 or got != _text(ref) or rows is None
+            or not (rows[:, 0] >= GAPS_DETECT_THRESHOLD).all()
+            or launches != want_launches):
+        raise AssertionError("--model_name/--detect_threshold: exit, CSV, floor"
+                             f" or 2a launches ({launches}, expected "
+                             f"{want_launches}) wrong")
+    return launches
+
+
+def phase_card_gaps(dev, ds, slide, ref_u8, train, simclr_models, msds,
+                    ms_train_idx, grid_cells, smi, tmp) -> dict:
+    """Phase 19: the device paths that had run only on the CPU, through the
+    CLI on the card, each step's launches counted around it (module
+    docstring, 19)."""
+    t_phase = time.perf_counter()
+    data_dir = train["data_dir"]
+    slide_path = os.path.join(data_dir, "train", "img", "smoke_slide.wsi.npz")
+    trained = os.path.join(train["models_dir"], "resnet18_patch_classifier.pt")
+    root = os.path.join(tmp, "card_gaps")
+    logs = os.path.join(root, "logs")
+    os.makedirs(root)
+    cfg_path = os.path.join(root, "config.json")
+    with open(cfg_path, "w") as f:
+        json.dump({"log_dir": logs}, f)
+    walls, out = {}, {}
+
+    def step(name, fn):
+        t0 = time.perf_counter()
+        out[name] = fn()
+        walls[name] = time.perf_counter() - t0
+
+    step("a", lambda: _gaps_simclr(dev, ds, data_dir, root, simclr_models, smi))
+    step("b", lambda: _gaps_strategies(dev, ds, data_dir, root, cfg_path, logs))
+    step("c", lambda: _gaps_frozen_bn(dev, ds, data_dir, root, cfg_path,
+                                      trained))
+    step("d", lambda: _gaps_attention(dev, ds, data_dir, root, cfg_path,
+                                      trained, msds, ms_train_idx, slide_path,
+                                      smi))
+    step("e", lambda: _gaps_trained_int8(dev, data_dir, root, trained, slide,
+                                         slide_path, len(ds), grid_cells,
+                                         ref_u8, smi))
+    step("f", lambda: _gaps_model_name(dev, root, out["b"]["models_dir"],
+                                       slide_path, grid_cells))
+    log(f"[gaps] phase 19 in {time.perf_counter() - t_phase:.1f} s; by step "
+        + ", ".join(f"({k}) {v:.1f} s" for k, v in walls.items()) + f" [{smi}]")
+    return out
+
+
 def main() -> int:
     if not os.path.isdir(os.path.join(ROOT, PKG)):
         print(f"{PKG}/ not found beside {__file__}: run from a checkout",
@@ -7298,6 +7990,11 @@ def main() -> int:
         tsne_row = phase_embedding(dev, feature_launches.pop("features"),
                                    feature_launches.pop("labels"), smi)
         torch.cuda.empty_cache()
+        card = phase_card_gaps(dev, ds, slide, ref_u8, train,
+                               os.path.join(tmp, "models"),
+                               *ms_train["profile"][3:5], grid.num_patches,
+                               smi, tmp)
+        torch.cuda.empty_cache()
         # last: they run under torch.profiler, and host-clock walls taken in
         # this process after a profiler session come out longer
         phase_features_profile(dev, ds, sd)
@@ -7357,6 +8054,23 @@ def main() -> int:
         row["split_launches"] = gaps["single"]["split"][i]
         row["multiscale_lazy_one_device_launches"] = gaps["multi"]["one"][i]
         row["multiscale_split_launches"] = gaps["multi"]["split"][i]
+        # phase 19: --simclr_features --int8 (lazy), int8 on trained weights
+        row["simclr_int8_launches"] = card["a"]["int8"][i]
+        row["trained_int8_launches"] = card["e"]["int8"][i]
+    # phase 19: the paths that had run only on the CPU
+    kernel["ms_combine_launches"] = card["d"]["fused_normalize"]
+    kernel["trained_float_launches"] = card["e"]["fused_normalize"]
+    kernel["model_name_launches"] = card["f"]
+    stem_pool["simclr_features_launches"] = card["a"]["bias_relu_pool"]
+    aug["balanced_launches"] = card["b"]["balanced"]
+    aug["weighted_loss_launches"] = card["b"]["weighted_loss"]
+    aug["frozen_bn_launches"] = card["c"]["frozen_bn"]
+    aug["freeze_bn_cli_launches"] = card["c"]["freeze_bn_cli"]
+    aug["attention_train_launches"] = card["d"]["augment"]
+    log(f"[paths] phase 19: FROC int8 / float on trained weights "
+        f"{card['e']['froc']}, margin cosine {card['e']['margin_cosine']:.5f},"
+        f" worst reference cell's feature cosine "
+        f"{card['e']['feature_cosine_min']:.5f} [{smi}]")
     log(f"[paths] phase 14 (h), {DP_RANKS_ON_ONE_CARD} gloo ranks: launches "
         f"a rank {json.dumps(h)}; single process "
         f"{json.dumps(dp_h['one'])}")
@@ -7430,7 +8144,18 @@ def main() -> int:
                                    "tiff_fleet_launches", "dp_paths_launches",
                                    "lazy_one_device_launches", "split_launches",
                                    "multiscale_lazy_one_device_launches",
-                                   "multiscale_split_launches")
+                                   "multiscale_split_launches",
+                                   "simclr_features_launches",
+                                   "simclr_int8_launches",
+                                   "trained_int8_launches",
+                                   "trained_float_launches",
+                                   "ms_combine_launches",
+                                   "model_name_launches",
+                                   "balanced_launches",
+                                   "weighted_loss_launches",
+                                   "frozen_bn_launches",
+                                   "freeze_bn_cli_launches",
+                                   "attention_train_launches")
            if key in k},
     } for name, source, replaces, k in rows]}
     log(f"[smoke] every phase passed in {time.perf_counter() - t_start:.1f} s "

@@ -432,18 +432,24 @@ def jax_step(request):
     ResNet18 of width 8 with randomized BN, given the augmentation draws
     of ``sample_augment_params(step_rng, 4)``; and the loss gradients."""
     frozen, weighted = request.param
-    model = JaxResNet((2, 2, 2, 2), num_classes=2, num_filters=WIDTH,
-                      dtype=jnp.float32, frozen_bn=frozen)
-    init = model.init(jax.random.key(0), jnp.zeros((1, SIZE, SIZE, 3)),
-                      train=False)
-    variables = _randomized(init, seed=1)
     rng = np.random.default_rng(2)
     imgs = rng.integers(0, 256, (4, SIZE, SIZE, 3), dtype=np.uint8)
     labels = np.array([0, 1, 1, 0], np.int32)
     valid = np.array([1, 1, 1, 0], np.float32)
     cw = np.array([1.0, 2.5], np.float32) if weighted else None
+    return _jax_reference_step(frozen, cw, imgs, labels, valid)
+
+
+def _jax_reference_step(frozen, cw, imgs, labels, valid):
+    """The JAX train step of :func:`jax_step` on the given batch."""
+    model = JaxResNet((2, 2, 2, 2), num_classes=2, num_filters=WIDTH,
+                      dtype=jnp.float32, frozen_bn=frozen)
+    init = model.init(jax.random.key(0), jnp.zeros((1, SIZE, SIZE, 3)),
+                      train=False)
+    variables = _randomized(init, seed=1)
     step_rng = jax.random.key(11)
-    params = jax.device_get(jaugment.sample_augment_params(step_rng, 4))
+    params = jax.device_get(jaugment.sample_augment_params(step_rng,
+                                                           len(imgs)))
 
     state = jax_train_state(model, jax.random.key(0), (1, SIZE, SIZE, 3),
                             optax.adam(1e-4), pretrained_variables=variables)
@@ -482,7 +488,12 @@ def jax_step(request):
 
 
 def test_train_step_matches_jax(jax_step, monkeypatch):
-    s = jax_step
+    _assert_port_step_matches(jax_step, monkeypatch)
+
+
+def _assert_port_step_matches(s, monkeypatch):
+    """The port's step on the batch, weights and draws of the JAX step
+    ``s``: loss, metrics, gradients and running statistics."""
     model = ResNet((2, 2, 2, 2), 2, WIDTH, frozen_bn=s.frozen)
     model.load_state_dict(state_dict_from_flax(s.variables), strict=False)
     state = create_train_state(model, 1e-4, torch.device("cpu"))
@@ -500,7 +511,7 @@ def test_train_step_matches_jax(jax_step, monkeypatch):
     np.testing.assert_allclose(metrics["loss"].item(), float(s.metrics["loss"]),
                                rtol=1e-4)
     assert metrics["correct"].item() == float(s.metrics["correct"])
-    assert metrics["count"].item() == float(s.metrics["count"]) == 3.0
+    assert metrics["count"].item() == float(s.metrics["count"]) == s.valid.sum()
     for name, p in model.named_parameters():
         want = s.grads[name].numpy()
         scale = np.abs(want).max()
@@ -514,6 +525,31 @@ def test_train_step_matches_jax(jax_step, monkeypatch):
             if s.frozen:  # kept verbatim
                 np.testing.assert_array_equal(
                     b.numpy(), state_dict_from_flax(s.variables)[name].numpy())
+
+
+def test_balanced_first_step_matches_jax(tmp_path, monkeypatch):
+    """The ``balanced`` strategy's first step: from one store, both
+    packages' split, ``BalancedSampler`` and ``BatchIterator`` give the same
+    first batch of 8, and the port's step on it (no class weights) is
+    JAX's given the same draws."""
+    recs = _store(tmp_path / "data", edge=SIZE)
+    jrecs = [jmanifest.PatchRecord(**dataclasses.asdict(r)) for r in recs]
+    data, seed = config.DataConfig(), config.TrainConfig().seed
+    split = (data.val_fraction, data.split_seed, data.balance_val_seed, SIZE)
+    batches = []
+    for mod, m in ((datasets, manifest.PatchManifest(recs)),
+                   (jdatasets, jmanifest.PatchManifest(jrecs))):
+        train_ds, _ = mod.make_train_val_datasets(m, *split)
+        sampler = mod.BalancedSampler(train_ds.labels, seed=seed)
+        batches.append(next(iter(mod.BatchIterator(
+            train_ds, 8, shuffle=True, seed=seed, sampler=sampler))))
+    for a, b in zip(*batches):
+        np.testing.assert_array_equal(a, b)
+    imgs, labels, valid = batches[0]
+    assert 0 < labels.sum() < len(labels) and valid.all()
+    s = _jax_reference_step(False, None, imgs, labels.astype(np.int32),
+                            valid.astype(np.float32))
+    _assert_port_step_matches(s, monkeypatch)
 
 
 def test_frozen_bn_keeps_statistics_and_trains_affine():
