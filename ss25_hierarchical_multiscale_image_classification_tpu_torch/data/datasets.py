@@ -36,6 +36,10 @@ from ss25_hierarchical_multiscale_image_classification_tpu_torch.data.patch_stor
 from ss25_hierarchical_multiscale_image_classification_tpu_torch.logging_utils import (
     get_logger,
 )
+from ss25_hierarchical_multiscale_image_classification_tpu_torch.utils.profiling import (
+    annotate,
+    count,
+)
 
 log = get_logger("data.datasets")
 
@@ -183,7 +187,9 @@ class BatchIterator:
     (``drop_remainder``). ``set_epoch`` sets the next epoch's number.
     ``rows`` (a slice of the batch, this rank's under data parallelism)
     reads and yields only those rows of every batch, the order being the
-    same on every rank."""
+    same on every rank. Each batch's read is the span
+    ``hipac.data.gather``, its images' bytes counted in
+    ``hipac.data.bytes``."""
 
     def __init__(
         self,
@@ -234,7 +240,9 @@ class BatchIterator:
                 idx = np.concatenate([idx, pad])
             if self.rows is not None:
                 idx, valid = idx[self.rows], valid[self.rows]
-            imgs, labels = self.dataset.read_batch(idx)
+            with annotate("hipac.data.gather"):
+                imgs, labels = self.dataset.read_batch(idx)
+            count("hipac.data.bytes", imgs.nbytes)
             yield imgs, labels.astype(np.int32), valid
 
 

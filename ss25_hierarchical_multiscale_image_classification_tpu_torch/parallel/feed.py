@@ -16,6 +16,11 @@ from typing import Any
 import numpy as np
 import torch
 
+from ss25_hierarchical_multiscale_image_classification_tpu_torch.utils.profiling import (
+    annotate,
+    count,
+)
+
 
 def process_batch_slice(global_batch_size: int, rank: int = 0,
                         world_size: int = 1) -> slice:
@@ -32,10 +37,15 @@ def process_batch_slice(global_batch_size: int, rank: int = 0,
 
 def to_device(a: np.ndarray, dev: torch.device) -> torch.Tensor:
     """Host array → device, through pinned memory on a card so the copy is
-    queued behind the running step instead of waiting for it."""
+    queued behind the running step instead of waiting for it. On a card,
+    the pinning is the span ``hipac.feed.pin``, its bytes counted in
+    ``hipac.feed.pinned_bytes``."""
     t = torch.from_numpy(a)
     if dev.type == "cuda":
-        return t.pin_memory().to(dev, non_blocking=True)
+        with annotate("hipac.feed.pin"):
+            t = t.pin_memory()
+        count("hipac.feed.pinned_bytes", a.nbytes)
+        return t.to(dev, non_blocking=True)
     return t
 
 

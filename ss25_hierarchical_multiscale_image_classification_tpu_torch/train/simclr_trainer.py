@@ -3,12 +3,16 @@
 Counterpart of the JAX package's ``train/simclr_trainer.py``
 (``make_simclr_train_step``, ``pretrain_simclr``), with the same epochs,
 batch, Adam, τ, best-loss tracking, periodic checkpoints, early stop, final
-``simclr_encoder`` artifact, log lines and seeds. A step makes the two views
-on the device, runs the model twice in training mode (bf16 autocast over
-float32 parameters on the card; the second forward starts from the running
-statistics the first updated), takes the loss with the ``valid`` mask of a
-wrap-padded final batch, and applies Adam. ``loss_impl="pallas"`` runs the
+``simclr_encoder`` artifact, log lines and seeds; an epoch is
+:func:`simclr_epoch`. A step makes the two views on the device, runs the
+model twice in training mode (bf16 autocast over float32 parameters on the
+card; the second forward starts from the running statistics the first
+updated), takes the loss with the ``valid`` mask of a wrap-padded final
+batch, and applies Adam. ``loss_impl="pallas"`` runs the
 hand-written NT-Xent kernels (``ops/nt_xent.py``), ``"xla"`` the dense loss.
+The host's time in each part of a step is a span (``utils/profiling.py``):
+``hipac.simclr.views``, ``.forward``, ``.loss``, ``.backward`` and
+``.optimizer``; the device runs the work later.
 
 With a process ``group`` it is the JAX trainer's SPMD step over the ranks:
 each rank loads its rows of every global batch, the views are drawn for the
@@ -70,6 +74,9 @@ from ss25_hierarchical_multiscale_image_classification_tpu_torch.train.state imp
     TrainState,
     create_train_state,
 )
+from ss25_hierarchical_multiscale_image_classification_tpu_torch.utils.profiling import (
+    annotate,
+)
 
 log = get_logger("train.simclr")
 
@@ -84,12 +91,14 @@ def simclr_loss(model: torch.nn.Module, v1: torch.Tensor, v2: torch.Tensor,
     gradient this rank's share)."""
     loss_fn = nt_xent_loss_kernel if loss_impl == "pallas" else nt_xent_loss
     on_card = v1.device.type == "cuda"
-    with torch.autocast("cuda", torch.bfloat16, enabled=on_card):
+    with annotate("hipac.simclr.forward"), torch.autocast(
+            "cuda", torch.bfloat16, enabled=on_card):
         z1 = model(v1)
         z2 = model(v2)
     # wrap-padded rows (uneven final batch) are masked out of the loss mean
     # and of every real row's NT-Xent denominator, not out of BN
-    return loss_fn(z1, z2, temperature, valid=valid, group=group)
+    with annotate("hipac.simclr.loss"):
+        return loss_fn(z1, z2, temperature, valid=valid, group=group)
 
 
 def make_simclr_train_step(temperature: float, out_size: int = 224,
@@ -110,20 +119,43 @@ def make_simclr_train_step(temperature: float, out_size: int = 224,
     def train_step(state: TrainState, generator: torch.Generator,
                    imgs_u8: torch.Tensor, valid: torch.Tensor):
         b = imgs_u8.shape[0]
-        v1, v2 = simclr_two_views(generator, imgs_u8, out_size=out_size,
-                                  rows=None if group is None
-                                  else (rank * b, world * b))
-        state.optimizer.zero_grad(set_to_none=True)
+        with annotate("hipac.simclr.views"):
+            v1, v2 = simclr_two_views(generator, imgs_u8, out_size=out_size,
+                                      rows=None if group is None
+                                      else (rank * b, world * b))
+        with annotate("hipac.simclr.optimizer"):
+            state.optimizer.zero_grad(set_to_none=True)
         loss = simclr_loss(state.model, v1, v2, temperature, valid, loss_impl,
                            group)
-        loss.backward()
+        with annotate("hipac.simclr.backward"):
+            loss.backward()
         if group is not None:
             all_reduce_grads(state.model.parameters(), group)
-        state.optimizer.step()
+        with annotate("hipac.simclr.optimizer"):
+            state.optimizer.step()
         state.step += 1
         return state, loss.detach()
 
     return train_step
+
+
+def simclr_epoch(state: TrainState, train_step, batches: BatchIterator,
+                 generator: torch.Generator,
+                 device: torch.device) -> tuple[TrainState, float]:
+    """One epoch: each batch of ``batches`` to ``device`` (``to_device``),
+    then ``train_step``; the state and the epoch's mean loss (the losses
+    stay on the device until the epoch ends; 0.0 for no batch)."""
+    losses = []
+    for imgs, _labels, valid in batches:
+        imgs_t = to_device(imgs, device)
+        valid_t = to_device(valid, device).bool()
+        state, loss = train_step(state, generator, imgs_t, valid_t)
+        losses.append(loss)
+    epoch_loss = (
+        float(sum(torch.stack(losses).cpu().numpy())) / len(losses)
+        if losses else 0.0
+    )
+    return state, epoch_loss
 
 
 def pretrain_simclr(
@@ -175,16 +207,8 @@ def pretrain_simclr(
 
     for epoch in range(epochs):
         t0 = time.perf_counter()
-        losses = []  # device scalars; fetched once per epoch
-        for imgs, _labels, valid in batches:
-            imgs_t = to_device(imgs, dev)
-            valid_t = to_device(valid, dev).bool()
-            state, loss = train_step(state, generator, imgs_t, valid_t)
-            losses.append(loss)
-        epoch_loss = (
-            float(sum(torch.stack(losses).cpu().numpy())) / len(losses)
-            if losses else 0.0
-        )
+        state, epoch_loss = simclr_epoch(state, train_step, batches,
+                                         generator, dev)
         log.info(
             "SimCLR epoch %d/%d: loss %.4f (%.1fs)",
             epoch + 1, epochs, epoch_loss, time.perf_counter() - t0,
