@@ -60,6 +60,13 @@ version on the card. Phases:
    at (512, 112, 112, 64) bf16 with a (64,) bias and with a (112, 112, 64)
    bias map, (3, 112, 112, 64) f32 and an odd plane (2, 30, 26, 16);
    CUDA-event medians and quartiles at B=512 bf16, GB/s against 3.35 TB/s;
+3d'. the training stem's kernel pair (``stem_train``: BN statistics, BN,
+   ReLU, 3×3/2 maxpool, forward and backward) against its plain version at
+   (512, 64, 112, 112) bf16 and an odd plane (3, 64, 37, 45): pooled within a
+   bf16 ulp, codes, statistics, running statistics, dx, dγ, dβ; CUDA-event
+   quartiles of forward + backward at B=512 in turns with the plain version,
+   beside the module chain (BatchNorm2d, relu, max_pool2d with autograd);
+   the SimCLR phase counts two calls of each kernel pair a step;
 3e. the ``fused_stem`` kernel against its plain version (a float32 conv of
    the same rounded inputs, TF32 off) at B = 512, 37 and 1, with a (64,)
    bias and with the folded route's bfloat16 bias map, float32 and bfloat16
@@ -297,7 +304,7 @@ version on the card. Phases:
    two files byte-equal, five paths requested, and ``--predict_slide`` on
    the downloaded TIFF writing the CSV of the local file; (d)
    ``--compile_cache_dir`` in two CLI processes on the downloaded TIFF: the
-   first builds the ten kernel libraries (``nvcc``) and the TIFF host
+   first builds every kernel library (``nvcc``) and the TIFF host
    library into a fresh directory, the second finds them and builds
    nothing (the files untouched, no build line); both CSVs equal; walls;
 18. the feature-evaluation stage (last): ``validate_features(device=
@@ -512,6 +519,9 @@ STEM_PLANES = [(2, 62, 90, "s2d", "float32"), (2, 224, 250, "folded", "bfloat16"
 STEM_F32_RTOL = 1e-4  # of max|ref|
 STEM_BF16_STEP = 2.0 ** -7  # of max(|ref|, 1), per element
 STEM_TIMING_RUNS = 20
+# the training stem's kernel pair (ops/stem_train.py): the path's plane
+# (one SimCLR forward's conv1 output) and an odd one, NCHW shapes
+STEM_TRAIN_CASES = [(BATCH, 64, 112, 112), (3, 64, 37, 45)]
 # Feature extraction bound, absolute, on features whose largest spread over
 # the sampled cells must be ≥ 10× the bound (see phase_features): bf16 card
 # features against the float32 CPU folded_forward, and the two stem routes
@@ -850,8 +860,18 @@ def reset_counts() -> None:
 
     for fn in (fused_normalize, *ntxent_launchers(), mil_attention_pool_kernel,
                bias_relu_pool_kernel, fused_stem_kernel, *int8_launchers(),
-               augment_batch_kernel, tsne_repulsion_kernel):
+               augment_batch_kernel, tsne_repulsion_kernel,
+               *stem_train_launchers()):
         fn.launches = 0
+
+
+def stem_train_launchers():
+    from ss25_hierarchical_multiscale_image_classification_tpu_torch.ops.stem_train import (
+        stem_train_backward_kernel,
+        stem_train_forward_kernel,
+    )
+
+    return stem_train_forward_kernel, stem_train_backward_kernel
 
 
 def quartiles(xs: list[float]) -> tuple[float, float, float]:
@@ -1185,6 +1205,129 @@ def phase_stem_pool(dev) -> dict:
         f"library calls, rounding after each) {lib[1]:.4f} ms")
     return {"max_abs_err": max_err, "ms": kq[1], "plain_ms": pq[1],
             "library_ms": None, **bound}
+
+
+def ulp_gap(a, b):
+    """|a − b| in bf16 units in the last place of the larger magnitude."""
+    import torch
+
+    m = torch.maximum(a.float().abs(), b.float().abs()).clamp_min(1e-30)
+    return (a.float() - b.float()).abs() / torch.exp2(torch.floor(
+        torch.log2(m)) - 7)
+
+
+def phase_stem_train(dev) -> dict:
+    """The training stem's kernel pair against its plain version (pooled
+    plane within a bf16 ulp, codes, statistics, running statistics; the
+    backward on the kernels' codes: dx, dγ, dβ), then forward + backward at
+    the path's shape in turns with the plain version, beside the module
+    chain BatchNorm2d → ReLU → max_pool2d with autograd (the library)."""
+    import torch
+    import torch.nn.functional as F
+
+    from ss25_hierarchical_multiscale_image_classification_tpu_torch.models.resnet import (
+        BatchNorm2d,
+    )
+    from ss25_hierarchical_multiscale_image_classification_tpu_torch.ops import (
+        stem_train as st,
+    )
+
+    g = torch.Generator(device=dev).manual_seed(SEED)
+    cl = torch.channels_last
+    max_err = 0.0
+    for shape in STEM_TRAIN_CASES:
+        x = (1.5 * torch.randn(shape, device=dev, generator=g) + 0.4).to(
+            torch.bfloat16).contiguous(memory_format=cl)
+        w = 0.5 + torch.rand(64, device=dev, generator=g)
+        b = 0.3 * torch.randn(64, device=dev, generator=g)
+        run_k = [torch.zeros(64, device=dev), torch.ones(64, device=dev)]
+        run_r = [t.clone() for t in run_k]
+        out_k, codes_k, stats_k = st.stem_train_forward_kernel(
+            x, w, b, *run_k, 0.1, 1e-5)
+        torch.cuda.synchronize()
+        _, _, stats_r = st.stem_train_forward_reference(x, w, b, *run_r, 0.1,
+                                                        1e-5)
+        stats_err = (stats_k - stats_r).abs().max().item()
+        # BN, ReLU and pool in plain ops on the kernel's statistics: near
+        # zero, a float32 rounding of them is many bf16 ulps of the output
+        r = torch.relu(st._bn(x.float(), stats_k[0], stats_k[1], w, b).to(
+            torch.bfloat16))
+        out_r, idx = F.max_pool2d(r, 3, 2, 1, return_indices=True)
+        codes_r = st._codes(idx, shape[3])
+        pool_ulp = ulp_gap(out_k, out_r).max().item()
+        codes_same = (codes_k == codes_r).float().mean().item()
+        run_err = max((a - c).abs().max().item() for a, c in zip(run_k, run_r))
+        dy = torch.randn(out_k.shape, device=dev, generator=g).to(
+            torch.bfloat16).contiguous(memory_format=cl)
+        dx_k, dw_k, db_k = st.stem_train_backward_kernel(dy, x, codes_k,
+                                                         stats_k, w, b)
+        torch.cuda.synchronize()
+        dx_r, dw_r, db_r = st.stem_train_backward_reference(dy, x, codes_k,
+                                                            stats_k, w, b)
+        dx_err = (dx_k.float() - dx_r.float()).abs().max().item()
+        dx_off = (ulp_gap(dx_k, dx_r) > 1.0).float().mean().item()
+        dwb_err = max((dw_k - dw_r).abs().max().item() / dw_r.abs().max().item(),
+                      (db_k - db_r).abs().max().item() / db_r.abs().max().item())
+        max_err = max(max_err, dx_err)
+        log(f"[stem-train] {shape}: pooled within {pool_ulp:.0f} bf16 ulp, "
+            f"codes equal {codes_same * 100:.4f} %, stats |Δ| {stats_err:.3g}, "
+            f"running |Δ| {run_err:.3g}; dx |Δ| {dx_err:.4g} (max |dx| "
+            f"{dx_r.float().abs().max().item():.4g}, {dx_off * 100:.4f} % "
+            f"over one ulp), dγ/dβ relative {dwb_err:.3g}")
+        if (pool_ulp > 1.0 or codes_same < 0.999 or stats_err > 1e-4
+                or run_err > 1e-5 or dx_off > 1e-4 or dwb_err > 1e-4):
+            raise AssertionError(f"stem_train kernels differ from their plain "
+                                 f"version at {shape}")
+        del x, r, out_k, out_r, codes_k, codes_r, dy, dx_k, dx_r
+
+    shape = STEM_TRAIN_CASES[0]
+    x = (1.5 * torch.randn(shape, device=dev, generator=g) + 0.4).to(
+        torch.bfloat16).contiguous(memory_format=cl)
+    dy = torch.randn(shape[0], 64, 56, 56, device=dev, generator=g).to(
+        torch.bfloat16).contiguous(memory_format=cl)
+    bn = BatchNorm2d(64).to(dev).train()
+    w, b, rm, rv = (bn.weight.detach(), bn.bias.detach(),
+                    bn.running_mean.clone(), bn.running_var.clone())
+
+    def kernels():
+        _, codes, stats = st.stem_train_forward_kernel(x, w, b, rm, rv, 0.1,
+                                                       1e-5)
+        st.stem_train_backward_kernel(dy, x, codes, stats, w, b)
+
+    def plain():
+        _, codes, stats = st.stem_train_forward_reference(x, w, b, rm, rv,
+                                                          0.1, 1e-5)
+        st.stem_train_backward_reference(dy, x, codes, stats, w, b)
+
+    xg = x.detach().requires_grad_()
+
+    def chain():
+        F.max_pool2d(torch.relu(bn(xg)), 3, 2, 1).backward(dy)
+
+    kq, pq = timed_in_turns(kernels, plain, STEM_TIMING_RUNS // 2)
+    fwd = quartiles(cuda_ms(lambda: st.stem_train_forward_kernel(
+        x, w, b, rm, rv, 0.1, 1e-5), STEM_TIMING_RUNS))
+    lib = quartiles(cuda_ms(chain, STEM_TIMING_RUNS))
+    plane, pooled = x.numel() * 2, dy.numel() * 2
+    # the least any implementation moves: read x and write the pool; read x
+    # and dy and write dx. The design reads x twice each way and the codes.
+    moved = (plane + pooled) + (2 * plane + pooled)
+    design = (2 * plane + pooled + pooled // 2) + (
+        2 * (plane + pooled + pooled // 2) + plane)
+    # ~31 float32 operations an element over the four kernels
+    bound = bound_ms(moved, 31 * x.numel())
+    log(f"[stem-train] {shape} bf16 forward + backward: kernels "
+        f"{kq[1]:.4f} ms (quartiles {kq[0]:.4f}–{kq[2]:.4f}; forward alone "
+        f"{fwd[1]:.4f}), {moved / kq[1] / 1e6:.0f} GB/s of the least bytes; "
+        f"bound {bound['bound_ms']:.4f} ms ({moved / 1e6:.0f} MB, "
+        f"{bound['bound_ms'] / kq[1] * 100:.1f} % of it), the design's "
+        f"{design / 1e6:.0f} MB at {design / kq[1] / 1e6:.0f} GB/s; plain "
+        f"{pq[1]:.4f} ms ({pq[0]:.4f}–{pq[2]:.4f}); the module chain "
+        f"(BatchNorm2d, relu, max_pool2d, autograd backward) {lib[1]:.4f} ms "
+        f"({lib[0]:.4f}–{lib[2]:.4f})")
+    return {"max_abs_err": max_err, "ms": kq[1], "plain_ms": pq[1],
+            "library_ms": lib[1], "forward_ms": fwd[1], "design_mb":
+            design / 1e6, **bound}
 
 
 def phase_fused_stem(dev, sd) -> dict:
@@ -2217,6 +2360,9 @@ def phase_simclr(dev, ds, tmp) -> dict:
     torch.cuda.synchronize()
     wall = time.perf_counter() - t0
     launches = {"nt_xent_fwd": fwd.launches, "nt_xent_bwd": bwd.launches}
+    stem_fwd, stem_bwd = stem_train_launchers()
+    stem = {"stem_train_fwd": stem_fwd.launches,
+            "stem_train_bwd": stem_bwd.launches}
     peak = torch.cuda.max_memory_allocated()
     log(f"[simclr] {len(ds)} tissue cells, batch {BATCH}: {SIMCLR_EPOCHS} "
         f"epochs of {steps // SIMCLR_EPOCHS} steps (last batch {real_last} "
@@ -2226,6 +2372,11 @@ def phase_simclr(dev, ds, tmp) -> dict:
     if launches != {"nt_xent_fwd": steps, "nt_xent_bwd": steps}:
         raise AssertionError(f"expected {steps} launches of each NT-Xent "
                              f"kernel on the SimCLR path, counted {launches}")
+    log(f"[simclr] stem_train calls (two forwards a step) {stem}")
+    if stem != {"stem_train_fwd": 2 * steps, "stem_train_bwd": 2 * steps}:
+        raise AssertionError(f"expected {2 * steps} calls of each stem_train "
+                             f"kernel pair on the SimCLR path, counted {stem}")
+    launches.update(stem)
     if not all(torch.isfinite(v).all() for v in sd.values()):
         raise AssertionError("non-finite SimCLR state")
 
@@ -6681,6 +6832,9 @@ def phase_parity_gaps(dev, sd, spec, npz_path, tiff_path, ms_models,
         resnet18_from_state_dict,
         split_calibration,
     )
+    from ss25_hierarchical_multiscale_image_classification_tpu_torch.ops.build import (
+        SOURCES,
+    )
     from ss25_hierarchical_multiscale_image_classification_tpu_torch.train.checkpoints import (
         load_model,
         model_artifact_path,
@@ -6865,7 +7019,8 @@ def phase_parity_gaps(dev, sd, spec, npz_path, tiff_path, ms_models,
         f"{len(built2)}, libraries untouched: {after2 == before2 == after1}; "
         f"CSVs byte-equal to each other: {csv1 == csv2}, to the in-process "
         f"CLI's: {csv1 == csvs['downloaded']}")
-    if (n_kernels != 10 or not any(b.startswith("nvcc") for b in built1)
+    if (n_kernels != len(SOURCES) or not any(b.startswith("nvcc")
+                                               for b in built1)
             or built2 or after2 != after1 or csv1 != csv2 or not csv1):
         raise AssertionError("--compile_cache_dir: the first process did not "
                              "build into the directory, or the second built "
@@ -7926,6 +8081,7 @@ def main() -> int:
     del f32_card, model
     torch.cuda.empty_cache()
     stem_pool = phase_stem_pool(dev)
+    stem_train = phase_stem_train(dev)
     stem = phase_fused_stem(dev, sd)
     torch.cuda.empty_cache()
     int8_conv = phase_int8_conv(dev)
@@ -8112,6 +8268,10 @@ def main() -> int:
     # the port's own: XLA fuses augment_batch inside the JAX train step
     rows.append(("augment", "augment.cu", f"{jax_pkg}/data/augment.py:350",
                  {"launches": train["launches"], **aug}))
+    # the port's own: XLA fuses the stem of the JAX training step
+    rows.append(("stem_train", "stem_train.cu",
+                 f"{jax_pkg}/models/resnet.py (stem of the training step)",
+                 {"launches": simclr_launches["stem_train_fwd"], **stem_train}))
     # the port's own: the repulsive half of sklearn's Barnes–Hut gradient,
     # which the JAX package runs on the host through TSNE
     rows.append(("tsne_repulsion", "tsne_repulsion.cu",
@@ -8134,6 +8294,7 @@ def main() -> int:
                                    "iteration_ms",
                                    "tsne_10k_launches", "tsne_full_launches",
                                    "kernel_ms", "kernel_back_to_back_ms",
+                                   "forward_ms", "design_mb",
                                    "multiscale_launches",
                                    "trained_multiscale_launches",
                                    "qat_launches", "multiscale_train_launches",

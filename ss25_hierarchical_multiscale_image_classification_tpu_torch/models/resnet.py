@@ -18,6 +18,8 @@ Semantics kept from the JAX model:
 - the stem maxpool pads with −inf (``nn.MaxPool2d`` does);
 - eval-mode BatchNorm at ``eps=1e-5`` with the stored running statistics;
 - training-mode BatchNorm with flax's running statistics (:class:`BatchNorm2d`);
+  the stem's training BatchNorm, ReLU and maxpool run on the card as one
+  function over hand-written kernels (``ops/stem_train.py``);
 - ``frozen_bn=True``: BatchNorm normalizes with the stored running
   statistics in training mode too and leaves them as they are, while γ and
   β still train (every BN layer stays in eval mode inside a model that is
@@ -43,6 +45,11 @@ from typing import Mapping, Sequence
 import torch
 import torch.nn.functional as F
 from torch import nn
+
+from ss25_hierarchical_multiscale_image_classification_tpu_torch.ops.stem_train import (
+    stem_train,
+    stem_train_refusal,
+)
 
 
 class BatchNorm2d(nn.BatchNorm2d):
@@ -272,6 +279,17 @@ class ResNet(nn.Module):
             elif isinstance(m, Bottleneck):
                 m.bn3.weight.zero_()
 
+    def _stem(self, x: torch.Tensor) -> torch.Tensor:
+        """``maxpool(relu(bn1(x)))`` of conv1's output: on the card's
+        training forward (``ops/stem_train.py::stem_train_refusal`` admits
+        it) one autograd function over hand-written kernels, else the
+        modules."""
+        if stem_train_refusal(self.bn1, x, self.frozen_bn) is None:
+            bn = self.bn1
+            return stem_train(x, bn.weight, bn.bias, bn.running_mean,
+                              bn.running_var, bn.momentum, bn.eps)
+        return self.maxpool(self.relu(self.bn1(x)))
+
     def forward(self, x: torch.Tensor, from_stem: bool = False
                 ) -> torch.Tensor:
         """(B, H, W, 3) normalized images → float32 logits (B, classes), or
@@ -286,7 +304,7 @@ class ResNet(nn.Module):
         if not torch.is_autocast_enabled(x.device.type):
             x = x.to(self.conv1.weight.dtype)
         if not from_stem:
-            x = self.maxpool(self.relu(self.bn1(self.conv1(x))))
+            x = self._stem(self.conv1(x))
         for i in range(self.num_stages):
             x = getattr(self, f"layer{i + 1}")(x)
         x = x.mean(dim=(2, 3))  # global average pool → (B, C)

@@ -162,6 +162,22 @@ SOURCES = {
             ctypes.c_int,
         ),
     },
+    "stem_train.cu": {
+        # x, gamma, beta, running_mean, running_var, out, codes, stats, part,
+        # ticket, b, h, w, blocks, eps, momentum, stream
+        "hipac_stem_train_fwd": (
+            [_P, _P, _P, _P, _P, _P, _P, _P, _P, _P, _I64, _I32, _I32, _I32,
+             _F32, _F32, _P],
+            ctypes.c_int,
+        ),
+        # x, dy, codes, stats, gamma, beta, dx, sums, part, ticket, b, h, w,
+        # blocks, stream
+        "hipac_stem_train_bwd": (
+            [_P, _P, _P, _P, _P, _P, _P, _P, _P, _P, _I64, _I32, _I32, _I32,
+             _P],
+            ctypes.c_int,
+        ),
+    },
     "tsne_repulsion.cu": {
         # n -> the float64 scratch elements a call takes on the current device
         "hipac_tsne_repulsion_scratch": ([_I64], _I64),
